@@ -1,0 +1,1 @@
+"""core layer of semanticsearch_tpu_torch."""

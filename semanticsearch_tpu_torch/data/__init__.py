@@ -1,0 +1,1 @@
+"""data layer of semanticsearch_tpu_torch."""

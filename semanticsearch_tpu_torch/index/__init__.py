@@ -1,0 +1,1 @@
+"""index layer of semanticsearch_tpu_torch."""

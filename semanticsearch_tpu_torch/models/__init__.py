@@ -1,0 +1,1 @@
+"""models layer of semanticsearch_tpu_torch."""

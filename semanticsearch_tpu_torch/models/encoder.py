@@ -1,0 +1,250 @@
+"""Transformer sentence encoder in PyTorch.
+
+Counterpart of ``semanticsearch_tpu/models/encoder.py``: token + position
+embeddings, LayerNorm, pre-LN transformer blocks, a final LayerNorm, masked
+mean pooling and L2 normalisation. The numerics follow the flax model:
+LayerNorm eps 1e-6, tanh-approximate GELU, queries scaled by 1/sqrt(Dh)
+before the score product, masked scores at the dtype's most negative value,
+and an rsqrt of the clamped squared norm. ``models/convert.py`` loads the
+flax parameter tree, so both packages embed with the same weights.
+
+Attention: "stock" is plain torch math, "flash" the hand-written kernel
+(``ops/flash_attention.py``), and "auto" picks flash on a CUDA device when
+dropout is 0 and ``max_len >= 1024``, where the (T, T) score matrix starts
+to dominate.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..core.config import EncoderConfig
+from ..ops.flash_attention import flash_attention
+from .tokenizer import HashingTokenizer
+
+_LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
+_BUCKETS = (64, 128, 256)
+
+
+def use_flash(cfg: EncoderConfig, device: torch.device) -> bool:
+    """The attention rule: "flash" forces the kernel, "stock" the plain
+    math, "auto" takes the kernel on CUDA for dropout 0 and max_len >=
+    1024."""
+    attention = cfg.attention
+    return attention == "flash" or (
+        attention == "auto"
+        and torch.device(device).type == "cuda"
+        and cfg.dropout_rate == 0.0
+        and cfg.max_len >= 1024
+    )
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` (self-attention, key-padding
+    mask): query/key/value/out projections over (H, Dh) heads."""
+
+    def __init__(self, hidden_dim: int, num_heads: int) -> None:
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = nn.Linear(hidden_dim, hidden_dim)
+        self.key = nn.Linear(hidden_dim, hidden_dim)
+        self.value = nn.Linear(hidden_dim, hidden_dim)
+        self.out = nn.Linear(hidden_dim, hidden_dim)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, flash: bool
+                ) -> torch.Tensor:
+        b, t, d = x.shape
+        h = self.num_heads
+        q = self.query(x).view(b, t, h, d // h)
+        k = self.key(x).view(b, t, h, d // h)
+        v = self.value(x).view(b, t, h, d // h)
+        if flash:
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), mask.to(torch.float32))
+            o = o.transpose(1, 2)
+        else:
+            q = q / torch.tensor(math.sqrt(d // h), dtype=q.dtype)
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+            s = s.masked_fill(~mask.bool()[:, None, None, :],
+                              torch.finfo(s.dtype).min)
+            w = torch.softmax(s.float(), dim=-1).to(v.dtype)
+            o = torch.einsum("bhqk,bkhd->bqhd", w, v)
+        return self.out(o.reshape(b, t, d))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, cfg: EncoderConfig) -> None:
+        super().__init__()
+        self.ln_attn = nn.LayerNorm(cfg.hidden_dim, eps=_LN_EPS)
+        self.attn = MultiHeadAttention(cfg.hidden_dim, cfg.num_heads)
+        self.ln_mlp = nn.LayerNorm(cfg.hidden_dim, eps=_LN_EPS)
+        self.mlp_in = nn.Linear(cfg.hidden_dim, cfg.mlp_dim)
+        self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden_dim)
+        self.dropout = nn.Dropout(cfg.dropout_rate)
+
+    def forward(self, x, mask, flash: bool):
+        x = x + self.attn(self.ln_attn(x), mask, flash)
+        h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
+        return x + self.dropout(self.mlp_out(h))
+
+
+class SentenceTransformerModel(nn.Module):
+    """Token+position embed -> N pre-LN blocks -> masked mean pool -> L2.
+
+    ``forward(ids, mask)`` returns (B, hidden_dim) float32 embeddings;
+    ``return_tokens=True`` returns the final (B, T, hidden_dim) token states
+    in float32 instead. Parameters follow the module's dtype."""
+
+    def __init__(self, cfg: EncoderConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.hidden_dim)
+        self.pos_embed = nn.Embedding(cfg.max_len, cfg.hidden_dim)
+        self.ln_embed = nn.LayerNorm(cfg.hidden_dim, eps=_LN_EPS)
+        self.layers = nn.ModuleList(
+            TransformerBlock(cfg) for _ in range(cfg.num_layers))
+        self.ln_final = nn.LayerNorm(cfg.hidden_dim, eps=_LN_EPS)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Seeded init in the spirit of flax's defaults: embeddings
+        N(0, 1/hidden), dense kernels N(0, 1/fan_in), zero biases, unit
+        LayerNorm scales."""
+        with torch.no_grad():
+            for name, p in self.named_parameters():
+                if name.endswith("bias"):
+                    p.zero_()
+                elif p.ndim == 1:
+                    p.fill_(1.0)
+                else:
+                    fan_in = p.shape[1]
+                    p.copy_(torch.randn(p.shape, generator=generator)
+                            / math.sqrt(fan_in))
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                return_tokens: bool = False) -> torch.Tensor:
+        c = self.cfg
+        flash = use_flash(c, ids.device)
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        x = self.token_embed(ids) + self.pos_embed(pos)[None]
+        x = self.ln_embed(x)
+        for layer in self.layers:
+            x = layer(x, mask, flash)
+        x = self.ln_final(x)
+        if return_tokens:
+            return x.float()
+        if c.pooling == "cls":
+            pooled = x[:, 0, :]
+        else:
+            m = mask[..., None].to(x.dtype)
+            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+        pooled = pooled.float()
+        if c.normalize:
+            sq = (pooled * pooled).sum(dim=-1, keepdim=True)
+            pooled = pooled * torch.rsqrt(torch.clamp(sq, min=1e-18))
+        return pooled
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+class SentenceEncoder:
+    """Batched sentence encoding on one device.
+
+    Texts are tokenized on the host, padded into the smallest length bucket
+    (64/128/256, capped at ``max_len``), run through the model per bucket
+    and batch, and reassembled in input order.
+    """
+
+    def __init__(
+        self,
+        cfg: EncoderConfig = EncoderConfig(),
+        device="cuda",
+        seed: int = 0,
+        tokenizer=None,
+        state_dict: Optional[dict] = None,
+    ) -> None:
+        self.cfg = cfg
+        self.device = _resolve_device(device)
+        self.tokenizer = tokenizer or HashingTokenizer(
+            vocab_size=cfg.vocab_size, max_len=cfg.max_len)
+        model = SentenceTransformerModel(cfg)
+        if state_dict is None:
+            model.reset_parameters(torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(state_dict)
+        self.model = model.to(device=self.device,
+                              dtype=getattr(torch, cfg.dtype)).eval()
+
+    def _bucket_for(self, n_tokens: int) -> int:
+        for b in _BUCKETS:
+            if n_tokens <= b and b <= self.cfg.max_len:
+                return b
+        return self.cfg.max_len
+
+    @torch.no_grad()
+    def encode_device(self, texts: Sequence[str], batch_size: int = 256
+                      ) -> torch.Tensor:
+        """Encode to a DEVICE-RESIDENT (N, hidden_dim) float32 tensor, in
+        input order, with no host fetch: the serve path feeds it straight
+        into the dense top-k. Launches are asynchronous; uploads go through
+        pinned memory so they do not wait for earlier batches."""
+        if not len(texts):
+            return torch.zeros((0, self.cfg.hidden_dim), dtype=torch.float32,
+                               device=self.device)
+        ids_full, mask_full = self.tokenizer.encode_batch(
+            texts, max_len=self.cfg.max_len)
+        lengths = mask_full.sum(axis=1)
+        buckets: dict = {}
+        for i, ln in enumerate(lengths):
+            buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
+        order_parts, emb_parts = [], []
+        for L, idxs in buckets.items():
+            for s in range(0, len(idxs), batch_size):
+                sel = idxs[s: s + batch_size]
+                packed = self._upload(np.stack(
+                    [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64))
+                emb_parts.append(self.model(packed[0], packed[1]))
+                order_parts.append(np.asarray(sel, np.int64))
+        order = np.concatenate(order_parts)
+        embs = emb_parts[0] if len(emb_parts) == 1 else torch.cat(emb_parts)
+        if np.array_equal(order, np.arange(order.size)):
+            return embs
+        inv = np.empty_like(order)
+        inv[order] = np.arange(order.size)
+        return embs[self._upload(inv)]
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without waiting for queued work: a
+        pageable copy would synchronize the stream, a pinned one does not."""
+        t = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def encode(self, texts: Sequence[str], batch_size: int = 256
+               ) -> np.ndarray:
+        """Encode texts to (N, hidden_dim) float32 unit vectors on the host,
+        in input order."""
+        return self.encode_device(texts, batch_size).cpu().numpy()
+
+
+_ENCODER_CACHE: dict = {}
+
+
+def get_encoder(cfg: EncoderConfig = EncoderConfig(), device="cuda",
+                seed: int = 0) -> SentenceEncoder:
+    """Cached encoder lookup, one instance per (config, device, seed)."""
+    key = (cfg, str(torch.device(device)), seed)
+    if key not in _ENCODER_CACHE:
+        _ENCODER_CACHE[key] = SentenceEncoder(cfg, device=device, seed=seed)
+    return _ENCODER_CACHE[key]

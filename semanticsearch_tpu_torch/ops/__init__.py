@@ -1,0 +1,1 @@
+"""ops layer of semanticsearch_tpu_torch."""

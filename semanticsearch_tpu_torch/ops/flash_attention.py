@@ -1,0 +1,97 @@
+"""Flash attention (forward kernel) for the sentence encoder.
+
+Counterpart of ``semanticsearch_tpu/ops/flash_attention.py``: masked,
+non-causal attention over (B, H, T, Dh) with a (B, T) key-padding mask
+(1 = real key). On a CUDA tensor :func:`flash_attention` launches the
+hand-written Hopper kernel ``csrc/flash_attention.cu``; on a CPU tensor it
+computes :func:`flash_attention_plain`. The backward pass recomputes
+attention with the plain math, as the JAX package's ``_flash_bwd`` does.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+# launches of the flash kernel (csrc/flash_attention.cu) in this process
+FLASH_LAUNCHES = 0
+_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+_KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_KERNEL_BLOCK = 64  # the kernel's query and key block rows
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Plain attention in f32: masked keys score the finite NEG_INF, so a
+    query with every key masked averages V. Returns q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(mask[:, None, None, :] > 0, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def _flash_forward(q, k, v, mask):
+    global FLASH_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: tensors on {q.device}")
+    b, h, t, dh = q.shape
+    if q.dtype not in _KERNEL_DTYPES or not (k.dtype == v.dtype == q.dtype):
+        raise NotImplementedError(
+            f"the flash kernel takes bfloat16 or float16 q, k, v; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in _KERNEL_HEAD_DIMS or t % _KERNEL_BLOCK:
+        raise ValueError(
+            f"flash kernel: head dim {dh} must be one of {_KERNEL_HEAD_DIMS} "
+            f"and T={t} a multiple of {_KERNEL_BLOCK}")
+    if k.shape != q.shape or v.shape != q.shape or mask.shape != (b, t):
+        raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"mask {tuple(mask.shape)}")
+    if not all(x.device == q.device for x in (k, v, mask)):
+        raise ValueError("flash kernel: q, k, v and mask on different devices")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), b, h, t, dh, 1.0 / math.sqrt(dh),
+                _KERNEL_DTYPES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention")
+    FLASH_LAUNCHES += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _flash_forward(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        # exact gradients by recomputing the (small) attention matrix with
+        # the plain math: no backward kernel to keep in step
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = flash_attention_plain(*qkv, mask)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Masked non-causal attention: q, k, v (B, H, T, Dh); mask (B, T) with
+    1 = real key. Returns (B, H, T, Dh) in q's dtype."""
+    return _FlashAttention.apply(q, k, v, mask)

@@ -1,0 +1,395 @@
+"""Exact inner-product top-k over a corpus embedding matrix.
+
+Counterpart of ``semanticsearch_tpu/ops/topk.py``. The serve path's top-k
+(k < 128) is the two-pass search of :func:`topk_scores_twopass`:
+
+* pass A, :func:`segtopk_pass_a`, scores every query against the whole
+  corpus and keeps, per query, the ``k_sel`` best SEGMENTS by their maximum
+  score, a segment being ``L2`` consecutive rows. On a CUDA tensor it runs
+  the hand-written Hopper kernel ``csrc/segtopk.cu``; on a CPU tensor its
+  plain version :func:`segtopk_pass_a_plain`.
+* pass B gathers the candidate segments' rows and rescores them exactly
+  (plain torch, as it was plain XLA in the JAX package).
+
+The true top-k rows lie in the top-k segments by maximum: were a top-k row's
+segment ranked below k, k segments would each hold a row scoring at least as
+high. One extra segment covers the single segment that straddles the corpus
+end, whose zero pad rows score 0 and can inflate its maximum.
+
+Unlike the TPU kernel, which read a swizzled copy of the corpus so that a
+segment's scores landed on one vector lane, the Hopper kernel reads the
+natural row-major layout (segment ``s`` is rows ``[s*L2, (s+1)*L2)``), so an
+index holds one copy of its corpus. ``swizzle_corpus`` stays for callers
+that hold the swizzled layout.
+
+Ties follow the JAX package: :func:`topk_scores_ref` and
+:func:`topk_scores_chunked` keep the lower row id; the two-pass search keeps
+the candidate that comes first in pass A's order (segment maximum
+descending, segment id ascending), as ``jax.lax.top_k`` does. ``torch.topk``
+gives no order among equals, so every selection here is a stable sort.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+_LANE = 128
+# queries per two-pass call; larger batches run in chunks of this size
+_MAX_TWOPASS_Q = 32768
+# launches of the pass-A kernel (csrc/segtopk.cu) in this process
+SEGTOPK_LAUNCHES = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _top_sorted(vals: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along dim 1 with ``jax.lax.top_k``'s tie rule: among equal
+    values the earlier position wins."""
+    v, order = torch.sort(vals, dim=1, descending=True, stable=True)
+    return v[:, :k], order[:, :k]
+
+
+def _scores(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(Q, R) float32 scores; bf16/fp16 inputs are widened first, so every
+    product is exact and only the accumulation rounds, as with
+    ``preferred_element_type=float32`` in the JAX package."""
+    return queries.float() @ rows.float().T
+
+
+# ------------------------------------------------------------------ plain ops
+
+def topk_scores_ref(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int = 10,
+    block_n: int = 4096,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference top-k: scan corpus blocks, merging a running top-k.
+    Returns (values f32, indices int32), both (Q, k); ties keep the lower
+    row id (the running list precedes each new block)."""
+    q = queries.shape[0]
+    n = corpus.shape[0]
+    best_v = torch.full((q, k), NEG_INF, dtype=torch.float32,
+                        device=queries.device)
+    best_i = torch.zeros((q, k), dtype=torch.int64, device=queries.device)
+    for off in range(0, _round_up(n, block_n), block_n):
+        blk = corpus[off: off + block_n]
+        scores = _scores(queries, blk)
+        if blk.shape[0] < block_n:  # zero pad rows, masked like the JAX scan
+            scores = torch.cat([scores, torch.full(
+                (q, block_n - blk.shape[0]), NEG_INF, dtype=torch.float32,
+                device=scores.device)], dim=1)
+        col = torch.arange(off, off + block_n, device=queries.device)
+        vals = torch.cat([best_v, scores], dim=1)
+        idxs = torch.cat([best_i, col.expand(q, block_n)], dim=1)
+        best_v, sel = _top_sorted(vals, k)
+        best_i = torch.gather(idxs, 1, sel)
+    return best_v, best_i.to(torch.int32)
+
+
+def swizzle_corpus(corpus: torch.Tensor, block_n: int = 8192) -> torch.Tensor:
+    """The JAX pass-A layout: within each block_n-row block, position
+    j*128 + s holds natural row s*L + j (L = block_n/128), zero-padded to a
+    block multiple."""
+    n, d = corpus.shape
+    n_pad = _round_up(n, block_n)
+    if n_pad != n:
+        corpus = torch.cat([corpus, corpus.new_zeros(n_pad - n, d)])
+    L = block_n // _LANE
+    return (corpus.reshape(n_pad // block_n, _LANE, L, d)
+            .transpose(1, 2).reshape(n_pad, d))
+
+
+def _unswizzle(corpus_swizzled: torch.Tensor, block_n: int) -> torch.Tensor:
+    n_pad, d = corpus_swizzled.shape
+    L = block_n // _LANE
+    return (corpus_swizzled.reshape(n_pad // block_n, L, _LANE, d)
+            .transpose(1, 2).reshape(n_pad, d))
+
+
+def quantize_int8_global(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8: returns (q8, scale)."""
+    s = torch.clamp(x.float().abs().max() / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(x.float() / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+SEL_BLOCK = 256        # stage-2 block width
+SEL_SUB = 32           # stage-3 sub-block width inside the gathered tile
+SEL_STAGE3_MIN = 8192  # stage 3 only when the gathered tile is this wide
+
+
+def block_topk(S: torch.Tensor, kp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-kp over wide rows by staged selection: block maxima, the
+    top kp+8 blocks (ids sorted ascending before the gather, so ties keep
+    the lower column), once more over SEL_SUB-wide sub-blocks when the
+    gathered tile is wide, then an exact top-kp. Returns (vals, columns)."""
+    Q, Dp = S.shape
+    if Dp <= 4 * SEL_BLOCK or Dp % SEL_BLOCK:
+        return _top_sorted(S, kp)
+    nb = Dp // SEL_BLOCK
+    Sb = S.reshape(Q, nb, SEL_BLOCK)
+    m = min(nb, kp + 8)
+    _, tb = _top_sorted(Sb.amax(dim=2), m)
+    tb = torch.sort(tb, dim=1).values
+    G = torch.gather(Sb, 1, tb[:, :, None].expand(Q, m, SEL_BLOCK))
+    width = m * SEL_BLOCK
+    Gf = G.reshape(Q, width)
+    if width < SEL_STAGE3_MIN or SEL_BLOCK % SEL_SUB:
+        vals, loc = _top_sorted(Gf, kp)
+    else:
+        ns = width // SEL_SUB
+        Gs = Gf.reshape(Q, ns, SEL_SUB)
+        ms = min(ns, kp + 8)
+        _, ts = _top_sorted(Gs.amax(dim=2), ms)
+        ts = torch.sort(ts, dim=1).values
+        G2 = torch.gather(Gs, 1, ts[:, :, None].expand(Q, ms, SEL_SUB))
+        vals, l2 = _top_sorted(G2.reshape(Q, ms * SEL_SUB), kp)
+        sub = torch.gather(ts, 1, l2 // SEL_SUB)
+        loc = sub * SEL_SUB + (l2 % SEL_SUB)
+    block = torch.gather(tb, 1, loc // SEL_BLOCK)
+    return vals, block * SEL_BLOCK + (loc % SEL_BLOCK)
+
+
+def topk_scores_chunked(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    chunk: int = 262144,
+    valid_n: int = -1,
+    score_budget_bytes: int = 1 << 30,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k for wide k (>= 128): column-chunked ``Q @ C.T`` with
+    :func:`block_topk` reducing each (Q, chunk) score tile at once and a
+    running merge, so the corpus-wide score matrix never exists. The chunk
+    shrinks so one f32 score tile fits ``score_budget_bytes``. Ties keep the
+    lower row id."""
+    q = queries.shape[0]
+    n = corpus.shape[0]
+    vn = n if valid_n < 0 else valid_n
+    k_eff = min(k, n)
+    max_chunk = max(SEL_BLOCK, score_budget_bytes // (4 * max(q, 1)))
+    chunk = min(chunk, _round_up(max_chunk, SEL_BLOCK) - SEL_BLOCK
+                if max_chunk % SEL_BLOCK else max_chunk)
+    chunk = max(SEL_BLOCK, chunk - chunk % SEL_BLOCK)
+    dev = queries.device
+
+    def sel(off: int, rows: torch.Tensor, kp: int):
+        s = _scores(queries, rows)
+        col = torch.arange(off, off + rows.shape[0], device=dev)
+        s = torch.where(col[None, :] < vn, s, torch.full_like(s, NEG_INF))
+        v, i = block_topk(s, kp)
+        return v, i + off
+
+    if n <= chunk:
+        vals, idx = sel(0, corpus, k_eff)
+    else:
+        vals = torch.full((q, k_eff), NEG_INF, dtype=torch.float32, device=dev)
+        idx = torch.zeros((q, k_eff), dtype=torch.int64, device=dev)
+        for off in range(0, n, chunk):
+            rows = corpus[off: off + chunk]
+            nv, ni = sel(off, rows, min(k_eff, rows.shape[0]))
+            vals, s = _top_sorted(torch.cat([vals, nv], dim=1), k_eff)
+            idx = torch.gather(torch.cat([idx, ni], dim=1), 1, s)
+    if k_eff < k:
+        vals = torch.cat([vals, torch.full((q, k - k_eff), NEG_INF,
+                                           dtype=vals.dtype, device=dev)], 1)
+        idx = torch.cat([idx, torch.zeros((q, k - k_eff), dtype=idx.dtype,
+                                          device=dev)], 1)
+    return vals, idx.to(torch.int32)
+
+
+# ------------------------------------------------------------------- pass A
+
+def segtopk_pass_a_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, n: int, seg_rows: int,
+    k_sel: int, q_block: int = 1024, row_block: int = 1 << 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain pass A: (values f32, segment ids int32), both (Q, k_sel).
+
+    Segment ``s`` covers natural rows ``[s*seg_rows, (s+1)*seg_rows)``; the
+    segments holding at least one of the first ``n`` rows are ranked by
+    their maximum score, descending, ties to the lower id. Rows at or past
+    ``n`` inside the last segment score 0, as the zero pad rows of the JAX
+    kernel do. With fewer than ``k_sel`` segments, slot ``j`` past them
+    holds value NEG_INF and id ``-1-j``."""
+    q = queries.shape[0]
+    n_segs = -(-n // seg_rows)
+    seg_end = n_segs * seg_rows
+    row_block = _round_up(row_block, seg_rows)
+    k_real = min(k_sel, n_segs)
+    out_v = torch.full((q, k_sel), NEG_INF, dtype=torch.float32,
+                       device=queries.device)
+    out_i = -1 - torch.arange(k_sel, dtype=torch.int32, device=queries.device
+                              ).expand(q, k_sel).clone()
+    for q0 in range(0, q, q_block):
+        qs = queries[q0: q0 + q_block]
+        segmax = []
+        for r0 in range(0, seg_end, row_block):
+            r1 = min(r0 + row_block, seg_end)
+            s = _scores(qs, corpus[r0: min(r1, n)])
+            if s.shape[1] < r1 - r0:  # pad rows inside the last segment
+                s = torch.cat([s, s.new_zeros(s.shape[0], r1 - r0 - s.shape[1])],
+                              dim=1)
+            segmax.append(s.reshape(s.shape[0], -1, seg_rows).amax(dim=2))
+        v, i = _top_sorted(torch.cat(segmax, dim=1), k_real)
+        out_v[q0: q0 + q_block, :k_real] = v
+        out_i[q0: q0 + q_block, :k_real] = i.to(torch.int32)
+    return out_v, out_i
+
+
+def segtopk_pass_a(
+    queries: torch.Tensor, corpus: torch.Tensor, n: int, seg_rows: int,
+    k_sel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass A of the two-pass top-k; same contract as
+    :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
+    tensors it launches ``csrc/segtopk.cu`` (bf16 operands) or raises."""
+    global SEGTOPK_LAUNCHES
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
+    if queries.device.type != "cuda" or corpus.device != queries.device:
+        raise ValueError(f"segtopk_pass_a: queries on {queries.device}, "
+                         f"corpus on {corpus.device}")
+    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the pass-A kernel takes bfloat16 operands, got {queries.dtype} "
+            f"and {corpus.dtype}")
+    q, d = queries.shape
+    if corpus.shape[1] != d or d % 8:
+        raise ValueError(f"pass A needs matching widths that are multiples "
+                         f"of 8, got {d} and {corpus.shape[1]}")
+    if not (_LANE % seg_rows == 0 or seg_rows % _LANE == 0):
+        raise ValueError(f"pass A needs segment rows dividing or divided by "
+                         f"128, got {seg_rows}")
+    if not 0 < k_sel <= _LANE or corpus.shape[0] < n:
+        raise ValueError(f"pass A: k_sel={k_sel}, n={n}, corpus rows "
+                         f"{corpus.shape[0]}")
+    queries = queries.contiguous()
+    corpus = corpus.contiguous()
+    n_segs = -(-n // seg_rows)
+    n_qtiles = -(-q // 64)
+    n_units = -(-(n_segs * seg_rows) // max(_LANE, seg_rows))
+    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    n_splits = max(1, min(n_units, -(-4 * sms // n_qtiles)))
+    dev = queries.device
+    part_v = torch.empty((n_splits, q, k_sel), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_splits, q, k_sel), dtype=torch.int32, device=dev)
+    out_v = torch.empty((q, k_sel), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k_sel), dtype=torch.int32, device=dev)
+    lib = _build.load("segtopk")
+    fn = lib.segtopk_pass_a
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    status = fn(queries.data_ptr(), corpus.data_ptr(), part_v.data_ptr(),
+                part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                q, n, d, seg_rows, n_segs, k_sel, n_splits,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "segtopk_pass_a")
+    SEGTOPK_LAUNCHES += 1
+    return out_v, out_i
+
+
+# -------------------------------------------------------------- two-pass top-k
+
+def topk_scores_twopass(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int = 10,
+    block_q: int = 256,
+    block_n: int = 8192,
+    q_chunk: int = 256,
+    interpret: bool = False,
+    corpus_swizzled: Optional[torch.Tensor] = None,
+    gather_from_swizzled: bool = False,
+    valid_n: int = -1,
+    seg_split: int = 1,
+    mxu_overlap: bool = False,
+    pass_a_int8: bool = False,
+    corpus_swizzled_q8: Optional[torch.Tensor] = None,
+    k_sel_extra: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner-product search, two-pass: (values f32, indices
+    int32), each (Q, k). Requires k < 128.
+
+    Same signature and guards as the JAX function. ``block_n`` and
+    ``seg_split`` set the segment length ``block_n/128/seg_split`` and the
+    padding of ``corpus_swizzled``; ``block_q`` and ``interpret`` have no
+    role here (the Hopper kernel picks its own tiles; a CPU tensor takes
+    the plain pass A). ``gather_from_swizzled=True`` passes the swizzled
+    layout as ``corpus`` with the true row count as ``valid_n``; it is read
+    back into natural order once. ``mxu_overlap`` and ``pass_a_int8`` are
+    kernels not ported yet (ROADMAP)."""
+    del block_q, interpret
+    assert k < _LANE, f"segment top-k supports k < {_LANE}, got {k}"
+    if mxu_overlap:
+        raise NotImplementedError(
+            "mxu_overlap (_segtopk_kernel_overlap) is not ported yet: "
+            "ROADMAP Queue 2")
+    if pass_a_int8 or corpus_swizzled_q8 is not None:
+        raise NotImplementedError(
+            "pass_a_int8 (the int8 pass A) is not ported yet: ROADMAP Queue 2")
+    if gather_from_swizzled:
+        assert valid_n >= 0, (
+            "gather_from_swizzled=True requires valid_n (the true corpus "
+            "row count) — the padded layout's zero rows are not documents"
+        )
+    q, d = queries.shape
+    n = valid_n if valid_n >= 0 else corpus.shape[0]
+    n_pad = _round_up(n, block_n)
+    L = block_n // _LANE
+    assert L % seg_split == 0 and L >= seg_split, (
+        f"seg_split={seg_split} must divide block_n/128={L}"
+    )
+    if gather_from_swizzled:
+        swz = corpus if corpus_swizzled is None else corpus_swizzled
+        assert swz.shape[0] == n_pad, (
+            "single-copy mode expects the swizzled (padded) layout"
+        )
+        corpus = _unswizzle(swz, block_n)
+    elif corpus_swizzled is not None:
+        assert corpus_swizzled.shape[0] == n_pad, (
+            f"corpus_swizzled has {corpus_swizzled.shape[0]} rows but this "
+            f"block_n={block_n} pads the corpus to {n_pad} — it was built "
+            "with a different block_n (swizzle_corpus and "
+            "topk_scores_twopass must use the same value)"
+        )
+    if q > _MAX_TWOPASS_Q:
+        parts = [
+            topk_scores_twopass(
+                queries[s: s + _MAX_TWOPASS_Q], corpus, k=k, block_n=block_n,
+                q_chunk=q_chunk, valid_n=n, seg_split=seg_split,
+                k_sel_extra=k_sel_extra)
+            for s in range(0, q, _MAX_TWOPASS_Q)
+        ]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    queries = queries.to(corpus.dtype)
+    L2 = L // seg_split  # rows per (fine) segment
+    k_sel = min(k + 1 + k_sel_extra, _LANE)
+    _, seg_ids = segtopk_pass_a(queries, corpus, n, L2, k_sel)
+
+    # ---- pass B: candidate gather + exact rescore ----
+    # ids < 0 are the "fewer than k_sel real segments" placeholders
+    seg_ids = seg_ids.long()
+    j_off = torch.arange(L2, device=queries.device)
+    cand_rows = (seg_ids.clamp(min=0)[:, :, None] * L2 + j_off).reshape(q, -1)
+    cand_valid = ((seg_ids[:, :, None] >= 0)
+                  .expand(q, k_sel, L2).reshape(q, -1)) & (cand_rows < n)
+    safe_rows = cand_rows.clamp(max=n - 1)
+    out_v, out_i = [], []
+    for s in range(0, q, q_chunk):
+        blocks = corpus[safe_rows[s: s + q_chunk]].float()  # (qc, C, D)
+        scores = torch.bmm(blocks, queries[s: s + q_chunk].float()[:, :, None]
+                           )[:, :, 0]
+        scores = torch.where(cand_valid[s: s + q_chunk], scores,
+                             torch.full_like(scores, NEG_INF))
+        v, sel = _top_sorted(scores, k)
+        out_v.append(v)
+        out_i.append(torch.gather(cand_rows[s: s + q_chunk], 1, sel))
+    return torch.cat(out_v), torch.cat(out_i).to(torch.int32)

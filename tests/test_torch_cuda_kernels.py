@@ -1,0 +1,102 @@
+"""The Hopper kernels against their plain versions, on a CUDA device.
+
+Marked ``cuda``; each test skips without a card. On the card (no JAX
+needed there):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+Pass A runs on integer-valued bf16 inputs, whose dot products are exact in
+f32 whatever the summation order, so kernel and plain version must agree
+bit for bit. Flash attention runs in bf16/fp16 against the f32 plain math,
+to atol 1e-2 (a few half-precision ulps at the outputs' scale)."""
+import numpy as np
+import pytest
+import torch
+
+from semanticsearch_tpu_torch.ops import flash_attention as fa
+from semanticsearch_tpu_torch.ops import topk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _grid(shape, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device=dev,
+                         dtype=torch.int16).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", [
+    (64, 4096, 384, 32, 11),     # whole tiles
+    (200, 20011, 384, 32, 41),   # ragged corpus and query tiles
+    (5, 300, 384, 32, 41),       # fewer segments than k_sel: placeholders
+    (70, 5000, 384, 256, 41),    # segments spanning several tiles
+    (33, 1000, 128, 1, 11),      # one-row segments
+    (17, 3000, 72, 8, 20),       # width not a multiple of the K chunk
+])
+def test_segtopk_kernel_matches_plain(dev, q, n, d, seg_rows, k_sel):
+    Q, C = _grid((q, d), 1, dev), _grid((n, d), 2, dev)
+    launches = topk.SEGTOPK_LAUNCHES
+    kv, ki = topk.segtopk_pass_a(Q, C, n, seg_rows, k_sel)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, n, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    assert topk.SEGTOPK_LAUNCHES == launches + 1
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
+def test_twopass_kernel_path_matches_plain_path(dev):
+    Q, C = _grid((300, 384), 3, dev), _grid((50000, 384), 4, dev)
+    kv, ki = topk.topk_scores_twopass(Q, C, k=40, block_n=16384, seg_split=4)
+    pv, pi = topk.topk_scores_twopass(Q.cpu(), C.cpu(), k=40, block_n=16384,
+                                      seg_split=4)
+    assert torch.equal(ki.cpu(), pi)
+    assert torch.equal(kv.cpu(), pv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,h,t,dh", [(3, 12, 64, 32), (2, 12, 256, 32),
+                                      (1, 4, 1024, 32), (2, 2, 128, 16),
+                                      (2, 2, 128, 64), (2, 2, 128, 128)])
+def test_flash_kernel_matches_plain(dev, dtype, b, h, t, dh):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((b, h, t, dh), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    mask = torch.ones((b, t), device=dev)
+    mask[:, t - t // 3:] = 0.0
+    mask[0, :] = 0.0  # every key masked: the mean of V
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0, atol=1e-2)
+
+
+def test_flash_backward_on_cuda(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn((1, 2, 128, 32), generator=g, device=dev)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    mask = torch.ones((1, 128), device=dev)
+    fa.flash_attention(q, k, v, mask).float().sum().backward()
+    q2, k2, v2 = (x.detach().requires_grad_(True) for x in (q, k, v))
+    fa.flash_attention_plain(q2, k2, v2, mask).float().sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        assert torch.equal(a.grad, b.grad)
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+    x = torch.zeros((4, 64), device=dev)  # float32: no kernel takes it
+    with pytest.raises(NotImplementedError):
+        topk.segtopk_pass_a(x, x, 4, 1, 2)
+    y = torch.zeros((1, 1, 64, 32), device=dev)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(y, y, y, torch.ones((1, 64), device=dev))
+    z = torch.zeros((1, 1, 96, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(z, z, z, torch.ones((1, 96), device=dev))

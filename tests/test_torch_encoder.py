@@ -1,0 +1,107 @@
+"""The port's sentence encoder against the JAX package's, with the JAX
+parameters converted by models/convert.py. float32 throughout; embeddings
+agree to rtol = atol = 1e-4 (the two frameworks sum in different orders,
+and the stock paths differ in LayerNorm's variance formula)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semanticsearch_tpu.core.config import EncoderConfig as JCfg
+from semanticsearch_tpu.models.encoder import (
+    SentenceEncoder as JEncoder,
+    SentenceTransformerModel as JModel,
+)
+from semanticsearch_tpu_torch.core.config import EncoderConfig as TCfg
+from semanticsearch_tpu_torch.models.convert import flax_to_state_dict
+from semanticsearch_tpu_torch.models.encoder import (
+    SentenceEncoder as TEncoder,
+    SentenceTransformerModel as TModel,
+    use_flash,
+)
+from semanticsearch_tpu_torch.models.tokenizer import HashingTokenizer
+
+SMALL = dict(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=4,
+             mlp_dim=128, max_len=256, dtype="float32")
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    cfg = JCfg(**SMALL, attention="stock")
+    return jax.tree.map(np.asarray, JModel(cfg).init(
+        jax.random.PRNGKey(3), jnp.zeros((1, 64), jnp.int32),
+        jnp.ones((1, 64), jnp.int32))["params"])
+
+
+@pytest.mark.parametrize("attention", ["stock", "flash"])
+def test_forward_matches_jax(rng, jax_params, attention):
+    b, t = 3, 128
+    ids = rng.integers(3, SMALL["vocab_size"], size=(b, t)).astype(np.int32)
+    mask = np.zeros((b, t), np.int32)
+    for i, n in enumerate((128, 70, 5)):
+        mask[i, :n] = 1
+    jcfg = JCfg(**SMALL, attention=attention)
+    want = JModel(jcfg).apply({"params": jax_params}, jnp.asarray(ids),
+                              jnp.asarray(mask))
+    model = TModel(TCfg(**SMALL, attention=attention))
+    model.load_state_dict(flax_to_state_dict(jax_params, SMALL["num_layers"]))
+    got = model(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    tokens = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                   return_tokens=True)
+    want_tokens = JModel(jcfg).apply({"params": jax_params}, jnp.asarray(ids),
+                                     jnp.asarray(mask), return_tokens=True)
+    np.testing.assert_allclose(tokens.detach().numpy(),
+                               np.asarray(want_tokens), **TOL)
+
+
+def test_encode_buckets_match_jax(jax_params):
+    """Texts of every bucket (64/128/256) in mixed order: reassembly keeps
+    input order, and embeddings match the JAX encoder's."""
+    words = [f"w{i}" for i in range(400)]
+    lengths = [3, 200, 90, 10, 250, 60, 120, 1]
+    texts = [" ".join(words[j % 400] for j in range(i, i + n))
+             for i, n in enumerate(lengths)]
+    jenc = JEncoder(JCfg(**SMALL, attention="stock"), params=jax_params)
+    tenc = TEncoder(TCfg(**SMALL, attention="stock"), device="cpu",
+                    state_dict=flax_to_state_dict(jax_params,
+                                                  SMALL["num_layers"]))
+    np.testing.assert_allclose(tenc.encode(texts, batch_size=2),
+                               jenc.encode(texts), **TOL)
+    assert tenc.encode_device(texts).device.type == "cpu"
+
+
+def test_tokenizer_ids_match_jax():
+    from semanticsearch_tpu.models.tokenizer import HashingTokenizer as JTok
+
+    texts = ["The quick brown fox, 42 times!", "KKelvin ünïcode mix",
+             "", "a" * 300 + " b"]
+    for L in (8, 64):
+        got = HashingTokenizer(vocab_size=30522).encode_batch(texts, L)
+        want = JTok(vocab_size=30522).encode_batch(texts, L)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_attention_rule():
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    base = TCfg()
+    assert not use_flash(base, cuda)  # auto below max_len 1024: stock
+    assert use_flash(dataclasses.replace(base, max_len=1024), cuda)
+    assert not use_flash(dataclasses.replace(base, max_len=1024), cpu)
+    assert not use_flash(
+        dataclasses.replace(base, max_len=1024, dropout_rate=0.1), cuda)
+    assert use_flash(dataclasses.replace(base, attention="flash"), cpu)
+    assert not use_flash(dataclasses.replace(base, attention="stock",
+                                             max_len=1024), cuda)
+
+
+def test_cuda_default_without_card_is_an_error():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TEncoder(TCfg(**SMALL))

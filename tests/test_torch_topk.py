@@ -1,0 +1,191 @@
+"""The port's top-k ops against the JAX package's, on the same numpy inputs.
+
+Two-pass search: the port's plain pass A plus pass B against JAX
+``topk_scores_twopass(interpret=True)`` on the cases of test_ops_topk.py.
+Indices must be equal, tie order included; values agree to 1e-4, the
+tolerance the JAX tests use.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semanticsearch_tpu.ops import topk as jtopk
+from semanticsearch_tpu_torch.ops import topk as ttopk
+
+
+def _both_twopass(Q, C, single_copy=False, **kw):
+    if single_copy:
+        block_n = kw["block_n"]
+        jv, ji = jtopk.topk_scores_twopass(
+            jnp.asarray(Q), jtopk.swizzle_corpus(jnp.asarray(C), block_n),
+            block_q=8, q_chunk=8, interpret=True, gather_from_swizzled=True,
+            valid_n=C.shape[0], **kw)
+        tv, ti = ttopk.topk_scores_twopass(
+            torch.from_numpy(Q),
+            ttopk.swizzle_corpus(torch.from_numpy(C), block_n),
+            q_chunk=8, gather_from_swizzled=True, valid_n=C.shape[0], **kw)
+    else:
+        jv, ji = jtopk.topk_scores_twopass(
+            jnp.asarray(Q), jnp.asarray(C), block_q=8, q_chunk=8,
+            interpret=True, **kw)
+        tv, ti = ttopk.topk_scores_twopass(
+            torch.from_numpy(Q), torch.from_numpy(C), q_chunk=8, **kw)
+    return (np.asarray(jv), np.asarray(ji)), (tv.numpy(), ti.numpy())
+
+
+def _assert_same(j, t, ctx=""):
+    np.testing.assert_array_equal(t[1], j[1], err_msg=ctx)
+    np.testing.assert_allclose(t[0], j[0], rtol=1e-4, atol=1e-4, err_msg=ctx)
+
+
+@pytest.mark.parametrize("q,n,d,k,block_n,seg_split,single", [
+    (4, 300, 128, 10, 128, 1, False),    # multiple blocks, padding
+    (3, 1024, 128, 5, 256, 1, False),    # exact block multiple
+    (9, 77, 128, 10, 128, 1, False),     # single padded block, q padding
+    (6, 1111, 128, 10, 256, 2, False),   # fine segments
+    (6, 1111, 128, 10, 512, 4, False),
+    (5, 300, 128, 10, 128, 1, True),     # single-copy (swizzled) mode
+    (5, 700, 128, 10, 256, 2, True),
+    (5, 1024, 128, 31, 512, 2, False),
+])
+def test_twopass_matches_jax(rng, q, n, d, k, block_n, seg_split, single):
+    Q = rng.standard_normal((q, d)).astype(np.float32)
+    C = rng.standard_normal((n, d)).astype(np.float32)
+    j, t = _both_twopass(Q, C, single_copy=single, k=k, block_n=block_n,
+                         seg_split=seg_split)
+    _assert_same(j, t)
+
+
+def test_twopass_negative_scores_padding_matches_jax(rng):
+    """Every score negative: zero pad rows in the straddling segment must
+    not surface, in either package."""
+    n, d, k = 77, 64, 10
+    base = np.zeros(d, np.float32)
+    base[0] = 1.0
+    C = base[None, :] + 0.5 * rng.standard_normal((n, d)).astype(np.float32)
+    C[:, 0] = np.abs(C[:, 0]) + 0.2
+    C /= np.linalg.norm(C, axis=1, keepdims=True)
+    Q = np.zeros((4, d), np.float32)
+    Q[:, 0] = -1.0
+    j, t = _both_twopass(Q, C, k=k, block_n=128)
+    _assert_same(j, t)
+    assert (t[1] < n).all()
+
+
+def test_twopass_constructed_ties_match_jax(rng):
+    """Duplicate rows in different segments tie exactly; pass B must order
+    them as jax.lax.top_k does over pass A's candidate order."""
+    d, k = 64, 12
+    base = rng.integers(-3, 4, size=(40, d)).astype(np.float32)
+    C = np.concatenate([base, base[::-1], base[5:25], base])  # 140 rows
+    Q = rng.integers(-3, 4, size=(5, d)).astype(np.float32)
+    for block_n, seg_split in [(128, 1), (256, 2), (512, 4)]:
+        j, t = _both_twopass(Q, C, k=k, block_n=block_n, seg_split=seg_split)
+        _assert_same(j, t, f"block_n={block_n} seg_split={seg_split}")
+
+
+def test_twopass_query_chunking_matches_jax(rng, monkeypatch):
+    """More queries than _MAX_TWOPASS_Q: both packages split the batch."""
+    monkeypatch.setattr(jtopk, "_MAX_TWOPASS_Q", 8)
+    monkeypatch.setattr(ttopk, "_MAX_TWOPASS_Q", 8)
+    Q = rng.standard_normal((19, 64)).astype(np.float32)
+    C = rng.standard_normal((300, 64)).astype(np.float32)
+    j, t = _both_twopass(Q, C, k=5, block_n=128)
+    _assert_same(j, t)
+
+
+def test_pass_a_order_and_placeholders():
+    """Fewer real segments than k_sel: slot j past them holds -1-j."""
+    Q = np.eye(4, 16, dtype=np.float32)
+    C = np.eye(6, 16, dtype=np.float32)
+    v, ids = ttopk.segtopk_pass_a(torch.from_numpy(Q), torch.from_numpy(C),
+                                  n=6, seg_rows=2, k_sel=5)
+    # query 0 hits row 0 (segment 0); the other two segments tie at 0
+    assert ids[0].tolist() == [0, 1, 2, -4, -5]
+    assert (v[0, 3:] == ttopk.NEG_INF).all()
+    assert ttopk.SEGTOPK_LAUNCHES == 0  # CPU tensors take the plain version
+
+
+def test_twopass_guards():
+    Q = torch.zeros((2, 8))
+    C = torch.zeros((10, 8))
+    with pytest.raises(AssertionError):
+        ttopk.topk_scores_twopass(Q, C, k=128)
+    with pytest.raises(AssertionError):
+        ttopk.topk_scores_twopass(Q, C, k=3, block_n=256, seg_split=3)
+    with pytest.raises(AssertionError):
+        ttopk.topk_scores_twopass(Q, C, k=3, gather_from_swizzled=True)
+    with pytest.raises(AssertionError):
+        ttopk.topk_scores_twopass(Q, C, k=3, block_n=128,
+                                  corpus_swizzled=torch.zeros((64, 8)))
+    for kw in ({"mxu_overlap": True}, {"pass_a_int8": True}):
+        with pytest.raises(NotImplementedError):
+            ttopk.topk_scores_twopass(Q, C, k=3, **kw)
+
+
+@pytest.mark.parametrize("q,n,d,k,block_n", [(4, 100, 128, 5, 256),
+                                               (3, 513, 128, 10, 256)])
+def test_topk_ref_matches_jax(rng, q, n, d, k, block_n):
+    Q = rng.standard_normal((q, d)).astype(np.float32)
+    C = rng.standard_normal((n, d)).astype(np.float32)
+    jv, ji = jtopk.topk_scores_ref(jnp.asarray(Q), jnp.asarray(C), k=k,
+                                   block_n=block_n)
+    tv, ti = ttopk.topk_scores_ref(torch.from_numpy(Q), torch.from_numpy(C),
+                                   k=k, block_n=block_n)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_topk_ref_ties_match_jax(rng):
+    C = np.repeat(rng.integers(-3, 4, size=(5, 32)).astype(np.float32), 4,
+                  axis=0)
+    Q = C[:2]
+    jv, ji = jtopk.topk_scores_ref(jnp.asarray(Q), jnp.asarray(C), k=8,
+                                   block_n=8)
+    tv, ti = ttopk.topk_scores_ref(torch.from_numpy(Q), torch.from_numpy(C),
+                                   k=8, block_n=8)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_swizzle_and_quantize_match_jax(rng):
+    C = rng.standard_normal((300, 16)).astype(np.float32)
+    np.testing.assert_array_equal(
+        ttopk.swizzle_corpus(torch.from_numpy(C), 256).numpy(),
+        np.asarray(jtopk.swizzle_corpus(jnp.asarray(C), 256)))
+    tq, ts = ttopk.quantize_int8_global(torch.from_numpy(C))
+    jq, js = jtopk.quantize_int8_global(jnp.asarray(C))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_allclose(float(ts), float(js), rtol=1e-7)
+
+
+@pytest.mark.parametrize("width,kp", [(700, 20), (4096, 40), (65536, 130)])
+def test_block_topk_matches_jax(rng, width, kp):
+    """Each stage of the staged selection, ties included (integer scores
+    from a narrow range tie often)."""
+    S = rng.integers(-50, 50, size=(3, width)).astype(np.float32)
+    jv, ji = jtopk.block_topk(jnp.asarray(S), kp)
+    tv, ti = ttopk.block_topk(torch.from_numpy(S), kp)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("n,k,chunk,valid_n,budget", [
+    (3333, 160, 512, -1, 1 << 30),   # chunks + remainder tail
+    (700, 130, 262144, -1, 1 << 30),  # single chunk
+    (700, 130, 262144, -1, 4 * 4 * 256),  # budget shrinks the chunk
+    (64, 50, 256, 40, 1 << 30),     # pad rows past valid_n, k > valid_n
+])
+def test_topk_chunked_matches_jax(rng, n, k, chunk, valid_n, budget):
+    d = 48
+    Q = rng.integers(-4, 5, size=(4, d)).astype(np.float32)
+    C = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    C[: n // 3] = C[:1]  # identical rows -> massive ties
+    kw = dict(k=k, chunk=chunk, valid_n=valid_n, score_budget_bytes=budget)
+    jv, ji = jtopk.topk_scores_chunked(jnp.asarray(Q), jnp.asarray(C), **kw)
+    tv, ti = ttopk.topk_scores_chunked(torch.from_numpy(Q),
+                                       torch.from_numpy(C), **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
