@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``semanticsearch_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, serves hybrid queries end to
-end through ``HybridQueryEngine`` at the default encoder's full width, and
-runs the dense search at the per-chip shard size (1,250,000 x 384 bf16).
-Progress and measurements go to stdout; the line before the last is the
-card's name and power limit, the one before it the JSON ``kernels`` record,
-and the last line ``{"ok": true, "device": {...}}``. Any failed check exits
-non-zero without that line, as does a machine without a CUDA device.
+against its plain PyTorch version on the card (phase 2), serves hybrid
+queries end to end through ``HybridQueryEngine`` at the default encoder's
+full width (phase 3), times every kernel at the per-chip shard size of
+1,250,000 x 384 bf16 (phase 4), and serves deep candidate lists over a live
+index: adds, removals, a 10,000-query search through the fused top-k,
+``tune_fusion`` and ``compact`` (phase 5). Progress and measurements go to
+stdout; the line before the last is the card's name and power limit, the
+one before it the JSON ``kernels`` record, and the last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
+that line, as does a machine without a CUDA device.
 """
 from __future__ import annotations
 
@@ -39,13 +42,15 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores,
+# HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_mem = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
@@ -65,6 +70,17 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a path is
+    driven; the path's launches are read just after it."""
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+
+    topk.SEGTOPK_LAUNCHES = topk.SEGTOPK_OVERLAP_LAUNCHES = 0
+    topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
+    fa.FLASH_LAUNCHES = 0
 
 
 def topk_agree(v, i, ref_v, ref_i, tol: float):
@@ -105,14 +121,15 @@ def phase_build():
         _build.load(name)
 
 
-def _int_grid(shape, gen):
-    """bf16 integers in [-127, 127] on the card: every dot product of width
-    <= 1040 is an integer below 2^24, exact in f32 whatever the summation
-    order, so kernel and plain versions must agree bit for bit."""
+def _int_grid(shape, gen, dtype=None):
+    """Integers in [-127, 127] on the card, bf16 unless ``dtype`` says
+    otherwise: every dot product of width <= 1040 is an integer below 2^24,
+    exact in f32 whatever the summation order, so kernel and plain versions
+    must agree bit for bit."""
     import torch
 
     return torch.randint(-127, 128, shape, generator=gen, device=gen.device,
-                         dtype=torch.int16).to(torch.bfloat16)
+                         dtype=torch.int16).to(dtype or torch.bfloat16)
 
 
 def phase_kernels(report):
@@ -124,7 +141,7 @@ def phase_kernels(report):
     log("== phase 2: kernels against their plain versions on the card")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    seg_err = 0.0
+    seg_err = ov_err = i8_err = 0.0
     # (Q, N, k, block_rows, seg_split): serve leg, bench leg, edge layouts
     cases = [(256, 20011, 40, 16384, 4), (1024, 1_250_000, 10, 32768, 8),
              (70, 5000, 40, 32768, 1), (33, 1000, 10, 128, 1)]
@@ -135,11 +152,16 @@ def phase_kernels(report):
         k_sel = k + 1
         kv, ki = topk.segtopk_pass_a(Qm, C, n, L2, k_sel)
         pv, pi = topk.segtopk_pass_a_plain(Qm, C, n, L2, k_sel)
+        ov, oi = topk.segtopk_pass_a_overlap(Qm, C, n, L2, k_sel)
         torch.cuda.synchronize()
         seg_err = max(seg_err, float((kv - pv).abs().max()))
+        ov_err = max(ov_err, float((ov - pv).abs().max()))
         check(torch.equal(ki, pi) and torch.equal(kv, pv),
               f"pass A kernel == plain (ids and values exact): Q={q} N={n} "
               f"L2={L2} k_sel={k_sel}")
+        check(torch.equal(oi, ki) and torch.equal(ov, kv)
+              and torch.equal(oi, pi) and torch.equal(ov, pv),
+              "overlap schedule == default schedule == plain, bit for bit")
         tv, ti = topk.topk_scores_twopass(Qm, C, k=k, block_n=block_rows,
                                           seg_split=seg_split)
         rv, ri = topk.topk_scores_ref(Qm, C, k=k + 1, block_n=65536)
@@ -147,7 +169,66 @@ def phase_kernels(report):
         check(err == 0.0 and bad == 0,
               f"two-pass == topk_scores_ref: scores exact, indices equal "
               f"outside exact ties ({tied} tie-permuted positions)")
+        del C
+        Q8 = _int_grid((q, 384), gen, torch.int8)
+        C8 = _int_grid((n, 384), gen, torch.int8)
+        k_sel8 = k + 1 + 5  # the int8 mode's default noise margin
+        iv, ii = topk.segtopk_pass_a_int8(Q8, C8, n, L2, k_sel8)
+        jv, ji = topk.segtopk_pass_a_int8_plain(Q8, C8, n, L2, k_sel8)
+        torch.cuda.synchronize()
+        i8_err = max(i8_err, float((iv - jv).abs().max()))
+        check(torch.equal(ii, ji) and torch.equal(iv, jv),
+              f"int8 pass A kernel == plain (ids and values exact): Q={q} "
+              f"N={n} L2={L2} k_sel={k_sel8}")
+    # a width that is a multiple of 8 but not of the 16-wide MMA step: the
+    # bf16 schedules zero-fill the last step's upper half
+    Qm, C = _int_grid((17, 72), gen), _int_grid((3000, 72), gen)
+    kv, ki = topk.segtopk_pass_a(Qm, C, 3000, 8, 20)
+    ov, oi = topk.segtopk_pass_a_overlap(Qm, C, 3000, 8, 20)
+    pv, pi = topk.segtopk_pass_a_plain(Qm, C, 3000, 8, 20)
+    torch.cuda.synchronize()
+    seg_err = max(seg_err, float((kv - pv).abs().max()))
+    ov_err = max(ov_err, float((ov - pv).abs().max()))
+    check(torch.equal(ki, pi) and torch.equal(kv, pv) and torch.equal(oi, pi)
+          and torch.equal(ov, pv),
+          "pass A default and overlap schedules == plain at D=72, bit for bit")
     report["segtopk"]["max_abs_err"] = seg_err
+    report["segtopk_overlap"]["max_abs_err"] = ov_err
+    report["segtopk_int8"]["max_abs_err"] = i8_err
+
+    fu_err = 0.0
+    for q, n, k, what in [(256, 20011, 200, "a serve-sized batch"),
+                          (9000, 50000, 128, "past 8192 queries"),
+                          (300, 50000, 2048, "the largest k"),
+                          (64, 1000, 1500, "k > N: (-1e30, 0) tail")]:
+        Qm = _int_grid((q, 384), gen)
+        C = _int_grid((n, 384), gen)
+        kv, ki = topk.topk_scores_fused(Qm, C, k)
+        pv, pi = topk.topk_scores_fused_plain(Qm, C, k)
+        torch.cuda.synchronize()
+        fu_err = max(fu_err, float((kv - pv).abs().max()))
+        check(torch.equal(ki, pi) and torch.equal(kv, pv),
+              f"fused top-k kernel == plain (ids and values exact), {what}: "
+              f"Q={q} N={n} k={k}")
+    Qm, C = _int_grid((9, 72), gen), _int_grid((3000, 72), gen)
+    kv, ki = topk.topk_scores_fused(Qm, C, 300)
+    pv, pi = topk.topk_scores_fused_plain(Qm, C, 300)
+    torch.cuda.synchronize()
+    fu_err = max(fu_err, float((kv - pv).abs().max()))
+    check(torch.equal(ki, pi) and torch.equal(kv, pv),
+          "fused top-k kernel == plain at D=72 (ids and values exact)")
+    # 50 distinct rows, each repeated 400 times across the corpus: every
+    # score ties 400 ways, and the copies fall in different corpus splits
+    base = _int_grid((50, 384), gen)
+    C = base.repeat(400, 1)
+    kv, ki = topk.topk_scores_fused(base[:8], C, 1000)
+    pv, pi = topk.topk_scores_fused_plain(base[:8], C, 1000)
+    ascending = bool(((kv[:, 1:] < kv[:, :-1])
+                      | (ki[:, 1:] > ki[:, :-1])).all())
+    check(torch.equal(ki, pi) and torch.equal(kv, pv) and ascending,
+          "fused top-k kernel == plain on 400-way ties across splits; equal "
+          "scores in ascending row order")
+    report["topk_fused"]["max_abs_err"] = fu_err
 
     fl_err = 0.0
     for b, t in [(8, 128), (8, 256), (2, 1024)]:
@@ -208,8 +289,7 @@ def phase_serve(report, tmp):
     log(f"  encoder: {dataclasses.asdict(cfg)}")
     encoder = SentenceEncoder(cfg, device="cuda", seed=0)
 
-    topk.SEGTOPK_LAUNCHES = 0
-    fa.FLASH_LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     built = HybridQueryEngine.build(tsv, encoder, os.path.join(tmp, "idx"))
     torch.cuda.synchronize()
@@ -271,6 +351,8 @@ def phase_serve(report, tmp):
     cos = float((e_auto * enc_stock.encode_device(texts)).sum(dim=1).min())
     check(cos > 0.99, f"flash vs stock encoder at T up to 1024, bf16: "
           f"least cosine {cos:.5f} > 0.99")
+    return {"words": words, "encoder": encoder, "tmp": tmp,
+            "idx": os.path.join(tmp, "idx")}
 
 
 def phase_dense(report):
@@ -288,7 +370,7 @@ def phase_dense(report):
     corpus = synth.corpus(n, d, torch.bfloat16, "cuda")
     queries = synth.corpus(q, d, torch.bfloat16, "cuda", start=20_000_000)
     index = EmbeddingIndex(corpus, n, cfg)
-    launches = topk.SEGTOPK_LAUNCHES
+    zero_counts()
     index.search_device(queries, k=k)  # warm-up
     torch.cuda.synchronize()
     iters = 3
@@ -299,7 +381,7 @@ def phase_dense(report):
     dt = (time.perf_counter() - t0) / iters
     report["dense_qps"] = q / dt
     log(f"  EmbeddingIndex.search_device: {dt * 1e3:.1f} ms per {q} queries "
-        f"= {q / dt:,.0f} QPS ({topk.SEGTOPK_LAUNCHES - launches} pass-A "
+        f"= {q / dt:,.0f} QPS ({topk.SEGTOPK_LAUNCHES} pass-A "
         "launches)")
     sample = torch.arange(0, q, q // 128, device="cuda")[:128]
     rv, ri = topk.topk_scores_ref(queries[sample], corpus, k=k, block_n=65536)
@@ -310,25 +392,123 @@ def phase_dense(report):
     check(recall == 1.0, f"recall@10 = {recall} on 128 sampled queries "
           "against the plain exact top-k")
 
-    # pass A alone at this shape: kernel, plain version, GEMM floor
+    # pass A alone at this shape: kernel in both bf16 schedules (timed in
+    # turns: default, overlap, overlap, default), plain version, GEMM floor
     L2 = cfg.block_rows // 128 // cfg.seg_split
     k_sel = k + 1
-    seg = report["segtopk"]
-    seg["ms"] = time_ms(lambda: topk.segtopk_pass_a(queries, corpus, n, L2,
-                                                    k_sel), reps=3)
+    seg, ov = report["segtopk"], report["segtopk_overlap"]
+    zero_counts()
+    ov_vals, ov_idx = topk.topk_scores_twopass(
+        queries, corpus, k=k, block_n=cfg.block_rows,
+        seg_split=cfg.seg_split, mxu_overlap=True)
+    torch.cuda.synchronize()
+    ov["launches"] = topk.SEGTOPK_OVERLAP_LAUNCHES
+    check(ov["launches"] > 0 and torch.equal(ov_idx, idx)
+          and torch.equal(ov_vals, vals),
+          f"topk_scores_twopass(mxu_overlap=True) launched the overlap "
+          f"schedule ({ov['launches']}x) and equals the default search bit "
+          "for bit")
+
+    def pass_a():
+        topk.segtopk_pass_a(queries, corpus, n, L2, k_sel)
+
+    def pass_a_overlap():
+        topk.segtopk_pass_a_overlap(queries, corpus, n, L2, k_sel)
+
+    turns = [time_ms(f, reps=3) for f in (pass_a, pass_a_overlap,
+                                          pass_a_overlap, pass_a)]
+    seg["ms"] = (turns[0] + turns[3]) / 2
+    ov["ms"] = (turns[1] + turns[2]) / 2
     seg["plain_ms"] = time_ms(lambda: topk.segtopk_pass_a_plain(
         queries, corpus, n, L2, k_sel), reps=1, warmup=0)
+    ov["plain_ms"] = seg["plain_ms"]  # one plain version for both schedules
 
-    def gemm_floor():
+    def gemm_floor(qs):
         for s in range(0, n, 16384):
-            torch.matmul(queries, corpus[s: s + 16384].T)
+            torch.matmul(qs, corpus[s: s + 16384].T)
 
-    seg["library_ms"] = time_ms(gemm_floor, reps=3)
+    seg["library_ms"] = ov["library_ms"] = time_ms(lambda: gemm_floor(queries),
+                                                   reps=3)
     seg["bound_ms"], seg["bound_by"] = bound_ms(
         2.0 * q * n * d, 2.0 * (q * d + n * d) + 8.0 * q * k_sel)
-    log(f"  pass A: kernel {seg['ms']:.2f} ms, plain {seg['plain_ms']:.2f} ms,"
-        f" bf16 GEMM floor {seg['library_ms']:.2f} ms, bound "
-        f"{seg['bound_ms']:.2f} ms ({seg['bound_by']})")
+    ov["bound_ms"], ov["bound_by"] = seg["bound_ms"], seg["bound_by"]
+    log(f"  pass A: kernel {seg['ms']:.2f} ms, overlap schedule "
+        f"{ov['ms']:.2f} ms (turns {', '.join(f'{t:.2f}' for t in turns)}), "
+        f"plain {seg['plain_ms']:.2f} ms, bf16 GEMM floor "
+        f"{seg['library_ms']:.2f} ms, bound {seg['bound_ms']:.2f} ms "
+        f"({seg['bound_by']})")
+
+    # int8 pass A, driven through topk_scores_twopass(pass_a_int8=True)
+    i8 = report["segtopk_int8"]
+    zero_counts()
+    i8_vals, i8_idx = topk.topk_scores_twopass(
+        queries, corpus, k=k, block_n=cfg.block_rows,
+        seg_split=cfg.seg_split, pass_a_int8=True)
+    torch.cuda.synchronize()
+    i8["launches"] = topk.SEGTOPK_INT8_LAUNCHES
+    hits8 = sum(len(set(a) & set(b)) for a, b in
+                zip(i8_idx[sample].tolist(), ri.tolist()))
+    report["recall_at_10_int8"] = hits8 / (128 * k)
+    check(i8["launches"] > 0 and report["recall_at_10_int8"] >= 0.99,
+          f"topk_scores_twopass(pass_a_int8=True) launched the int8 kernel "
+          f"({i8['launches']}x); recall@10 = {report['recall_at_10_int8']} "
+          ">= 0.99 on 128 sampled queries (statistically exact mode)")
+    q8 = topk._quantize_rows_int8(queries)
+    c8, _ = topk.quantize_int8_global(corpus)
+    k_sel8 = k + 1 + 5
+    i8["ms"] = time_ms(lambda: topk.segtopk_pass_a_int8(q8, c8, n, L2, k_sel8),
+                       reps=3)
+    i8["plain_ms"] = time_ms(lambda: topk.segtopk_pass_a_int8_plain(
+        q8, c8, n, L2, k_sel8), reps=1, warmup=0)
+
+    def int8_gemm_floor():
+        for s in range(0, n, 16384):
+            torch._int_mm(q8, c8[s: s + 16384].T)
+
+    try:
+        i8["library_ms"] = time_ms(int8_gemm_floor, reps=3)
+        what = "torch._int_mm int8 GEMM floor"
+    except RuntimeError as exc:  # no int8 GEMM for this layout or build
+        log(f"  torch._int_mm unavailable ({str(exc).splitlines()[0]}); "
+            "library_ms is the bf16 GEMM floor")
+        i8["library_ms"] = seg["library_ms"]
+        what = "bf16 GEMM floor"
+        i8["library_note"] = ("torch._int_mm unavailable: the bf16 "
+                              "torch.matmul GEMM floor")
+    i8["bound_ms"], i8["bound_by"] = bound_ms(
+        2.0 * q * n * d, 1.0 * (q * d + n * d) + 8.0 * q * k_sel8,
+        PEAK_INT8_OPS)
+    log(f"  int8 pass A: kernel {i8['ms']:.2f} ms, plain "
+        f"{i8['plain_ms']:.2f} ms, {what} {i8['library_ms']:.2f} ms, bound "
+        f"{i8['bound_ms']:.2f} ms ({i8['bound_by']})")
+    del q8, c8
+
+    # fused top-200 over the shard at 16,384 queries
+    fu = report["topk_fused"]
+    qf, kf = queries[:16384], 200
+    fu["ms"] = time_ms(lambda: topk.topk_scores_fused(qf, corpus, kf), reps=3)
+    fv, fi = topk.topk_scores_fused(qf, corpus, kf)
+    fsample = torch.arange(0, 16384, 128, device="cuda")
+    rv, ri = topk.topk_scores_ref(qf[fsample], corpus, k=kf + 1, block_n=65536)
+    err, bad, tied = topk_agree(fv[fsample], fi[fsample], rv, ri, tol=1e-5)
+    hits = sum(len(set(a) & set(b)) for a, b in
+               zip(fi[fsample].tolist(), ri[:, :kf].tolist()))
+    report["recall_at_200_fused"] = hits / (128 * kf)
+    check(err <= 1e-5 and bad == 0,
+          f"fused top-200 == plain exact top-200 on 128 sampled queries: "
+          f"recall@200 = {report['recall_at_200_fused']}, max abs err "
+          f"{err:.2e}, {tied} positions inside near-ties (1e-5)")
+    # the plain version at 2,048 queries, scaled by 8 to the batch
+    fu["plain_ms"] = 8 * time_ms(lambda: topk.topk_scores_fused_plain(
+        qf[:2048], corpus, kf), reps=1, warmup=0)
+    fu["plain_note"] = "timed on 2,048 of the 16,384 queries, times 8"
+    fu["library_ms"] = time_ms(lambda: gemm_floor(qf), reps=3)
+    fu["bound_ms"], fu["bound_by"] = bound_ms(
+        2.0 * 16384 * n * d, 2.0 * (16384 * d + n * d) + 8.0 * 16384 * kf)
+    log(f"  fused top-{kf}, {qf.shape[0]} queries: kernel {fu['ms']:.2f} ms, "
+        f"plain {fu['plain_ms']:.2f} ms (2,048 queries x 8), bf16 GEMM floor "
+        f"{fu['library_ms']:.2f} ms, bound {fu['bound_ms']:.2f} ms "
+        f"({fu['bound_by']})")
 
     # flash at the encoder's serve shape
     b, h, t, dh = 256, 12, 256, 32
@@ -351,6 +531,163 @@ def phase_dense(report):
         f"{fl['bound_ms']:.3f} ms ({fl['bound_by']})")
 
 
+# phase 5: chunks added to and removed from the phase-3 index, and queries
+LIVE_ADDS, LIVE_REMOVES, LIVE_QUERIES = 2000, 500, 10000
+
+
+class _RowEncoder:
+    """Encoder stand-in for a fresh build over given embedding rows:
+    ``encode`` hands out the rows in order (the builder embeds the chunk
+    file front to back), queries go to the real encoder."""
+
+    def __init__(self, encoder, rows: np.ndarray) -> None:
+        self.cfg, self._encoder, self._rows, self._next = (
+            encoder.cfg, encoder, rows, 0)
+
+    def encode(self, texts, batch_size: int = 256) -> np.ndarray:
+        out = self._rows[self._next: self._next + len(texts)]
+        self._next += len(texts)
+        return out
+
+    def encode_device(self, texts, batch_size: int = 256):
+        return self._encoder.encode_device(texts, batch_size)
+
+
+def phase_live(report, ctx):
+    import shutil
+
+    import torch
+
+    from semanticsearch_tpu_torch.data.tsv import read_tsv, write_tsv
+    from semanticsearch_tpu_torch.index.builder import EMB_FILE, IDS_FILE
+    from semanticsearch_tpu_torch.index.query_engine import (
+        FUSION_FILE, HybridQueryEngine)
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+
+    log("== phase 5: deep-candidate retrieval over a live index (main path)")
+    rng = np.random.default_rng(17)
+    words, encoder = ctx["words"], ctx["encoder"]
+    live_dir = os.path.join(ctx["tmp"], "live")
+    shutil.copytree(ctx["idx"], live_dir)
+    engine = HybridQueryEngine.load(live_dir, encoder)
+    n_main = engine.index.size
+    n_all = n_main + LIVE_ADDS
+    add_ids = [f"a{i}" for i in range(LIVE_ADDS)]
+    add_texts = [_zipf_text(rng, words, int(n))
+                 for n in rng.integers(40, 241, size=LIVE_ADDS)]
+    t0 = time.perf_counter()
+    engine.add_documents(add_ids, add_texts)
+    dead_rows = np.sort(rng.choice(n_all, size=LIVE_REMOVES, replace=False))
+    removed = [engine.chunk_ids[r] for r in dead_rows]
+    check(engine.remove_documents(removed) == LIVE_REMOVES,
+          f"added {LIVE_ADDS} chunks to the {n_main}-chunk index and removed "
+          f"{LIVE_REMOVES} ({time.perf_counter() - t0:.1f} s, host clock)")
+    queries = [_zipf_text(rng, words, int(rng.integers(3, 9)))
+               for _ in range(LIVE_QUERIES)]
+
+    zero_counts()
+    t0 = time.perf_counter()
+    hits = engine.search(queries, k=50)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    report["topk_fused"]["launches"] = topk.TOPK_FUSED_LAUNCHES
+    log(f"  {LIVE_QUERIES} hybrid queries at k=50 (dense fetch 200 + "
+        f"{(LIVE_REMOVES + 63) // 64 * 64}) in "
+        f"{dt:.2f} s (host clock); launches: topk_fused "
+        f"{topk.TOPK_FUSED_LAUNCHES}, flash {fa.FLASH_LAUNCHES}, segtopk "
+        f"{topk.SEGTOPK_LAUNCHES}")
+    check(topk.TOPK_FUSED_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
+          "the fused top-k kernel and the flash kernel launched on the "
+          "live-index search")
+    gone = set(removed)
+    live_ids = set(engine.chunk_ids) - gone
+    check(all(len(h) == 50 for h in hits)
+          and all(x.chunk_id in live_ids for h in hits for x in h)
+          and sum(x.chunk_id.startswith("a") for h in hits for x in h) > 0,
+          "50 hits per query, every hit a live chunk (no removed one), "
+          "added chunks among them")
+
+    # the dense leg against a plain exact top-200 over the same live set:
+    # main rows scored in bf16 as the index holds them, delta rows in f32
+    q_emb = encoder.encode_device(queries)
+    dense_lists, _ = engine._leg_lists(
+        engine._dispatch_legs(queries, 50, None, False))
+    ns = min(512, LIVE_QUERIES)
+    qs = q_emb[:ns]
+    corpus = engine.index._corpus
+    delta = torch.from_numpy(engine._delta._host[:LIVE_ADDS]).cuda()
+    S = torch.cat([qs.to(corpus.dtype).float() @ corpus.float().T,
+                   qs.float() @ delta.T], dim=1)
+    S[:, torch.from_numpy(dead_rows).cuda()] = -float("inf")
+    rv, ri = torch.sort(S, dim=1, descending=True, stable=True)
+    ev = torch.tensor([[v for v, _ in lst] for lst in dense_lists[:ns]])
+    ei = torch.tensor([[r for _, r in lst] for lst in dense_lists[:ns]])
+    err, bad, tied = topk_agree(ev, ei, rv[:, :201], ri[:, :201], tol=1e-5)
+    check(ev.shape == (ns, 200) and err <= 1e-5 and bad == 0,
+          f"dense leg over the live index (main + delta - tombstones) == "
+          f"plain exact top-200 on {ns} queries: max abs err {err:.2e}, "
+          f"{tied} positions inside near-ties (1e-5)")
+
+    # tune_fusion over the queries at candidates=200, synthetic
+    # labels: each query's top hybrid hit and one more of its hits
+    picks = rng.integers(1, 50, size=len(hits))
+    relevant = [[h[0].chunk_id, h[j].chunk_id] for h, j in zip(hits, picks)]
+    zero_counts()
+    t0 = time.perf_counter()
+    best, best_map, table = engine.tune_fusion(queries, relevant,
+                                               candidates=200)
+    log(f"  tune_fusion: alpha {best}, MAP {best_map:.4f} (alpha 0.5: "
+        f"{table[0.5]:.4f}) in {time.perf_counter() - t0:.1f} s (host "
+        f"clock), {topk.TOPK_FUSED_LAUNCHES} fused launches")
+    check(topk.TOPK_FUSED_LAUNCHES > 0 and len(table) == 21
+          and best_map == max(table.values()) and 0 < best_map <= 1,
+          "tune_fusion ran through the fused kernel over 21 alphas")
+    with open(os.path.join(live_dir, FUSION_FILE), "w") as f:
+        json.dump({"fusion_alpha": best}, f)
+    check(HybridQueryEngine.load(live_dir, encoder).cfg.fusion_alpha == best,
+          f"load applies the persisted fusion.json (alpha {best})")
+    engine.cfg = dataclasses.replace(engine.cfg, fusion_alpha=best)
+
+    # the live set as the engine holds it, for a fresh build after compact
+    live_rows = np.setdiff1d(np.arange(n_all), dead_rows)
+    main_rows = live_rows[live_rows < n_main]
+    emb = np.concatenate([
+        np.load(os.path.join(live_dir, EMB_FILE))[main_rows].astype(np.float32),
+        engine._delta._host[live_rows[live_rows >= n_main] - n_main]])
+    meta = list(read_tsv(os.path.join(live_dir, IDS_FILE)))
+    fresh_rows = [{"chunk_id": engine.chunk_ids[r],
+                   "query_id": meta[r]["query_id"] if r < n_main else "",
+                   "document_id": meta[r]["document_id"] if r < n_main
+                   else "", "chunk_text": engine.texts[r]} for r in live_rows]
+
+    t0 = time.perf_counter()
+    engine.compact()
+    log(f"  compact: {time.perf_counter() - t0:.1f} s (host clock), "
+        f"{engine.index.size} rows")
+    check(engine.index.size == n_all - LIVE_REMOVES and engine._delta is None,
+          "compact folded the delta and dropped the tombstones")
+
+    def key(h):
+        return [[(x.chunk_id, x.score, x.dense_rank, x.lexical_rank)
+                 for x in q] for q in h]
+
+    compacted = key(engine.search(queries, k=50))
+    reloaded = HybridQueryEngine.load(live_dir, encoder)
+    check(key(reloaded.search(queries, k=50)) == compacted,
+          f"reloaded from disk, the compacted index answers the "
+          f"{LIVE_QUERIES} queries unchanged")
+    tsv = os.path.join(ctx["tmp"], "live_chunks.tsv")
+    write_tsv(tsv, fresh_rows,
+              ["chunk_id", "query_id", "document_id", "chunk_text"])
+    fresh = HybridQueryEngine.build(tsv, _RowEncoder(encoder, emb),
+                                    os.path.join(ctx["tmp"], "fresh"),
+                                    rank_cfg=engine.cfg)
+    check(key(fresh.search(queries, k=50)) == compacted,
+          "a fresh build over the same live chunks and embeddings answers "
+          f"the {LIVE_QUERIES} queries exactly as the compacted index")
+
+
 def main() -> int:
     try:
         import torch
@@ -370,10 +707,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    seg_src = "semanticsearch_tpu_torch/csrc/segtopk.cu"
     report = {
         "segtopk": {"name": "segtopk_pass_a", "route": "cuda",
-                    "source": "semanticsearch_tpu_torch/csrc/segtopk.cu",
+                    "source": seg_src,
                     "replaces": "semanticsearch_tpu/ops/topk.py:318"},
+        "segtopk_int8": {"name": "segtopk_pass_a_int8", "route": "cuda",
+                         "source": seg_src,
+                         "replaces": "semanticsearch_tpu/ops/topk.py:355"},
+        "segtopk_overlap": {"name": "segtopk_pass_a_overlap", "route": "cuda",
+                            "source": seg_src,
+                            "replaces": "semanticsearch_tpu/ops/topk.py:403"},
+        "topk_fused": {"name": "topk_scores_fused", "route": "cuda",
+                       "source": "semanticsearch_tpu_torch/csrc/topk_fused.cu",
+                       "replaces": "semanticsearch_tpu/ops/topk.py:119"},
         "flash": {"name": "flash_attention", "route": "cuda",
                   "source": "semanticsearch_tpu_torch/csrc/flash_attention.cu",
                   "replaces": "semanticsearch_tpu/ops/flash_attention.py:28"},
@@ -383,17 +730,24 @@ def main() -> int:
         phase_build()
         phase_kernels(report)
         with tempfile.TemporaryDirectory() as tmp:
-            phase_serve(report, tmp)
-        phase_dense(report)
+            ctx = phase_serve(report, tmp)
+            phase_dense(report)
+            phase_live(report, ctx)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{key: report[k][key] for key in keys}
-               for k in ("segtopk", "flash")]
+    notes = ("plain_note", "library_note")
+    kernels = [{**{key: report[k][key] for key in keys},
+                **{key: report[k][key] for key in notes if key in report[k]}}
+               for k in ("segtopk", "segtopk_int8", "segtopk_overlap",
+                         "topk_fused", "flash")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
-        f"{report['recall_at_10']}; total {time.perf_counter() - t_start:.0f} s")
+        f"{report['recall_at_10']}; int8 two-pass recall@10 "
+        f"{report['recall_at_10_int8']}; fused recall@200 "
+        f"{report['recall_at_200_fused']}; total "
+        f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

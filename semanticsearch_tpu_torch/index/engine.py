@@ -5,8 +5,10 @@ dispatch rule is the JAX package's:
 
 * k < 128: the two-pass search (:func:`topk_scores_twopass`, whose pass A is
   the hand-written kernel on CUDA);
-* k >= 128 with at most 8192 queries: the column-chunked search;
-* k >= 128 with more queries: the fused top-k kernel, not ported yet.
+* k >= 128 with at most :data:`CHUNKED_MAX_QUERIES` queries: the
+  column-chunked search;
+* k >= 128 with more queries: the fused top-k (:func:`topk_scores_fused`,
+  the hand-written kernel ``csrc/topk_fused.cu`` on CUDA).
 
 The Hopper pass A reads the natural row layout, so the index holds no
 second, swizzled copy of its corpus.
@@ -20,7 +22,15 @@ import numpy as np
 import torch
 
 from ..core.config import IndexConfig
-from ..ops.topk import topk_scores_chunked, topk_scores_twopass
+from ..ops.topk import (
+    topk_scores_chunked,
+    topk_scores_fused,
+    topk_scores_twopass,
+)
+
+# k >= 128: the column-chunked search up to this many queries, the fused
+# kernel above (the JAX engine's rule)
+CHUNKED_MAX_QUERIES = 8192
 
 
 @dataclass
@@ -94,9 +104,7 @@ class EmbeddingIndex:
             return topk_scores_twopass(
                 q, self._corpus, k=k, block_n=self.cfg.block_rows,
                 valid_n=self._valid_n, seg_split=self.cfg.seg_split)
-        if q.shape[0] <= 8192:
+        if q.shape[0] <= CHUNKED_MAX_QUERIES:
             return topk_scores_chunked(q, self._corpus, k=k,
                                        valid_n=self._valid_n)
-        raise NotImplementedError(
-            "k >= 128 with more than 8192 queries runs the fused top-k "
-            "kernel (_topk_kernel), which is not ported yet: ROADMAP Queue 2")
+        return topk_scores_fused(q, self._corpus, k=k, valid_n=self._valid_n)

@@ -6,9 +6,18 @@ the host BM25 leg while the card computes (CUDA launches are asynchronous
 and nothing synchronizes before the host leg), fetches the dense results
 last, and fuses both legs by reciprocal rank with k=60.
 
-Not ported yet, each listed in ROADMAP: serve-time adds and removals (the
-delta buffer and tombstones), ``compact``, the device BM25 leg, the neural
-rerank stage, ``tune_fusion`` and the HTTP server.
+The index is live: :meth:`HybridQueryEngine.add_documents` lands new
+documents in a delta buffer searched next to the main index,
+:meth:`~HybridQueryEngine.remove_documents` tombstones rows (filtered at
+query time with an over-fetch), and :meth:`~HybridQueryEngine.compact`
+folds both into the persisted layout through a journaled commit that
+:func:`recover_staged_commit` rolls back or forward after a crash.
+:meth:`~HybridQueryEngine.tune_fusion` grid-searches the fusion weight on a
+labeled split against the live legs.
+
+Not ported yet, each listed in ROADMAP: the device BM25 leg, the neural
+rerank stage (and ``tune_rerank_blend``), the subword tokenizer and the HTTP
+server.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ from ..core.config import IndexConfig, RankingConfig
 from ..core.logging import get_logger
 from ..data.tsv import read_tsv, write_tsv
 from .bm25 import BM25Okapi, load_bm25, tokenize
-from .builder import load_index
+from .builder import EMB_FILE, IDS_FILE, META_FILE, load_index
+from .delta import DeltaBM25, DeltaIndex
 from .engine import EmbeddingIndex, SearchResult
 from .rrf import rrf_weights
 
@@ -37,6 +47,59 @@ TEXTS_FILE = "texts.tsv"
 TOKENIZER_FILE = "tokenizer.json"
 FUSION_FILE = "fusion.json"
 COMMIT_JOURNAL = "compact.commit.json"
+
+
+def _fsync_path(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def recover_staged_commit(index_dir: str) -> Optional[str]:
+    """Crash recovery for :meth:`HybridQueryEngine.compact`'s staged commit.
+
+    The commit protocol: (1) write every new artifact to ``<name>.tmp`` and
+    fsync it, (2) durably write the :data:`COMMIT_JOURNAL` listing the
+    renames -- the commit point, (3) rename each tmp over its final name,
+    (4) fsync the directory and delete the journal. A crash anywhere leaves
+    one of two states: journal absent -> the old artifact set is intact
+    (stray tmps are deleted); journal present -> every pending rename is
+    rolled forward (renames that already happened left no tmp, so the
+    roll-forward is idempotent). Called by :meth:`HybridQueryEngine.load`.
+
+    Returns "rolled_forward", "rolled_back", or None (clean directory).
+    """
+    journal_path = os.path.join(index_dir, COMMIT_JOURNAL)
+    if os.path.exists(journal_path):
+        with open(journal_path) as f:
+            pending = json.load(f)["replaces"]
+        for tmp, final in pending:
+            # journals store basenames, rejoined to the directory loaded
+            tmp = os.path.join(index_dir, os.path.basename(tmp))
+            final = os.path.join(index_dir, os.path.basename(final))
+            if os.path.exists(tmp):
+                os.replace(tmp, final)
+        _fsync_path(index_dir)
+        os.unlink(journal_path)
+        _fsync_path(index_dir)
+        logger.warning("recovered interrupted compact in %s: rolled the "
+                       "staged commit FORWARD (%d artifacts)",
+                       index_dir, len(pending))
+        return "rolled_forward"
+    # device_bm25.* tmps belong to the lexical-matrix cache builder, which
+    # may be writing concurrently in a sibling process: not compact's
+    stray = [n for n in os.listdir(index_dir)
+             if n.endswith(".tmp") and not n.startswith("device_bm25.")]
+    if stray:
+        for n in stray:
+            os.unlink(os.path.join(index_dir, n))
+        logger.warning("recovered interrupted compact in %s: rolled BACK "
+                       "(removed %d pre-commit tmp files)",
+                       index_dir, len(stray))
+        return "rolled_back"
+    return None
 
 
 def _pack_scores_indices(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -72,6 +135,7 @@ class HybridQueryEngine:
         encoder,
         bm25: Optional[BM25Okapi] = None,
         cfg: RankingConfig = RankingConfig(),
+        texts: Optional[List[str]] = None,
     ) -> None:
         if cfg.lexical_device:
             raise NotImplementedError(
@@ -82,7 +146,17 @@ class HybridQueryEngine:
         self.encoder = encoder
         self.bm25 = bm25
         self.cfg = cfg
+        self.texts = texts
         self._warned_no_bm25 = False
+        # serve-time adds: delta rows take global ids from the main index
+        # size on; compact() folds them into the persisted layout
+        self._delta: Optional[DeltaIndex] = None
+        self._delta_bm25: Optional[DeltaBM25] = None
+        self._index_dir: Optional[str] = None
+        # tombstoned global rows: filtered at query time, dropped by compact
+        self._dead: set = set()
+        # chunk_id -> rows, built lazily for remove_documents
+        self._row_index: Optional[Dict[str, List[int]]] = None
 
     # ------------------------------------------------------------- build/load
     @classmethod
@@ -139,7 +213,10 @@ class HybridQueryEngine:
                       ["chunk_text"])
         index, chunk_ids = load_index(output_dir, mesh=mesh, cfg=index_cfg,
                                       device=device)
-        return cls(index, chunk_ids, encoder, bm25=bm25, cfg=rank_cfg)
+        engine = cls(index, chunk_ids, encoder, bm25=bm25, cfg=rank_cfg,
+                     texts=texts)
+        engine._index_dir = output_dir
+        return engine
 
     @classmethod
     def load(
@@ -152,20 +229,24 @@ class HybridQueryEngine:
         reranker_dir: Optional[str] = None,
         device="cuda",
     ) -> "HybridQueryEngine":
-        """Serve an index directory written by either package."""
+        """Serve an index directory written by either package, first
+        recovering an interrupted :meth:`compact` there."""
         if reranker_dir:
             raise NotImplementedError(
                 "the neural rerank stage is not ported yet: ROADMAP Queue 1")
-        for name, what in ((COMMIT_JOURNAL, "an interrupted compact"),
-                           (TOKENIZER_FILE, "a trained subword tokenizer")):
-            if os.path.exists(os.path.join(index_dir, name)):
-                raise NotImplementedError(
-                    f"{index_dir} holds {what} ({name}), which this package "
-                    "does not read yet: ROADMAP Queue 1")
+        recover_staged_commit(index_dir)
+        if os.path.exists(os.path.join(index_dir, TOKENIZER_FILE)):
+            raise NotImplementedError(
+                f"{index_dir} holds a trained subword tokenizer "
+                f"({TOKENIZER_FILE}), which this package does not read yet: "
+                "ROADMAP Queue 1")
         index, chunk_ids = load_index(index_dir, mesh=mesh, cfg=index_cfg,
                                       device=device)
         bm25_path = os.path.join(index_dir, BM25_FILE)
         bm25 = load_bm25(bm25_path) if os.path.exists(bm25_path) else None
+        texts_path = os.path.join(index_dir, TEXTS_FILE)
+        texts = ([r.get("chunk_text", "") for r in read_tsv(texts_path)]
+                 if os.path.exists(texts_path) else None)
         # a persisted tuned fusion alpha applies unless the caller set one
         fusion_path = os.path.join(index_dir, FUSION_FILE)
         if os.path.exists(fusion_path) and rank_cfg.fusion_alpha is None:
@@ -175,7 +256,179 @@ class HybridQueryEngine:
                 rank_cfg, fusion_alpha=float(persisted["fusion_alpha"]))
             logger.info("using persisted fusion_alpha=%s from %s",
                         rank_cfg.fusion_alpha, fusion_path)
-        return cls(index, chunk_ids, encoder, bm25=bm25, cfg=rank_cfg)
+        engine = cls(index, chunk_ids, encoder, bm25=bm25, cfg=rank_cfg,
+                     texts=texts)
+        engine._index_dir = index_dir
+        return engine
+
+    # ------------------------------------------------- incremental updates
+    def add_documents(
+        self, chunk_ids: Sequence[str], texts: Sequence[str]
+    ) -> None:
+        """Add documents at serve time without rebuilding the index: they
+        are embedded now and land in the delta buffer searched next to the
+        main index; the lexical leg scores them with the main corpus's
+        frozen BM25 statistics. Process-local until :meth:`compact`."""
+        if len(chunk_ids) != len(texts):
+            raise ValueError(f"{len(chunk_ids)} chunk ids vs {len(texts)} "
+                             "texts")
+        if not texts:
+            return
+        emb = np.asarray(self.encoder.encode(list(texts)), np.float32)
+        if self._delta is None:
+            self._delta = DeltaIndex(dim=emb.shape[1],
+                                     device=self.index.device)
+        self._delta.add(emb)
+        if self.bm25 is not None:
+            if self._delta_bm25 is None:
+                self._delta_bm25 = DeltaBM25(self.bm25)
+            self._delta_bm25.add([tokenize(t) for t in texts])
+        self.chunk_ids = list(self.chunk_ids) + list(chunk_ids)
+        self._row_index = None
+        if self.texts is not None:
+            self.texts = list(self.texts) + list(texts)
+
+    def remove_documents(self, chunk_ids: Sequence[str]) -> int:
+        """Tombstone documents by chunk id; returns how many rows matched.
+        Removed rows stop appearing at once (query-time filter with an
+        over-fetch); :meth:`compact` drops them physically."""
+        if self._row_index is None:
+            ri: Dict[str, List[int]] = {}
+            for row, cid in enumerate(self.chunk_ids):
+                ri.setdefault(cid, []).append(row)
+            self._row_index = ri
+        hit = 0
+        for cid in set(chunk_ids):
+            for row in self._row_index.get(cid, ()):
+                if row not in self._dead:
+                    self._dead.add(row)
+                    hit += 1
+        return hit
+
+    def compact(self, output_dir: Optional[str] = None) -> None:
+        """Fold the delta into the persisted layout and reload.
+
+        Rewrites embeddings.f16.npy / ids.tsv / texts.tsv / meta.json /
+        bm25.pkl at ``output_dir`` (default: the directory this engine
+        loaded from) with the live main and delta rows, tombstones dropped
+        and rows renumbered, rebuilds the BM25 statistics over the live
+        corpus, and reloads the dense index. Every artifact is staged as a
+        ``.tmp``, fsynced, and committed by a journal (see
+        :func:`recover_staged_commit`)."""
+        if self._index_dir is None:
+            raise ValueError("compact requires the on-disk index layout (an "
+                             "engine from build or load)")
+        if self.texts is None:
+            raise ValueError("compact requires texts (index built without "
+                             "texts.tsv)")
+        out = output_dir or self._index_dir
+        n_delta = self._delta.n if self._delta is not None else 0
+        base = self.index.size
+        old_emb = np.load(os.path.join(self._index_dir, EMB_FILE),
+                          mmap_mode="r")
+        os.makedirs(out, exist_ok=True)
+        dim = old_emb.shape[1]
+        live_mask = np.ones(base + n_delta, dtype=bool)
+        if self._dead:
+            live_mask[np.fromiter(self._dead, dtype=np.int64)] = False
+        live = np.flatnonzero(live_mask)  # ascending row ids
+        total = int(live.size)
+        emb_tmp = os.path.join(out, EMB_FILE) + ".tmp"
+        mm = np.lib.format.open_memmap(emb_tmp, mode="w+", dtype=np.float16,
+                                       shape=(total, dim))
+        # copy contiguous live runs as bulk slices: O(#tombstones + 1) runs
+        if total:
+            breaks = np.flatnonzero(np.diff(live) != 1) + 1
+            pos = 0
+            for si, ei in zip(np.concatenate([[0], breaks]),
+                              np.concatenate([breaks, [total]])):
+                run_start, run_end = int(live[si]), int(live[ei - 1]) + 1
+                n_run = run_end - run_start
+                n_main = max(0, min(run_end, base) - run_start)
+                if n_main:
+                    mm[pos: pos + n_main] = old_emb[run_start: run_start + n_main]
+                if n_main < n_run:
+                    mm[pos + n_main: pos + n_run] = self._delta._host[
+                        max(run_start, base) - base: run_end - base
+                    ].astype(np.float16)
+                pos += n_run
+        mm.flush()
+        del mm
+        replaces = [(emb_tmp, os.path.join(out, EMB_FILE))]
+        live_texts = [self.texts[i] for i in live]
+
+        # main rows keep their ids.tsv metadata (streamed); delta rows get
+        # empty query/document ids
+        def _id_rows():
+            old_iter = read_tsv(os.path.join(self._index_dir, IDS_FILE))
+            old_row, old = -1, {}
+            for pos, row in enumerate(live):
+                while old_row < row:
+                    old = next(old_iter, None) or {}
+                    old_row += 1
+                main = row < base
+                yield {"row": str(pos), "chunk_id": self.chunk_ids[row],
+                       "query_id": old.get("query_id", "") if main else "",
+                       "document_id": old.get("document_id", "")
+                       if main else ""}
+
+        ids_tmp = os.path.join(out, IDS_FILE) + ".tmp"
+        write_tsv(ids_tmp, _id_rows(),
+                  ["row", "chunk_id", "query_id", "document_id"])
+        replaces.append((ids_tmp, os.path.join(out, IDS_FILE)))
+        texts_tmp = os.path.join(out, TEXTS_FILE) + ".tmp"
+        write_tsv(texts_tmp, ({"chunk_text": t} for t in live_texts),
+                  ["chunk_text"])
+        replaces.append((texts_tmp, os.path.join(out, TEXTS_FILE)))
+        meta = {"rows": total, "dim": dim}
+        old_meta_path = os.path.join(self._index_dir, META_FILE)
+        if os.path.exists(old_meta_path):
+            with open(old_meta_path) as f:
+                meta = {**json.load(f), **meta}
+        meta_tmp = os.path.join(out, META_FILE) + ".tmp"
+        with open(meta_tmp, "w") as f:
+            json.dump(meta, f)
+        replaces.append((meta_tmp, os.path.join(out, META_FILE)))
+        self.bm25 = BM25Okapi(
+            [tokenize(t) for t in live_texts],
+            k1=self.cfg.bm25_k1, b=self.cfg.bm25_b,
+            epsilon=self.cfg.bm25_epsilon,
+        )
+        bm_tmp = os.path.join(out, BM25_FILE) + ".tmp"
+        with open(bm_tmp, "wb") as f:
+            pickle.dump(self.bm25, f)
+        replaces.append((bm_tmp, os.path.join(out, BM25_FILE)))
+        # durability: fsync every staged file, then write the journal (the
+        # commit point), rename, and clean up
+        for tmp, _ in replaces:
+            _fsync_path(tmp)
+        journal_path = os.path.join(out, COMMIT_JOURNAL)
+        journal_tmp = journal_path + ".tmp"  # .tmp: swept by a roll-back
+        with open(journal_tmp, "w") as f:
+            json.dump({"replaces": [
+                [os.path.basename(t), os.path.basename(fn)]
+                for t, fn in replaces
+            ]}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(journal_tmp, journal_path)
+        _fsync_path(out)
+        for tmp, final in replaces:
+            os.replace(tmp, final)
+        _fsync_path(out)
+        os.unlink(journal_path)
+        _fsync_path(out)
+        self.texts = live_texts
+        idx_cfg, device = self.index.cfg, self.index.device
+        # release the old device corpus before loading the compacted one
+        self.index = None
+        self.index, self.chunk_ids = load_index(out, cfg=idx_cfg,
+                                                device=device)
+        self._delta = None
+        self._delta_bm25 = None
+        self._dead = set()
+        self._row_index = None
+        self._index_dir = out
 
     # ------------------------------------------------------------------ query
     def search(
@@ -236,6 +489,11 @@ class HybridQueryEngine:
         result packing), then run the host BM25 leg while the card
         computes. No result is fetched here."""
         depth = candidates or max(4 * k, 20)
+        # tombstones: over-fetch so the filtered lists stay full while the
+        # tombstones are few; bucketed to 64s as in the JAX package
+        fetch = depth
+        if self._dead:
+            fetch = depth + ((len(self._dead) + 63) // 64) * 64
         use_bm25 = hybrid and self.bm25 is not None
         if hybrid and self.bm25 is None and not self._warned_no_bm25:
             logger.warning(
@@ -245,41 +503,72 @@ class HybridQueryEngine:
         q_tokens = [tokenize(q) for q in queries] if use_bm25 else None
         q_emb = self.encoder.encode_device(list(queries))
         dense_packed = _pack_scores_indices(*self.index.search_device(
-            q_emb, k=min(depth, self.index.size)))
-        bm_host = None
+            q_emb, k=min(fetch, self.index.size)))
+        # serve-time adds: the delta buffer, merged by score in _leg_lists
+        n_delta = self._delta.n if self._delta is not None else 0
+        delta = self._delta.search(q_emb, min(fetch, n_delta)) if n_delta \
+            else None
+        bm_host = delta_lex = None
         if use_bm25:
             bm_host = self.bm25.get_topk_batch(
-                q_tokens, min(depth, self.index.size),
+                q_tokens, min(fetch, self.index.size),
                 n_threads=self.cfg.resolved_bm25_threads())
+            if n_delta and self._delta_bm25 is not None:
+                delta_lex = self._delta_bm25.score(q_tokens)
         return {
             "queries": queries,
             "depth": depth,
+            "use_bm25": use_bm25,
+            "base": self.index.size,
             "dense_packed": dense_packed,
+            "delta": delta,
             "bm_host": bm_host,
+            "delta_lex": delta_lex,
         }
 
     def _leg_lists(
         self, state: Dict
     ) -> Tuple[List[List[Tuple[float, int]]],
                Optional[List[List[Tuple[float, int]]]]]:
-        """Fetch the dense leg and build per-query (score, row) lists,
-        truncated to the search depth. The lexical lists keep positive
-        scores only; the second element is None for dense-only searches."""
+        """Fetch the dense leg and build per-query (score, row) lists:
+        delta-merged, tombstone-filtered, truncated to the search depth,
+        by descending score. The lexical lists keep positive scores only;
+        the second element is None for dense-only searches. Shared by
+        ``_finish_legs`` and ``tune_fusion``."""
         depth = state["depth"]
+        base = state["base"]
         dense = _unpack_scores_indices(state["dense_packed"].cpu().numpy())
-        dense_lists = [
-            [(float(s), int(r)) for s, r in zip(dense.scores[qi],
-                                                dense.indices[qi])][:depth]
-            for qi in range(len(state["queries"]))
-        ]
-        if state["bm_host"] is None:
-            return dense_lists, None
-        bm_idx, bm_scores = state["bm_host"]
-        lex_lists = [
-            [(float(sc), int(row)) for row, sc in zip(bm_idx[qi], bm_scores[qi])
-             if sc > 0][:depth]
-            for qi in range(len(state["queries"]))
-        ]
+        dense_lists: List[List[Tuple[float, int]]] = []
+        lex_lists: Optional[List[List[Tuple[float, int]]]] = (
+            [] if state["use_bm25"] else None)
+        for qi in range(len(state["queries"])):
+            dense_list = list(zip(dense.scores[qi].tolist(),
+                                  dense.indices[qi].tolist()))
+            if state["delta"] is not None:
+                # entries past the delta's live count come back at NEG_INF
+                dv, di = state["delta"]
+                dense_list += [(v, base + j) for v, j in
+                               zip(dv[qi].tolist(), di[qi].tolist())
+                               if v > -1e29]
+                dense_list.sort(key=lambda sr: (-sr[0], sr[1]))
+            if self._dead:
+                dense_list = [sr for sr in dense_list
+                              if sr[1] not in self._dead]
+            dense_lists.append(dense_list[:depth])
+            if lex_lists is None:
+                continue
+            bm_idx, bm_scores = state["bm_host"]
+            lex_list = [(float(sc), int(row))
+                        for row, sc in zip(bm_idx[qi], bm_scores[qi])
+                        if sc > 0]
+            if state["delta_lex"] is not None:
+                dl = state["delta_lex"][qi]
+                lex_list += [(float(dl[j]), base + int(j))
+                             for j in np.flatnonzero(dl > 0)]
+                lex_list.sort(key=lambda sr: (-sr[0], sr[1]))
+            if self._dead:
+                lex_list = [sr for sr in lex_list if sr[1] not in self._dead]
+            lex_lists.append(lex_list[:depth])
         return dense_lists, lex_lists
 
     def _finish_legs(self, state: Dict, k: int, rerank_top: int
@@ -311,3 +600,60 @@ class HybridQueryEngine:
                 for row, score in ranked
             ])
         return per_query
+
+    def tune_fusion(
+        self,
+        queries: Sequence[str],
+        relevant_ids: Sequence[Sequence[str]],
+        candidates: Optional[int] = None,
+        grid: Optional[Sequence[float]] = None,
+    ) -> Tuple[float, float, Dict[float, float]]:
+        """Grid-search the weighted-RRF mixing alpha on a labeled
+        validation split against the live engine legs: one dispatch of the
+        whole split, then every alpha re-fuses the fetched rank lists on the
+        host.
+
+        ``relevant_ids[i]`` are the chunk_ids relevant to ``queries[i]``.
+        Returns ``(best_alpha, best_map, {alpha: map})``; relevant chunks
+        missing from both legs' pools count as unretrieved (they divide the
+        AP denominator). Ties break toward 0.5, the unweighted fusion.
+        Persist the result as ``fusion.json`` beside the index
+        (``{"fusion_alpha": best}``) and :meth:`load` applies it."""
+        from ..train.fusion import DEFAULT_GRID
+
+        if len(queries) != len(relevant_ids):
+            raise ValueError(
+                f"{len(queries)} queries vs {len(relevant_ids)} label rows")
+        state = self._dispatch_legs(list(queries), k=10,
+                                    candidates=candidates, hybrid=True)
+        if not state["use_bm25"]:
+            raise ValueError(
+                "tune_fusion needs a hybrid index (build with --bm25)")
+        dense_lists, lex_lists = self._leg_lists(state)
+        id_to_row = {cid: row for row, cid in enumerate(self.chunk_ids)}
+        rel_rows = [
+            {id_to_row[str(c)] for c in rel if str(c) in id_to_row}
+            for rel in relevant_ids
+        ]
+        rrf_k = self.cfg.rrf_k
+        table: Dict[float, float] = {}
+        for alpha in (grid if grid is not None else DEFAULT_GRID):
+            w_dense, w_lex = rrf_weights(float(alpha))
+            aps = []
+            for qi in range(len(queries)):
+                rrf: Dict[int, float] = {}
+                for rank, (_, row) in enumerate(dense_lists[qi], start=1):
+                    rrf[row] = rrf.get(row, 0.0) + w_dense / (rrf_k + rank)
+                for rank, (_, row) in enumerate(lex_lists[qi], start=1):
+                    rrf[row] = rrf.get(row, 0.0) + w_lex / (rrf_k + rank)
+                ranked = sorted(rrf.items(), key=lambda kv: (-kv[1], kv[0]))
+                hits = 0
+                ap = 0.0
+                for pos, (row, _) in enumerate(ranked, start=1):
+                    if row in rel_rows[qi]:
+                        hits += 1
+                        ap += hits / pos
+                aps.append(ap / max(1, len(rel_rows[qi])))
+            table[float(alpha)] = float(np.mean(aps)) if aps else 0.0
+        best = max(table, key=lambda a: (table[a], -abs(a - 0.5)))
+        return best, table[best], table

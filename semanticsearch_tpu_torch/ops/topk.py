@@ -1,15 +1,20 @@
 """Exact inner-product top-k over a corpus embedding matrix.
 
-Counterpart of ``semanticsearch_tpu/ops/topk.py``. The serve path's top-k
-(k < 128) is the two-pass search of :func:`topk_scores_twopass`:
+Counterpart of ``semanticsearch_tpu/ops/topk.py``. Two searches run on
+hand-written Hopper kernels for CUDA tensors, and on their plain versions
+for CPU tensors:
 
-* pass A, :func:`segtopk_pass_a`, scores every query against the whole
-  corpus and keeps, per query, the ``k_sel`` best SEGMENTS by their maximum
-  score, a segment being ``L2`` consecutive rows. On a CUDA tensor it runs
-  the hand-written Hopper kernel ``csrc/segtopk.cu``; on a CPU tensor its
-  plain version :func:`segtopk_pass_a_plain`.
-* pass B gathers the candidate segments' rows and rescores them exactly
-  (plain torch, as it was plain XLA in the JAX package).
+* the two-pass search of :func:`topk_scores_twopass` (k < 128). Pass A,
+  :func:`segtopk_pass_a`, scores every query against the whole corpus and
+  keeps, per query, the ``k_sel`` best SEGMENTS by their maximum score, a
+  segment being ``L2`` consecutive rows (``csrc/segtopk.cu``, with an int8
+  variant, :func:`segtopk_pass_a_int8`, and an overlap schedule,
+  :func:`segtopk_pass_a_overlap`). Pass B gathers the candidate segments'
+  rows and rescores them exactly (plain torch, as it was plain XLA in the
+  JAX package).
+* the fused top-k of :func:`topk_scores_fused` (any k up to
+  :data:`FUSED_MAX_K`): one pass that keeps an exact running top-k per query
+  (``csrc/topk_fused.cu``), the counterpart of ``topk_scores_pallas``.
 
 The true top-k rows lie in the top-k segments by maximum: were a top-k row's
 segment ranked below k, k segments would each hold a row scoring at least as
@@ -22,7 +27,7 @@ natural row-major layout (segment ``s`` is rows ``[s*L2, (s+1)*L2)``), so an
 index holds one copy of its corpus. ``swizzle_corpus`` stays for callers
 that hold the swizzled layout.
 
-Ties follow the JAX package: :func:`topk_scores_ref` and
+Ties follow the JAX package: :func:`topk_scores_ref`, the fused search and
 :func:`topk_scores_chunked` keep the lower row id; the two-pass search keeps
 the candidate that comes first in pass A's order (segment maximum
 descending, segment id ascending), as ``jax.lax.top_k`` does. ``torch.topk``
@@ -31,6 +36,7 @@ gives no order among equals, so every selection here is a stable sort.
 from __future__ import annotations
 
 import ctypes
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -41,8 +47,14 @@ NEG_INF = -1e30
 _LANE = 128
 # queries per two-pass call; larger batches run in chunks of this size
 _MAX_TWOPASS_Q = 32768
-# launches of the pass-A kernel (csrc/segtopk.cu) in this process
+# the fused kernel keeps k up to this (csrc/topk_fused.cu, MAX_K)
+FUSED_MAX_K = 2048
+# launches of each kernel in this process: pass A (csrc/segtopk.cu) in its
+# three schedules, and the fused top-k (csrc/topk_fused.cu)
 SEGTOPK_LAUNCHES = 0
+SEGTOPK_OVERLAP_LAUNCHES = 0
+SEGTOPK_INT8_LAUNCHES = 0
+TOPK_FUSED_LAUNCHES = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -204,6 +216,21 @@ def topk_scores_chunked(
     return vals, idx.to(torch.int32)
 
 
+def _on_card(what: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors on one device, False for CPU tensors; raises
+    on a mix."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return False
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{what}: tensors on {sorted(map(str, devs))}")
+    return True
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 # ------------------------------------------------------------------- pass A
 
 def segtopk_pass_a_plain(
@@ -243,27 +270,40 @@ def segtopk_pass_a_plain(
     return out_v, out_i
 
 
-def segtopk_pass_a(
+def segtopk_pass_a_int8_plain(
     queries: torch.Tensor, corpus: torch.Tensor, n: int, seg_rows: int,
     k_sel: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass A of the two-pass top-k; same contract as
-    :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
-    tensors it launches ``csrc/segtopk.cu`` (bf16 operands) or raises."""
-    global SEGTOPK_LAUNCHES
-    if queries.device.type == "cpu" and corpus.device.type == "cpu":
-        return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
-    if queries.device.type != "cuda" or corpus.device != queries.device:
-        raise ValueError(f"segtopk_pass_a: queries on {queries.device}, "
-                         f"corpus on {corpus.device}")
-    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
+    """Plain int8 pass A: :func:`segtopk_pass_a_plain` on int8 operands.
+    Their products, summed in f32, are exact integers while 127*127*D stays
+    below 2^24 (D < 1040), so the segment maxima equal the int32 maxima of
+    the JAX kernel converted to f32."""
+    if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
+        raise ValueError(f"int8 pass A takes int8 operands, got "
+                         f"{queries.dtype} and {corpus.dtype}")
+    return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
+
+
+# schedules of csrc/segtopk.cu: (mode, operand dtype, vector width)
+_PASS_A_MODES = {"bf16": (0, torch.bfloat16, 8),
+                 "overlap": (1, torch.bfloat16, 8),
+                 "int8": (2, torch.int8, 16)}
+
+
+def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
+                   n: int, seg_rows: int, k_sel: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one schedule of ``csrc/segtopk.cu`` on CUDA tensors, or
+    raise."""
+    mode, dtype, vec = _PASS_A_MODES[schedule]
+    if queries.dtype != dtype or corpus.dtype != dtype:
         raise NotImplementedError(
-            f"the pass-A kernel takes bfloat16 operands, got {queries.dtype} "
-            f"and {corpus.dtype}")
+            f"the {schedule} pass-A kernel takes {dtype} operands, got "
+            f"{queries.dtype} and {corpus.dtype}")
     q, d = queries.shape
-    if corpus.shape[1] != d or d % 8:
-        raise ValueError(f"pass A needs matching widths that are multiples "
-                         f"of 8, got {d} and {corpus.shape[1]}")
+    if corpus.shape[1] != d or d % vec:
+        raise ValueError(f"pass A ({schedule}) needs matching widths that are "
+                         f"multiples of {vec}, got {d} and {corpus.shape[1]}")
     if not (_LANE % seg_rows == 0 or seg_rows % _LANE == 0):
         raise ValueError(f"pass A needs segment rows dividing or divided by "
                          f"128, got {seg_rows}")
@@ -275,27 +315,168 @@ def segtopk_pass_a(
     n_segs = -(-n // seg_rows)
     n_qtiles = -(-q // 64)
     n_units = -(-(n_segs * seg_rows) // max(_LANE, seg_rows))
-    sms = torch.cuda.get_device_properties(queries.device).multi_processor_count
-    n_splits = max(1, min(n_units, -(-4 * sms // n_qtiles)))
     dev = queries.device
+    n_splits = max(1, min(n_units, -(-4 * _sm_count(dev) // n_qtiles)))
     part_v = torch.empty((n_splits, q, k_sel), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, q, k_sel), dtype=torch.int32, device=dev)
     out_v = torch.empty((q, k_sel), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k_sel), dtype=torch.int32, device=dev)
-    lib = _build.load("segtopk")
-    fn = lib.segtopk_pass_a
+    fn = _build.load("segtopk").segtopk_pass_a
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     status = fn(queries.data_ptr(), corpus.data_ptr(), part_v.data_ptr(),
                 part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                q, n, d, seg_rows, n_segs, k_sel, n_splits,
+                q, n, d, seg_rows, n_segs, k_sel, n_splits, mode,
                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "segtopk_pass_a")
-    SEGTOPK_LAUNCHES += 1
+    _build.check(status, f"segtopk_pass_a ({schedule})")
     return out_v, out_i
 
 
+def segtopk_pass_a(
+    queries: torch.Tensor, corpus: torch.Tensor, n: int, seg_rows: int,
+    k_sel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass A of the two-pass top-k; same contract as
+    :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
+    tensors it launches ``csrc/segtopk.cu`` (bf16 operands) or raises."""
+    global SEGTOPK_LAUNCHES
+    if not _on_card("segtopk_pass_a", queries, corpus):
+        return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
+    out = _launch_pass_a("bf16", queries, corpus, n, seg_rows, k_sel)
+    SEGTOPK_LAUNCHES += 1
+    return out
+
+
+def segtopk_pass_a_overlap(
+    queries: torch.Tensor, corpus: torch.Tensor, n: int, seg_rows: int,
+    k_sel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass A in the overlap schedule (``_segtopk_kernel_overlap``):
+    bit-identical to :func:`segtopk_pass_a`. For CPU tensors it runs
+    :func:`segtopk_pass_a_plain`; for CUDA tensors it launches the overlap
+    schedule of ``csrc/segtopk.cu`` (bf16 operands) or raises."""
+    global SEGTOPK_OVERLAP_LAUNCHES
+    if not _on_card("segtopk_pass_a_overlap", queries, corpus):
+        return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
+    out = _launch_pass_a("overlap", queries, corpus, n, seg_rows, k_sel)
+    SEGTOPK_OVERLAP_LAUNCHES += 1
+    return out
+
+
+def segtopk_pass_a_int8(
+    queries: torch.Tensor, corpus: torch.Tensor, n: int, seg_rows: int,
+    k_sel: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass A on int8 operands (the JAX kernel's int8 mode). For CPU
+    tensors it runs :func:`segtopk_pass_a_int8_plain`; for CUDA tensors it
+    launches the int8 schedule of ``csrc/segtopk.cu`` or raises."""
+    global SEGTOPK_INT8_LAUNCHES
+    if not _on_card("segtopk_pass_a_int8", queries, corpus):
+        return segtopk_pass_a_int8_plain(queries, corpus, n, seg_rows, k_sel)
+    out = _launch_pass_a("int8", queries, corpus, n, seg_rows, k_sel)
+    SEGTOPK_INT8_LAUNCHES += 1
+    return out
+
+
+# ------------------------------------------------------------ fused top-k
+
+def topk_scores_fused_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int, valid_n: int = -1,
+    block_n: int = 65536,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain fused top-k: (values f32, row ids int32), both (Q, k), ordered
+    by value descending then row ascending; rows at or past ``valid_n``
+    never appear, and slots past the real rows hold (NEG_INF, 0)."""
+    vn = corpus.shape[0] if valid_n < 0 else valid_n
+    return topk_scores_ref(queries, corpus[:vn], k=k, block_n=block_n)
+
+
+def topk_scores_fused(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int, valid_n: int = -1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k for any k up to :data:`FUSED_MAX_K`; the contract of
+    :func:`topk_scores_fused_plain`, which it runs for CPU tensors. For
+    CUDA tensors it launches ``csrc/topk_fused.cu`` (bf16 operands) or
+    raises."""
+    global TOPK_FUSED_LAUNCHES
+    if not 0 < k <= FUSED_MAX_K:
+        raise ValueError(f"the fused top-k supports 1 <= k <= {FUSED_MAX_K} "
+                         f"(FUSED_MAX_K), got k={k}")
+    vn = corpus.shape[0] if valid_n < 0 else valid_n
+    if not 0 <= vn <= corpus.shape[0]:
+        raise ValueError(f"valid_n={valid_n} outside the corpus's "
+                         f"{corpus.shape[0]} rows")
+    if not _on_card("topk_scores_fused", queries, corpus):
+        return topk_scores_fused_plain(queries, corpus, k, vn)
+    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the fused top-k kernel takes bfloat16 operands, got "
+            f"{queries.dtype} and {corpus.dtype}")
+    q, d = queries.shape
+    if corpus.shape[1] != d or d % 8:
+        raise ValueError(f"the fused top-k needs matching widths that are "
+                         f"multiples of 8, got {d} and {corpus.shape[1]}")
+    queries = queries.contiguous()
+    corpus = corpus.contiguous()
+    dev = queries.device
+    n_qtiles = -(-q // 64)
+    n_tiles = -(-vn // 128)
+    # fill the SMs, but give every split at least 4k rows: a split's list
+    # costs k slots per query however few rows it holds
+    n_splits = max(1, min(n_tiles, -(-4 * _sm_count(dev) // n_qtiles),
+                          vn // (4 * k)))
+    list_v = torch.empty((n_splits, q, k), dtype=torch.float32, device=dev)
+    list_i = torch.empty((n_splits, q, k), dtype=torch.int32, device=dev)
+    out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    fn = _build.load("topk_fused").topk_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    status = fn(queries.data_ptr(), corpus.data_ptr(), list_v.data_ptr(),
+                list_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                q, vn, d, k, n_splits, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "topk_fused")
+    TOPK_FUSED_LAUNCHES += 1
+    return out_v, out_i
+
+
+def topk_scores_pallas(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int = 10,
+    block_q: int = 128,
+    block_n: int = 1024,
+    interpret: bool = False,
+    segmented: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner-product search: (values, indices), each (Q, k).
+    The JAX signature; ``block_q``, ``block_n``, ``interpret`` and
+    ``segmented`` have no role here (the Hopper kernel picks its own tiles;
+    a CPU tensor takes the plain version). Runs :func:`topk_scores_fused`."""
+    del block_q, block_n, interpret, segmented
+    return topk_scores_fused(queries, corpus, k)
+
+
+def topk_scores(
+    queries: torch.Tensor, corpus: torch.Tensor, k: int = 10, **kw
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch: the fused kernel for CUDA tensors, the reference scan for
+    CPU tensors."""
+    if queries.device.type == "cuda":
+        return topk_scores_pallas(queries, corpus, k=k, **kw)
+    return topk_scores_ref(queries, corpus, k=k)
+
+
 # -------------------------------------------------------------- two-pass top-k
+
+def _quantize_rows_int8(queries: torch.Tensor) -> torch.Tensor:
+    """Per-row symmetric int8, the scale taken in the queries' own dtype
+    as the JAX package does, rounding half to even."""
+    sq = torch.clamp(queries.abs().amax(dim=1, keepdim=True) / 127.0,
+                     min=1e-12)
+    return torch.clamp(torch.round(queries.float() / sq.float()),
+                       -127, 127).to(torch.int8)
+
 
 def topk_scores_twopass(
     queries: torch.Tensor,
@@ -323,17 +504,22 @@ def topk_scores_twopass(
     role here (the Hopper kernel picks its own tiles; a CPU tensor takes
     the plain pass A). ``gather_from_swizzled=True`` passes the swizzled
     layout as ``corpus`` with the true row count as ``valid_n``; it is read
-    back into natural order once. ``mxu_overlap`` and ``pass_a_int8`` are
-    kernels not ported yet (ROADMAP)."""
+    back into natural order once.
+
+    ``mxu_overlap=True`` runs pass A in the overlap schedule
+    (:func:`segtopk_pass_a_overlap`, bit-identical results).
+    ``pass_a_int8=True`` runs pass A on int8 operands
+    (:func:`segtopk_pass_a_int8`): the corpus quantized once with one
+    global scale (or ``corpus_swizzled_q8``, a prequantized swizzled copy,
+    read back into natural order once), each query row on the fly. Segment
+    selection then carries the quantization noise, covered by
+    ``k_sel_extra`` extra segments (default 5 in this mode); pass B
+    rescores exactly either way, so the mode is statistically exact."""
     del block_q, interpret
     assert k < _LANE, f"segment top-k supports k < {_LANE}, got {k}"
-    if mxu_overlap:
-        raise NotImplementedError(
-            "mxu_overlap (_segtopk_kernel_overlap) is not ported yet: "
-            "ROADMAP Queue 2")
-    if pass_a_int8 or corpus_swizzled_q8 is not None:
-        raise NotImplementedError(
-            "pass_a_int8 (the int8 pass A) is not ported yet: ROADMAP Queue 2")
+    assert not (pass_a_int8 and mxu_overlap), (
+        "pass_a_int8 and mxu_overlap are mutually exclusive (the overlap "
+        "kernel was a measured dead end; it has no int8 variant)")
     if gather_from_swizzled:
         assert valid_n >= 0, (
             "gather_from_swizzled=True requires valid_n (the true corpus "
@@ -359,23 +545,58 @@ def topk_scores_twopass(
             "with a different block_n (swizzle_corpus and "
             "topk_scores_twopass must use the same value)"
         )
-    if q > _MAX_TWOPASS_Q:
-        parts = [
-            topk_scores_twopass(
-                queries[s: s + _MAX_TWOPASS_Q], corpus, k=k, block_n=block_n,
-                q_chunk=q_chunk, valid_n=n, seg_split=seg_split,
-                k_sel_extra=k_sel_extra)
-            for s in range(0, q, _MAX_TWOPASS_Q)
-        ]
-        return (torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]))
-    queries = queries.to(corpus.dtype)
     L2 = L // seg_split  # rows per (fine) segment
+    if pass_a_int8 and k_sel_extra == 0:
+        k_sel_extra = 5  # noise margin: host sim covers 100% at +3
     k_sel = min(k + 1 + k_sel_extra, _LANE)
-    _, seg_ids = segtopk_pass_a(queries, corpus, n, L2, k_sel)
+    if pass_a_int8:
+        # the statistical-exactness contract must degrade loudly
+        if k + 1 + k_sel_extra > _LANE:
+            warnings.warn(
+                f"pass_a_int8: k_sel clamped to the {_LANE}-lane scratch "
+                f"(k={k}, k_sel_extra={k_sel_extra}) — the int8 noise margin "
+                f"shrinks to {_LANE - 1 - k} segments; recall may drop "
+                "below the host-simulated coverage", stacklevel=2)
+        if d >= 1040:
+            warnings.warn(
+                f"pass_a_int8: d={d} >= 1040 — the int32 segment max can "
+                "exceed 2^24 (127*127*d) and its f32 conversion is no "
+                "longer exact; segment ordering may perturb selection",
+                stacklevel=2)
+        if corpus_swizzled_q8 is not None:
+            assert corpus_swizzled_q8.dtype == torch.int8
+            corpus_q8 = _unswizzle(corpus_swizzled_q8, block_n)
+        else:
+            src = corpus_swizzled if (corpus_swizzled is not None
+                                      and not gather_from_swizzled) else corpus
+            corpus_q8, _ = quantize_int8_global(src)
+            if src is corpus_swizzled:
+                corpus_q8 = _unswizzle(corpus_q8, block_n)
 
-    # ---- pass B: candidate gather + exact rescore ----
-    # ids < 0 are the "fewer than k_sel real segments" placeholders
+    out_v, out_i = [], []
+    for s in range(0, max(q, 1), _MAX_TWOPASS_Q):
+        qs = queries[s: s + _MAX_TWOPASS_Q]
+        if pass_a_int8:
+            _, seg_ids = segtopk_pass_a_int8(_quantize_rows_int8(qs),
+                                             corpus_q8, n, L2, k_sel)
+        else:
+            pass_a = segtopk_pass_a_overlap if mxu_overlap else segtopk_pass_a
+            _, seg_ids = pass_a(qs.to(corpus.dtype), corpus, n, L2, k_sel)
+        v, i = _pass_b(qs.to(corpus.dtype), corpus, seg_ids, n, L2, k,
+                       q_chunk)
+        out_v.append(v)
+        out_i.append(i)
+    if len(out_v) == 1:
+        return out_v[0], out_i[0]
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def _pass_b(queries: torch.Tensor, corpus: torch.Tensor,
+            seg_ids: torch.Tensor, n: int, L2: int, k: int, q_chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather every candidate segment's rows and rescore them exactly;
+    ids < 0 are pass A's "fewer than k_sel real segments" placeholders."""
+    q, k_sel = seg_ids.shape
     seg_ids = seg_ids.long()
     j_off = torch.arange(L2, device=queries.device)
     cand_rows = (seg_ids.clamp(min=0)[:, :, None] * L2 + j_off).reshape(q, -1)

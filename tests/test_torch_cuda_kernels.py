@@ -5,10 +5,10 @@ needed there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Pass A runs on integer-valued bf16 inputs, whose dot products are exact in
-f32 whatever the summation order, so kernel and plain version must agree
-bit for bit. Flash attention runs in bf16/fp16 against the f32 plain math,
-to atol 1e-2 (a few half-precision ulps at the outputs' scale)."""
+Pass A (all three schedules) and the fused top-k run on integer-valued
+bf16 or int8 inputs, whose dot products are exact in f32 whatever the
+summation order, so kernel and plain version must agree bit for bit.
+Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2 (a few half-precision ulps at the outputs' scale)."""
 import numpy as np
 import pytest
 import torch
@@ -27,20 +27,27 @@ def dev():
     return torch.device("cuda")
 
 
-def _grid(shape, seed, dev):
+def _grid(shape, seed, dev, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(-127, 128, shape, generator=g, device=dev,
-                         dtype=torch.int16).to(torch.bfloat16)
+                         dtype=torch.int16).to(dtype)
 
 
-@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", [
+PASS_A_CASES = [
     (64, 4096, 384, 32, 11),     # whole tiles
     (200, 20011, 384, 32, 41),   # ragged corpus and query tiles
     (5, 300, 384, 32, 41),       # fewer segments than k_sel: placeholders
     (70, 5000, 384, 256, 41),    # segments spanning several tiles
     (33, 1000, 128, 1, 11),      # one-row segments
     (17, 3000, 72, 8, 20),       # width not a multiple of the K chunk
-])
+]
+# the int8 schedule copies 16 int8 columns at a time: widths are multiples
+# of 16, so the same layouts with the width rounded up
+PASS_A_INT8_CASES = [(q, n, -(-d // 16) * 16, seg_rows, k_sel)
+                     for q, n, d, seg_rows, k_sel in PASS_A_CASES]
+
+
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", PASS_A_CASES)
 def test_segtopk_kernel_matches_plain(dev, q, n, d, seg_rows, k_sel):
     Q, C = _grid((q, d), 1, dev), _grid((n, d), 2, dev)
     launches = topk.SEGTOPK_LAUNCHES
@@ -50,6 +57,82 @@ def test_segtopk_kernel_matches_plain(dev, q, n, d, seg_rows, k_sel):
     assert topk.SEGTOPK_LAUNCHES == launches + 1
     assert torch.equal(ki, pi)
     assert torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", PASS_A_CASES)
+def test_segtopk_overlap_is_bit_identical(dev, q, n, d, seg_rows, k_sel):
+    Q, C = _grid((q, d), 3, dev), _grid((n, d), 4, dev)
+    launches = topk.SEGTOPK_OVERLAP_LAUNCHES
+    ov, oi = topk.segtopk_pass_a_overlap(Q, C, n, seg_rows, k_sel)
+    kv, ki = topk.segtopk_pass_a(Q, C, n, seg_rows, k_sel)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, n, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    assert topk.SEGTOPK_OVERLAP_LAUNCHES == launches + 1
+    assert torch.equal(oi, ki) and torch.equal(ov, kv)
+    assert torch.equal(oi, pi) and torch.equal(ov, pv)
+
+
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", PASS_A_INT8_CASES)
+def test_segtopk_int8_kernel_matches_plain(dev, q, n, d, seg_rows, k_sel):
+    Q, C = _grid((q, d), 5, dev, torch.int8), _grid((n, d), 6, dev, torch.int8)
+    launches = topk.SEGTOPK_INT8_LAUNCHES
+    kv, ki = topk.segtopk_pass_a_int8(Q, C, n, seg_rows, k_sel)
+    pv, pi = topk.segtopk_pass_a_int8_plain(Q, C, n, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    assert topk.SEGTOPK_INT8_LAUNCHES == launches + 1
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
+def test_segtopk_int8_refuses_width_not_multiple_of_16(dev):
+    Q, C = _grid((17, 72), 5, dev, torch.int8), _grid((3000, 72), 6, dev,
+                                                      torch.int8)
+    launches = topk.SEGTOPK_INT8_LAUNCHES
+    with pytest.raises(ValueError, match="multiples of 16"):
+        topk.segtopk_pass_a_int8(Q, C, 3000, 8, 20)
+    assert topk.SEGTOPK_INT8_LAUNCHES == launches
+
+
+@pytest.mark.parametrize("q,n,d,k,valid_n", [
+    (64, 4096, 384, 128, -1),    # whole tiles
+    (200, 20011, 384, 200, -1),  # ragged corpus and query tiles
+    (33, 1000, 128, 129, 900),   # rows past valid_n never appear
+    (5, 300, 384, 500, -1),      # k > rows: (-1e30, 0) tail
+    (70, 50000, 384, 2048, -1),  # the largest k
+    (9, 3000, 80, 300, -1),      # width not a multiple of the K chunk
+    (9, 3000, 72, 300, -1),      # ... nor of the 16-wide MMA step
+])
+def test_topk_fused_kernel_matches_plain(dev, q, n, d, k, valid_n):
+    Q, C = _grid((q, d), 7, dev), _grid((n, d), 8, dev)
+    launches = topk.TOPK_FUSED_LAUNCHES
+    kv, ki = topk.topk_scores_fused(Q, C, k, valid_n=valid_n)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, k, valid_n=valid_n)
+    torch.cuda.synchronize()
+    assert topk.TOPK_FUSED_LAUNCHES == launches + 1
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
+def test_topk_fused_ties_across_splits(dev):
+    """Duplicate rows far apart land in different corpus splits; equal
+    scores must come out in ascending row order."""
+    base = _grid((40, 128), 9, dev)
+    C = torch.cat([base] * 250)  # 10,000 rows, each value 250 times
+    Q = base[:3]
+    kv, ki = topk.topk_scores_fused(Q, C, 700)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, 700)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+def test_twopass_int8_and_overlap_paths_match_cpu(dev):
+    Q, C = _grid((300, 384), 10, dev), _grid((50000, 384), 11, dev)
+    for kw in ({"pass_a_int8": True}, {"mxu_overlap": True}):
+        kv, ki = topk.topk_scores_twopass(Q, C, k=40, block_n=16384,
+                                          seg_split=4, **kw)
+        pv, pi = topk.topk_scores_twopass(Q.cpu(), C.cpu(), k=40,
+                                          block_n=16384, seg_split=4, **kw)
+        assert torch.equal(ki.cpu(), pi), kw
+        assert torch.equal(kv.cpu(), pv), kw
 
 
 def test_twopass_kernel_path_matches_plain_path(dev):
@@ -94,6 +177,12 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     x = torch.zeros((4, 64), device=dev)  # float32: no kernel takes it
     with pytest.raises(NotImplementedError):
         topk.segtopk_pass_a(x, x, 4, 1, 2)
+    with pytest.raises(NotImplementedError):
+        topk.topk_scores_fused(x, x, 2)
+    with pytest.raises(NotImplementedError):
+        topk.segtopk_pass_a_int8(x.bfloat16(), x.bfloat16(), 4, 1, 2)
+    with pytest.raises(ValueError, match="2048"):
+        topk.topk_scores_fused(x.bfloat16(), x.bfloat16(), 2049)
     y = torch.zeros((1, 1, 64, 32), device=dev)
     with pytest.raises(NotImplementedError):
         fa.flash_attention(y, y, y, torch.ones((1, 64), device=dev))

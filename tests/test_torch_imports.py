@@ -26,7 +26,8 @@ def test_port_has_the_slice_modules():
                  "models.tokenizer", "models.encoder", "models.convert",
                  "ops._build", "ops.topk", "ops.flash_attention",
                  "index.engine", "index.bm25", "index.rrf", "index.builder",
-                 "index.query_engine"):
+                 "index.query_engine", "index.delta", "train.metrics",
+                 "train.fusion"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 

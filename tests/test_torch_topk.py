@@ -1,10 +1,13 @@
 """The port's top-k ops against the JAX package's, on the same numpy inputs.
 
 Two-pass search: the port's plain pass A plus pass B against JAX
-``topk_scores_twopass(interpret=True)`` on the cases of test_ops_topk.py.
+``topk_scores_twopass(interpret=True)`` on the cases of test_ops_topk.py,
+in the default, overlap (``mxu_overlap``) and int8 (``pass_a_int8``) modes.
 Indices must be equal, tie order included; values agree to 1e-4, the
 tolerance the JAX tests use.
 """
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,9 +122,9 @@ def test_twopass_guards():
     with pytest.raises(AssertionError):
         ttopk.topk_scores_twopass(Q, C, k=3, block_n=128,
                                   corpus_swizzled=torch.zeros((64, 8)))
-    for kw in ({"mxu_overlap": True}, {"pass_a_int8": True}):
-        with pytest.raises(NotImplementedError):
-            ttopk.topk_scores_twopass(Q, C, k=3, **kw)
+    with pytest.raises(AssertionError, match="mutually exclusive"):
+        ttopk.topk_scores_twopass(Q, C, k=3, mxu_overlap=True,
+                                  pass_a_int8=True)
 
 
 @pytest.mark.parametrize("q,n,d,k,block_n", [(4, 100, 128, 5, 256),
@@ -189,3 +192,122 @@ def test_topk_chunked_matches_jax(rng, n, k, chunk, valid_n, budget):
                                        torch.from_numpy(C), **kw)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("seg_split", [1, 2, 4])
+def test_twopass_overlap_matches_jax(rng, seg_split):
+    """test_ops_topk.py's overlap case: the overlap schedule equals the
+    default one bit for bit, in both packages."""
+    Q = rng.standard_normal((16, 128)).astype(np.float32)
+    C = rng.standard_normal((2000, 128)).astype(np.float32)
+    kw = dict(k=7, block_n=512, seg_split=seg_split)
+    j, t = _both_twopass(Q, C, mxu_overlap=True, **kw)
+    _assert_same(j, t)
+    dv, di = ttopk.topk_scores_twopass(torch.from_numpy(Q),
+                                       torch.from_numpy(C), **kw)
+    np.testing.assert_array_equal(t[1], di.numpy())
+    np.testing.assert_array_equal(t[0], dv.numpy())
+    assert ttopk.SEGTOPK_OVERLAP_LAUNCHES == 0
+
+
+def _unit(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("q,n,d,k,block_n,unit_q", [
+    (8, 512, 128, 10, 256, True),   # test_ops_topk.py's int8 cases
+    (5, 300, 64, 5, 128, True),
+    (6, 400, 64, 7, 128, False),    # unnormalized queries
+])
+def test_twopass_int8_matches_jax(rng, q, n, d, k, block_n, unit_q):
+    Q = _unit(rng, (q, d)) if unit_q else rng.standard_normal(
+        (q, d)).astype(np.float32)
+    C = _unit(rng, (n, d))
+    j, t = _both_twopass(Q, C, k=k, block_n=block_n, pass_a_int8=True)
+    _assert_same(j, t)
+    assert ttopk.SEGTOPK_INT8_LAUNCHES == 0
+
+
+def test_int8_pass_a_plain_matches_jax_kernel(rng, monkeypatch):
+    """Pass A alone in int8: the JAX kernel's segment order (int32 maxima
+    converted to f32) equals the plain version's, values exactly."""
+    Q = _unit(rng, (8, 64))
+    C = _unit(rng, (300, 64))
+    outs = []
+    real = jtopk.pl.pallas_call
+
+    def recording_pallas_call(*a, **kw):
+        call = real(*a, **kw)
+        return lambda *args: outs.append(call(*args)) or outs[-1]
+
+    monkeypatch.setattr(jtopk.pl, "pallas_call", recording_pallas_call)
+    jtopk.topk_scores_twopass.__wrapped__(
+        jnp.asarray(Q), jnp.asarray(C), k=5, block_q=8, block_n=128,
+        q_chunk=8, interpret=True, pass_a_int8=True)
+    jv, ji = (np.asarray(o) for o in outs[0])
+    q8 = ttopk._quantize_rows_int8(torch.from_numpy(Q))
+    c8, _ = ttopk.quantize_int8_global(torch.from_numpy(C))
+    k_sel = 5 + 1 + 5
+    tv, ti = ttopk.segtopk_pass_a_int8(q8, c8, 300, 1, k_sel)
+    np.testing.assert_array_equal(ti.numpy(), ji[:8, :k_sel])
+    np.testing.assert_array_equal(tv.numpy(), jv[:8, :k_sel])
+
+
+def test_twopass_int8_prequantized_matches_jax(rng):
+    """A prequantized swizzled corpus gives the on-the-fly results."""
+    Q = rng.standard_normal((6, 64)).astype(np.float32)
+    C = _unit(rng, (400, 64))
+    jswz = jtopk.swizzle_corpus(jnp.asarray(C), 128)
+    jc8, _ = jtopk.quantize_int8_global(jswz)
+    jv, ji = jtopk.topk_scores_twopass(
+        jnp.asarray(Q), jnp.asarray(C), k=7, block_q=8, block_n=128,
+        q_chunk=8, interpret=True, pass_a_int8=True, corpus_swizzled=jswz,
+        corpus_swizzled_q8=jc8)
+    tswz = ttopk.swizzle_corpus(torch.from_numpy(C), 128)
+    tc8, _ = ttopk.quantize_int8_global(tswz)
+    kw = dict(k=7, block_n=128, q_chunk=8, pass_a_int8=True)
+    tv, ti = ttopk.topk_scores_twopass(
+        torch.from_numpy(Q), torch.from_numpy(C), corpus_swizzled=tswz,
+        corpus_swizzled_q8=tc8, **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-4,
+                               atol=1e-4)
+    fv, fi = ttopk.topk_scores_twopass(torch.from_numpy(Q),
+                                       torch.from_numpy(C), **kw)
+    np.testing.assert_array_equal(fi.numpy(), ti.numpy())
+    np.testing.assert_array_equal(fv.numpy(), tv.numpy())
+
+
+def test_twopass_int8_chunked_single_copy_matches_jax(rng, monkeypatch):
+    """More queries than _MAX_TWOPASS_Q, single-copy swizzled corpus, int8
+    pass A: the combination test_ops_topk.py guards."""
+    monkeypatch.setattr(jtopk, "_MAX_TWOPASS_Q", 8)
+    monkeypatch.setattr(ttopk, "_MAX_TWOPASS_Q", 8)
+    Q = _unit(rng, (12, 64))
+    C = _unit(rng, (300, 64))
+    j, t = _both_twopass(Q, C, single_copy=True, k=5, block_n=128,
+                         pass_a_int8=True)
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("k,k_sel_extra,d,match", [
+    (125, 0, 64, "k_sel clamped"),
+    (5, 0, 1040, "d=1040"),
+])
+def test_twopass_int8_warnings_match_jax(rng, k, k_sel_extra, d, match):
+    Q = _unit(rng, (4, d))
+    C = _unit(rng, (600, d))
+    with pytest.warns(UserWarning, match=match):
+        jtopk.topk_scores_twopass(
+            jnp.asarray(Q), jnp.asarray(C), k=k, block_q=8, block_n=256,
+            q_chunk=8, interpret=True, pass_a_int8=True,
+            k_sel_extra=k_sel_extra)
+    with pytest.warns(UserWarning, match=match):
+        ttopk.topk_scores_twopass(
+            torch.from_numpy(Q), torch.from_numpy(C), k=k, block_n=256,
+            q_chunk=8, pass_a_int8=True, k_sel_extra=k_sel_extra)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ttopk.topk_scores_twopass(torch.from_numpy(Q), torch.from_numpy(C),
+                                  k=5, block_n=256, pass_a_int8=d < 1040)
