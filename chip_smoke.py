@@ -9,8 +9,9 @@ queries end to end through ``HybridQueryEngine`` at the default encoder's
 full width (phase 3), times every kernel at the per-chip shard size of
 1,250,000 x 384 bf16 (phase 4), and serves deep candidate lists over a live
 index: adds, removals, a 10,000-query search through the fused top-k,
-``tune_fusion`` and ``compact`` (phase 5). Progress and measurements go to
-stdout; the line before the last is the card's name and power limit, the
+``tune_fusion`` and ``compact`` (phase 5), and chunks a 600-document corpus
+with one document of 3,939 sentences through ``ChunkPipeline`` (phase 6).
+Progress and measurements go to stdout; the line before the last is the card's name and power limit, the
 one before it the JSON ``kernels`` record, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
 that line, as does a machine without a CUDA device.
@@ -43,9 +44,10 @@ def check(ok: bool, what: str) -> None:
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores,
-# HBM3
+# f32 outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -76,11 +78,13 @@ def zero_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a path is
     driven; the path's launches are read just after it."""
     from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import similarity as sim
     from semanticsearch_tpu_torch.ops import topk
 
     topk.SEGTOPK_LAUNCHES = topk.SEGTOPK_OVERLAP_LAUNCHES = 0
     topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
     fa.FLASH_LAUNCHES = 0
+    sim.SIM_LAUNCHES = 0
 
 
 def topk_agree(v, i, ref_v, ref_i, tol: float):
@@ -136,6 +140,7 @@ def phase_kernels(report):
     import torch
 
     from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import similarity as sim
     from semanticsearch_tpu_torch.ops import topk
 
     log("== phase 2: kernels against their plain versions on the card")
@@ -231,21 +236,83 @@ def phase_kernels(report):
     report["topk_fused"]["max_abs_err"] = fu_err
 
     fl_err = 0.0
-    for b, t in [(8, 128), (8, 256), (2, 1024)]:
+    # (B, T, keys kept): the serve and long-input shapes with a third of the
+    # keys masked, then the chunking path's: a full batch of 2,048 short
+    # sentences in the 64 bucket and a partial last batch, each row keeping
+    # its own 3-12 leading keys as the tokenizer pads them
+    for b, t, kept in [(8, 128, None), (8, 256, None), (2, 1024, None),
+                       (2048, 64, (3, 12)), (813, 64, (3, 12))]:
         shape = (b, 12, t, 32)
         qkv = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3)]
-        mask = torch.ones((b, t), device=dev)
-        mask[:, t - t // 3:] = 0.0  # masked tail
+        if kept is None:
+            mask = torch.ones((b, t), device=dev)
+            mask[:, t - t // 3:] = 0.0  # masked tail
+        else:
+            lens = torch.randint(kept[0], kept[1] + 1, (b,), generator=gen,
+                                 device=dev)
+            mask = (torch.arange(t, device=dev)[None, :]
+                    < lens[:, None]).float()
         mask[1, :] = 0.0            # a row with every key masked
         got = fa.flash_attention(*qkv, mask)
         want = fa.flash_attention_plain(*qkv, mask)
-        err = float((got.float() - want.float()).abs().max())
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
         fl_err = max(fl_err, err)
-        check(bool(torch.isfinite(got).all()) and err <= 1e-2,
-              f"flash kernel vs plain, bf16, B={b} H=12 T={t} Dh=32: max abs "
-              f"err {err:.3e} <= 1e-2 (about 5 bf16 ulps at |o| = 0.5)")
+        if kept is None:
+            check(bool(torch.isfinite(got).all()) and err <= 1e-2,
+                  f"flash kernel vs plain, bf16, B={b} H=12 T={t} Dh=32: max "
+                  f"abs err {err:.3e} <= 1e-2 (about 5 bf16 ulps at |o| = "
+                  "0.5)")
+        else:
+            # a mean over 3-12 values of V reaches |o| = 3, where one bf16
+            # ulp is 1.6e-2: the same 5 ulps, taken at each output's size
+            rel = float((diff / want.float().abs().clamp(min=0.5)).max())
+            check(bool(torch.isfinite(got).all()) and rel <= 2e-2,
+                  f"flash kernel vs plain, bf16, B={b} H=12 T={t} Dh=32, "
+                  f"{kept[0]}-{kept[1]} keys kept per row: max |err| / "
+                  f"max(|o|, 0.5) {rel:.3e} <= 2e-2 (about 5 bf16 ulps of "
+                  f"each output; max abs err {err:.3e} at |o| up to "
+                  f"{float(want.float().abs().max()):.2f})")
     report["flash"]["max_abs_err"] = fl_err
+
+    # the similarity kernel: integer-valued f32 rows give sums exact in f32
+    # (at most 384 * 127^2 < 2^24), so kernel == plain bit for bit
+    for b, n, d, what in [(1, 4096, 384, "the long-document bucket"),
+                          (1, 3939, 384, "n not a multiple of the tile"),
+                          (1, 1, 384, "n = 1"),
+                          (1, 130, 72, "d = 72"),
+                          (3, 77, 30, "d not a multiple of 4"),
+                          (256, 64, 384, "a batch of padded short documents"),
+                          (200, 128, 384, "a batch on wide tiles"),
+                          (5, 600, 384, "a few documents on narrow tiles")]:
+        E = _int_grid((b, n, d), gen, torch.float32)
+        if b > 1:  # documents padded with rows of zeros, as the pipeline's
+            lens = torch.randint(1, n + 1, (b,), generator=gen, device=dev)
+            E = E * (torch.arange(n, device=dev)[None, :]
+                     < lens[:, None])[:, :, None]
+        S = sim.similarity_matrix(E)
+        again = sim.similarity_matrix(E)
+        P = sim.similarity_matrix_plain(E)
+        torch.cuda.synchronize()
+        check(torch.equal(S, P) and torch.equal(S, S.transpose(1, 2))
+              and torch.equal(S, again),
+              f"similarity kernel == plain bit for bit, S == S^T, two "
+              f"launches identical; {what}: B={b} n={n} d={d}")
+    sim_err = 0.0
+    for b, n in [(1, 3939), (256, 64)]:
+        E = sim.l2_normalize(torch.randn((b, n, 384), generator=gen,
+                                         device=dev))
+        S = sim.similarity_matrix(E)
+        err = float((S - sim.similarity_matrix_plain(E)).abs().max())
+        sim_err = max(sim_err, err)
+        check(err <= 1e-5 and torch.equal(S, S.transpose(1, 2))
+              and torch.equal(S, sim.similarity_matrix(E)),
+              f"similarity kernel vs plain on unit rows, B={b} n={n} d=384: "
+              f"max abs err {err:.3e} <= 1e-5 (two orders of summing 384 f32 "
+              "products of total size <= 1, each rounding <= 6e-8); "
+              "bit-symmetric and bit-reproducible")
+    report["similarity"]["max_abs_err"] = sim_err
 
 
 def _zipf_text(rng, words, n_words):
@@ -688,6 +755,339 @@ def phase_live(report, ctx):
           f"the {LIVE_QUERIES} queries exactly as the compacted index")
 
 
+# phase 6: documents of the chunking run, the longest one's sentences (the
+# reference corpus's maximum), and the grouping subset
+CHUNK_DOCS, LONG_DOC_SENTENCES = 600, 3939
+GROUP_DOCS, GROUP_MAX_SENTENCES, GROUP_LONG_SENTENCES = 100, 256, 640
+LOCAL_RANK_DOCS = 40  # chunked again on the per-document route
+# the two shapes the similarity kernel is timed at: the long document in its
+# 4096 bucket, and a sub-batch of short documents
+SIM_SHAPES = ((1, 4096, 384), (256, 64, 384))
+
+
+def _topic_document(rng, n_sents, topic_len, words):
+    """n_sents sentences of five random words, each led by its topic's own
+    word; the topic shifts every topic_len sentences."""
+    return " ".join(
+        f"Topic{i // topic_len} " + " ".join(rng.choice(words, size=5)) + "."
+        for i in range(n_sents))
+
+
+def _chunk_rows(rng, counts, topic_lens):
+    words = [f"w{i}" for i in range(50)]
+    return [{"query_id": f"q{i // 10}", "query_text": f"query {i // 10}",
+             "document_id": f"doc{i}",
+             "document": _topic_document(rng, int(n), int(t), words),
+             "label": str(i % 2)}
+            for i, (n, t) in enumerate(zip(counts, topic_lens))]
+
+
+def _predicted_sim_launches(counts, batch_size, budget=1 << 26):
+    """Kernel launches the pipeline's bucket ladder needs: per row batch,
+    one per (power-of-two bucket >= 8, sub-batch of budget // bucket^2)."""
+    total = 0
+    for s in range(0, len(counts), batch_size):
+        buckets = {}
+        for n in counts[s: s + batch_size]:
+            if n > 1:
+                b = 1 << max(3, (int(n) - 1).bit_length())
+                buckets[b] = buckets.get(b, 0) + 1
+        total += sum(-(-k // max(1, budget // (b * b)))
+                     for b, k in buckets.items())
+    return total
+
+
+def _coverage(map_tsv):
+    """{document_id: sorted sentence indices} and the chunk ids, from a
+    chunk map."""
+    from semanticsearch_tpu_torch.data.tsv import read_tsv
+
+    covered, ids = {}, []
+    for row in read_tsv(map_tsv):
+        covered.setdefault(row["document_id"], []).extend(
+            int(x) for x in row["sent_indices"].split(","))
+        ids.append(row["chunk_id"])
+    return {doc: sorted(v) for doc, v in covered.items()}, ids
+
+
+def _boundaries(map_tsv):
+    from semanticsearch_tpu_torch.data.tsv import read_tsv
+
+    out = {}
+    for row in read_tsv(map_tsv):
+        out.setdefault(row["document_id"], []).append(row["sent_indices"])
+    return out
+
+
+def time_similarity(report):
+    """The similarity kernel at SIM_SHAPES beside its plain version, the f32
+    ``torch.matmul`` and the bound (f32 FMA peak outside the tensor cores)."""
+    import torch
+
+    from semanticsearch_tpu_torch.ops import similarity as sim
+
+    entry = report["similarity"]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for which, (b, n, d) in zip(("", "batched_"), SIM_SHAPES):
+        E = sim.l2_normalize(torch.randn((b, n, d), generator=gen,
+                                         device="cuda"))
+        if b == 1:
+            E[:, LONG_DOC_SENTENCES:] = 0.0  # the bucket's zero rows
+
+        def kernel():
+            sim.similarity_matrix(E)
+
+        def plain():
+            sim.similarity_matrix_plain(E)
+
+        def library():  # f32: main() turns TF32 off
+            torch.matmul(E, E.transpose(1, 2))
+
+        turns = [time_ms(f, reps=20, warmup=3)
+                 for f in (plain, kernel, kernel, plain)]
+        ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        lib_ms = time_ms(library, reps=20, warmup=3)
+        # S == S^T: n(n+1)/2 dot products of width d are what the function
+        # needs; the kernel does the full square, 2 b n^2 d operations
+        bnd, by = bound_ms(1.0 * b * n * (n + 1) * d,
+                           4.0 * b * (n * d + n * n), PEAK_F32_FLOPS)
+        entry.update({which + "ms": ms, which + "plain_ms": plain_ms,
+                      which + "library_ms": lib_ms, which + "bound_ms": bnd,
+                      which + "bound_by": by})
+        log(f"  similarity B={b} n={n} d={d}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, f32 torch.matmul {lib_ms:.3f} ms, bound "
+            f"{bnd:.3f} ms ({by}, the upper triangle's products); the "
+            f"kernel does the full square at "
+            f"{2e-9 * b * n * n * d / ms:.1f} TFLOP/s")
+    entry["shape_note"] = (
+        "ms, plain_ms, bound_ms, library_ms at B=1, n=4096 (3,939 real "
+        "rows), d=384; batched_* at B=256, n=64, d=384; bound_ms counts "
+        "B*n*(n+1)*d operations (S is symmetric); library = f32 "
+        "torch.matmul with TF32 off")
+
+
+def phase_chunk(report, ctx):
+    import torch
+
+    from semanticsearch_tpu_torch.chunking import grouping, splitter
+    from semanticsearch_tpu_torch.chunking import pipeline as chunk_pipeline
+    from semanticsearch_tpu_torch.chunking.cleaning import (
+        clean_with_guardrail, preclean_text)
+    from semanticsearch_tpu_torch.chunking.segmenter import extract_sentences
+    from semanticsearch_tpu_torch.core.config import get_named_config
+    from semanticsearch_tpu_torch.data.tsv import write_tsv
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import similarity as sim
+
+    log("== phase 6: semantic chunking through ChunkPipeline (main path)")
+    rng = np.random.default_rng(29)
+    encoder, tmp = ctx["encoder"], ctx["tmp"]
+    columns = ["query_id", "query_text", "document_id", "document", "label"]
+
+    # sentence counts with a long tail: most 5-200, a few 500-1,500, one of
+    # 3,939; topic shifts every 8-40 sentences (every 400 in the longest)
+    counts = np.clip(rng.lognormal(3.7, 0.8, size=CHUNK_DOCS), 5, 200)
+    counts = counts.astype(int)
+    few = rng.choice(CHUNK_DOCS, size=8, replace=False)
+    counts[few[1:]] = rng.integers(500, 1501, size=7)
+    counts[few[0]] = LONG_DOC_SENTENCES
+    topic_lens = rng.integers(8, 41, size=CHUNK_DOCS)
+    topic_lens[few[0]] = 400
+    rows = _chunk_rows(rng, counts, topic_lens)
+    long_id = rows[few[0]]["document_id"]
+    seen = [len(extract_sentences(preclean_text(clean_with_guardrail(
+        r["document"])))) for r in rows]
+    check(seen == counts.tolist() and max(seen) == LONG_DOC_SENTENCES,
+          f"{CHUNK_DOCS} documents, {sum(seen)} sentences after cleaning and "
+          f"segmentation (median {int(np.median(seen))}, "
+          f"{sum(n >= 500 for n in seen)} of 500 or more, the longest "
+          f"{max(seen)})")
+    tsv = os.path.join(tmp, "chunk_corpus.tsv")
+    write_tsv(tsv, rows, columns)
+    want_launches = _predicted_sim_launches(seen, chunk_pipeline.BATCH_SIZE)
+
+    cfg = get_named_config("semantic_splitter").override(
+        chunking={"collect_metadata": True})
+
+    timers = {"encode": 0.0, "signals": 0.0}
+
+    def timed(fn, key):
+        """fn with its host-clock seconds, device work included, added to
+        timers[key]."""
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timers[key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def run(out, split_times=False):
+        pipe = chunk_pipeline.ChunkPipeline(cfg, encoder=encoder)
+        if split_times:
+            pipe._precompute_signals = timed(pipe._precompute_signals,
+                                             "signals")
+        return pipe.run(tsv, os.path.join(tmp, out), write_chunk_map=True)
+
+    encoder.encode_device = timed(encoder.encode_device, "encode")
+    zero_counts()
+    try:
+        first = run("chunk_a", split_times=True)
+    finally:
+        del encoder.encode_device  # back to the class's method
+    torch.cuda.synchronize()
+    report["similarity"]["launches"] = sim.SIM_LAUNCHES
+    host = first["elapsed_s"] - timers["encode"] - timers["signals"]
+    log(f"  semantic_splitter over {first['docs_chunked']} documents: "
+        f"{first['chunks_out']} chunks in {first['elapsed_s']:.2f} s (host "
+        f"clock) = {first['chunks_per_sec']} chunks/s; encode "
+        f"{timers['encode']:.2f} s, signals {timers['signals']:.2f} s, host "
+        f"logic and I/O {host:.2f} s; launches: similarity "
+        f"{sim.SIM_LAUNCHES}, flash {fa.FLASH_LAUNCHES}")
+    check(sim.SIM_LAUNCHES == want_launches and fa.FLASH_LAUNCHES > 0,
+          f"the similarity kernel launched once per (bucket, sub-batch): "
+          f"{sim.SIM_LAUNCHES} == {want_launches} predicted by the bucket "
+          "ladder; the flash kernel launched")
+    map_a = os.path.join(tmp, "chunk_a", f"{cfg.name}_chunk_map.tsv")
+    covered, ids = _coverage(map_a)
+    check(first["docs_chunked"] == CHUNK_DOCS and first["fallbacks"] == 0
+          and not any(i.endswith("_fallback") for i in ids)
+          and all(covered.get(r["document_id"]) == list(range(n))
+                  for r, n in zip(rows, seen)),
+          f"every sentence of every document in exactly one chunk (the "
+          f"{LONG_DOC_SENTENCES}-sentence document in "
+          f"{sum(i.startswith(long_id + '_') for i in ids)} chunks, not "
+          "truncated); no fallback chunk")
+    second = run("chunk_b")
+    with open(first["output_path"], "rb") as fa_, \
+            open(second["output_path"], "rb") as fb_:
+        same = fa_.read() == fb_.read()
+    check(same, "a second run writes a byte-identical chunks TSV")
+
+    # the embeddings themselves: a full encoder batch of 2,048 sentences and
+    # a partial one, through the flash kernel and through the stock attention
+    # of an encoder with the same weights
+    stock = SentenceEncoder(dataclasses.replace(encoder.cfg,
+                                                attention="stock"),
+                            device=encoder.device, seed=0)
+    sample = [s for r in rows[:150] for s in extract_sentences(preclean_text(
+        clean_with_guardrail(r["document"])))][:2048 + 813]
+    before = fa.FLASH_LAUNCHES
+    e_flash = encoder.encode_device(sample, batch_size=2048)
+    e_stock = stock.encode_device(sample, batch_size=2048)
+    cos = float((e_flash * e_stock).sum(dim=1).min())
+    check(len(sample) == 2048 + 813 and fa.FLASH_LAUNCHES > before
+          and bool(torch.isfinite(e_flash).all()) and cos > 0.99,
+          f"flash vs stock encoder on {len(sample)} of the run's sentences in "
+          f"batches of 2,048 and {len(sample) - 2048}, bf16: least cosine "
+          f"{cos:.5f} > 0.99 (max abs difference "
+          f"{float((e_flash - e_stock).abs().max()):.3e})")
+    del stock
+
+    # the longest document's S: kernel against plain, alone and in its bucket
+    sents = extract_sentences(preclean_text(clean_with_guardrail(
+        rows[few[0]]["document"])))
+    E = encoder.encode_device(sents, batch_size=2048)
+    S = sim.similarity_matrix(E)
+    err = float((S - sim.similarity_matrix_plain(E)).abs().max())
+    padded = torch.nn.functional.pad(E, (0, 0, 0, 4096 - E.shape[0]))[None]
+    in_bucket = sim.similarity_matrix(padded)[0, :E.shape[0], :E.shape[0]]
+    check(err <= 1e-5 and torch.equal(S, S.T) and torch.equal(S, in_bucket),
+          f"the {LONG_DOC_SENTENCES}-sentence document's S: kernel vs plain "
+          f"max abs err {err:.3e} <= 1e-5; S == S^T; alone == inside its "
+          "4096 bucket, bit for bit")
+    report["similarity"]["max_abs_err"] = max(
+        report["similarity"]["max_abs_err"], err)
+
+    # the same run on the plain S: rank flips between near-tied
+    # similarities may move a boundary; counted, not a failure
+    kernel_fn = splitter.similarity_matrix
+    splitter.similarity_matrix = sim.similarity_matrix_plain
+    try:
+        run("chunk_plain")
+    finally:
+        splitter.similarity_matrix = kernel_fn
+    b_kernel = _boundaries(map_a)
+    b_plain = _boundaries(os.path.join(tmp, "chunk_plain",
+                                       f"{cfg.name}_chunk_map.tsv"))
+    differ = sum(b_kernel[d] != b_plain.get(d) for d in b_kernel)
+    report["chunk_docs_differing_from_plain_s"] = differ
+    log(f"  documents whose boundaries differ between the kernel's S and "
+        f"the plain S: {differ} of {len(b_kernel)}")
+
+    keep = [i for i, n in enumerate(seen) if n <= GROUP_MAX_SENTENCES]
+    keep = keep[:GROUP_DOCS]
+
+    # the per-document route (the local rank takes no batched signals): each
+    # document launches the kernel itself, inside the pipeline's
+    # per-document try
+    l_rows = [rows[i] for i in keep[:LOCAL_RANK_DOCS]]
+    l_tsv = os.path.join(tmp, "local_corpus.tsv")
+    write_tsv(l_tsv, l_rows, columns)
+    l_cfg = cfg.override(chunking={"c99_use_local_rank": True})
+    zero_counts()
+    loc = chunk_pipeline.ChunkPipeline(l_cfg, encoder=encoder).run(
+        l_tsv, os.path.join(tmp, "local"), write_chunk_map=True)
+    l_cov, l_ids = _coverage(os.path.join(tmp, "local",
+                                          f"{l_cfg.name}_chunk_map.tsv"))
+    check(sim.SIM_LAUNCHES == len(l_rows) and fa.FLASH_LAUNCHES > 0
+          and loc["docs_chunked"] == len(l_rows) and loc["fallbacks"] == 0
+          and not any(i.endswith("_fallback") for i in l_ids)
+          and all(l_cov.get(rows[i]["document_id"]) == list(range(seen[i]))
+                  for i in keep[:LOCAL_RANK_DOCS]),
+          f"c99_use_local_rank over {len(l_rows)} documents: "
+          f"{sim.SIM_LAUNCHES} similarity launches, one per document; every "
+          "sentence in exactly one chunk; no fallback chunk")
+
+    # semantic_grouping over a subset: short documents plus one long enough
+    # for the device eigendecomposition
+    g_rows = [rows[i] for i in keep] + _chunk_rows(
+        rng, [GROUP_LONG_SENTENCES], [80])
+    g_rows[-1]["document_id"] = "doc_group_long"
+    g_seen = [seen[i] for i in keep] + [GROUP_LONG_SENTENCES]
+    g_tsv = os.path.join(tmp, "group_corpus.tsv")
+    write_tsv(g_tsv, g_rows, columns)
+    g_cfg = get_named_config("semantic_grouping").override(
+        chunking={"collect_metadata": True})
+    large_eigh = []
+    eigh = grouping._eigh
+
+    def counting_eigh(S_sym, device="cuda"):
+        if S_sym.shape[0] >= grouping._EIGH_DEVICE_MIN_N:
+            large_eigh.append((S_sym.shape[0], str(torch.device(device))))
+        return eigh(S_sym, device)
+
+    grouping._eigh = counting_eigh
+    zero_counts()
+    try:
+        g = chunk_pipeline.ChunkPipeline(g_cfg, encoder=encoder).run(
+            g_tsv, os.path.join(tmp, "group"), write_chunk_map=True)
+    finally:
+        grouping._eigh = eigh
+    g_launches = _predicted_sim_launches(g_seen, chunk_pipeline.BATCH_SIZE)
+    log(f"  semantic_grouping over {g['docs_chunked']} documents: "
+        f"{g['chunks_out']} chunks in {g['elapsed_s']:.2f} s (host clock); "
+        f"launches: similarity {sim.SIM_LAUNCHES}, flash "
+        f"{fa.FLASH_LAUNCHES}; eigendecompositions on the device: "
+        f"{large_eigh}")
+    g_cov, g_ids = _coverage(os.path.join(tmp, "group",
+                                          f"{g_cfg.name}_chunk_map.tsv"))
+    check(sim.SIM_LAUNCHES == g_launches and fa.FLASH_LAUNCHES > 0
+          and g["docs_chunked"] == len(g_rows) and g["fallbacks"] == 0
+          and not any(i.endswith("_fallback") for i in g_ids)
+          and all(g_cov.get(r["document_id"]) == list(range(n))
+                  for r, n in zip(g_rows, g_seen))
+          and any(dev.startswith("cuda") for _, dev in large_eigh),
+          f"grouping: {sim.SIM_LAUNCHES} similarity launches == "
+          f"{g_launches} predicted; every sentence in exactly one chunk; no "
+          f"fallback chunk; the {GROUP_LONG_SENTENCES}-sentence document's "
+          "Laplacian decomposed on the card")
+
+    time_similarity(report)
+
+
 def main() -> int:
     try:
         import torch
@@ -724,6 +1124,9 @@ def main() -> int:
         "flash": {"name": "flash_attention", "route": "cuda",
                   "source": "semanticsearch_tpu_torch/csrc/flash_attention.cu",
                   "replaces": "semanticsearch_tpu/ops/flash_attention.py:28"},
+        "similarity": {"name": "similarity_matrix", "route": "cuda",
+                       "source": "semanticsearch_tpu_torch/csrc/similarity.cu",
+                       "replaces": "semanticsearch_tpu/ops/similarity.py:49"},
     }
     t_start = time.perf_counter()
     try:
@@ -733,20 +1136,25 @@ def main() -> int:
             ctx = phase_serve(report, tmp)
             phase_dense(report)
             phase_live(report, ctx)
+            phase_chunk(report, ctx)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    notes = ("plain_note", "library_note")
+    notes = ("plain_note", "library_note", "shape_note", "batched_ms",
+             "batched_plain_ms", "batched_bound_ms", "batched_bound_by",
+             "batched_library_ms")
     kernels = [{**{key: report[k][key] for key in keys},
                 **{key: report[k][key] for key in notes if key in report[k]}}
                for k in ("segtopk", "segtopk_int8", "segtopk_overlap",
-                         "topk_fused", "flash")]
+                         "topk_fused", "flash", "similarity")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
         f"{report['recall_at_10']}; int8 two-pass recall@10 "
         f"{report['recall_at_10_int8']}; fused recall@200 "
-        f"{report['recall_at_200_fused']}; total "
+        f"{report['recall_at_200_fused']}; chunking: "
+        f"{report['chunk_docs_differing_from_plain_s']} documents differ "
+        f"from the plain S; total "
         f"{time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

@@ -1,15 +1,32 @@
-"""Configuration dataclasses of the serving path.
+"""Typed configuration tree and the registry of named configs.
 
-The port's own copy of ``EncoderConfig``, ``RankingConfig`` and
-``IndexConfig`` from ``semanticsearch_tpu/core/config.py``: same fields, same
-defaults, so an index directory's ``meta.json`` and a config override written
-for one package read the same in the other.
+The port's own copy of ``semanticsearch_tpu/core/config.py``: same
+dataclasses, same fields, same defaults, so an index directory's
+``meta.json`` and a config override written for one package read the same
+in the other. The registry holds the seven named chunking configurations
+and ``default``.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
+
+
+def _replace_from_dict(obj, overrides: Dict[str, Any]):
+    """Recursively apply a nested dict of overrides onto a dataclass tree."""
+    updates = {}
+    for key, val in overrides.items():
+        if not hasattr(obj, key):
+            raise KeyError(f"{type(obj).__name__} has no config field {key!r}")
+        cur = getattr(obj, key)
+        if dataclasses.is_dataclass(cur) and isinstance(val, dict):
+            updates[key] = _replace_from_dict(cur, val)
+        else:
+            updates[key] = val
+    return dataclasses.replace(obj, **updates)
 
 
 @dataclass(frozen=True)
@@ -31,6 +48,57 @@ class EncoderConfig:
     # once max_len >= 1024 (and dropout is 0), plain torch math otherwise;
     # "flash" / "stock" force it
     attention: str = "auto"
+
+
+@dataclass(frozen=True)
+class ChunkingConfig:
+    """Chunking method config: the splitter's and the grouper's parameters."""
+
+    method: str = "splitter"  # splitter | grouping | char
+    # shared
+    auto_params: bool = True
+    collect_metadata: bool = False
+    # splitter params
+    min_boundary_spacing: int = 2
+    min_first_boundary_index: int = 3
+    smooth_adj_window: int = 3
+    valley_tau: float = 0.12
+    hybrid_mode: str = "union_weighted"  # union_weighted | union | intersection
+    vote_thr: float = 0.75
+    c99_stopping: str = "gain"  # gain | profile
+    c99_min_gain: float = 0.01
+    c99_knee_c: float = 1.2
+    c99_use_local_rank: bool = False
+    c99_mask_size: int = 11
+    soft_cap: Optional[int] = None
+    soft_cap_delta: int = 2
+    # DP-optimal refinement over the candidate cuts
+    use_dp_refine: bool = False
+    dp_penalty: Optional[float] = None  # None = derive from the signal
+    # scales the derived penalty: < 1.0 admits more cuts (finer chunks);
+    # ignored when dp_penalty is set
+    dp_penalty_scale: float = 1.0
+    # grouping params
+    engine: str = "spectral"  # spectral | modularity (host-side)
+    knn_k: Optional[int] = None
+    edge_floor: float = 0.25
+    spectral_kmax: Optional[int] = None
+    rmt_keep_eigs: int = 3
+    sigmoid_tau_group: float = 0.15
+    cap_soft: Optional[int] = None
+    small_group_min: int = 2
+    tau_merge: float = 0.38
+    reassign_delta: float = 0.02
+    # char splitter params
+    char_chunk_size: int = 1000
+    char_overlap: int = 100
+    # longest document, in sentences, that is chunked whole; the length
+    # buckets of the batched signals go up to it (4096 covers the reference
+    # corpus's longest document, 3,939 sentences)
+    max_sentences: int = 4096
+    # grouping documents of at least this many sentences go through the
+    # ring-exchange similarity path on a multi-device mesh (not ported yet)
+    sp_min_sentences: int = 2048
 
 
 @dataclass(frozen=True)
@@ -75,3 +143,101 @@ class IndexConfig:
     block_rows: int = 16384  # rows per block: segments are
     seg_split: int = 4       # block_rows/128/seg_split rows long
     dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Reranker training config. Training is not ported yet: the fields are
+    here so that ``Config`` matches the JAX package's field for field."""
+
+    model: str = "knrm"
+    epochs: int = 10
+    batch_size: int = 32
+    # None = the optimizer's conventional default (adadelta 1.0, adam 1e-3)
+    learning_rate: Optional[float] = None
+    optimizer: str = "adadelta"  # adadelta | adam
+    loss: str = "hinge"  # hinge | rank_xent
+    num_dup: int = 1
+    num_neg: int = 1
+    fixed_length_left: int = 16
+    fixed_length_right: int = 128
+    filter_low_freq: int = 5
+    embedding_dim: int = 100
+    vocab_size: int = 30000
+    seed: int = 42
+    clip_norm: Optional[float] = None
+    eval_metrics: tuple = ("ndcg@3", "ndcg@5", "map")
+    embedding_init_path: Optional[str] = None
+    subword_tokenizer_path: Optional[str] = None
+    keep_best: bool = False
+    patience: int = 0
+    length_buckets: tuple = ()
+    distill_weight: float = 0.0
+    distill_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class Config:
+    """Top-level config tree."""
+
+    name: str = "default"
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    chunking: ChunkingConfig = field(default_factory=ChunkingConfig)
+    ranking: RankingConfig = field(default_factory=RankingConfig)
+    index: IndexConfig = field(default_factory=IndexConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    seed: int = 42
+
+    def override(self, **nested: Any) -> "Config":
+        return _replace_from_dict(self, nested)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+
+# --- named-config registry ---------------------------------------------------
+NAMED_CONFIGS: Dict[str, Config] = {}
+
+
+def register_config(name: str, cfg: Config) -> Config:
+    NAMED_CONFIGS[name] = dataclasses.replace(cfg, name=name)
+    return NAMED_CONFIGS[name]
+
+
+def get_named_config(name: str) -> Config:
+    if name not in NAMED_CONFIGS:
+        raise KeyError(
+            f"Unknown config {name!r}; available: {sorted(NAMED_CONFIGS)}"
+        )
+    return NAMED_CONFIGS[name]
+
+
+_base = Config()
+# the seven named chunking configurations
+register_config("semantic_splitter", _base.override(chunking={"method": "splitter"}))
+register_config(
+    "semantic_splitter_intersection",
+    _base.override(chunking={"method": "splitter", "hybrid_mode": "intersection", "auto_params": False}),
+)
+register_config(
+    "semantic_splitter_union",
+    _base.override(chunking={"method": "splitter", "hybrid_mode": "union", "auto_params": False}),
+)
+register_config(
+    "semantic_grouping", _base.override(chunking={"method": "grouping", "engine": "spectral"})
+)
+register_config(
+    "semantic_grouping_modularity",
+    _base.override(chunking={"method": "grouping", "engine": "modularity"}),
+)
+register_config(
+    "text_splitter_char",
+    _base.override(chunking={"method": "char", "char_chunk_size": 1000, "char_overlap": 100}),
+)
+register_config(
+    "semantic_splitter_dp",
+    _base.override(chunking={"method": "splitter", "use_dp_refine": True}),
+)
+register_config("default", _base)
+# "serve_device" (the device-resident lexical leg) is registered once device
+# BM25 is ported

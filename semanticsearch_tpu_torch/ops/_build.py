@@ -33,12 +33,17 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched. Callers that turn a
+    document's failure into a fallback result let this one through."""
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
-                           "Hopper kernels cannot be built")
+        raise KernelError("no CUDA toolkit found (set CUDA_HOME); the "
+                          "Hopper kernels cannot be built")
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
@@ -73,7 +78,7 @@ def _finish(name: str, proc) -> str:
     out = _target(name)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
     return log
 
@@ -91,8 +96,11 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_target(name)))
+            try:
+                _finish(name, _start(name))
+                lib = ctypes.CDLL(str(_target(name)))
+            except OSError as exc:  # no nvcc binary, or an unloadable library
+                raise KernelError(f"csrc/{name}.cu: {exc}") from exc
             _LIBS[name] = lib
         return lib
 
@@ -100,4 +108,4 @@ def load(name: str) -> ctypes.CDLL:
 def check(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")
+        raise KernelError(f"{what}: CUDA launch failed with cudaError {status}")

@@ -1,0 +1,179 @@
+"""Sentence-similarity math for chunking: normalize, sim matrix, rank matrix.
+
+Counterpart of ``semanticsearch_tpu/ops/similarity.py``:
+
+- :func:`similarity_matrix` is ``E @ E.T`` in full float32. On a CUDA tensor
+  it launches the hand-written Hopper kernel ``csrc/similarity.cu`` (f32
+  FMAs on the CUDA cores in one fixed order: bit-reproducible and
+  bit-symmetric); on a CPU tensor it computes
+  :func:`similarity_matrix_plain`. It also takes a batch (B, n, d) of
+  zero-padded documents, which is how the splitter and the grouper call it.
+  :func:`similarity_matrix_pallas` is the same function under the name of
+  the JAX package's blockwise kernel.
+- :func:`rank_matrix_global`: C99's row-rank + column-rank of every entry by
+  a double stable argsort, O(n^2 log n).
+- :func:`rank_matrix_local`: C99's local-mask rank as a sum over the
+  (mask x mask) shifts of the matrix.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+
+# launches of the Gram-matrix kernel (csrc/similarity.cu) in this process
+SIM_LAUNCHES = 0
+
+
+def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-9
+                 ) -> torch.Tensor:
+    norm = torch.linalg.norm(x, dim=axis, keepdim=True)
+    return x / torch.clamp(norm, min=eps)
+
+
+def similarity_matrix_plain(emb: torch.Tensor) -> torch.Tensor:
+    """``emb @ emb^T`` over the last two axes by ``torch.matmul``: what CPU
+    tensors run, and what the kernel is compared with.
+
+    The product is taken in float64 and rounded once to float32. No global
+    setting can lower it (``allow_tf32`` and
+    ``set_float32_matmul_precision`` act on float32 products only), and it
+    is the correctly rounded float32 answer whatever the order of summation:
+    exact wherever the float32 kernel's sums are exact."""
+    emb = emb.to(torch.float64)
+    return torch.matmul(emb, emb.transpose(-1, -2)).to(torch.float32)
+
+
+def similarity_matrix(emb: torch.Tensor) -> torch.Tensor:
+    """Similarity matrix of L2-normalized embeddings, (n, d) -> (n, n) or
+    (B, n, d) -> (B, n, n), float32.
+
+    Full-precision accumulate: segmentation boundary decisions are sensitive
+    to small similarity differences, so the product never runs in TF32 or
+    bf16. A CUDA tensor must be float32 and reaches the kernel or an error.
+    """
+    global SIM_LAUNCHES
+    if emb.ndim not in (2, 3):
+        raise ValueError(f"similarity_matrix: emb of shape {tuple(emb.shape)}; "
+                         "expected (n, d) or (B, n, d)")
+    if emb.device.type == "cpu":
+        return similarity_matrix_plain(emb)
+    if emb.device.type != "cuda":
+        raise ValueError(f"similarity_matrix: tensor on {emb.device}")
+    if emb.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the similarity kernel takes float32; got {emb.dtype}")
+    batch = emb if emb.ndim == 3 else emb[None]
+    b, n, d = batch.shape
+    if min(b, n, d) < 1:
+        raise ValueError(f"similarity kernel: empty input {tuple(emb.shape)}")
+    batch = batch.contiguous()
+    if batch.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+        batch = batch.clone()
+    out = torch.empty((b, n, n), dtype=torch.float32, device=emb.device)
+    fn = _build.load("similarity").similarity_gram_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    launched = ctypes.c_int(0)  # one launch per 65,535 documents
+    with torch.cuda.device(emb.device):
+        status = fn(batch.data_ptr(), out.data_ptr(), b, n, d,
+                    torch.cuda.current_stream(emb.device).cuda_stream,
+                    ctypes.byref(launched))
+    SIM_LAUNCHES += launched.value
+    _build.check(status, "similarity_matrix")
+    return out if emb.ndim == 3 else out[0]
+
+
+def similarity_matrix_pallas(emb: torch.Tensor, block: int = 512
+                             ) -> torch.Tensor:
+    """The JAX package's blockwise ``E @ E.T`` for large matrices. Here one
+    kernel serves every size, so this is :func:`similarity_matrix`; the
+    kernel chooses its own tile and ``block`` is accepted and unused."""
+    return similarity_matrix(emb)
+
+
+def adjacent_similarities(emb: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of consecutive sentence pairs: (n-1,) vector."""
+    return (emb[:-1] * emb[1:]).to(torch.float32).sum(dim=-1)
+
+
+def analyze_similarity_distribution(s) -> dict:
+    """Percentile stats of the upper-triangle similarities, for
+    auto-parameter diagnostics and data-quality reports."""
+    if isinstance(s, torch.Tensor):
+        s = s.detach().cpu().numpy()
+    s = np.asarray(s)
+    n = s.shape[0]
+    if n < 2:
+        return {"count": 0}
+    vals = s[np.triu_indices(n, 1)]
+    return {
+        "count": int(vals.size),
+        "mean": float(vals.mean()),
+        "std": float(vals.std()),
+        "min": float(vals.min()),
+        "max": float(vals.max()),
+        "p10": float(np.percentile(vals, 10)),
+        "p25": float(np.percentile(vals, 25)),
+        "p50": float(np.percentile(vals, 50)),
+        "p75": float(np.percentile(vals, 75)),
+        "p90": float(np.percentile(vals, 90)),
+    }
+
+
+def sort_ranks(s: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rank of every entry along ``dim`` by a double argsort (int64).
+
+    The first sort is stable, as ``jnp.argsort`` is: tied entries take
+    consecutive ranks in index order. The second inverts a permutation and
+    has no ties to break.
+    """
+    order = torch.argsort(s, dim=dim, stable=True)
+    return torch.argsort(order, dim=dim, stable=True)
+
+
+def _row_ranks(s: torch.Tensor) -> torch.Tensor:
+    """Per-row rank (number of strictly smaller entries) via double argsort.
+
+    With ties, double-argsort assigns distinct consecutive ranks within a tie
+    group (sorted-position semantics) rather than a strict '< count'; for
+    C99's block-density statistics over real-valued cosine matrices ties are
+    measure-zero and the downstream segmentation is rank-scale invariant.
+    """
+    return sort_ranks(s, 1).to(torch.float32)
+
+
+def rank_matrix_global(s: torch.Tensor) -> torch.Tensor:
+    """C99 global rank matrix: row-rank + column-rank of each entry."""
+    return _row_ranks(s) + _row_ranks(s.T).T
+
+
+def rank_matrix_local(s: torch.Tensor, mask_size: int = 11) -> torch.Tensor:
+    """C99 local rank: fraction of entries in a (mask x mask) window around
+    (i, j) strictly smaller than S[i, j], clipped at the matrix border.
+
+    A sum over the (di, dj) shifts; each shift contributes an indicator of
+    "window member smaller than center". O(n^2 * mask^2) work.
+    """
+    n = s.shape[0]
+    m = max(3, mask_size | 1)
+    half = m // 2
+    # Pad with +inf so out-of-range neighbors never count as "smaller",
+    # and a validity mask to get the clipped window size.
+    pad = (half, half, half, half)
+    sp = torch.nn.functional.pad(s, pad, value=float("inf"))
+    valid = torch.nn.functional.pad(torch.ones_like(s, dtype=torch.float32), pad)
+    count = torch.zeros_like(s)
+    denom = torch.zeros_like(s)
+    zero = torch.zeros((), dtype=torch.float32, device=s.device)
+    for di in range(m):
+        for dj in range(m):
+            win = sp[di: di + n, dj: dj + n]
+            vld = valid[di: di + n, dj: dj + n]
+            count = count + torch.where(win < s, vld, zero)
+            denom = denom + vld
+    return count / torch.clamp(denom, min=1.0)

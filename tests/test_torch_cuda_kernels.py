@@ -8,12 +8,17 @@ needed there):
 Pass A (all three schedules) and the fused top-k run on integer-valued
 bf16 or int8 inputs, whose dot products are exact in f32 whatever the
 summation order, so kernel and plain version must agree bit for bit.
-Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2 (a few half-precision ulps at the outputs' scale)."""
+Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2 (a few half-precision ulps at the outputs' scale).
+The similarity kernel is f32 throughout: bit-equal to its plain version on
+integer-valued rows, within 1e-5 of it on unit-norm rows (two summation
+orders of a 384-term f32 dot product of magnitude at most 1), and always
+bit-symmetric and bit-reproducible."""
 import numpy as np
 import pytest
 import torch
 
 from semanticsearch_tpu_torch.ops import flash_attention as fa
+from semanticsearch_tpu_torch.ops import similarity as sim
 from semanticsearch_tpu_torch.ops import topk
 
 pytestmark = pytest.mark.cuda
@@ -161,6 +166,24 @@ def test_flash_kernel_matches_plain(dev, dtype, b, h, t, dh):
                                want.float().cpu().numpy(), rtol=0, atol=1e-2)
 
 
+@pytest.mark.parametrize("b", [2048, 813])
+def test_flash_kernel_at_the_chunking_batch(dev, b):
+    """The chunking pipeline's encoder batches: up to 2,048 short sentences
+    in the 64 bucket, each row keeping its own few leading keys."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((b, 12, 64, 32), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    lens = torch.randint(3, 13, (b,), generator=g, device=dev)
+    mask = (torch.arange(64, device=dev)[None, :] < lens[:, None]).float()
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_plain(q, k, v, mask)
+    # a mean over 3-12 values of V reaches |o| = 3, where one bf16 ulp is
+    # 1.6e-2: 5 ulps of each output, the 1e-2 of the other cases at 0.5
+    diff = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert float((diff / want.float().abs().clamp(min=0.5)).max()) <= 2e-2
+
+
 def test_flash_backward_on_cuda(dev):
     g = torch.Generator(device=dev).manual_seed(6)
     q, k, v = (torch.randn((1, 2, 128, 32), generator=g, device=dev)
@@ -171,6 +194,91 @@ def test_flash_backward_on_cuda(dev):
     fa.flash_attention_plain(q2, k2, v2, mask).float().sum().backward()
     for a, b in ((q, q2), (k, k2), (v, v2)):
         assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("b,n,d", [
+    (1, 4096, 384),   # the long-document bucket: wide tiles
+    (1, 3939, 384),   # n not a multiple of the tile nor of 4
+    (1, 1, 384),      # one sentence
+    (1, 130, 72),     # a width that is not a multiple of the K step
+    (3, 77, 30),      # ... nor of 4: scalar loads
+    (256, 64, 384),   # a batch of short documents: one narrow tile each
+    (200, 128, 384),  # a batch on wide tiles
+    (5, 600, 384),    # a few documents: narrow tiles
+])
+def test_similarity_kernel_matches_plain(dev, b, n, d):
+    E = _grid((b, n, d), 12, dev, torch.float32)
+    E[-1, n - n // 3:] = 0.0  # a padded document: rows of zeros
+    launches = sim.SIM_LAUNCHES
+    S = sim.similarity_matrix(E)
+    torch.cuda.synchronize()
+    assert sim.SIM_LAUNCHES == launches + 1
+    assert S.shape == (b, n, n) and S.dtype == torch.float32
+    assert torch.equal(S, sim.similarity_matrix_plain(E))
+    assert torch.equal(S, S.transpose(1, 2))
+    assert torch.equal(S, sim.similarity_matrix(E))
+    # a document gives the same bits alone, unbatched, as in its batch
+    assert torch.equal(S[0], sim.similarity_matrix(E[0]))
+    assert torch.equal(S[0], sim.similarity_matrix_pallas(E[0], block=64))
+
+
+def test_similarity_counts_one_launch_per_65535_documents(dev):
+    E = _grid((65535 + 3, 8, 16), 13, dev, torch.float32)
+    launches = sim.SIM_LAUNCHES
+    S = sim.similarity_matrix(E)
+    torch.cuda.synchronize()
+    assert sim.SIM_LAUNCHES == launches + 2
+    assert torch.equal(S, sim.similarity_matrix_plain(E))
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 3939, 384), (64, 100, 384),
+                                   (2, 50, 33)])
+def test_similarity_kernel_on_unit_rows(dev, b, n, d):
+    g = torch.Generator(device=dev).manual_seed(13)
+    E = sim.l2_normalize(torch.randn((b, n, d), generator=g, device=dev))
+    S = sim.similarity_matrix(E)
+    np.testing.assert_allclose(S.cpu().numpy(),
+                               sim.similarity_matrix_plain(E).cpu().numpy(),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(S, S.transpose(1, 2))
+    assert torch.equal(S, sim.similarity_matrix(E))
+    # a view whose storage is not 16-byte aligned
+    flat = torch.zeros(b * n * d + 1, device=dev)
+    flat[1:] = E.reshape(-1)
+    assert torch.equal(sim.similarity_matrix(flat[1:].view(b, n, d)), S)
+
+
+def test_similarity_plain_ignores_tf32_setting(dev):
+    g = torch.Generator(device=dev).manual_seed(14)
+    E = sim.l2_normalize(torch.randn((512, 384), generator=g, device=dev))
+    want = sim.similarity_matrix_plain(E)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = sim.similarity_matrix_plain(E)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, want)
+
+
+def test_batched_signals_on_cuda_match_cpu(dev):
+    from semanticsearch_tpu_torch.chunking.grouping import (
+        batched_similarity_matrices)
+    from semanticsearch_tpu_torch.chunking.splitter import (
+        batched_split_signals)
+
+    rng = np.random.default_rng(15)
+    docs = [rng.integers(-5, 6, size=(n, 384)).astype(np.float32)
+            for n in (5, 64, 33, 2)]
+    launches = sim.SIM_LAUNCHES
+    got = batched_split_signals(docs, 64, device=dev)
+    sims = batched_similarity_matrices(docs, 64, device=dev)
+    assert sim.SIM_LAUNCHES == launches + 2
+    want = batched_split_signals(docs, 64, device="cpu")
+    for (R, adj), (Rw, adjw), S, e in zip(got, want, sims, docs):
+        np.testing.assert_array_equal(R, Rw)
+        np.testing.assert_array_equal(adj, adjw)
+        np.testing.assert_array_equal(S, e @ e.T)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -189,3 +297,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     z = torch.zeros((1, 1, 96, 32), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(z, z, z, torch.ones((1, 96), device=dev))
+    launches = sim.SIM_LAUNCHES
+    with pytest.raises(NotImplementedError, match="float32"):
+        sim.similarity_matrix(x.bfloat16())
+    with pytest.raises(NotImplementedError, match="float32"):
+        sim.similarity_matrix(x.double())
+    with pytest.raises(ValueError, match="empty"):
+        sim.similarity_matrix(x[:0])
+    assert sim.SIM_LAUNCHES == launches

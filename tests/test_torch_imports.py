@@ -27,7 +27,10 @@ def test_port_has_the_slice_modules():
                  "ops._build", "ops.topk", "ops.flash_attention",
                  "index.engine", "index.bm25", "index.rrf", "index.builder",
                  "index.query_engine", "index.delta", "train.metrics",
-                 "train.fusion"):
+                 "train.fusion", "ops.similarity", "chunking.cleaning",
+                 "chunking.segmenter", "chunking.naive", "chunking.dp_segment",
+                 "chunking.splitter", "chunking.grouping",
+                 "chunking.pipeline"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 
