@@ -7,7 +7,8 @@ Builds the Hopper kernels from ``semanticsearch_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (phase 2), serves hybrid
 queries end to end through ``HybridQueryEngine`` at the default encoder's
 full width (phase 3), times every kernel at the per-chip shard size of
-1,250,000 x 384 bf16 (phase 4), and serves deep candidate lists over a live
+1,250,000 x 384 bf16, pass A also at the serve shape and the fused top-k at
+the live-search shape (phase 4), and serves deep candidate lists over a live
 index: adds, removals, a 10,000-query search through the fused top-k,
 ``tune_fusion`` and ``compact`` (phase 5), and chunks a 600-document corpus
 with one document of 3,939 sentences through ``ChunkPipeline`` (phase 6).
@@ -197,6 +198,42 @@ def phase_kernels(report):
     check(torch.equal(ki, pi) and torch.equal(kv, pv) and torch.equal(oi, pi)
           and torch.equal(ov, pv),
           "pass A default and overlap schedules == plain at D=72, bit for bit")
+    # the 128- and 64-row query tiles' edges, a corpus below and just past
+    # one 128-row tile, every way a segment lies in the accumulator registers
+    # (inside a column pair, a quad, a tile, across tiles), the narrowest
+    # width and one that leaves room for 64-row tiles only, the largest k_sel
+    for q, n, d, L2, k_sel in [
+            (1, 5000, 384, 32, 11), (65, 4097, 384, 32, 11),
+            (129, 20011, 384, 32, 41), (40, 100, 384, 8, 11),
+            (64, 129, 384, 32, 5), (200, 30000, 128, 32, 128),
+            (70, 3000, 384, 1, 20), (70, 3000, 384, 2, 20),
+            (70, 3000, 384, 4, 20), (70, 9000, 384, 128, 20),
+            (130, 5000, 384, 256, 7), (33, 2000, 8, 32, 11),
+            (150, 6000, 768, 32, 11)]:
+        Qm, C = _int_grid((q, d), gen), _int_grid((n, d), gen)
+        kv, ki = topk.segtopk_pass_a(Qm, C, n, L2, k_sel)
+        pv, pi = topk.segtopk_pass_a_plain(Qm, C, n, L2, k_sel)
+        torch.cuda.synchronize()
+        seg_err = max(seg_err, float((kv - pv).abs().max()))
+        check(torch.equal(ki, pi) and torch.equal(kv, pv),
+              f"pass A kernel == plain (ids and values exact): Q={q} N={n} "
+              f"D={d} L2={L2} k_sel={k_sel}")
+    # a corpus tensor longer than n, large values past it: they never score
+    Qm, C = _int_grid((70, 384), gen), _int_grid((5000, 384), gen)
+    C[4001:] = 127.0
+    Qm[:, 0] = 127.0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # and on a stream that is not the default
+        kv, ki = topk.segtopk_pass_a(Qm, C, 4001, 32, 11)
+        fv, fi = topk.topk_scores_fused(Qm, C, 150, valid_n=4001)
+    side.synchronize()
+    pv, pi = topk.segtopk_pass_a_plain(Qm, C[:4001].clone(), 4001, 32, 11)
+    gv, gi = topk.topk_scores_fused_plain(Qm, C, 150, valid_n=4001)
+    check(torch.equal(ki, pi) and torch.equal(kv, pv) and torch.equal(fi, gi)
+          and torch.equal(fv, gv) and int(fi.max()) < 4001,
+          "pass A and the fused kernel on a side stream == plain when the "
+          "corpus tensor runs past n with large values there")
     report["segtopk"]["max_abs_err"] = seg_err
     report["segtopk_overlap"]["max_abs_err"] = ov_err
     report["segtopk_int8"]["max_abs_err"] = i8_err
@@ -205,7 +242,14 @@ def phase_kernels(report):
     for q, n, k, what in [(256, 20011, 200, "a serve-sized batch"),
                           (9000, 50000, 128, "past 8192 queries"),
                           (300, 50000, 2048, "the largest k"),
-                          (64, 1000, 1500, "k > N: (-1e30, 0) tail")]:
+                          (64, 1000, 1500, "k > N: (-1e30, 0) tail"),
+                          (1, 5000, 200, "one query"),
+                          (65, 4097, 128, "a 64-row tile's edge"),
+                          (129, 60000, 2048, "a 128-row tile's edge, the "
+                           "round-by-round merge"),
+                          (40, 100, 50, "a corpus below one tile"),
+                          (64, 129, 129, "one tile plus one row, k = N"),
+                          (300, 40000, 1, "k = 1")]:
         Qm = _int_grid((q, 384), gen)
         C = _int_grid((n, 384), gen)
         kv, ki = topk.topk_scores_fused(Qm, C, k)
@@ -215,13 +259,15 @@ def phase_kernels(report):
         check(torch.equal(ki, pi) and torch.equal(kv, pv),
               f"fused top-k kernel == plain (ids and values exact), {what}: "
               f"Q={q} N={n} k={k}")
-    Qm, C = _int_grid((9, 72), gen), _int_grid((3000, 72), gen)
-    kv, ki = topk.topk_scores_fused(Qm, C, 300)
-    pv, pi = topk.topk_scores_fused_plain(Qm, C, 300)
-    torch.cuda.synchronize()
-    fu_err = max(fu_err, float((kv - pv).abs().max()))
-    check(torch.equal(ki, pi) and torch.equal(kv, pv),
-          "fused top-k kernel == plain at D=72 (ids and values exact)")
+    for q, n, d, k in [(9, 3000, 72, 300), (33, 2000, 8, 100),
+                       (150, 6000, 768, 200)]:
+        Qm, C = _int_grid((q, d), gen), _int_grid((n, d), gen)
+        kv, ki = topk.topk_scores_fused(Qm, C, k)
+        pv, pi = topk.topk_scores_fused_plain(Qm, C, k)
+        torch.cuda.synchronize()
+        fu_err = max(fu_err, float((kv - pv).abs().max()))
+        check(torch.equal(ki, pi) and torch.equal(kv, pv),
+              f"fused top-k kernel == plain at D={d} (ids and values exact)")
     # 50 distinct rows, each repeated 400 times across the corpus: every
     # score ties 400 ways, and the copies fall in different corpus splits
     base = _int_grid((50, 384), gen)
@@ -505,6 +551,28 @@ def phase_dense(report):
         f"{seg['library_ms']:.2f} ms, bound {seg['bound_ms']:.2f} ms "
         f"({seg['bound_by']})")
 
+    # pass B alone on pass A's segments, and pass A at the serve shape: one
+    # 64-query batch over 20,000 rows, the serve engine's own segments
+    # (block_rows 16384 / 128 / seg_split 4 = 32 rows, k_sel 41)
+    _, seg_ids = topk.segtopk_pass_a(queries, corpus, n, L2, k_sel)
+    seg["pass_b_ms"] = time_ms(lambda: topk._pass_b(
+        queries, corpus, seg_ids, n, L2, k, 256), reps=3)
+    qs, cs = queries[:64], corpus[:20000]
+    serve = [time_ms(f, reps=50, warmup=3) for f in (
+        lambda: topk.segtopk_pass_a(qs, cs, 20000, 32, 41),
+        lambda: topk.segtopk_pass_a_overlap(qs, cs, 20000, 32, 41),
+        lambda: topk.segtopk_pass_a_overlap(qs, cs, 20000, 32, 41),
+        lambda: topk.segtopk_pass_a(qs, cs, 20000, 32, 41))]
+    seg["serve_ms"] = (serve[0] + serve[3]) / 2
+    ov["serve_ms"] = (serve[1] + serve[2]) / 2
+    seg["serve_library_ms"] = time_ms(lambda: torch.matmul(qs, cs.T), reps=50)
+    log(f"  pass B alone: {seg['pass_b_ms']:.2f} ms per {q} queries; pass A at "
+        f"the serve shape (64 x 20,000, k_sel 41): kernel "
+        f"{seg['serve_ms']:.4f} ms, the WMMA kernel (overlap schedule) "
+        f"{ov['serve_ms']:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in serve)}), bf16 torch.matmul "
+        f"{seg['serve_library_ms']:.4f} ms")
+
     # int8 pass A, driven through topk_scores_twopass(pass_a_int8=True)
     i8 = report["segtopk_int8"]
     zero_counts()
@@ -576,6 +644,15 @@ def phase_dense(report):
         f"plain {fu['plain_ms']:.2f} ms (2,048 queries x 8), bf16 GEMM floor "
         f"{fu['library_ms']:.2f} ms, bound {fu['bound_ms']:.2f} ms "
         f"({fu['bound_by']})")
+
+    # the fused kernel at the live search's shape: 10,000 queries over a
+    # 22,000-row index, k = 200
+    ql, cl = queries[:10000], corpus[:22000]
+    fu["live_ms"] = time_ms(lambda: topk.topk_scores_fused(ql, cl, kf), reps=5)
+    fu["live_library_ms"] = time_ms(lambda: torch.matmul(ql, cl.T), reps=5)
+    log(f"  fused top-{kf} at the live shape (10,000 x 22,000): kernel "
+        f"{fu['live_ms']:.3f} ms, bf16 torch.matmul "
+        f"{fu['live_library_ms']:.3f} ms")
 
     # flash at the encoder's serve shape
     b, h, t, dh = 256, 12, 256, 32
@@ -1142,7 +1219,9 @@ def main() -> int:
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    notes = ("plain_note", "library_note", "shape_note", "batched_ms",
+    notes = ("plain_note", "library_note", "shape_note", "pass_b_ms",
+             "serve_ms", "serve_library_ms", "live_ms", "live_library_ms",
+             "batched_ms",
              "batched_plain_ms", "batched_bound_ms", "batched_bound_by",
              "batched_library_ms")
     kernels = [{**{key: report[k][key] for key in keys},

@@ -15,42 +15,47 @@
 // id ascending -- the order of the TPU kernel's k-pass selection. Slots past
 // the real segments hold value -1e30 and id -1-j.
 //
-// Three schedules of one kernel (template parameters):
-//  * bf16, the default;
-//  * bf16 overlap: the score tile is double-buffered in shared memory and the
-//    segment reduction of tile t runs after the MMAs of tile t+1's first K
-//    chunk are issued -- the Hopper form of the TPU kernel's "matmul slice
-//    h+1 under the max of slice h". Same maxima, same insertion order, so
-//    bit-identical results to the default;
-//  * int8: int8 x int8 -> int32 WMMA (m16n16k16), twice the bf16 tensor-core
-//    rate and half the corpus bytes.
-//
 // What bounds it on this card. 2*Q*N*D multiply-adds against an (N, D)
 // corpus read: at the serve and bench shapes (Q in the thousands, D = 384)
 // that is hundreds of operations per corpus byte, far above the H100's
-// ~295 bf16 FLOP/byte ridge, so it is bound by tensor-core throughput.
+// ~295 bf16 FLOP/byte ridge, so it is bound by tensor-core throughput; and,
+// below that, by the bytes each CTA pulls from L2 per operation, which only
+// the number of queries sharing a corpus tile lowers.
 //
-// What the design does about it.
-//  * The score tile is computed with tensor cores (WMMA, 16x16x16 fragments)
-//    and reduced to segment maxima in shared memory at once: no score ever
-//    reaches device memory, only (Q, k_sel) survives.
-//  * The TPU grid ran in order and carried a running top-k from one corpus
-//    block to the next; CUDA blocks run in parallel in no order. So the grid
-//    is (query tiles of 64) x (corpus splits): each CTA scans a contiguous,
-//    segment-aligned corpus range in tiles of 128 rows, keeps its own
-//    per-query top-k_sel list in shared memory, and writes it out; a second
-//    small kernel merges the splits per query. Splits are chosen by the
-//    caller so the grid fills the 132 SMs even for a small query batch.
-//  * The query tile stays resident in shared memory for the whole scan; the
-//    corpus tile streams in 64-wide K chunks through a two-stage cp.async
-//    ring, so the next chunk's load overlaps this chunk's MMAs.
-//  * bf16 tiles are row-major with a 16-byte row pad (no bank conflicts);
-//    int8 tiles are stored K-step-major (16-byte rows per 16-wide K step),
-//    so every int8 WMMA fragment starts on the 32-byte boundary it needs.
-//  * A candidate enters a list only if it beats the list's last entry, so
-//    after the first tiles almost every segment costs one compare.
-// Not yet done (later work): wgmma, TMA, warp specialisation, a register
-// epilogue that skips the shared-memory score tile.
+// The bf16 default (mode 0): what the design does about it.
+//  * The main loop is qc_mainloop.cuh: a resident query tile of 128 rows (64
+//    for a batch of at most 64 queries or a wide D), the corpus streamed by
+//    TMA through an mbarrier ring, wgmma m64n128k16 by one consumer
+//    warpgroup per 64 query rows, a producer warpgroup that gives its
+//    registers to them. 128 queries share every corpus byte a CTA fetches.
+//  * The epilogue works in the accumulator registers. A thread holds, for two
+//    query rows, column pairs of every 8-column block; a segment of 8..128
+//    columns is a maximum over the thread's own columns and two quad
+//    shuffles, a segment longer than a tile carries its running maximum in a
+//    register from tile to tile, and segments of 1, 2 or 4 rows are handed to
+//    the inserting lane by shuffles. No score tile exists in shared or device
+//    memory. One lane of the quad per query row compares each maximum with
+//    the row's threshold (the value of the list's worst entry, kept in a
+//    register), and a tile in which no score of a warp's 16 rows beats its
+//    row's threshold is dropped after 64 maxima and one vote: after the
+//    first tiles that is nearly every tile. A
+//    survivor replaces the worst entry of the row's UNSORTED list in shared
+//    memory and one scan finds the new worst; segments arrive in ascending
+//    id, so `v > threshold` alone gives ties to the lower id. The lists are
+//    ranked once, when the CTA writes them out.
+//  * The TPU grid ran in order and carried a running top-k from block to
+//    block; CUDA blocks run in parallel in no order. So the grid is (query
+//    tiles) x (corpus splits): each CTA scans a contiguous, segment-aligned
+//    corpus range, keeps its own per-query list, and writes it out; a second
+//    small kernel merges the splits per query. The wrapper plans tile rows,
+//    stages and splits (ops/topk.py::pass_a_plan) and passes them in.
+//
+// The overlap (mode 1) and int8 (mode 2) schedules keep the earlier WMMA
+// kernel below: 64-query tiles, a two-stage cp.async ring of 64-wide K
+// chunks, the score tile reduced in shared memory (double-buffered under the
+// next tile's first multiplies in the overlap schedule; int8 x int8 -> int32
+// fragments, K-step-major tiles, in the int8 one). They are bound by the
+// shared-memory operand traffic of mma.sync-class instructions.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -58,6 +63,8 @@
 
 #include <climits>
 #include <cmath>
+
+#include "qc_mainloop.cuh"
 
 using namespace nvcuda;
 
@@ -316,6 +323,212 @@ segtopk_kernel(const T* __restrict__ q, const T* __restrict__ c, float* __restri
   }
 }
 
+// ---------------------------------------------------------- mode 0: wgmma
+
+// row stride of the lists, in entries: odd, so the 16 inserting lanes of a
+// warp (16 rows, the same slot) fall on different banks
+__host__ __device__ inline int list_stride(int k_sel) { return k_sel | 1; }
+
+// bytes of shared memory of the wgmma kernel: the main loop's, then the
+// lists (per query row list_stride(k_sel) values and as many ids)
+inline size_t wg_smem_bytes(int bq, int Dp, int n_stages, int k_sel) {
+  return qc::mainloop_bytes(bq, Dp, n_stages) + (size_t)bq * list_stride(k_sel) * 8;
+}
+
+// true where entry (v, id) ranks below entry (w, jd): lower value, or the
+// same value and a higher id
+__device__ __forceinline__ bool ranks_below(float v, int id, float w, int jd) {
+  return v < w || (v == w && id > jd);
+}
+
+// Replace the list's worst entry, at *worst, by (v, id), v known to beat it;
+// find the new worst and return its value. The list is NOT kept sorted: an
+// accepted segment costs k_sel independent reads instead of a dependent
+// shift of half the list, and the rows are ranked once, on the way out.
+__device__ __noinline__ float list_replace(float* lv, int* li, int k_sel, int* worst, float v,
+                                           int id) {
+  lv[*worst] = v;
+  li[*worst] = id;
+  float wv = lv[0];
+  int wi = li[0], wp = 0;
+  for (int j = 1; j < k_sel; ++j) {
+    const float x = lv[j];
+    const int xi = li[j];
+    if (ranks_below(x, xi, wv, wi)) {
+      wv = x;
+      wi = xi;
+      wp = j;
+    }
+  }
+  *worst = wp;
+  return wv;
+}
+
+template <int NWG>
+__global__ void __launch_bounds__((NWG + 1) * qc::WG_THREADS, 1)
+segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap cmap, float* __restrict__ part_v,
+                     int* __restrict__ part_i, int Q, int D, int L2, int n_valid_segs, int k_sel,
+                     long long rows_per_split, int n_stages) {
+  constexpr int BQW = NWG * 64;
+  extern __shared__ unsigned char smem_raw[];
+  const int Dp = qc::padded_width(D);
+  const int kchunks = Dp / qc::KC;
+  qc::Ring ring;
+  unsigned char* own = qc::ring_setup(ring, smem_raw, BQW, Dp, n_stages, NWG * 4);
+  const int ls = list_stride(k_sel);
+  float* lv_s = reinterpret_cast<float*>(own);
+  int* li_s = reinterpret_cast<int*>(own + (size_t)BQW * ls * 4);
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQW;
+  const int split = blockIdx.y;
+  const long long seg_end = (long long)n_valid_segs * L2;
+  const long long r_begin = (long long)split * rows_per_split;
+  long long r_end = r_begin + rows_per_split;
+  if (r_end > seg_end) r_end = seg_end;
+  const int n_tiles = r_begin < r_end ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
+
+  // every slot starts as the worst possible entry; slot j's id INT_MAX - j
+  // keeps the empty slots distinct, the last one the worst
+  for (int idx = tid; idx < BQW * ls; idx += (NWG + 1) * qc::WG_THREADS) {
+    lv_s[idx] = -INFINITY;
+    li_s[idx] = idx % ls < k_sel ? INT_MAX - (k_sel - 1 - idx % ls) : INT_MAX;
+  }
+  __syncthreads();
+
+  if (tid >= NWG * qc::WG_THREADS) {
+    // ------------------------------------------------ producer warpgroup
+    if (NWG == 2) qc::reg_dealloc<40>();
+    if (tid == NWG * qc::WG_THREADS)
+      qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, r_begin, n_tiles);
+  } else {
+    // ----------------------------------------------- consumer warpgroups
+    if (NWG == 2) qc::reg_alloc<232>();
+    const int wg = tid / qc::WG_THREADS;
+    const int warp = (tid / 32) & 3;
+    const int lane = tid & 31;
+    const int quad = lane & 3;
+    const int quad_base = lane & ~3;
+    // lane 0 of a quad inserts for the quad's upper row, lane 1 for the row
+    // eight below
+    const int my_row = wg * 64 + warp * 16 + (lane >> 2) + (quad == 1 ? 8 : 0);
+    const bool inserter = quad < 2 && q0 + my_row < Q;
+    float* my_lv = lv_s + my_row * ls;
+    int* my_li = li_s + my_row * ls;
+    // the value of the list's worst entry; a row past Q takes nothing
+    float thr = inserter ? -INFINITY : INFINITY;
+    int worst = k_sel - 1;  // and its slot
+    float run = -INFINITY;  // running maximum of a segment longer than a tile
+    const int seg_t = L2 < BN ? L2 : BN;
+    const int bps = seg_t >= 8 ? seg_t / 8 : 1;  // 8-column blocks per segment
+
+    auto offer = [&](float v, int seg) {
+      // ids ascend, so a segment that only ties the worst entry loses to it
+      if (inserter && seg < n_valid_segs && v > thr)
+        thr = list_replace(my_lv, my_li, k_sel, &worst, v, seg);
+    };
+
+    qc::consume(ring, wg, BQW, kchunks, n_tiles, [&](int tile, float (&acc)[64]) {
+      const long long r0 = r_begin + (long long)tile * BN;
+      if (L2 <= BN) {
+        // nothing in the tile beats a threshold of this warp's 16 rows (the
+        // common case after the first tiles): 64 maxima and one vote
+        const float thr_a = __shfl_sync(0xffffffffu, thr, quad_base);
+        const float thr_b = __shfl_sync(0xffffffffu, thr, quad_base + 1);
+        float m_a = -INFINITY, m_b = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          m_a = fmaxf(m_a, fmaxf(acc[4 * j], acc[4 * j + 1]));
+          m_b = fmaxf(m_b, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+        }
+        if (!__any_sync(0xffffffffu, m_a > thr_a || m_b > thr_b)) return;
+      }
+      if (seg_t >= 8) {
+        const int seg0 = (int)(r0 / L2);
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          m0 = fmaxf(m0, fmaxf(acc[4 * j], acc[4 * j + 1]));
+          m1 = fmaxf(m1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+          if (((j + 1) & (bps - 1)) == 0) {  // a segment (or the tile) ends here
+            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+            const float mine = quad == 1 ? m1 : m0;
+            if (L2 <= BN) {
+              offer(mine, seg0 + j / bps);
+            } else {
+              run = (r0 % L2 == 0) ? mine : fmaxf(run, mine);
+              if ((r0 + BN) % L2 == 0) offer(run, seg0);
+            }
+            m0 = m1 = -INFINITY;
+          }
+        }
+      } else {
+        // segments of 1, 2 or 4 rows: several per 8-column block, spread
+        // over the quad; each lane's part goes to the inserting lane in
+        // ascending segment id
+        const int seg0 = (int)(r0 / seg_t);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+            const bool mine = quad == h;
+            if (seg_t == 1) {
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                const float va = __shfl_sync(0xffffffffu, a, quad_base + t);
+                const float vb = __shfl_sync(0xffffffffu, b, quad_base + t);
+                if (mine) {
+                  offer(va, seg0 + 8 * j + 2 * t);
+                  offer(vb, seg0 + 8 * j + 2 * t + 1);
+                }
+              }
+            } else if (seg_t == 2) {
+              const float m = fmaxf(a, b);
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                const float v = __shfl_sync(0xffffffffu, m, quad_base + t);
+                if (mine) offer(v, seg0 + 4 * j + t);
+              }
+            } else {
+              float m = fmaxf(a, b);
+              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+#pragma unroll
+              for (int t = 0; t < 4; t += 2) {
+                const float v = __shfl_sync(0xffffffffu, m, quad_base + t);
+                if (mine) offer(v, seg0 + 2 * j + t / 2);
+              }
+            }
+          }
+        }
+      }
+    });
+
+    // each warp owns its 16 rows' lists and writes them out itself, every
+    // entry at its rank by (value desc, id asc); empty slots rank last, in
+    // slot order, as (-inf, INT_MAX)
+    __syncwarp();
+    const int row0 = wg * 64 + warp * 16;
+    for (int idx = lane; idx < 16 * k_sel; idx += 32) {
+      const int r = row0 + idx / k_sel;
+      if (q0 + r >= Q) continue;
+      const float* lv = lv_s + r * ls;
+      const int* li = li_s + r * ls;
+      const float v = lv[idx % k_sel];
+      const int id = li[idx % k_sel];
+      int rank = 0;
+      for (int j = 0; j < k_sel; ++j) rank += ranks_below(v, id, lv[j], li[j]);
+      const size_t o = ((size_t)split * Q + q0 + r) * k_sel + rank;
+      part_v[o] = v;
+      part_i[o] = v == -INFINITY ? INT_MAX : id;
+    }
+  }
+}
+
 // Merge the per-split lists of one query: k_sel rounds, each taking the best
 // head over the splits by (value desc, id asc). Splits cover disjoint
 // segment ranges, so ids never tie.
@@ -367,6 +580,67 @@ segtopk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
   }
 }
 
+// The same merge for at most MERGE_THREADS splits: thread s keeps split s's
+// head and the entry after it in registers, so a round is one reduction and
+// the winner's reload runs under the next round instead of in front of it.
+__global__ void __launch_bounds__(MERGE_THREADS)
+segtopk_merge_few(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                  float* __restrict__ out_v, int* __restrict__ out_i, int Q, int k_sel,
+                  int n_splits) {
+  __shared__ float wv[2][MERGE_THREADS / 32];
+  __shared__ int wi[2][MERGE_THREADS / 32], ws[2][MERGE_THREADS / 32];
+  const int qi = blockIdx.x, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const bool have = tid < n_splits;
+  const float* pv = part_v + ((size_t)(have ? tid : 0) * Q + qi) * k_sel;
+  const int* pi = part_i + ((size_t)(have ? tid : 0) * Q + qi) * k_sel;
+  int h = 0;
+  float cv = have ? pv[0] : -INFINITY, nv = have && k_sel > 1 ? pv[1] : -INFINITY;
+  int ci = have ? pi[0] : INT_MAX, ni = have && k_sel > 1 ? pi[1] : INT_MAX;
+  for (int j = 0; j < k_sel; ++j) {
+    float bv = cv;
+    int bi = ci, bs = tid;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float v = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int id = __shfl_xor_sync(0xffffffffu, bi, off);
+      const int sp = __shfl_xor_sync(0xffffffffu, bs, off);
+      if (v > bv || (v == bv && id < bi)) { bv = v; bi = id; bs = sp; }
+    }
+    const int buf = j & 1;
+    if (lane == 0) { wv[buf][warp] = bv; wi[buf][warp] = bi; ws[buf][warp] = bs; }
+    __syncthreads();
+    bv = wv[buf][0]; bi = wi[buf][0]; bs = ws[buf][0];
+    for (int w = 1; w < MERGE_THREADS / 32; ++w)
+      if (wv[buf][w] > bv || (wv[buf][w] == bv && wi[buf][w] < bi)) {
+        bv = wv[buf][w]; bi = wi[buf][w]; bs = ws[buf][w];
+      }
+    if (tid == 0) {
+      const size_t o = (size_t)qi * k_sel + j;
+      out_v[o] = bv == -INFINITY ? NEG_INF : bv;  // fewer real segments than k_sel
+      out_i[o] = bv == -INFINITY ? -1 - j : bi;
+    }
+    if (tid == bs && bv != -INFINITY) {
+      cv = nv;
+      ci = ni;
+      ++h;
+      const bool more = h + 1 < k_sel;
+      nv = more ? pv[h + 1] : -INFINITY;
+      ni = more ? pi[h + 1] : INT_MAX;
+    }
+  }
+}
+
+inline void launch_merge(const void* part_v, const void* part_i, void* out_v, void* out_i, int Q,
+                         int k_sel, int n_splits, cudaStream_t st) {
+  if (n_splits <= MERGE_THREADS)
+    segtopk_merge_few<<<Q, MERGE_THREADS, 0, st>>>(
+        static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+        static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k_sel, n_splits);
+  else
+    segtopk_merge<<<Q, MERGE_THREADS, sizeof(int) * n_splits, st>>>(
+        static_cast<const float*>(part_v), static_cast<const int*>(part_i),
+        static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k_sel, n_splits);
+}
+
 template <typename T, bool OVERLAP>
 int launch(const void* q, const void* c, void* part_v, void* part_i, void* out_v, void* out_i,
            int Q, int n, int D, int L2, int n_valid_segs, int k_sel, int n_splits,
@@ -388,26 +662,64 @@ int launch(const void* q, const void* c, void* part_v, void* part_i, void* out_v
       static_cast<int*>(part_i), Q, n, D, L2, n_valid_segs, k_sel, units_per_split * unit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  segtopk_merge<<<Q, MERGE_THREADS, sizeof(int) * n_splits, st>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k_sel, n_splits);
+  launch_merge(part_v, part_i, out_v, out_i, Q, k_sel, n_splits, st);
+  return (int)cudaGetLastError();
+}
+
+template <int NWG>
+int launch_wgmma(const void* q, const void* c, void* part_v, void* part_i, void* out_v,
+                 void* out_i, int Q, int n, int D, int L2, int n_valid_segs, int k_sel,
+                 int n_splits, int n_stages, cudaStream_t st) {
+  constexpr int BQW = NWG * 64;
+  const int Dp = qc::padded_width(D);
+  const size_t bytes = wg_smem_bytes(BQW, Dp, n_stages, k_sel);
+  if (D % 8 || n_stages < 2 || n_stages > 4 || bytes > (size_t)qc::SMEM_LIMIT ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, cmap;
+  int rc = qc::make_tensor_map(&qmap, q, Q, D, BQW);
+  if (rc) return rc;
+  rc = qc::make_tensor_map(&cmap, c, n, D, BN);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(segtopk_wgmma_kernel<NWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long unit = L2 > BN ? L2 : BN;  // split ranges end on segment boundaries
+  const long long n_units = ((long long)n_valid_segs * L2 + unit - 1) / unit;
+  const long long units_per_split = (n_units + n_splits - 1) / n_splits;
+  dim3 grid((Q + BQW - 1) / BQW, n_splits);
+  segtopk_wgmma_kernel<NWG><<<grid, (NWG + 1) * qc::WG_THREADS, bytes, st>>>(
+      qmap, cmap, static_cast<float*>(part_v), static_cast<int*>(part_i), Q, D, L2, n_valid_segs,
+      k_sel, units_per_split * unit, n_stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  launch_merge(part_v, part_i, out_v, out_i, Q, k_sel, n_splits, st);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode 0: bf16; mode 1: bf16, overlap schedule; mode 2: int8.
+// mode 0: bf16 (the wgmma kernel; bq = 64 or 128 query rows per CTA and
+// n_stages = 2..4 ring stages as ops/topk.py::pass_a_plan chose them);
+// mode 1: bf16, overlap schedule; mode 2: int8 (both the WMMA kernel, which
+// ignores bq and n_stages).
 extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* part_i,
                               void* out_v, void* out_i, int Q, int n, int D, int L2,
-                              int n_valid_segs, int k_sel, int n_splits, int mode, void* stream) {
+                              int n_valid_segs, int k_sel, int n_splits, int mode, int bq,
+                              int n_stages, void* stream) {
   if (Q <= 0 || n <= 0 || D <= 0 || L2 <= 0 || k_sel <= 0 || k_sel > 128 || n_splits <= 0 ||
       (BN % L2 != 0 && L2 % BN != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch<__nv_bfloat16, false>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
-                                          n_valid_segs, k_sel, n_splits, st);
+      if (bq == 128)
+        return launch_wgmma<2>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
+                               k_sel, n_splits, n_stages, st);
+      if (bq == 64)
+        return launch_wgmma<1>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
+                               k_sel, n_splits, n_stages, st);
+      return (int)cudaErrorInvalidValue;
     case 1:
       return launch<__nv_bfloat16, true>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
                                          n_valid_segs, k_sel, n_splits, st);

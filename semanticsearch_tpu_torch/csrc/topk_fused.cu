@@ -13,331 +13,455 @@
 //
 // What bounds it on this card. 2*Q*N*D multiply-adds against one corpus read:
 // at the deep-candidate shapes (thousands of queries, D = 384) it is bound
-// by tensor-core throughput, like pass A. The selection is data-dependent:
-// once a query's list is full, a row enters only if it beats the list's
-// k-th value, so after the first ~k rows of a split almost every score costs
-// one compare in registers.
+// by tensor-core throughput and, below that, by the L2 bytes a CTA pulls per
+// operation, like pass A. The selection is data-dependent: once a query has
+// seen a few k rows, a row survives only if it beats the query's k-th best
+// value so far, and the survivors per (query, split) number about
+// k * (1 + ln(rows / k)).
 //
 // What the design does about it.
-//  * The TPU grid swept the corpus in order and kept one running top-k list
-//    per query in VMEM. CUDA blocks run in parallel in no order, so the grid
-//    is (query tiles of 64) x (corpus splits), as in segtopk.cu: each CTA
-//    scans a contiguous range of 128-row tiles with a WMMA bf16 main loop
-//    (resident query tile, two-stage cp.async corpus ring, zero-filled rows
-//    past n), and keeps one exact list per (query, split) in device memory
-//    (k entries of (value, row), sorted). A second kernel merges the splits
-//    per query by (value desc, row asc).
-//  * Per tile, each warp owns 8 queries. For each, the lanes compare the
-//    query's 128 scores with its threshold (the list's k-th value, kept in
-//    shared memory) and compact the survivors with a ballot into a per-warp
-//    candidate buffer. Rows ascend through a CTA's range, so a list entry
-//    beats an equal-valued candidate: acceptance is `v > threshold`, and
-//    equal values at the boundary resolve to the lower row.
-//  * The survivors (at most 128) are ranked among themselves (value desc,
-//    row asc) and merged into the sorted list in place: each survivor's new
-//    slot is its rank plus the number of list entries >= it (binary search),
-//    each displaced list entry moves right by the number of survivors
-//    strictly above it, processed from the tail so nothing is overwritten
-//    before it is read; slots past k fall off. Lists start as k sentinels
-//    (-inf, INT_MAX), which the merge turns into (-1e30, 0).
-//  * Shared memory does not grow with k (lists live in device memory, L2
-//    resident for a CTA's 64 queries), so k = 2048 needs the same ~137 KB
-//    as k = 128 at D = 384.
-// Not yet done (later work): wgmma, TMA, and a register epilogue that skips
-// the shared-memory score tile.
+//  * The main loop is qc_mainloop.cuh (resident 128- or 64-row query tile,
+//    TMA + mbarrier ring, wgmma m64n128k16, producer warpgroup). The grid is
+//    (query tiles) x (corpus splits); ops/topk.py::fused_plan chooses tile
+//    rows, stages, splits and the buffer capacity and passes them in.
+//  * The threshold filter runs in the accumulator registers: a thread takes
+//    the maxima of its values of each of its two query rows, by groups of 32
+//    columns, and looks at single values only in a group whose maximum beats
+//    the row's threshold. Rows ascend
+//    through a CTA's range, so `v > threshold` alone is exact here: a later
+//    row that only ties the k-th best loses to it by its higher row id.
+//  * THE DESIGN DECISION: survivors are appended, unsorted, to a buffer of
+//    cap = 2k + 128 slots per (query, split) in device memory (one 8-byte
+//    store each, the slot taken from a shared-memory counter), as one key
+//    that orders like (value descending, row ascending): the f32 bits mapped
+//    to an unsigned that sorts like the value, above the complemented row.
+//    Nothing is kept sorted while scanning. Only when a buffer could
+//    overflow on the next tile (more than cap - 128 entries) does the owning
+//    warp cut it back to its best k: a radix select (8 bits a pass, a
+//    256-bin histogram in shared memory) finds the k-th largest key, one
+//    pass compacts the keys at or above it to the front, and the threshold
+//    becomes that key's value. A cut is paid for by at least k + 1
+//    survivors, so the cost per survivor is a few buffer reads, instead of a
+//    shift of a k-entry sorted list per tile. All 16 query rows of a warp's
+//    accumulators belong to that warp alone, so appends and cuts need no
+//    barrier beyond __syncwarp. The consumers' other warps keep multiplying
+//    meanwhile; the ring runs ahead by its stages.
+//  * Ties. Wherever a candidate meets a buffer (the cut, the final sort, the
+//    merge) the comparison is on the whole key, so among equal values the
+//    lower row wins, within a split and across splits.
+//  * After the scan each buffer is cut to at most k, then topk_fused_sort
+//    sorts every (query, split) buffer in shared memory (bitonic, keys
+//    descending). One split: the sorted buffer is the answer. A few splits:
+//    topk_fused_rank_merge places every key by its rank over the buffers in
+//    shared memory. Many splits (a small batch over a large corpus):
+//    topk_fused_merge takes, k times, the best head over the splits. All
+//    read the per-buffer counts, so no sentinel is written anywhere: a
+//    query with fewer than k rows ends in (-1e30, 0) slots written last.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <climits>
 #include <cmath>
 
-using namespace nvcuda;
+#include "qc_mainloop.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // queries per CTA
-constexpr int BN = 128;       // corpus rows per tile
-constexpr int KC = 64;        // K (embedding) chunk per pipeline stage
-constexpr int THREADS = 256;  // 8 warps: 2 (query) x 4 (corpus)
-constexpr int WARPS = THREADS / 32;
-constexpr int CPAD = KC + 8;  // bf16 row stride of a corpus stage
-constexpr int SPAD = BN + 4;  // f32 row stride of the score tile
+constexpr int BN = qc::BN;
 constexpr int MAX_K = 2048;
 constexpr float NEG_INF = -1e30f;
+constexpr int HIST_BYTES = 256 * 4;  // one radix histogram per consumer warp
 
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-struct Layout {
-  size_t q, c, s, thr, cv, ci, sv, si, total;
-  __host__ __device__ explicit Layout(int Dp) {
-    q = 0;
-    c = align128(q + sizeof(__nv_bfloat16) * BQ * (Dp + 8));
-    s = align128(c + sizeof(__nv_bfloat16) * 2 * BN * CPAD);
-    thr = align128(s + sizeof(float) * BQ * SPAD);
-    cv = align128(thr + sizeof(float) * BQ);
-    ci = align128(cv + sizeof(float) * WARPS * BN);
-    sv = align128(ci + sizeof(int) * WARPS * BN);
-    si = align128(sv + sizeof(float) * WARPS * BN);
-    total = align128(si + sizeof(int) * WARPS * BN);
-  }
-};
-
-__device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// number of leading entries of a non-increasing array that are >= v
-__device__ inline int count_ge(const float* a, int len, float v) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    int mid = (lo + hi) / 2;
-    if (a[mid] >= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-// number of leading entries of a non-increasing array that are > v
-__device__ inline int count_gt(const float* a, int len, float v) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    int mid = (lo + hi) / 2;
-    if (a[mid] > v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+// bytes of shared memory: the main loop's, then per query row a counter and
+// a threshold, then the consumer warps' histograms
+inline size_t fused_smem_bytes(int bq, int Dp, int n_stages) {
+  return qc::mainloop_bytes(bq, Dp, n_stages) + (size_t)bq * 8 + (size_t)(bq / 16) * HIST_BYTES;
 }
 
-__global__ void __launch_bounds__(THREADS)
-topk_fused_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ c,
-                  float* __restrict__ list_v, int* __restrict__ list_i, int Q, int n_valid,
-                  int D, int k, long long rows_per_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Dp = (D + KC - 1) / KC * KC;
-  const int qld = Dp + 8;
-  Layout lay(Dp);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + lay.q);
-  __nv_bfloat16* c_s = reinterpret_cast<__nv_bfloat16*>(smem + lay.c);
-  float* s_s = reinterpret_cast<float*>(smem + lay.s);
-  float* thr_s = reinterpret_cast<float*>(smem + lay.thr);
+// (value, row) as one unsigned key: larger key = higher value, then lower row
+__device__ __forceinline__ unsigned long long make_key(float v, int row) {
+  unsigned b = __float_as_uint(v);
+  if (b == 0x80000000u) b = 0;  // -0 orders as +0
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)b << 32) | (unsigned)(~row);
+}
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  unsigned b = (unsigned)(key >> 32);
+  b = (b & 0x80000000u) ? (b & 0x7fffffffu) : ~b;
+  return __uint_as_float(b);
+}
+__device__ __forceinline__ int key_row(unsigned long long key) { return (int)(~(unsigned)key); }
+
+// One warp cuts keys[0..count) (count > k) to its k largest, compacted to the
+// front in no particular order, and returns the k-th largest key. hist: 256
+// words of shared memory of this warp. (Copying the buffer to shared memory
+// first, so that the passes do not each go to device memory, was tried and
+// measured no faster: the passes are bound by the histogram, not the reads.)
+__device__ __noinline__ unsigned long long warp_cut(unsigned long long* keys, int count, int k,
+                                                    unsigned* hist) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long prefix = 0;  // the digits of the k-th key found so far
+  int need = k;                   // its rank among the keys sharing them
+  int shift = 56;
+  bool unique = false;
+  for (;;) {
+    for (int i = lane; i < 256; i += 32) hist[i] = 0;
+    __syncwarp();
+#pragma unroll 4
+    for (int i = lane; i < count; i += 32) {
+      const unsigned long long key = keys[i];
+      if (shift == 56 || (key >> (shift + 8)) == (prefix >> (shift + 8)))
+        atomicAdd(&hist[(unsigned)(key >> shift) & 255u], 1u);
+    }
+    __syncwarp();
+    // lane l holds bins 255-8l .. 248-8l; walk the bins from the top
+    int mine = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) mine += (int)hist[255 - 8 * lane - b];
+    int incl = mine;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    const int excl = incl - mine;
+    const bool here = excl < need && need <= incl;
+    int digit = 0, rank = 0, bin_count = 0;
+    if (here) {
+      int seen = excl;
+      for (int b = 0; b < 8; ++b) {
+        const int h = (int)hist[255 - 8 * lane - b];
+        if (seen + h >= need) {
+          digit = 255 - 8 * lane - b;
+          rank = need - seen;
+          bin_count = h;
+          break;
+        }
+        seen += h;
+      }
+    }
+    const int from = __ffs(__ballot_sync(0xffffffffu, here)) - 1;
+    digit = __shfl_sync(0xffffffffu, digit, from);
+    need = __shfl_sync(0xffffffffu, rank, from);
+    bin_count = __shfl_sync(0xffffffffu, bin_count, from);
+    prefix |= (unsigned long long)digit << shift;
+    if (shift == 0) break;
+    if (bin_count == 1) {
+      unique = true;
+      break;
+    }
+    shift -= 8;
+    __syncwarp();
+  }
+  unsigned long long kth = prefix;
+  if (unique) {  // one key carries these digits: fetch its remaining bits
+    unsigned long long found = 0;
+    for (int i = lane; i < count; i += 32) {
+      const unsigned long long key = keys[i];
+      if ((key >> shift) == (prefix >> shift)) found = key;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, found, off);
+      if (other > found) found = other;
+    }
+    kth = found;
+  }
+  // keys >= kth to the front, four rounds of 32 loaded at a time; a write
+  // never passes the reads of its own batch
+  int out = 0;
+  for (int base = 0; base < count; base += 128) {
+    unsigned long long key[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + 32 * u + lane;
+      key[u] = i < count ? keys[i] : 0ull;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const bool keep = base + 32 * u + lane < count && key[u] >= kth;
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      if (keep) keys[out + __popc(m & ((1u << lane) - 1u))] = key[u];
+      out += __popc(m);
+    }
+    __syncwarp();
+  }
+  return kth;
+}
+
+template <int NWG>
+__global__ void __launch_bounds__((NWG + 1) * qc::WG_THREADS, 1)
+topk_fused_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap cmap, unsigned long long* __restrict__ keys,
+                  int* __restrict__ counts, int Q, int n_valid, int D, int k, int cap,
+                  long long rows_per_split, int n_stages) {
+  constexpr int BQW = NWG * 64;
+  extern __shared__ unsigned char smem_raw[];
+  const int Dp = qc::padded_width(D);
+  const int kchunks = Dp / qc::KC;
+  qc::Ring ring;
+  unsigned char* own = qc::ring_setup(ring, smem_raw, BQW, Dp, n_stages, NWG * 4);
+  int* cnt_s = reinterpret_cast<int*>(own);
+  float* thr_s = reinterpret_cast<float*>(own + (size_t)BQW * 4);
+  unsigned* hist_s = reinterpret_cast<unsigned*>(own + (size_t)BQW * 8);
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int warp_m = warp / 4;  // 32 query rows each
-  const int warp_n = warp % 4;  // 32 corpus rows each
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BQW;
   const int split = blockIdx.y;
-  float* cv = reinterpret_cast<float*>(smem + lay.cv) + warp * BN;
-  int* ci = reinterpret_cast<int*>(smem + lay.ci) + warp * BN;
-  float* sv = reinterpret_cast<float*>(smem + lay.sv) + warp * BN;
-  int* si = reinterpret_cast<int*>(smem + lay.si) + warp * BN;
-
   const long long r_begin = (long long)split * rows_per_split;
   long long r_end = r_begin + rows_per_split;
   if (r_end > n_valid) r_end = n_valid;
   const int n_tiles = r_begin < r_end ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
-  const int kchunks = Dp / KC;
-  const int total = n_tiles * kchunks;
 
-  const int qvec = Dp / 8;
-  for (int idx = tid; idx < BQ * qvec; idx += THREADS) {
-    int r = idx / qvec, col = (idx % qvec) * 8;
-    bool ok = (q0 + r < Q) && (col < D);
-    const __nv_bfloat16* src = ok ? q + (size_t)(q0 + r) * D + col : q;
-    cp_async16(q_s + r * qld + col, src, ok);
+  if (tid < BQW) {
+    cnt_s[tid] = 0;
+    thr_s[tid] = -INFINITY;
   }
-  // the lists of this CTA's queries start as k sentinels
-  for (int idx = tid; idx < BQ * k; idx += THREADS) {
-    int r = idx / k;
-    if (q0 + r < Q) {
-      size_t o = ((size_t)split * Q + q0 + r) * k + idx % k;
-      list_v[o] = -INFINITY;
-      list_i[o] = INT_MAX;
-    }
-  }
-  if (tid < BQ) thr_s[tid] = -INFINITY;
+  __syncthreads();
 
-  auto load_stage = [&](int step) {
-    const int tile = step / kchunks, kc = step % kchunks;
-    const long long r0 = r_begin + (long long)tile * BN;
-    __nv_bfloat16* dst = c_s + (step & 1) * BN * CPAD;
-    for (int idx = tid; idx < BN * KC / 8; idx += THREADS) {
-      int r = idx / (KC / 8), col8 = (idx % (KC / 8)) * 8;
-      long long grow = r0 + r;
-      int col = kc * KC + col8;
-      bool ok = grow < r_end && col < D;
-      const __nv_bfloat16* src = ok ? c + (size_t)grow * D + col : c;
-      cp_async16(dst + r * CPAD + col8, src, ok);
-    }
-  };
+  if (tid >= NWG * qc::WG_THREADS) {
+    // ------------------------------------------------ producer warpgroup
+    if (NWG == 2) qc::reg_dealloc<40>();
+    if (tid == NWG * qc::WG_THREADS)
+      qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, r_begin, n_tiles);
+  } else {
+    // ----------------------------------------------- consumer warpgroups
+    if (NWG == 2) qc::reg_alloc<232>();
+    const int wg = tid / qc::WG_THREADS;
+    const int warp = tid / 32;  // consumer warp of the CTA
+    const int lane = tid & 31;
+    const int quad = lane & 3;
+    const int row0 = warp * 16;  // the warp's 16 query rows
+    const int row_a = row0 + (lane >> 2), row_b = row_a + 8;
+    const bool ok_a = q0 + row_a < Q, ok_b = q0 + row_b < Q;
+    unsigned long long* keys_a = keys + ((size_t)split * Q + q0 + row_a) * cap;
+    unsigned long long* keys_b = keys + ((size_t)split * Q + q0 + row_b) * cap;
+    unsigned* hist = hist_s + warp * 256;
+    // a row past Q takes nothing
+    float thr_a = ok_a ? -INFINITY : INFINITY, thr_b = ok_b ? -INFINITY : INFINITY;
 
-  // merge this tile's survivors of query qq into its list (one warp)
-  auto merge_query = [&](int qq, long long r0) {
-    const float thr = thr_s[qq];
-    const float* row = s_s + qq * SPAD;
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      const int col = lane + 32 * j;
-      const float v = row[col];
-      const bool take = r0 + col < r_end && v > thr;
-      const unsigned m = __ballot_sync(0xffffffffu, take);
-      if (take) {
-        int p = cnt + __popc(m & ((1u << lane) - 1u));
-        cv[p] = v;
-        ci[p] = (int)(r0 + col);
-      }
-      cnt += __popc(m);
-    }
-    if (cnt == 0) return;
-    __syncwarp();
-    // rank of each survivor among the survivors: (value desc, row asc);
-    // buffer order is row order
-    for (int t = lane; t < cnt; t += 32) {
-      const float v = cv[t];
-      int rank = 0;
-      for (int u = 0; u < cnt; ++u) {
-        const float w = cv[u];
-        rank += (w > v) || (w == v && u < t);
-      }
-      sv[rank] = v;
-      si[rank] = ci[t];
-    }
-    __syncwarp();
-    float* Lv = list_v + ((size_t)split * Q + q0 + qq) * k;
-    int* Li = list_i + ((size_t)split * Q + q0 + qq) * k;
-    // new slots of the survivors (list entries are lower rows: they win ties)
-    int pos[BN / 32];
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      const int t = lane + 32 * j;
-      pos[j] = t < cnt ? t + count_ge(Lv, k, sv[t]) : k;
-    }
-    const int p0 = count_ge(Lv, k, sv[0]);  // first list entry that moves
-    __syncwarp();
-    for (int base = k - 1; base >= p0; base -= 32) {
-      const int i = base - lane;
-      float lv = 0.f;
-      int li = 0, dst = k;
-      if (i >= p0) {
-        lv = Lv[i];
-        li = Li[i];
-        dst = i + count_gt(sv, cnt, lv);
+    // cut every buffer of this warp that holds more than `limit` keys
+    auto cut_rows = [&](int limit) {
+      const int c = lane < 16 ? cnt_s[row0 + lane] : 0;
+      unsigned todo = __ballot_sync(0xffffffffu, c > limit);
+      if (!todo) return;
+      while (todo) {
+        const int r = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int row = row0 + r;
+        const unsigned long long kth = warp_cut(
+            keys + ((size_t)split * Q + q0 + row) * cap, cnt_s[row], k, hist);
+        __syncwarp();
+        if (lane == 0) {
+          cnt_s[row] = k;
+          thr_s[row] = key_value(kth);
+        }
       }
       __syncwarp();
-      if (dst < k) {
-        Lv[dst] = lv;
-        Li[dst] = li;
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      const int t = lane + 32 * j;
-      if (pos[j] < k) {
-        Lv[pos[j]] = sv[t];
-        Li[pos[j]] = si[t];
-      }
-    }
-    __syncwarp();
-    if (lane == 0) thr_s[qq] = Lv[k - 1];
-    __syncwarp();
-  };
+      if (ok_a) thr_a = thr_s[row_a];
+      if (ok_b) thr_b = thr_s[row_b];
+    };
 
-  __syncthreads();  // sentinels and thresholds written before any merge
-  if (total > 0) load_stage(0);
-  cp_async_commit();  // group 0: query tile + first corpus chunk
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  for (int step = 0; step < total; ++step) {
-    const int tile = step / kchunks, kc = step % kchunks;
-    if (step + 1 < total) {
-      load_stage(step + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kc == 0) {
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-    }
-    const __nv_bfloat16* cst = c_s + (step & 1) * BN * CPAD;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], q_s + (warp_m * 32 + i * 16) * qld + kc * KC + kk * 16, qld);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], cst + (warp_n * 32 + j * 16) * CPAD + kk * 16, CPAD);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    if (kc == kchunks - 1) {
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(s_s + (warp_m * 32 + i * 16) * SPAD + warp_n * 32 + j * 16,
-                                  acc[i][j], SPAD, wmma::mem_row_major);
-      __syncthreads();
+    qc::consume(ring, wg, BQW, kchunks, n_tiles, [&](int tile, float (&acc)[64]) {
       const long long r0 = r_begin + (long long)tile * BN;
-      for (int qq = warp; qq < BQ && q0 + qq < Q; qq += WARPS) merge_query(qq, r0);
-    }
-    __syncthreads();  // the stage and score tile are rewritten next step
+      const int limit = (int)(r_end - r0 < BN ? r_end - r0 : BN);  // valid columns
+      // the thread's maxima over four groups of 32 columns, for each of its
+      // two rows; single values are looked at only in a group whose maximum
+      // beats the row's threshold (a warp has a few survivors in most tiles)
+      float m_a[4], m_b[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        m_a[g] = m_b[g] = -INFINITY;
+#pragma unroll
+        for (int j = 4 * g; j < 4 * g + 4; ++j) {
+          m_a[g] = fmaxf(m_a[g], fmaxf(acc[4 * j], acc[4 * j + 1]));
+          m_b[g] = fmaxf(m_b[g], fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+        }
+      }
+      if (fmaxf(fmaxf(m_a[0], m_a[1]), fmaxf(m_a[2], m_a[3])) > thr_a ||
+          fmaxf(fmaxf(m_b[0], m_b[1]), fmaxf(m_b[2], m_b[3])) > thr_b) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float thr = h ? thr_b : thr_a;
+            if (!((h ? m_b[g] : m_a[g]) > thr)) continue;
+#pragma unroll
+            for (int j = 4 * g; j < 4 * g + 4; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float v = acc[4 * j + 2 * h + e];
+                const int col = 8 * j + 2 * quad + e;
+                if (v > thr && col < limit) {
+                  const int pos = atomicAdd(&cnt_s[h ? row_b : row_a], 1);
+                  (h ? keys_b : keys_a)[pos] = make_key(v, (int)(r0 + col));
+                }
+              }
+            }
+          }
+        }
+      }
+      __syncwarp();
+      cut_rows(cap - BN);  // a tile adds at most BN keys to a buffer
+    });
+
+    __syncwarp();
+    cut_rows(k);
+    if (lane < 16 && q0 + row0 + lane < Q)
+      counts[(size_t)split * Q + q0 + row0 + lane] = cnt_s[row0 + lane];
   }
-  cp_async_wait<0>();
 }
 
-// Merge the per-split lists of one query: k rounds, each taking the best
-// head over the splits by (value desc, row asc). Sentinels (fewer than k
-// rows in all) become (-1e30, 0).
+// Sort one (query, split) buffer's keys, descending, in place: a bitonic
+// network over the next power of two in shared memory, padded with key 0
+// (below every real key). With one split the sorted buffer IS the answer:
+// `direct` writes it to out_v / out_i, with the (-1e30, 0) tail, and no
+// merge runs.
+constexpr int SORT_THREADS = 128;
+
+__global__ void __launch_bounds__(SORT_THREADS)
+topk_fused_sort(unsigned long long* __restrict__ keys, const int* __restrict__ counts, int cap,
+                float* __restrict__ out_v, int* __restrict__ out_i, int k, int direct) {
+  extern __shared__ unsigned long long sk[];
+  const int tid = threadIdx.x;
+  const int count = counts[blockIdx.x];
+  unsigned long long* mine = keys + (size_t)blockIdx.x * cap;
+  int P = 2;
+  while (P < count) P <<= 1;
+  for (int i = tid; i < P; i += SORT_THREADS) sk[i] = i < count ? mine[i] : 0ull;
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < P / 2; t += SORT_THREADS) {
+        const int lo = 2 * t - (t & (stride - 1));
+        const int hi = lo + stride;
+        const bool down = (lo & size) == 0;  // this run sorts descending
+        const unsigned long long a = sk[lo], b = sk[hi];
+        if ((a < b) == down) {
+          sk[lo] = b;
+          sk[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (direct) {
+    for (int i = tid; i < k; i += SORT_THREADS) {
+      out_v[(size_t)blockIdx.x * k + i] = i < count ? key_value(sk[i]) : NEG_INF;
+      out_i[(size_t)blockIdx.x * k + i] = i < count ? key_row(sk[i]) : 0;
+    }
+  } else {
+    for (int i = tid; i < count; i += SORT_THREADS) mine[i] = sk[i];
+  }
+}
+
+// number of leading entries of a descending array that are > key
+__device__ __forceinline__ int count_greater(const unsigned long long* a, int len,
+                                             unsigned long long key) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] > key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Merge the sorted per-split buffers of one query by rank, when they fit
+// shared memory together: a key's place in the answer is its place in its
+// own buffer plus the number of larger keys in every other buffer (keys are
+// distinct: each carries its row). No round depends on another, so a few
+// splits merge in the time of a few binary searches.
+constexpr int RANK_THREADS = 256;
+constexpr int RANK_SMEM_LIMIT = 96 * 1024;
+
+inline size_t rank_smem_bytes(int k, int n_splits) {
+  return (size_t)n_splits * k * 8 + (size_t)(n_splits + 1) * 4;
+}
+
+__global__ void __launch_bounds__(RANK_THREADS)
+topk_fused_rank_merge(const unsigned long long* __restrict__ keys,
+                      const int* __restrict__ counts, float* __restrict__ out_v,
+                      int* __restrict__ out_i, int Q, int k, int cap, int n_splits) {
+  extern __shared__ unsigned long long sk[];
+  int* off = reinterpret_cast<int*>(sk + (size_t)n_splits * k);
+  const int qi = blockIdx.x, tid = threadIdx.x;
+  for (int s = tid; s < n_splits; s += RANK_THREADS) off[s + 1] = counts[(size_t)s * Q + qi];
+  __syncthreads();
+  if (tid == 0) {
+    off[0] = 0;
+    for (int s = 0; s < n_splits; ++s) off[s + 1] += off[s];
+  }
+  __syncthreads();
+  const int total = off[n_splits];
+  for (int s = 0; s < n_splits; ++s) {
+    const unsigned long long* src = keys + ((size_t)s * Q + qi) * cap;
+    for (int i = tid; i < off[s + 1] - off[s]; i += RANK_THREADS) sk[off[s] + i] = src[i];
+  }
+  __syncthreads();
+  for (int e = tid; e < total; e += RANK_THREADS) {
+    int lo = 0, hi = n_splits;  // the split holding entry e
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (off[mid] <= e) lo = mid; else hi = mid;
+    }
+    const unsigned long long key = sk[e];
+    int rank = e - off[lo];
+    for (int t = 0; t < n_splits; ++t)
+      if (t != lo) rank += count_greater(sk + off[t], off[t + 1] - off[t], key);
+    if (rank < k) {
+      out_v[(size_t)qi * k + rank] = key_value(key);
+      out_i[(size_t)qi * k + rank] = key_row(key);
+    }
+  }
+  for (int j = total + tid; j < k; j += RANK_THREADS) {  // fewer than k rows in all
+    out_v[(size_t)qi * k + j] = NEG_INF;
+    out_i[(size_t)qi * k + j] = 0;
+  }
+}
+
+// The merge for buffers too many for shared memory: k rounds, each taking the
+// largest head key over the splits, i.e. the best by (value desc, row asc).
+// Slots past the rows that exist hold (-1e30, 0).
 constexpr int MERGE_THREADS = 128;
 
 __global__ void __launch_bounds__(MERGE_THREADS)
-topk_fused_merge(const float* __restrict__ list_v, const int* __restrict__ list_i,
-                 float* __restrict__ out_v, int* __restrict__ out_i, int Q, int k,
+topk_fused_merge(const unsigned long long* __restrict__ keys, const int* __restrict__ counts,
+                 float* __restrict__ out_v, int* __restrict__ out_i, int Q, int k, int cap,
                  int n_splits) {
   extern __shared__ int heads[];
-  __shared__ float wv[MERGE_THREADS / 32];
-  __shared__ int wi[MERGE_THREADS / 32], ws[MERGE_THREADS / 32];
+  __shared__ unsigned long long wk[MERGE_THREADS / 32];
+  __shared__ int ws[MERGE_THREADS / 32];
   const int qi = blockIdx.x, tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   for (int s = tid; s < n_splits; s += MERGE_THREADS) heads[s] = 0;
   __syncthreads();
   for (int j = 0; j < k; ++j) {
-    float bv = -INFINITY;
-    int bi = INT_MAX, bs = -1;
+    unsigned long long best = 0;
+    int bs = -1;
     for (int s = tid; s < n_splits; s += MERGE_THREADS) {
-      int h = heads[s];
-      if (h >= k) continue;
-      size_t o = ((size_t)s * Q + qi) * k + h;
-      float v = list_v[o];
-      int id = list_i[o];
-      if (v > bv || (v == bv && id < bi)) { bv = v; bi = id; bs = s; }
+      const int h = heads[s];
+      if (h >= counts[(size_t)s * Q + qi]) continue;
+      const unsigned long long key = keys[((size_t)s * Q + qi) * cap + h];
+      if (bs < 0 || key > best) { best = key; bs = s; }
     }
     for (int off = 16; off > 0; off >>= 1) {
-      float v = __shfl_xor_sync(0xffffffffu, bv, off);
-      int id = __shfl_xor_sync(0xffffffffu, bi, off);
-      int s = __shfl_xor_sync(0xffffffffu, bs, off);
-      if (v > bv || (v == bv && id < bi)) { bv = v; bi = id; bs = s; }
+      const unsigned long long key = __shfl_xor_sync(0xffffffffu, best, off);
+      const int s = __shfl_xor_sync(0xffffffffu, bs, off);
+      if (s >= 0 && (bs < 0 || key > best)) { best = key; bs = s; }
     }
-    if (lane == 0) { wv[warp] = bv; wi[warp] = bi; ws[warp] = bs; }
+    if (lane == 0) { wk[warp] = best; ws[warp] = bs; }
     __syncthreads();
     if (tid == 0) {
       for (int w = 1; w < MERGE_THREADS / 32; ++w)
-        if (wv[w] > bv || (wv[w] == bv && wi[w] < bi)) { bv = wv[w]; bi = wi[w]; bs = ws[w]; }
-      size_t o = (size_t)qi * k + j;
-      if (bv == -INFINITY) {
+        if (ws[w] >= 0 && (bs < 0 || wk[w] > best)) { best = wk[w]; bs = ws[w]; }
+      const size_t o = (size_t)qi * k + j;
+      if (bs < 0) {  // fewer than k rows in all
         out_v[o] = NEG_INF;
         out_i[o] = 0;
       } else {
-        out_v[o] = bv;
-        out_i[o] = bi;
+        out_v[o] = key_value(best);
+        out_i[o] = key_row(best);
         heads[bs] += 1;
       }
     }
@@ -345,30 +469,73 @@ topk_fused_merge(const float* __restrict__ list_v, const int* __restrict__ list_
   }
 }
 
-}  // namespace
-
-extern "C" int topk_fused(const void* q, const void* c, void* list_v, void* list_i, void* out_v,
-                          void* out_i, int Q, int n_valid, int D, int k, int n_splits,
-                          void* stream) {
-  if (Q <= 0 || n_valid < 0 || D <= 0 || D % 8 || k <= 0 || k > MAX_K || n_splits <= 0)
+template <int NWG>
+int launch(const void* q, const void* c, void* keys, void* counts, void* out_v, void* out_i,
+           int Q, int n_valid, int D, int k, int n_splits, int n_stages, int cap,
+           cudaStream_t st) {
+  constexpr int BQW = NWG * 64;
+  const int Dp = qc::padded_width(D);
+  const size_t bytes = fused_smem_bytes(BQW, Dp, n_stages);
+  if (n_stages < 2 || n_stages > 4 || bytes > (size_t)qc::SMEM_LIMIT || cap < k + BN ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Dp = (D + KC - 1) / KC * KC;
-  Layout lay(Dp);
-  cudaError_t err = cudaFuncSetAttribute(topk_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
+  CUtensorMap qmap, cmap;
+  int rc = qc::make_tensor_map(&qmap, q, Q, D, BQW);
+  if (rc) return rc;
+  // an empty range starts no copy: its map may stand on any valid address
+  rc = qc::make_tensor_map(&cmap, n_valid > 0 ? c : q, n_valid, D, BN);
+  if (rc) return rc;
+  cudaError_t err = cudaFuncSetAttribute(topk_fused_kernel<NWG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long n_tiles = ((long long)n_valid + BN - 1) / BN;
   const long long rows_per_split = (n_tiles + n_splits - 1) / n_splits * BN;
-  dim3 grid((Q + BQ - 1) / BQ, n_splits);
-  topk_fused_kernel<<<grid, THREADS, lay.total, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(c),
-      static_cast<float*>(list_v), static_cast<int*>(list_i), Q, n_valid, D, k, rows_per_split);
+  dim3 grid((Q + BQW - 1) / BQW, n_splits);
+  topk_fused_kernel<NWG><<<grid, (NWG + 1) * qc::WG_THREADS, bytes, st>>>(
+      qmap, cmap, static_cast<unsigned long long*>(keys), static_cast<int*>(counts), Q, n_valid,
+      D, k, cap, rows_per_split, n_stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  topk_fused_merge<<<Q, MERGE_THREADS, sizeof(int) * n_splits, st>>>(
-      static_cast<const float*>(list_v), static_cast<const int*>(list_i),
-      static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k, n_splits);
+  int P = 2;
+  while (P < k) P <<= 1;
+  topk_fused_sort<<<Q * n_splits, SORT_THREADS, sizeof(unsigned long long) * P, st>>>(
+      static_cast<unsigned long long*>(keys), static_cast<const int*>(counts), cap,
+      static_cast<float*>(out_v), static_cast<int*>(out_i), k, n_splits == 1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  const size_t rank_bytes = rank_smem_bytes(k, n_splits);
+  if (rank_bytes <= (size_t)RANK_SMEM_LIMIT) {
+    err = cudaFuncSetAttribute(topk_fused_rank_merge,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rank_bytes);
+    if (err != cudaSuccess) return (int)err;
+    topk_fused_rank_merge<<<Q, RANK_THREADS, rank_bytes, st>>>(
+        static_cast<const unsigned long long*>(keys), static_cast<const int*>(counts),
+        static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k, cap, n_splits);
+  } else {
+    topk_fused_merge<<<Q, MERGE_THREADS, sizeof(int) * n_splits, st>>>(
+        static_cast<const unsigned long long*>(keys), static_cast<const int*>(counts),
+        static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k, cap, n_splits);
+  }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// keys: n_splits * Q * cap 8-byte slots, counts: n_splits * Q ints (scratch,
+// uninitialised). bq = 64 or 128 query rows per CTA, n_stages = 2..4 ring
+// stages and cap >= k + 128 slots per buffer, as ops/topk.py::fused_plan
+// chose them.
+extern "C" int topk_fused(const void* q, const void* c, void* keys, void* counts, void* out_v,
+                          void* out_i, int Q, int n_valid, int D, int k, int n_splits, int bq,
+                          int n_stages, int cap, void* stream) {
+  if (Q <= 0 || n_valid < 0 || D <= 0 || D % 8 || k <= 0 || k > MAX_K || n_splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bq == 128)
+    return launch<2>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, n_stages, cap,
+                     st);
+  if (bq == 64)
+    return launch<1>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, n_stages, cap,
+                     st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on first
 use into its own shared library,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC -I csrc
 
 under ``build/torch_kernels/`` beside the package (listed in ``.gitignore``),
-named by a hash of the source so an edited kernel rebuilds. The library is
+named by a hash of the source, of every shared header ``csrc/*.cuh`` and of
+the flags, so an edited kernel or header rebuilds its users. The library is
 loaded with ``ctypes``: every pointer and the stream pass as ``c_void_p``,
 and every entry point returns ``cudaGetLastError()`` after its launches,
 which :func:`check` turns into an exception.
@@ -53,9 +54,11 @@ def sources() -> List[str]:
 
 
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):  # any source may include any
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -65,7 +68,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+           str(_CSRC / f"{name}.cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

@@ -16,6 +16,12 @@ for CPU tensors:
   :data:`FUSED_MAX_K`): one pass that keeps an exact running top-k per query
   (``csrc/topk_fused.cu``), the counterpart of ``topk_scores_pallas``.
 
+Both kernels run one Hopper main loop (``csrc/qc_mainloop.cuh``: TMA
+loads into an ``mbarrier`` ring, ``wgmma`` on a resident query tile) and
+select in the accumulator registers. Their tiles, ring stages and corpus
+splits are planned here (:func:`pass_a_plan`, :func:`fused_plan`) and
+handed to the C entry points.
+
 The true top-k rows lie in the top-k segments by maximum: were a top-k row's
 segment ranked below k, k segments would each hold a row scoring at least as
 high. One extra segment covers the single segment that straddles the corpus
@@ -36,6 +42,7 @@ gives no order among equals, so every selection here is a stable sort.
 from __future__ import annotations
 
 import ctypes
+import functools
 import warnings
 from typing import Optional, Tuple
 
@@ -231,6 +238,142 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+# ------------------------------------------------------------ tile planning
+#
+# The wgmma kernels (csrc/qc_mainloop.cuh) keep a query tile of 64 or 128
+# rows resident in shared memory and stream the corpus through a ring of
+# 2-4 stages of 128 rows x 64 columns. The choice is made here, in pure
+# functions the CPU tests reach, and handed to the C entry points, which
+# recompute the byte count with the same formulas and refuse a plan that
+# does not fit.
+
+SMEM_LIMIT = 232448    # dynamic shared memory one block can get on sm_90
+_STAGE_BYTES = 128 * 64 * 2
+# (query rows per CTA, ring stages), in order of preference
+_TILE_CHOICES = ((128, 4), (128, 3), (64, 4), (64, 3), (64, 2))
+
+
+def _mainloop_bytes(bq: int, d: int, stages: int) -> int:
+    """qc::mainloop_bytes: alignment slack, query tile, ring, barriers."""
+    return 1024 + bq * _round_up(d, 64) * 2 + stages * _STAGE_BYTES + 128
+
+
+def pass_a_smem_bytes(bq: int, d: int, stages: int, k_sel: int) -> int:
+    """Shared memory of the bf16 pass-A kernel: the main loop's, then one
+    (value, id) list per query row, ``k_sel`` entries at an odd stride."""
+    return _mainloop_bytes(bq, d, stages) + bq * (k_sel | 1) * 8
+
+
+def fused_smem_bytes(bq: int, d: int, stages: int) -> int:
+    """Shared memory of the fused kernel: the main loop's, a counter and a
+    threshold per query row, a 1 KB histogram per consumer warp."""
+    return _mainloop_bytes(bq, d, stages) + bq * 8 + (bq // 16) * 1024
+
+
+def _widest(fits) -> int:
+    """Largest multiple of 64 for which ``fits(d)`` holds."""
+    d = 64
+    while fits(d + 64):
+        d += 64
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def pass_a_max_d(k_sel: int) -> int:
+    """The widest embedding the bf16 pass-A kernel takes at this ``k_sel``:
+    64 query rows and two stages must fit (1,536 at k_sel 1, 1,024 at 128).
+    """
+    return _widest(lambda d: pass_a_smem_bytes(64, d, 2, k_sel) <= SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_max_d() -> int:
+    """The widest embedding the fused kernel takes (1,472)."""
+    return _widest(lambda d: fused_smem_bytes(64, d, 2) <= SMEM_LIMIT)
+
+
+def _pick_tile(q: int, fits) -> Tuple[int, int]:
+    for bq, stages in _TILE_CHOICES:
+        if (bq == 64 or q > 64) and fits(bq, stages):
+            return bq, stages
+    raise ValueError("no tile fits the shared memory")
+
+
+@functools.lru_cache(maxsize=1024)
+def _pick_splits(n_qtiles: int, n_units: int, tiles_per_unit: int,
+                 max_splits: int, sms: int) -> int:
+    """Corpus splits for a grid of ``n_qtiles`` x splits CTAs, one CTA per
+    SM at a time, over ``n_units`` indivisible units of ``tiles_per_unit``
+    128-row tiles: the count that minimises (waves of CTAs) x (tiles per
+    CTA + 2 for a CTA's fixed cost), among at most two waves' worth; the
+    smallest such count, and only counts that leave no split empty."""
+    upper = max(1, min(max_splits, n_units, -(-2 * sms // n_qtiles)))
+    best, best_cost = 1, None
+    for s in range(1, upper + 1):
+        per = -(-n_units // s)
+        s_eff = -(-n_units // per)
+        cost = -(-n_qtiles * s_eff // sms) * (per * tiles_per_unit + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s_eff, cost
+    return best
+
+
+def pass_a_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
+                sms: int = 132) -> dict:
+    """Tiles and grid of the bf16 pass-A kernel for ``q`` queries of width
+    ``d`` over ``n_segs`` segments of ``seg_rows`` rows: ``bq`` query rows
+    per CTA (128, or 64 for at most 64 queries or where 128 do not fit),
+    ``stages`` ring stages, ``smem`` bytes, ``n_splits`` corpus splits
+    (each a whole number of segments and of 128-row tiles). Raises
+    ``ValueError`` past :func:`pass_a_max_d`."""
+    if d > pass_a_max_d(k_sel):
+        raise ValueError(
+            f"pass A (bf16) takes widths up to {pass_a_max_d(k_sel)} at "
+            f"k_sel={k_sel}, got {d}")
+    bq, stages = _pick_tile(q, lambda b, s: pass_a_smem_bytes(
+        b, d, s, k_sel) <= SMEM_LIMIT)
+    unit = max(_LANE, seg_rows)
+    n_units = max(1, -(-(n_segs * seg_rows) // unit))
+    n_splits = _pick_splits(-(-q // bq), n_units, unit // _LANE, n_units,
+                            sms)
+    return {"bq": bq, "stages": stages, "n_splits": n_splits,
+            "smem": pass_a_smem_bytes(bq, d, stages, k_sel)}
+
+
+def fused_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
+    """Tiles and grid of the fused kernel for ``q`` queries of width ``d``
+    and ``vn`` valid rows: ``bq``, ``stages``, ``smem`` as in
+    :func:`pass_a_plan`; ``cap`` slots per (query, split) candidate buffer
+    (2k + 128: a buffer is cut back to k when it passes 2k); ``n_splits``
+    corpus splits, every one of at least 4k rows (a split's buffer and
+    warm-up cost k slots per query however few rows it holds);
+    ``scratch`` bytes of device memory the wrapper allocates for the call,
+    freed after it: ``n_splits * q * (cap * 8 + 4)`` for the 8-byte
+    candidate keys and the counters. Splits times query tiles stay within
+    two waves of CTAs, so this is 1.1-1.4 GB at k = 2,048 for up to 32,768
+    queries over 1.25M rows and grows with q past that (69 MB at the dense
+    shape: 16,384 queries, k = 200, one split).
+    Raises ``ValueError`` past :func:`fused_max_d`."""
+    if d > fused_max_d():
+        raise ValueError(f"the fused top-k takes widths up to "
+                         f"{fused_max_d()}, got {d}")
+    bq, stages = _pick_tile(q, lambda b, s: fused_smem_bytes(
+        b, d, s) <= SMEM_LIMIT)
+    n_tiles = max(1, -(-vn // _LANE))
+    n_splits = _pick_splits(-(-q // bq), n_tiles, 1, max(1, vn // (4 * k)),
+                            sms)
+    # a split is a whole number of tiles: keep the last one at 4k rows too
+    while n_splits > 1:
+        rows = -(-n_tiles // n_splits) * _LANE
+        if vn - (n_splits - 1) * rows >= 4 * k:
+            break
+        n_splits = -(-n_tiles // -(-n_tiles // (n_splits - 1)))
+    cap = 2 * k + _LANE
+    return {"bq": bq, "stages": stages, "n_splits": n_splits, "cap": cap,
+            "smem": fused_smem_bytes(bq, d, stages),
+            "scratch": n_splits * q * (cap * 8 + 4)}
+
+
 # ------------------------------------------------------------------- pass A
 
 def segtopk_pass_a_plain(
@@ -313,20 +456,27 @@ def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
     queries = queries.contiguous()
     corpus = corpus.contiguous()
     n_segs = -(-n // seg_rows)
-    n_qtiles = -(-q // 64)
-    n_units = -(-(n_segs * seg_rows) // max(_LANE, seg_rows))
     dev = queries.device
-    n_splits = max(1, min(n_units, -(-4 * _sm_count(dev) // n_qtiles)))
+    if mode == 0:  # the wgmma kernel: tiles and splits from the plan
+        if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
+            raise ValueError("pass A (bf16) needs 16-byte aligned operands")
+        plan = pass_a_plan(q, d, k_sel, n_segs, seg_rows, _sm_count(dev))
+        bq, stages, n_splits = plan["bq"], plan["stages"], plan["n_splits"]
+    else:          # the WMMA kernel: 64-query tiles
+        bq, stages = 64, 2
+        n_units = -(-(n_segs * seg_rows) // max(_LANE, seg_rows))
+        n_splits = max(1, min(n_units, -(-4 * _sm_count(dev) // -(-q // 64))))
     part_v = torch.empty((n_splits, q, k_sel), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, q, k_sel), dtype=torch.int32, device=dev)
     out_v = torch.empty((q, k_sel), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k_sel), dtype=torch.int32, device=dev)
     fn = _build.load("segtopk").segtopk_pass_a
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
     status = fn(queries.data_ptr(), corpus.data_ptr(), part_v.data_ptr(),
                 part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                q, n, d, seg_rows, n_segs, k_sel, n_splits, mode,
+                q, n, d, seg_rows, n_segs, k_sel, n_splits, mode, bq, stages,
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, f"segtopk_pass_a ({schedule})")
     return out_v, out_i
@@ -418,23 +568,22 @@ def topk_scores_fused(
                          f"multiples of 8, got {d} and {corpus.shape[1]}")
     queries = queries.contiguous()
     corpus = corpus.contiguous()
+    if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
+        raise ValueError("the fused top-k needs 16-byte aligned operands")
     dev = queries.device
-    n_qtiles = -(-q // 64)
-    n_tiles = -(-vn // 128)
-    # fill the SMs, but give every split at least 4k rows: a split's list
-    # costs k slots per query however few rows it holds
-    n_splits = max(1, min(n_tiles, -(-4 * _sm_count(dev) // n_qtiles),
-                          vn // (4 * k)))
-    list_v = torch.empty((n_splits, q, k), dtype=torch.float32, device=dev)
-    list_i = torch.empty((n_splits, q, k), dtype=torch.int32, device=dev)
+    plan = fused_plan(q, d, k, vn, _sm_count(dev))
+    n_splits, cap = plan["n_splits"], plan["cap"]
+    keys = torch.empty((n_splits, q, cap), dtype=torch.int64, device=dev)
+    counts = torch.empty((n_splits, q), dtype=torch.int32, device=dev)
     out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     fn = _build.load("topk_fused").topk_fused
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    status = fn(queries.data_ptr(), corpus.data_ptr(), list_v.data_ptr(),
-                list_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                q, vn, d, k, n_splits, torch.cuda.current_stream(dev).cuda_stream)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    status = fn(queries.data_ptr(), corpus.data_ptr(), keys.data_ptr(),
+                counts.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+                q, vn, d, k, n_splits, plan["bq"], plan["stages"], cap,
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "topk_fused")
     TOPK_FUSED_LAUNCHES += 1
     return out_v, out_i

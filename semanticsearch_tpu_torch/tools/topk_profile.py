@@ -1,0 +1,99 @@
+"""Time the two top-k kernels of a source tree on one CUDA card.
+
+    python -m semanticsearch_tpu_torch.tools.topk_profile \
+        [--tree DIR] [--profiler] [--label NAME] [--out FILE.jsonl]
+
+``chip_smoke.py`` is the record of the kernels' times; this runner adds the
+two things it does not do. ``--tree`` names the root of another checkout
+(default: the one this file lies in), whose package, kernels and
+``chip_smoke.time_ms`` are then the ones used, so two versions can be timed
+in turns on one card: run the script once per tree, all in one shell
+command. ``--profiler`` also runs each shape once under ``torch.profiler``
+and reports the device time by kernel name (selection and merge kernels
+apart, and free of the host's launch path, which CUDA events include).
+
+Shapes, those of ``chip_smoke.py`` phase 4: pass A at the shard size
+(32,768 queries x 1,250,000 x 384 bf16, 32-row segments, k_sel 11) and at
+the serve shape (64 queries x 20,000 rows, k_sel 41); the fused top-k at
+16,384 queries (k = 200) over the shard and at the live-search shape
+(10,000 queries x 22,000 rows, k = 200).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--profiler", action="store_true")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    for mod in [m for m in sys.modules if m.startswith("semanticsearch_tpu_torch")]:
+        del sys.modules[mod]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("topk_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import time_ms
+    from semanticsearch_tpu_torch.data import synth
+    from semanticsearch_tpu_torch.ops import topk
+
+    assert Path(topk.__file__).resolve().is_relative_to(tree), topk.__file__
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    res = {"tree": str(tree), "label": args.label or tree.name, "card": smi}
+    n, d = 1_250_000, 384
+    corpus = synth.corpus(n, d, torch.bfloat16, "cuda")
+    queries = synth.corpus(32768, d, torch.bfloat16, "cuda", start=20_000_000)
+    small = corpus[:20000].contiguous()
+    live = corpus[:22000].contiguous()
+    runs = {
+        "pass_a_shard": lambda: topk.segtopk_pass_a(queries, corpus, n, 32, 11),
+        "pass_a_serve": lambda: topk.segtopk_pass_a(queries[:64], small,
+                                                    20000, 32, 41),
+        "fused_shard": lambda: topk.topk_scores_fused(queries[:16384], corpus,
+                                                      200),
+        "fused_live": lambda: topk.topk_scores_fused(queries[:10000], live,
+                                                     200),
+    }
+    reps = {"pass_a_serve": 50, "fused_live": 5}
+    for name, fn in runs.items():
+        res[name + "_ms"] = time_ms(fn, reps=reps.get(name, 3))
+    if args.profiler:
+        from torch.profiler import ProfilerActivity, profile
+
+        rows = {}
+        for name, fn in runs.items():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                dev_us = getattr(ev, "device_time_total",
+                                 getattr(ev, "cuda_time_total", 0.0))
+                if dev_us > 0 and ("topk" in ev.key or "merge" in ev.key):
+                    kernel = ev.key.replace("(anonymous namespace)::", "")
+                    rows[f"{name}: {kernel[:40]}"] = dev_us / 1e3
+        res["profiler_device_ms_by_kernel"] = rows
+        if not rows:
+            print("torch.profiler showed no device time for the kernels")
+    print(json.dumps(res), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(json.dumps(res) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -45,6 +45,20 @@ PASS_A_CASES = [
     (70, 5000, 384, 256, 41),    # segments spanning several tiles
     (33, 1000, 128, 1, 11),      # one-row segments
     (17, 3000, 72, 8, 20),       # width not a multiple of the K chunk
+    (1, 5000, 384, 32, 11),      # one query
+    (65, 4097, 384, 32, 11),     # one query past a 64-row tile; tiles + 1 row
+    (129, 20011, 384, 32, 41),   # one query past a 128-row tile
+    (40, 100, 384, 8, 11),       # a corpus smaller than one tile
+    (64, 129, 384, 32, 5),       # one tile plus one row
+    (200, 30000, 128, 32, 128),  # the largest k_sel
+    (70, 3000, 384, 2, 20),      # segments inside a thread's column pair
+    (70, 3000, 384, 4, 20),      # ... inside half a quad
+    (70, 3000, 384, 16, 20),
+    (70, 3000, 384, 64, 20),
+    (70, 9000, 384, 128, 20),    # a segment per tile
+    (130, 5000, 384, 512, 7),    # segments of four tiles
+    (33, 2000, 8, 32, 11),       # the narrowest width
+    (150, 6000, 768, 32, 11),    # a width that leaves room for 64-row tiles only
 ]
 # the int8 schedule copies 16 int8 columns at a time: widths are multiples
 # of 16, so the same layouts with the width rounded up
@@ -89,6 +103,56 @@ def test_segtopk_int8_kernel_matches_plain(dev, q, n, d, seg_rows, k_sel):
     assert torch.equal(kv, pv)
 
 
+def test_segtopk_never_reads_rows_past_n(dev):
+    """A corpus tensor longer than ``n``, with large values past it: the
+    kernel scores rows at or past n as zeros, like the plain version."""
+    Q = _grid((70, 384), 21, dev)
+    C = _grid((5000, 384), 22, dev)
+    C[4001:] = 127.0
+    Q[:, 0] = 127.0
+    for n, seg_rows in [(4001, 32), (4001, 256), (3968, 32), (77, 8)]:
+        kv, ki = topk.segtopk_pass_a(Q, C, n, seg_rows, 11)
+        pv, pi = topk.segtopk_pass_a_plain(Q, C[:n].clone(), n, seg_rows, 11)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), (n, seg_rows)
+
+
+def test_topk_kernels_on_a_side_stream(dev):
+    """Launched on a non-default stream, both kernels see the operands that
+    stream made and hand their results to it."""
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        Q, C = _grid((129, 384), 23, dev), _grid((20011, 384), 24, dev)
+        av, ai = topk.segtopk_pass_a(Q, C, 20011, 32, 41)
+        fv, fi = topk.topk_scores_fused(Q, C, 200)
+        av, ai, fv, fi = av.cpu(), ai.cpu(), fv.cpu(), fi.cpu()
+    side.synchronize()
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, 20011, 32, 41)
+    assert torch.equal(ai, pi.cpu()) and torch.equal(av, pv.cpu())
+    pv, pi = topk.topk_scores_fused_plain(Q, C, 200)
+    assert torch.equal(fi, pi.cpu()) and torch.equal(fv, pv.cpu())
+
+
+def test_wgmma_kernels_refuse_widths_past_their_plans(dev):
+    x = torch.zeros((4, topk.fused_max_d() + 64), device=dev,
+                    dtype=torch.bfloat16)
+    launches = topk.SEGTOPK_LAUNCHES, topk.TOPK_FUSED_LAUNCHES
+    with pytest.raises(ValueError, match="widths up to"):
+        topk.topk_scores_fused(x, x, 2)
+    wide = torch.zeros((4, topk.pass_a_max_d(2) + 64), device=dev,
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="widths up to"):
+        topk.segtopk_pass_a(wide, wide, 4, 1, 2)
+    assert launches == (topk.SEGTOPK_LAUNCHES, topk.TOPK_FUSED_LAUNCHES)
+    y = _grid((9, 1024), 25, dev)  # the widest the earlier kernels took
+    C = _grid((700, 1024), 26, dev)
+    kv, ki = topk.segtopk_pass_a(y, C, 700, 8, 20)
+    pv, pi = topk.segtopk_pass_a_plain(y, C, 700, 8, 20)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    kv, ki = topk.topk_scores_fused(y, C, 300)
+    pv, pi = topk.topk_scores_fused_plain(y, C, 300)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
 def test_segtopk_int8_refuses_width_not_multiple_of_16(dev):
     Q, C = _grid((17, 72), 5, dev, torch.int8), _grid((3000, 72), 6, dev,
                                                       torch.int8)
@@ -106,6 +170,16 @@ def test_segtopk_int8_refuses_width_not_multiple_of_16(dev):
     (70, 50000, 384, 2048, -1),  # the largest k
     (9, 3000, 80, 300, -1),      # width not a multiple of the K chunk
     (9, 3000, 72, 300, -1),      # ... nor of the 16-wide MMA step
+    (1, 5000, 384, 200, -1),     # one query
+    (65, 4097, 384, 128, -1),    # one query past a 64-row tile; tiles + 1 row
+    (129, 20011, 384, 200, -1),  # one query past a 128-row tile
+    (40, 100, 384, 50, -1),      # a corpus smaller than one tile
+    (64, 129, 384, 129, -1),     # one tile plus one row, k = rows
+    (129, 60000, 384, 2048, -1), # the largest k on 128-row tiles
+    (300, 40000, 384, 1, -1),    # the smallest k
+    (33, 2000, 8, 100, -1),      # the narrowest width
+    (150, 6000, 768, 200, -1),   # a width that leaves room for 64-row tiles only
+    (70, 5000, 384, 200, 0),     # no valid row at all
 ])
 def test_topk_fused_kernel_matches_plain(dev, q, n, d, k, valid_n):
     Q, C = _grid((q, d), 7, dev), _grid((n, d), 8, dev)
@@ -118,6 +192,28 @@ def test_topk_fused_kernel_matches_plain(dev, q, n, d, k, valid_n):
     assert torch.equal(kv, pv)
 
 
+def test_topk_fused_never_reads_rows_past_valid_n(dev):
+    Q = _grid((70, 384), 27, dev)
+    C = _grid((5000, 384), 28, dev)
+    C[4001:] = 127.0
+    Q[:, 0] = 127.0
+    for vn in (4001, 3968, 77):
+        kv, ki = topk.topk_scores_fused(Q, C, 150, valid_n=vn)
+        pv, pi = topk.topk_scores_fused_plain(Q, C, 150, valid_n=vn)
+        assert int(ki.max()) < vn
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), vn
+
+
+def test_topk_fused_all_scores_equal(dev):
+    """Zero queries tie every row: the k lowest rows, in order."""
+    Q = torch.zeros((5, 384), device=dev, dtype=torch.bfloat16)
+    C = _grid((30000, 384), 29, dev)
+    kv, ki = topk.topk_scores_fused(Q, C, 300)
+    assert torch.equal(ki, torch.arange(300, device=dev, dtype=torch.int32)
+                       .expand(5, 300))
+    assert float(kv.abs().max()) == 0.0
+
+
 def test_topk_fused_ties_across_splits(dev):
     """Duplicate rows far apart land in different corpus splits; equal
     scores must come out in ascending row order."""
@@ -126,6 +222,12 @@ def test_topk_fused_ties_across_splits(dev):
     Q = base[:3]
     kv, ki = topk.topk_scores_fused(Q, C, 700)
     pv, pi = topk.topk_scores_fused_plain(Q, C, 700)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    # many splits (a few queries over a long corpus): the round-by-round merge
+    C = torch.cat([base] * 2500)
+    assert topk.fused_plan(3, 128, 200, C.shape[0])["n_splits"] * 200 > 12288
+    kv, ki = topk.topk_scores_fused(Q, C, 200)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, 200)
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 

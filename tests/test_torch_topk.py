@@ -311,3 +311,88 @@ def test_twopass_int8_warnings_match_jax(rng, k, k_sel_extra, d, match):
         warnings.simplefilter("error")
         ttopk.topk_scores_twopass(torch.from_numpy(Q), torch.from_numpy(C),
                                   k=5, block_n=256, pass_a_int8=d < 1040)
+
+
+# ------------------------------------------------------------- tile planning
+
+_PLAN_Q = [1, 33, 64, 70, 1024, 32768]
+_PLAN_D = [8, 72, 384, 768, 1024]
+
+
+def _check_tile(plan, q, smem):
+    assert plan["smem"] == smem <= ttopk.SMEM_LIMIT == 232448
+    assert plan["bq"] in (64, 128) and 2 <= plan["stages"] <= 4
+    assert plan["bq"] == 64 or q > 64
+    assert plan["n_splits"] >= 1
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+@pytest.mark.parametrize("d", _PLAN_D)
+@pytest.mark.parametrize("q", _PLAN_Q)
+def test_pass_a_plan_fits(q, d, k_sel):
+    for n, seg_rows in [(100, 8), (20000, 32), (1_250_000, 32), (5000, 256)]:
+        n_segs = -(-n // seg_rows)
+        plan = ttopk.pass_a_plan(q, d, k_sel, n_segs, seg_rows)
+        _check_tile(plan, q, ttopk.pass_a_smem_bytes(
+            plan["bq"], d, plan["stages"], k_sel))
+        # splits are whole units (a segment or a tile), none of them empty
+        unit = max(128, seg_rows)
+        n_units = -(-(n_segs * seg_rows) // unit)
+        per = -(-n_units // plan["n_splits"])
+        assert (plan["n_splits"] - 1) * per < n_units
+    # 128 query rows a CTA at the dense shape, 64 for a serve batch
+    if d == 384 and k_sel <= 41:
+        assert plan["bq"] == (128 if q > 64 else 64) and plan["stages"] == 4
+
+
+@pytest.mark.parametrize("k", [1, 128, 200, 2048])
+@pytest.mark.parametrize("d", _PLAN_D)
+@pytest.mark.parametrize("q", _PLAN_Q)
+def test_fused_plan_fits_and_keeps_splits_at_4k_rows(q, d, k):
+    for vn in (0, 100, 20011, 22000, 1_250_000):
+        plan = ttopk.fused_plan(q, d, k, vn)
+        _check_tile(plan, q, ttopk.fused_smem_bytes(plan["bq"], d,
+                                                    plan["stages"]))
+        assert plan["cap"] >= k + 128
+        assert plan["scratch"] == plan["n_splits"] * q * (plan["cap"] * 8 + 4)
+        if plan["n_splits"] > 1:
+            n_tiles = -(-vn // 128)
+            rows = -(-n_tiles // plan["n_splits"]) * 128
+            last = vn - (plan["n_splits"] - 1) * rows
+            assert rows >= 4 * k and last >= 4 * k
+    if d == 384:
+        assert plan["bq"] == (128 if q > 64 else 64) and plan["stages"] == 4
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+def test_pass_a_plan_raises_exactly_past_its_widest_d(k_sel):
+    widest = ttopk.pass_a_max_d(k_sel)
+    assert widest >= 1024 and widest % 64 == 0
+    for q in _PLAN_Q:
+        ttopk.pass_a_plan(q, widest, k_sel, 1000, 32)
+        ttopk.pass_a_plan(q, widest - 56, k_sel, 1000, 32)
+        with pytest.raises(ValueError, match=f"widths up to {widest}"):
+            ttopk.pass_a_plan(q, widest + 8, k_sel, 1000, 32)
+    assert ttopk.pass_a_smem_bytes(64, widest + 64, 2, k_sel) > ttopk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [1, 128, 200, 2048])
+def test_fused_plan_raises_exactly_past_its_widest_d(k):
+    widest = ttopk.fused_max_d()
+    assert widest == 1472
+    for q in _PLAN_Q:
+        ttopk.fused_plan(q, widest, k, 50000)
+        with pytest.raises(ValueError, match="widths up to 1472"):
+            ttopk.fused_plan(q, widest + 8, k, 50000)
+    assert ttopk.fused_smem_bytes(64, widest + 64, 2) > ttopk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n_qtiles,n_units,expect", [
+    (1, 157, 79),     # a serve batch over 20,000 rows: one wave of two tiles
+    (256, 9766, 1),   # the dense shape: the query tiles fill the card
+    (128, 9766, 1),
+    (8, 9766, 33),    # 1,024 queries: two full waves
+    (1, 1, 1),
+])
+def test_pick_splits(n_qtiles, n_units, expect):
+    assert ttopk._pick_splits(n_qtiles, n_units, 1, n_units, 132) == expect
