@@ -57,6 +57,19 @@ def bound_ms(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
+def flash_bound(mask, h: int, dh: int, itemsize: int = 2):
+    """bound_ms of masked attention on this mask: q and o move once, k and
+    v only at real keys (a masked key adds exactly 0), and the two products
+    cover only those keys; a row with no real key needs every key (the mean
+    of V)."""
+    b, t = mask.shape
+    real = (mask > 0).sum(dim=1)
+    keys = float(real.where(real > 0, t).sum())
+    return bound_ms(4.0 * h * t * dh * keys,
+                    2.0 * b * h * t * dh * itemsize
+                    + 2.0 * h * dh * itemsize * keys + 4.0 * b * t)
+
+
 def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     """Median device time of fn() over reps, by CUDA events."""
     import torch
@@ -234,6 +247,36 @@ def phase_kernels(report):
           and torch.equal(fv, gv) and int(fi.max()) < 4001,
           "pass A and the fused kernel on a side stream == plain when the "
           "corpus tensor runs past n with large values there")
+    # the overlap schedule against the default bit for bit where its two
+    # warpgroups run on a deeper ring and drift apart (more than 64
+    # queries): every segment length, a ragged query tile, n not a multiple
+    # of 128, D = 72, one and eight K chunks a tile (a ring longer and
+    # shorter than a tile); the serve shape (one warpgroup) and k_sel 128
+    # (64-row tiles); and real-valued scores
+    ov_cases = [(64, 20000, 384, 32, 41)] + [
+        (200, 20011, 384, L2, 41) for L2 in (1, 2, 4, 8, 32, 128, 256)] + [
+        (200, 3000, 72, 8, 20), (300, 10000, 64, 32, 11),
+        (300, 50000, 512, 32, 11), (200, 30000, 384, 32, 128)]
+    for q, n, d, L2, k_sel in ov_cases:
+        Qm, C = _int_grid((q, d), gen), _int_grid((n, d), gen)
+        ov, oi = topk.segtopk_pass_a_overlap(Qm, C, n, L2, k_sel)
+        kv, ki = topk.segtopk_pass_a(Qm, C, n, L2, k_sel)
+        pv, pi = topk.segtopk_pass_a_plain(Qm, C, n, L2, k_sel)
+        torch.cuda.synchronize()
+        ov_err = max(ov_err, float((ov - pv).abs().max()))
+        plan = topk.overlap_plan(q, d, k_sel, -(-n // L2), L2)
+        check(torch.equal(oi, ki) and torch.equal(ov, kv)
+              and torch.equal(oi, pi) and torch.equal(ov, pv),
+              f"overlap schedule == default == plain, bit for bit: Q={q} "
+              f"N={n} D={d} L2={L2} k_sel={k_sel} ({plan['bq']} query rows "
+              f"a CTA, {plan['stages']} stages)")
+    Qm = torch.randn((700, 384), generator=gen, device=dev).bfloat16()
+    C = torch.randn((60000, 384), generator=gen, device=dev).bfloat16()
+    ov, oi = topk.segtopk_pass_a_overlap(Qm, C, 60000, 32, 41)
+    kv, ki = topk.segtopk_pass_a(Qm, C, 60000, 32, 41)
+    check(torch.equal(oi, ki) and torch.equal(ov, kv),
+          "overlap schedule == default bit for bit on real-valued scores "
+          "(Q=700 N=60000 L2=32 k_sel=41)")
     report["segtopk"]["max_abs_err"] = seg_err
     report["segtopk_overlap"]["max_abs_err"] = ov_err
     report["segtopk_int8"]["max_abs_err"] = i8_err
@@ -282,18 +325,29 @@ def phase_kernels(report):
     report["topk_fused"]["max_abs_err"] = fu_err
 
     fl_err = 0.0
-    # (B, T, keys kept): the serve and long-input shapes with a third of the
-    # keys masked, then the chunking path's: a full batch of 2,048 short
-    # sentences in the 64 bucket and a partial last batch, each row keeping
-    # its own 3-12 leading keys as the tokenizer pads them
-    for b, t, kept in [(8, 128, None), (8, 256, None), (2, 1024, None),
-                       (2048, 64, (3, 12)), (813, 64, (3, 12))]:
-        shape = (b, 12, t, 32)
-        qkv = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3)]
+    # (B, T, Dh, dtype, keys kept): the serve and long-input shapes with a
+    # third of the keys masked (whole trailing blocks at T = 256 and 1024,
+    # which the kernel skips), a row whose keys are all masked and one with
+    # live blocks around dead ones, other head widths and fp16; then the
+    # serve batch (256 chunks of 40-256 tokens) and the chunking path's: a
+    # full batch of 2,048 short sentences in the 64 bucket and a partial
+    # last batch, each row keeping its own 3-12 leading keys as the
+    # tokenizer pads them. Batches of 256 and more give each CTA several
+    # heads in turn. q, k, v are the encoder's transposed views of
+    # (B, T, H, Dh) tensors, read through their strides.
+    bf16, fp16 = torch.bfloat16, torch.float16
+    for b, t, dh, dtype, kept in [
+            (8, 128, 32, bf16, None), (8, 256, 32, bf16, None),
+            (2, 1024, 32, bf16, None), (4, 256, 64, fp16, None),
+            (3, 512, 128, bf16, None), (3, 192, 16, fp16, None),
+            (512, 128, 64, fp16, None), (256, 256, 32, bf16, (40, 256)),
+            (2048, 64, 32, bf16, (3, 12)), (813, 64, 32, bf16, (3, 12))]:
+        qkv = [torch.randn((b, t, 12, dh), generator=gen, device=dev)
+               .to(dtype).transpose(1, 2) for _ in range(3)]
         if kept is None:
             mask = torch.ones((b, t), device=dev)
             mask[:, t - t // 3:] = 0.0  # masked tail
+            mask[2 % b, 40:t - 64] = 0.0  # dead blocks between live ones
         else:
             lens = torch.randint(kept[0], kept[1] + 1, (b,), generator=gen,
                                  device=dev)
@@ -306,16 +360,18 @@ def phase_kernels(report):
         err = float(diff.max())
         fl_err = max(fl_err, err)
         if kept is None:
-            check(bool(torch.isfinite(got).all()) and err <= 1e-2,
-                  f"flash kernel vs plain, bf16, B={b} H=12 T={t} Dh=32: max "
-                  f"abs err {err:.3e} <= 1e-2 (about 5 bf16 ulps at |o| = "
-                  "0.5)")
+            check(bool(torch.isfinite(got).all()) and err <= 1e-2
+                  and got.stride() == qkv[0].stride(),
+                  f"flash kernel vs plain on strided views, {dtype}, B={b} "
+                  f"H=12 T={t} Dh={dh}: max abs err {err:.3e} <= 1e-2 "
+                  "(about 5 bf16 ulps at |o| = 0.5); output in q's strides")
         else:
             # a mean over 3-12 values of V reaches |o| = 3, where one bf16
             # ulp is 1.6e-2: the same 5 ulps, taken at each output's size
             rel = float((diff / want.float().abs().clamp(min=0.5)).max())
             check(bool(torch.isfinite(got).all()) and rel <= 2e-2,
-                  f"flash kernel vs plain, bf16, B={b} H=12 T={t} Dh=32, "
+                  f"flash kernel vs plain, bf16 views, B={b} H=12 T={t} "
+                  f"Dh={dh}, "
                   f"{kept[0]}-{kept[1]} keys kept per row: max |err| / "
                   f"max(|o|, 0.5) {rel:.3e} <= 2e-2 (about 5 bf16 ulps of "
                   f"each output; max abs err {err:.3e} at |o| up to "
@@ -568,7 +624,7 @@ def phase_dense(report):
     seg["serve_library_ms"] = time_ms(lambda: torch.matmul(qs, cs.T), reps=50)
     log(f"  pass B alone: {seg['pass_b_ms']:.2f} ms per {q} queries; pass A at "
         f"the serve shape (64 x 20,000, k_sel 41): kernel "
-        f"{seg['serve_ms']:.4f} ms, the WMMA kernel (overlap schedule) "
+        f"{seg['serve_ms']:.4f} ms, overlap schedule (one warpgroup) "
         f"{ov['serve_ms']:.4f} ms (turns "
         f"{', '.join(f'{t:.4f}' for t in serve)}), bf16 torch.matmul "
         f"{seg['serve_library_ms']:.4f} ms")
@@ -654,25 +710,40 @@ def phase_dense(report):
         f"{fu['live_ms']:.3f} ms, bf16 torch.matmul "
         f"{fu['live_library_ms']:.3f} ms")
 
-    # flash at the encoder's serve shape
-    b, h, t, dh = 256, 12, 256, 32
-    gen = torch.Generator().manual_seed(3)
-    qkv = [torch.randn((b, h, t, dh), generator=gen).to("cuda", torch.bfloat16)
-           for _ in range(3)]
-    lengths = torch.randint(40, t + 1, (b,), generator=gen)
-    mask = (torch.arange(t)[None, :] < lengths[:, None]).float().to("cuda")
+    # flash on the encoder's transposed views of (B, T, H, Dh) tensors: the
+    # serve shape (256 chunks of 40-256 tokens), T = 1024 (the "auto" rule's
+    # length) and the chunking batch (2,048 sentences of 3-12 tokens)
     fl = report["flash"]
-    fl["ms"] = time_ms(lambda: fa.flash_attention(*qkv, mask))
-    fl["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(*qkv, mask))
-    bool_mask = mask.bool()[:, None, None, :]
-    fl["library_ms"] = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            *qkv, attn_mask=bool_mask))
-    fl["bound_ms"], fl["bound_by"] = bound_ms(
-        4.0 * b * h * t * t * dh, 4 * 2.0 * b * h * t * dh + 4.0 * b * t)
-    log(f"  flash B={b} H={h} T={t} Dh={dh}: kernel {fl['ms']:.3f} ms, plain "
-        f"{fl['plain_ms']:.3f} ms, SDPA {fl['library_ms']:.3f} ms, bound "
-        f"{fl['bound_ms']:.3f} ms ({fl['bound_by']})")
+    gen = torch.Generator().manual_seed(3)
+    h, dh = 12, 32
+    for which, b, t, (lo, hi) in [("", 256, 256, (40, 256)),
+                                  ("t1024_", 2, 1024, (600, 1000)),
+                                  ("chunk_", 2048, 64, (3, 12))]:
+        qkv = [torch.randn((b, t, h, dh), generator=gen)
+               .to("cuda", torch.bfloat16).transpose(1, 2) for _ in range(3)]
+        lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
+        mask = (torch.arange(t)[None, :] < lengths[:, None]).float().to("cuda")
+        bool_mask = mask.bool()[:, None, None, :]
+        fl[which + "ms"] = time_ms(lambda: fa.flash_attention(*qkv, mask),
+                                   reps=20, warmup=3)
+        fl[which + "plain_ms"] = time_ms(
+            lambda: fa.flash_attention_plain(*qkv, mask), reps=5)
+        fl[which + "library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *qkv, attn_mask=bool_mask), reps=20, warmup=3)
+        fl[which + "bound_ms"], fl[which + "bound_by"] = flash_bound(mask, h,
+                                                                     dh)
+        log(f"  flash B={b} H={h} T={t} Dh={dh}, {lo}-{hi} real keys: kernel "
+            f"{fl[which + 'ms']:.4f} ms, plain {fl[which + 'plain_ms']:.3f} "
+            f"ms, SDPA {fl[which + 'library_ms']:.4f} ms, bound "
+            f"{fl[which + 'bound_ms']:.4f} ms ({fl[which + 'bound_by']}, the "
+            "real keys)")
+    fl["shape_note"] = (
+        "ms, plain_ms, library_ms, bound_ms at B=256 H=12 T=256 Dh=32 with "
+        "40-256 real keys; t1024_* at B=2 T=1024 (600-1000 real); chunk_* at "
+        "B=2048 T=64 (3-12 real); q, k, v transposed (B, T, H, Dh) views; "
+        "bounds count the real keys' K and V and products (a row with none "
+        "counts every key)")
 
 
 # phase 5: chunks added to and removed from the phase-3 index, and queries
@@ -1221,9 +1292,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     notes = ("plain_note", "library_note", "shape_note", "pass_b_ms",
              "serve_ms", "serve_library_ms", "live_ms", "live_library_ms",
-             "batched_ms",
-             "batched_plain_ms", "batched_bound_ms", "batched_bound_by",
-             "batched_library_ms")
+             *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk")
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")))
     kernels = [{**{key: report[k][key] for key in keys},
                 **{key: report[k][key] for key in notes if key in report[k]}}
                for k in ("segtopk", "segtopk_int8", "segtopk_overlap",

@@ -13,186 +13,378 @@
 // What bounds it on this card. 4*B*H*T^2*Dh operations against 8*B*H*T*Dh
 // bytes of q, k, v and o: T/2 operations per byte. At the encoder's T = 64
 // to 256 that is below the ~295 FLOP/byte ridge, so it is bound by memory
-// at T <= ~512 and by the tensor cores above (T = 1024 under "auto").
+// at T <= ~512 and by the tensor cores above (T = 1024 under "auto"). On
+// the card it takes 3.6x that bound at the serve shape; neither a CTA's
+// start-up nor the latency of its loads is what holds it (PERF.md §7).
 //
-// What the design does about it. Grid (T/64, H, B): each CTA of 4 warps
-// keeps its 64-row Q tile in shared memory and streams K and V once through
-// shared memory in 64-row blocks; every byte of q, k, v is read once per
-// query block and the (T, T) score matrix never reaches device memory. Both
-// products (Q K^T and P V) run on tensor cores (WMMA 16x16x16, f32
-// accumulation); each warp owns 16 query rows, so the softmax statistics of a
-// row live in the two lanes that update it and no block-wide sync is needed
-// between the products. P is rounded to the input dtype for the P V
-// product, as FlashAttention does; the running sum l stays in f32.
-// Not yet done (later work): wgmma, TMA, double-buffered K/V, keeping O in
-// registers instead of shared memory.
+// What the design does about it (the FlashAttention-2 form):
+//  * One CTA per (b, 128 query rows, a group of heads) (64 rows where T is
+//    not a multiple of 128), one warp per 16 query rows. The CTA takes its
+//    heads in turn, as many as leave 2,048 CTAs: at the encoder's short
+//    lengths a head is a few key blocks, and a CTA per head would spend
+//    more time starting than multiplying. K and V stream once per CTA and
+//    head through a three-stage cp.async ring of 64-key blocks (the next
+//    head's Q tile with its first block), two blocks' copies in flight
+//    under the current block's products, one barrier a block; the (T, T)
+//    score matrix never exists outside registers.
+//  * Both products run on mma.sync m16n8k16 (f32 accumulation) with
+//    operands from shared memory by ldmatrix (V transposed on the way).
+//    Q's fragments are loaded once a head. S, the running (m, l), P and O
+//    live in registers: the C fragment of Q K^T, rounded to the input dtype
+//    (as FlashAttention does; l sums the unrounded f32 p), is the A fragment
+//    of P V, and a row's maximum and sum take two quad shuffles.
+//    Exponentials are exp2 of scores prescaled by log2(e).
+//  * A key block in which the mask holds no real key is skipped for every
+//    batch row that has a real key: there its p = exp(-1e30 - m) is 0 and
+//    its alpha 1 (or, before the row's first real block, the row's l and
+//    acc are multiplied by exactly 0 at that block), so skipping leaves l
+//    and acc unchanged bit for bit. A batch row with no real key runs every
+//    block (the mean of V). The CTA finds its live blocks from the mask
+//    row while its first Q tile is in flight.
+//  * q, k, v and o are read and written through their (B, H, T) strides,
+//    the head dimension contiguous: the encoder's (B, T, H, Dh) views need
+//    no copy on the way in, nor the output on the way out. Rows move as
+//    16-byte vectors (the wrapper checks the alignment); O goes out through
+//    the warp's rows of the Q tile in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include <climits>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int SLD = BKV + 4;  // f32 row stride of a warp's score tile
-constexpr int PLD = BKV + 8;  // row stride of a warp's P tile
+constexpr int BKV = 64;  // keys per block
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-template <int DH, typename T>
-struct Layout {
-  static constexpr int LD = DH + 8;  // row stride of the Q, K, V tiles
-  static constexpr int OLD = DH + 4; // f32 row stride of a warp's O tile
-  static constexpr size_t q = 0;
-  static constexpr size_t k = align128(q + sizeof(T) * BQ * LD);
-  static constexpr size_t v = align128(k + sizeof(T) * BKV * LD);
-  static constexpr size_t s = align128(v + sizeof(T) * BKV * LD);
-  static constexpr size_t p = align128(s + sizeof(float) * WARPS * 16 * SLD);
-  static constexpr size_t o = align128(p + sizeof(T) * WARPS * 16 * PLD);
-  static constexpr size_t m = align128(o + sizeof(float) * WARPS * 16 * OLD);
-  static constexpr size_t total = align128(m + sizeof(float) * BKV);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* mask;
+  void* o;
+  long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st;
+  int H, Tlen, nqb, hg;  // hg: heads a CTA takes in turn
+  float scale_log2;  // log2(e) / sqrt(Dh)
 };
 
-template <typename T> __device__ inline T from_float(float x);
-template <> __device__ inline __nv_bfloat16 from_float(float x) { return __float2bfloat16(x); }
-template <> __device__ inline __half from_float(float x) { return __float2half(x); }
-
-template <int DH, typename T>
-__device__ inline void load_tile(T* dst, const T* src, int tid) {
-  constexpr int VEC = DH / 8;  // 16-byte vectors per row
-  for (int idx = tid; idx < 64 * VEC; idx += THREADS) {
-    int r = idx / VEC, c = (idx % VEC) * 8;
-    *reinterpret_cast<uint4*>(dst + r * Layout<DH, T>::LD + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * DH + c);
+template <typename T>
+struct Mma;
+template <>
+struct Mma<__nv_bfloat16> {
+  __device__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
   }
+  __device__ static void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+template <>
+struct Mma<__half> {
+  __device__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  __device__ static void run(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// four 8x8 b16 matrices; lanes 8j..8j+7 give the row addresses of matrix j
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int DH, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ mask, T* __restrict__ o, int H, int Tlen,
-                 float scale) {
-  using Lay = Layout<DH, T>;
-  constexpr int LD = Lay::LD, OLD = Lay::OLD;
+// Shared memory: NST Q tiles (bq rows each, by head), NST stages of K and V
+// (64 rows each) and of the mask (64 f32), per key block a flag and the list
+// of live blocks (T/64 ints each). Rows are Dh + 8 elements apart, so the
+// eight 16-byte rows an ldmatrix reads fall on different banks.
+constexpr int NST = 3;  // ring stages: two blocks' copies in flight under one's products
+__host__ __device__ constexpr int row_ld(int dh) { return dh + 8; }
+__host__ __device__ inline size_t smem_bytes(int dh, int bq, int nkb) {
+  return (size_t)NST * (bq + 2 * BKV) * row_ld(dh) * 2 + NST * BKV * 4 + (size_t)nkb * 8;
+}
+
+template <int DH, typename T, int NW>
+__global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
+  constexpr int BQ = NW * 16, LD = row_ld(DH), CH = DH / 8, NT = NW * 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem + Lay::q);
-  T* k_s = reinterpret_cast<T*>(smem + Lay::k);
-  T* v_s = reinterpret_cast<T*>(smem + Lay::v);
+  T* q_s = reinterpret_cast<T*>(smem);  // [NST][BQ][LD], head hi in hi % NST
+  T* k_s = q_s + NST * BQ * LD;         // [NST][BKV][LD]
+  T* v_s = k_s + NST * BKV * LD;        // [NST][BKV][LD]
+  float* m_s = reinterpret_cast<float*>(v_s + NST * BKV * LD);  // [NST][BKV]
+  int* live = reinterpret_cast<int*>(m_s + NST * BKV);          // [nkb], then flags [nkb]
+  __shared__ int n_live;
+
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* s_w = reinterpret_cast<float*>(smem + Lay::s) + warp * 16 * SLD;
-  T* p_w = reinterpret_cast<T*>(smem + Lay::p) + warp * 16 * PLD;
-  float* o_w = reinterpret_cast<float*>(smem + Lay::o) + warp * 16 * OLD;
-  float* m_s = reinterpret_cast<float*>(smem + Lay::m);
+  const int g = lane >> 2, tg = lane & 3;  // fragment row group, thread in group
+  const int nkb = a.Tlen / BKV;
+  int bid = blockIdx.x;
+  const int qb = bid % a.nqb;
+  bid /= a.nqb;
+  const int nhg = a.H / a.hg;
+  const int h0 = (bid % nhg) * a.hg, b = bid / nhg;  // heads h0 .. h0 + hg - 1
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh + (long long)qb * BQ * a.q_st;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h0 * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h0 * a.v_sh;
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + h0 * a.o_sh + ((long long)qb * BQ + warp * 16) * a.o_st;
+  const float* mp = a.mask + (long long)b * a.Tlen;
 
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const size_t head = ((size_t)b * H + h) * Tlen * DH;
-  load_tile<DH, T>(q_s, q + head + (size_t)qb * BQ * DH, tid);
-  for (int idx = lane; idx < 16 * OLD; idx += 32) o_w[idx] = 0.0f;
-
-  // two lanes per query row: lane pair (2r, 2r+1) owns row r of this warp
-  const int row = lane / 2, half = lane % 2;
-  float m_run = NEG_INF, l_run = 0.0f;
-
-  for (int kb = 0; kb < Tlen / BKV; ++kb) {
-    __syncthreads();  // previous K, V tiles fully consumed
-    load_tile<DH, T>(k_s, k + head + (size_t)kb * BKV * DH, tid);
-    load_tile<DH, T>(v_s, v + head + (size_t)kb * BKV * DH, tid);
-    for (int idx = tid; idx < BKV; idx += THREADS)
-      m_s[idx] = mask[(size_t)b * Tlen + kb * BKV + idx];
-    __syncthreads();
-
-    // S (16 x 64) = Q_w (16 x DH) . K^T
-    for (int j = 0; j < BKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> bf;
-        wmma::load_matrix_sync(a, q_s + (warp * 16) * LD + kk * 16, LD);
-        wmma::load_matrix_sync(bf, k_s + (j * 16) * LD + kk * 16, LD);
-        wmma::mma_sync(acc, a, bf, acc);
-      }
-      wmma::store_matrix_sync(s_w + j * 16, acc, SLD, wmma::mem_row_major);
+  auto load_q = [&](int hi) {  // the Q tile of head h0 + hi
+    T* qs = q_s + (hi % NST) * BQ * LD;
+    const T* src = qp + hi * a.q_sh;
+    for (int i = tid; i < BQ * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8;
+      cp_async16(qs + r * LD + c, src + r * a.q_st + c);
     }
-    __syncwarp();
+  };
+  // the Q tile of head h0 starts on its way while the mask is read
+  load_q(0);
 
-    // online softmax for row `row`, keys [half*32, half*32+32)
-    float* srow = s_w + row * SLD + half * 32;
-    float mx = NEG_INF;
-    for (int j = 0; j < 32; ++j) {
-      float sv = m_s[half * 32 + j] > 0.0f ? srow[j] * scale : NEG_INF;
-      srow[j] = sv;
-      mx = fmaxf(mx, sv);
+  // the key blocks that hold a real key, in order; all of them if none does
+  int* flag = live + nkb;
+  for (int j = warp; j < nkb; j += NW) {
+    const bool any = __any_sync(0xffffffffu, mp[j * BKV + lane] > 0.0f ||
+                                                 mp[j * BKV + 32 + lane] > 0.0f);
+    if (lane == 0) flag[j] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nkb; base += 32) {
+      const bool f = base + lane < nkb && flag[base + lane];
+      const unsigned ballot = __ballot_sync(0xffffffffu, f);
+      if (f) live[n + __popc(ballot & ((1u << lane) - 1))] = base + lane;
+      n += __popc(ballot);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    float sum = 0.0f;
-    T* prow = p_w + row * PLD + half * 32;
-    for (int j = 0; j < 32; ++j) {
-      float p = expf(srow[j] - m_new);
-      sum += p;
-      prow[j] = from_float<T>(p);
+    if (n == 0) {
+      for (int j = lane; j < nkb; j += 32) live[j] = j;
+      n = nkb;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = alpha * l_run + sum;
-    m_run = m_new;
-    float* orow = o_w + row * OLD + half * (DH / 2);
-    for (int d = 0; d < DH / 2; ++d) orow[d] *= alpha;
-    __syncwarp();
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  const int nl = n_live, n_items = nl * a.hg;
 
-    // O_w (16 x DH) += P_w (16 x 64) . V (64 x DH)
-    for (int dj = 0; dj < DH / 16; ++dj) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_w + dj * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> bf;
-        wmma::load_matrix_sync(a, p_w + kk * 16, PLD);
-        wmma::load_matrix_sync(bf, v_s + (kk * 16) * LD + dj * 16, LD);
-        wmma::mma_sync(acc, a, bf, acc);
-      }
-      wmma::store_matrix_sync(o_w + dj * 16, acc, OLD, wmma::mem_row_major);
+  // item it: head h0 + it / nl, its (it % nl)-th live key block, into stage
+  // it % NST with the head's Q tile if it is the head's first block
+  auto load_item = [&](int it) {
+    const int hi = it / nl, kb = live[it % nl], stage = it % NST;
+    if (it % nl == 0 && hi > 0) load_q(hi);
+    T* ks = k_s + stage * BKV * LD;
+    T* vs = v_s + stage * BKV * LD;
+    const T* ksrc = kp + hi * a.k_sh;
+    const T* vsrc = vp + hi * a.v_sh;
+    for (int i = tid; i < BKV * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const long long row = (long long)kb * BKV + r;
+      cp_async16(ks + r * LD + c, ksrc + row * a.k_st + c);
+      cp_async16(vs + r * LD + c, vsrc + row * a.v_st + c);
     }
-    __syncwarp();
+    if (tid < BKV / 4) cp_async16(m_s + stage * BKV + tid * 4, mp + kb * BKV + tid * 4);
+  };
+  // one commit group per item (empty past the last), the first with Q
+  for (int it = 0; it < NST - 1; ++it) {
+    if (it < n_items) load_item(it);
+    cp_async_commit();
   }
 
-  const float inv = 1.0f / fmaxf(l_run, 1e-30f);
-  T* out = o + head + ((size_t)qb * BQ + warp * 16 + row) * DH + half * (DH / 2);
-  const float* orow = o_w + row * OLD + half * (DH / 2);
-  for (int d = 0; d < DH / 2; ++d) out[d] = from_float<T>(orow[d] * inv);
+  uint32_t qa[DH / 16][4];  // Q's A fragments, this warp's 16 rows
+  float o[DH / 8][4];       // O: rows g and g + 8, columns 8d + 2tg + {0, 1}
+  float m0 = NEG_INF, m1 = NEG_INF;  // running maxima of rows g, g + 8 (log2 units)
+  float l0 = 0.0f, l1 = 0.0f;        // this thread's part of the running sums
+
+  // one head's blocks, then the next head's; NST - 1 items' copies in flight
+  for (int i = 0, hi = 0, j = 0; i < n_items; ++i) {
+    cp_async_wait<NST - 2>();  // item i has landed
+    __syncthreads();           // ... for every thread; and item i - 1's stage is free
+    if (i + NST - 1 < n_items) load_item(i + NST - 1);
+    cp_async_commit();
+    T* qs = q_s + (hi % NST) * BQ * LD;
+    if (j == 0) {  // a new head: its Q fragments, fresh statistics
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        ldsm_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+      m0 = m1 = NEG_INF;
+      l0 = l1 = 0.0f;
+    }
+    const T* ks = k_s + (i % NST) * BKV * LD;
+    const T* vs = v_s + (i % NST) * BKV * LD;
+    const float* ms = m_s + (i % NST) * BKV;
+
+    // S (16 x 64) = Q K^T: n-tile jj holds keys 8jj..8jj+7
+    float s[8][4];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        Mma<T>::run(s[2 * np], qa[kk], bb[0], bb[1]);
+        Mma<T>::run(s[2 * np + 1], qa[kk], bb[2], bb[3]);
+      }
+    }
+
+    // online softmax in the registers
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 mk = *reinterpret_cast<const float2*>(ms + 8 * jj + 2 * tg);
+      s[jj][0] = mk.x > 0.0f ? s[jj][0] * a.scale_log2 : NEG_INF;
+      s[jj][1] = mk.y > 0.0f ? s[jj][1] * a.scale_log2 : NEG_INF;
+      s[jj][2] = mk.x > 0.0f ? s[jj][2] * a.scale_log2 : NEG_INF;
+      s[jj][3] = mk.y > 0.0f ? s[jj][3] * a.scale_log2 : NEG_INF;
+      mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    uint32_t pa[4][4];  // P's A fragments, one per 16-key step
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float p0 = exp2f(s[jj][0] - mn0), p1 = exp2f(s[jj][1] - mn0);
+      const float p2 = exp2f(s[jj][2] - mn1), p3 = exp2f(s[jj][3] - mn1);
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      pa[jj >> 1][(jj & 1) * 2] = Mma<T>::pack(p0, p1);
+      pa[jj >> 1][(jj & 1) * 2 + 1] = Mma<T>::pack(p2, p3);
+    }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      o[d][0] *= al0;
+      o[d][1] *= al0;
+      o[d][2] *= al1;
+      o[d][3] *= al1;
+    }
+
+    // O (16 x DH) += P (16 x 64) V (64 x DH)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t bb[4];
+        ldsm_x4_trans(bb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                              (lane >> 4) * 8);
+        Mma<T>::run(o[2 * dp], pa[kk], bb[0], bb[1]);
+        Mma<T>::run(o[2 * dp + 1], pa[kk], bb[2], bb[3]);
+      }
+    }
+
+    if (j + 1 == nl) {  // the head's last block: out = acc / l
+      const float t0 = l0 + __shfl_xor_sync(0xffffffffu, l0, 1);
+      const float t1 = l1 + __shfl_xor_sync(0xffffffffu, l1, 1);
+      const float inv0 = 1.0f / fmaxf(t0 + __shfl_xor_sync(0xffffffffu, t0, 2), 1e-30f);
+      const float inv1 = 1.0f / fmaxf(t1 + __shfl_xor_sync(0xffffffffu, t1, 2), 1e-30f);
+      // the warp read its Q fragments from its own rows of this head's Q
+      // tile, which now stage its output (the tile is refilled NST heads on,
+      // after a barrier)
+      T* os = qs + warp * 16 * LD;
+      __syncwarp();
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        *reinterpret_cast<uint32_t*>(os + g * LD + 8 * d + 2 * tg) =
+            Mma<T>::pack(o[d][0] * inv0, o[d][1] * inv0);
+        *reinterpret_cast<uint32_t*>(os + (g + 8) * LD + 8 * d + 2 * tg) =
+            Mma<T>::pack(o[d][2] * inv1, o[d][3] * inv1);
+      }
+      __syncwarp();
+      T* dst = op + hi * a.o_sh;
+      for (int e = lane; e < 16 * CH; e += 32) {
+        const int r = e / CH, c = (e % CH) * 8;
+        *reinterpret_cast<uint4*>(dst + r * a.o_st + c) =
+            *reinterpret_cast<const uint4*>(os + r * LD + c);
+      }
+    }
+    if (++j == nl) {
+      j = 0;
+      ++hi;
+    }
+  }
 }
 
-template <int DH, typename T>
-int launch(const void* q, const void* k, const void* v, const float* mask, void* o, int B, int H,
-           int Tlen, float scale, cudaStream_t st) {
-  constexpr size_t smem = Layout<DH, T>::total;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T>,
+// Heads a CTA takes in turn: the most that still leaves 2,048 CTAs (several
+// waves on 132 SMs), so short sequences stream one head's K and V under the
+// previous head's products instead of paying a CTA's start-up for each.
+inline int heads_per_cta(int H, long long ctas_per_head) {
+  for (int hg = H; hg > 1; --hg)
+    if (H % hg == 0 && ctas_per_head * (H / hg) >= 2048) return hg;
+  return 1;
+}
+
+template <int DH, typename T, int NW>
+int launch(Args a, int B, cudaStream_t st) {
+  constexpr int BQ = NW * 16;
+  a.nqb = a.Tlen / BQ;
+  a.hg = heads_per_cta(a.H, (long long)B * a.nqb);
+  const size_t smem = smem_bytes(DH, BQ, a.Tlen / BKV);
+  const long long grid = (long long)a.nqb * (a.H / a.hg) * B;
+  if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(Tlen / BQ, H, B);
-  flash_fwd_kernel<DH, T><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<T*>(o), H, Tlen, scale);
+  flash_fwd_kernel<DH, T, NW><<<(unsigned)grid, NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
+template <int DH, typename T>
+int dispatch_rows(const Args& a, int B, cudaStream_t st) {
+  // 128 query rows a CTA (8 warps) where T allows it, else 64 (4 warps)
+  return a.Tlen % 128 == 0 ? launch<DH, T, 8>(a, B, st) : launch<DH, T, 4>(a, B, st);
+}
+
 template <typename T>
-int dispatch_dh(const void* q, const void* k, const void* v, const float* mask, void* o, int B,
-                int H, int Tlen, int Dh, float scale, cudaStream_t st) {
+int dispatch_dh(const Args& a, int B, int Dh, cudaStream_t st) {
   switch (Dh) {
-    case 16: return launch<16, T>(q, k, v, mask, o, B, H, Tlen, scale, st);
-    case 32: return launch<32, T>(q, k, v, mask, o, B, H, Tlen, scale, st);
-    case 64: return launch<64, T>(q, k, v, mask, o, B, H, Tlen, scale, st);
-    case 128: return launch<128, T>(q, k, v, mask, o, B, H, Tlen, scale, st);
+    case 16: return dispatch_rows<16, T>(a, B, st);
+    case 32: return dispatch_rows<32, T>(a, B, st);
+    case 64: return dispatch_rows<64, T>(a, B, st);
+    case 128: return dispatch_rows<128, T>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -200,15 +392,38 @@ int dispatch_dh(const void* q, const void* k, const void* v, const float* mask, 
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float16. T must be a multiple of 64; Dh one of
-// 16, 32, 64, 128. Returns cudaGetLastError() after the launch.
+// 16, 32, 64, 128. strides: 12 element strides, (b, h, t) of q, k, v and o
+// in that order; the head dimension is contiguous. Every base pointer must
+// be 16-byte aligned and every stride a multiple of 8 elements; the mask is
+// a contiguous (B, T) f32 array, 16-byte aligned. Returns cudaGetLastError()
+// after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
-                                   void* o, int B, int H, int Tlen, int Dh, float scale,
-                                   int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Tlen <= 0 || Tlen % BQ || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
+                                   void* o, int B, int H, int Tlen, int Dh,
+                                   const long long* strides, float scale, int dtype,
+                                   void* stream) {
+  if (B <= 0 || H <= 0 || Tlen <= 0 || Tlen % BKV) return (int)cudaErrorInvalidValue;
+  uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                    reinterpret_cast<uintptr_t>(mask);
+  if (align % 16) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i)
+    if (strides[i] % 8) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = static_cast<const float*>(mask);
+  a.o = o;
+  a.q_sb = strides[0], a.q_sh = strides[1], a.q_st = strides[2];
+  a.k_sb = strides[3], a.k_sh = strides[4], a.k_st = strides[5];
+  a.v_sb = strides[6], a.v_sh = strides[7], a.v_st = strides[8];
+  a.o_sb = strides[9], a.o_sh = strides[10], a.o_st = strides[11];
+  a.H = H;
+  a.Tlen = Tlen;
+  a.nqb = a.hg = 0;
+  a.scale_log2 = scale * LOG2E;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mask);
-  if (dtype == 0) return dispatch_dh<__nv_bfloat16>(q, k, v, m, o, B, H, Tlen, Dh, scale, st);
-  if (dtype == 1) return dispatch_dh<__half>(q, k, v, m, o, B, H, Tlen, Dh, scale, st);
+  if (dtype == 0) return dispatch_dh<__nv_bfloat16>(a, B, Dh, st);
+  if (dtype == 1) return dispatch_dh<__half>(a, B, Dh, st);
   return (int)cudaErrorInvalidValue;
 }

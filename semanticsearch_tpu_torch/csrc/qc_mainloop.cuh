@@ -1,6 +1,6 @@
-// The main loop shared by the two top-k kernels (segtopk.cu mode 0 and
-// topk_fused.cu), for Hopper (sm_90a): scores of a resident bf16 query tile
-// against a streamed bf16 corpus range, f32 accumulators in registers.
+// The main loop shared by the two top-k kernels (segtopk.cu modes 0 and 1,
+// and topk_fused.cu), for Hopper (sm_90a): scores of a resident bf16 query
+// tile against a streamed bf16 corpus range, f32 accumulators in registers.
 //
 // Both operands are K-major (row-major with the embedding width contiguous),
 // which is what wgmma takes for A and B without a transpose.
@@ -14,7 +14,7 @@
 //    extents (Q x D and n x D): what a box covers outside them arrives as
 //    zeros, which gives the zero query rows past Q, the zero columns past D
 //    and "rows at or past n score 0" with no address arithmetic.
-//  * A ring of 2-4 stages with one full and one empty mbarrier per stage.
+//  * A ring of 2-7 stages with one full and one empty mbarrier per stage.
 //    The producer waits on empty, arms full with the stage's bytes and starts
 //    the copy; consumers wait on full, multiply, and each consumer warp
 //    arrives on empty once the wgmma group that read the stage has retired.
@@ -26,12 +26,15 @@
 //    warpgroup holds rows 16w + l/4 and 16w + l/4 + 8; register 4j + e is
 //    column 8j + 2(l%4) + (e&1) of row l/4 + 8(e>>1). The kernels' epilogues
 //    read them there: no score tile is written to shared or device memory.
+//    Two consumer warpgroups read the same stages, so they stay at most a
+//    ring apart: a ring shorter than a tile keeps them in step; one longer
+//    than a tile lets them drift out of phase (segtopk.cu mode 1).
 //
 // Shared memory, from a 1024-byte aligned base (the swizzle atom):
 //   query tile BQ*Dp*2 | stages S*16384 | barriers 128 | the kernel's own.
-// The Python wrappers plan BQ and S (ops/topk.py: pass_a_plan, fused_plan)
-// and pass them in; the entry points recompute the byte count from them with
-// the formulas below and refuse what does not fit.
+// The Python wrappers plan BQ and S (ops/topk.py: pass_a_plan, overlap_plan,
+// fused_plan) and pass them in; the entry points recompute the byte count
+// from them with the formulas below and refuse what does not fit.
 #pragma once
 
 #include <cuda.h>
@@ -265,10 +268,32 @@ __device__ inline void produce(const Ring& ring, const CUtensorMap* qmap, const 
   }
 }
 
+#ifdef QC_PHASE_PROBE
+// Built only by tools/pass_a_phase.py: per tile, when each consumer
+// warpgroup of the first CTA starts and ends its epilogue, by the SM clock,
+// and the global nanosecond timer at its start.
+constexpr int PROBE_TILES = 4096;
+__device__ long long phase_probe[2][3][PROBE_TILES];  // [warpgroup][start, end, start ns][tile]
+__device__ __forceinline__ void probe(int wg, int edge, int tile) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & (WG_THREADS - 1)) == 0 &&
+      tile < PROBE_TILES) {
+    phase_probe[wg][edge][tile] = clock64();
+    if (edge == 0) {
+      long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      phase_probe[wg][2][tile] = ns;
+    }
+  }
+}
+#else
+__device__ __forceinline__ void probe(int, int, int) {}
+#endif
+
 // Consumer warpgroup `wg` (all 128 threads): for each tile, the 64 x 128
 // scores of its 64 query rows into the accumulators, then on_tile(tile, acc).
 // The stages a tile read are released before on_tile runs, so the producer
-// loads ahead while the epilogue works. (A second accumulator set, with the
+// loads ahead while the epilogue works, and the other warpgroup multiplies
+// on as far as the ring reaches. (A second accumulator set, with the
 // next tile's first multiplies started before the epilogue, was tried: the
 // assembler then guards the epilogue's register reads with waits of its own
 // and serialises the multiplies, which cost more than the overlap gave.)
@@ -306,7 +331,9 @@ __device__ __forceinline__ void consume(const Ring& ring, int wg, int bq, int kc
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(&ring.empty[pending]);
     fence_acc(acc);
+    probe(wg, 0, tile);
     on_tile(tile, acc);
+    probe(wg, 1, tile);
   }
 }
 

@@ -50,12 +50,26 @@
 //    small kernel merges the splits per query. The wrapper plans tile rows,
 //    stages and splits (ops/topk.py::pass_a_plan) and passes them in.
 //
-// The overlap (mode 1) and int8 (mode 2) schedules keep the earlier WMMA
-// kernel below: 64-query tiles, a two-stage cp.async ring of 64-wide K
-// chunks, the score tile reduced in shared memory (double-buffered under the
-// next tile's first multiplies in the overlap schedule; int8 x int8 -> int32
-// fragments, K-step-major tiles, in the int8 one). They are bound by the
-// shared-memory operand traffic of mma.sync-class instructions.
+// The overlap schedule (mode 1): the same kernel, the same multiplies in the
+// same order and the same epilogue per query row, so its results equal mode
+// 0's bit for bit; only the ring differs. At the shard shape the card runs
+// at its power limit, and the tensor cores wait at every tile: on mode 0's
+// ring of 4 stages (under one tile of 6 K chunks at D = 384) the two
+// consumer warpgroups stay in step, finish a tile together and drain their
+// wgmma groups at once. Mode 1 runs on the deepest ring that fits
+// (ops/topk.py::overlap_plan: 7 stages at D = 384, more than a tile), so
+// neither warpgroup waits on the other's stages: they drift up to a tile
+// apart and one's drain and epilogue fall under the other's multiplies
+// (tools/pass_a_phase.py measures both). Barriers that hold them half a
+// tile apart (FA3's warpgroup ordering) measured slower: each turns the
+// other warpgroup's jitter into a stall. A CTA of 64 query rows has one
+// consumer warpgroup and keeps mode 0's ring.
+//
+// The int8 schedule (mode 2) keeps the earlier WMMA kernel below: 64-query
+// tiles, a two-stage cp.async ring of 64-wide K chunks, int8 x int8 -> int32
+// fragments in K-step-major tiles, the score tile reduced in shared memory.
+// It is bound by the shared-memory operand traffic of mma.sync-class
+// instructions.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -83,13 +97,6 @@ constexpr float NEG_INF = -1e30f;
 template <typename T>
 struct Op;
 template <>
-struct Op<__nv_bfloat16> {
-  using Acc = float;
-  static constexpr int VEC = 8;
-  static constexpr bool KMAJOR = false;
-  __device__ static Acc max(Acc a, Acc b) { return fmaxf(a, b); }
-};
-template <>
 struct Op<signed char> {
   using Acc = int;
   static constexpr int VEC = 16;
@@ -115,14 +122,14 @@ __host__ __device__ inline size_t tile_elems(int rows, int width) {
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
-template <typename T, bool OVERLAP>
+template <typename T>
 struct Layout {
   size_t q, c, s, m, run, lv, li, total;
   __host__ __device__ Layout(int Dp, int nseg_tile, int k_sel) {
     q = 0;
     c = align128(q + sizeof(T) * tile_elems<T>(BQ, Dp));
     s = align128(c + sizeof(T) * 2 * tile_elems<T>(BN, KC));
-    m = align128(s + 4 * (OVERLAP ? 2 : 1) * BQ * SPAD);
+    m = align128(s + 4 * BQ * SPAD);
     run = align128(m + 4 * BQ * nseg_tile);
     lv = align128(run + 4 * BQ);
     li = align128(lv + sizeof(float) * BQ * k_sel);
@@ -154,7 +161,7 @@ __device__ inline void list_insert(float* lv, int* li, int k_sel, float v, int i
   li[j] = id;
 }
 
-template <typename T, bool OVERLAP>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 segtopk_kernel(const T* __restrict__ q, const T* __restrict__ c, float* __restrict__ part_v,
                int* __restrict__ part_i, int Q, int n, int D, int L2, int n_valid_segs, int k_sel,
@@ -166,7 +173,7 @@ segtopk_kernel(const T* __restrict__ q, const T* __restrict__ c, float* __restri
   const int qld = tile_ld<T>(Dp), cld = tile_ld<T>(KC);
   const int seg_t = L2 < BN ? L2 : BN;  // rows of one segment inside a tile
   const int nseg_tile = BN / seg_t;
-  Layout<T, OVERLAP> lay(Dp, nseg_tile, k_sel);
+  Layout<T> lay(Dp, nseg_tile, k_sel);
   T* q_s = reinterpret_cast<T*>(smem + lay.q);
   T* c_s = reinterpret_cast<T*>(smem + lay.c);
   Acc* s_s = reinterpret_cast<Acc*>(smem + lay.s);
@@ -218,9 +225,9 @@ segtopk_kernel(const T* __restrict__ q, const T* __restrict__ c, float* __restri
     }
   };
 
-  // score tile of `tile` (in buffer `buf`) -> segment maxima -> lists
-  auto reduce_tile = [&](int tile, int buf) {
-    const Acc* st = s_s + buf * BQ * SPAD;
+  // score tile of `tile` -> segment maxima -> lists
+  auto reduce_tile = [&](int tile) {
+    const Acc* st = s_s;
     const long long r0 = r_begin + (long long)tile * BN;
     if (L2 <= BN) {
       for (int idx = tid; idx < BQ * nseg_tile; idx += THREADS) {
@@ -290,28 +297,18 @@ segtopk_kernel(const T* __restrict__ q, const T* __restrict__ c, float* __restri
         for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
     }
 
-    // overlap: tile-1's reduction runs after this tile's first MMAs issued
-    if (OVERLAP && kc == 0 && tile > 0) reduce_tile(tile - 1, (tile - 1) & 1);
     if (kc == kchunks - 1) {
-      const int buf = OVERLAP ? (tile & 1) : 0;
       for (int i = 0; i < 2; ++i)
         for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(
-              s_s + buf * BQ * SPAD + (warp_m * 32 + i * 16) * SPAD + warp_n * 32 + j * 16,
-              acc[i][j], SPAD, wmma::mem_row_major);
-      if (!OVERLAP) {
-        __syncthreads();
-        reduce_tile(tile, 0);
-      }
+          wmma::store_matrix_sync(s_s + (warp_m * 32 + i * 16) * SPAD + warp_n * 32 + j * 16,
+                                  acc[i][j], SPAD, wmma::mem_row_major);
+      __syncthreads();
+      reduce_tile(tile);
     }
     __syncthreads();  // the stage and score tile are rewritten next step
   }
   cp_async_wait<0>();
   __syncthreads();
-  if (OVERLAP && n_tiles > 0) {
-    reduce_tile(n_tiles - 1, (n_tiles - 1) & 1);
-    __syncthreads();
-  }
 
   for (int idx = tid; idx < BQ * k_sel; idx += THREADS) {
     int r = idx / k_sel;
@@ -641,15 +638,15 @@ inline void launch_merge(const void* part_v, const void* part_i, void* out_v, vo
         static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k_sel, n_splits);
 }
 
-template <typename T, bool OVERLAP>
+template <typename T>
 int launch(const void* q, const void* c, void* part_v, void* part_i, void* out_v, void* out_i,
            int Q, int n, int D, int L2, int n_valid_segs, int k_sel, int n_splits,
            cudaStream_t st) {
   if (D % Op<T>::VEC) return (int)cudaErrorInvalidValue;
   const int Dp = (D + KC - 1) / KC * KC;
   const int seg_t = L2 < BN ? L2 : BN;
-  Layout<T, OVERLAP> lay(Dp, BN / seg_t, k_sel);
-  cudaError_t err = cudaFuncSetAttribute(segtopk_kernel<T, OVERLAP>,
+  Layout<T> lay(Dp, BN / seg_t, k_sel);
+  cudaError_t err = cudaFuncSetAttribute(segtopk_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)lay.total);
   if (err != cudaSuccess) return (int)err;
@@ -657,7 +654,7 @@ int launch(const void* q, const void* c, void* part_v, void* part_i, void* out_v
   const long long n_units = ((long long)n_valid_segs * L2 + unit - 1) / unit;
   const long long units_per_split = (n_units + n_splits - 1) / n_splits;
   dim3 grid((Q + BQ - 1) / BQ, n_splits);
-  segtopk_kernel<T, OVERLAP><<<grid, THREADS, lay.total, st>>>(
+  segtopk_kernel<T><<<grid, THREADS, lay.total, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(c), static_cast<float*>(part_v),
       static_cast<int*>(part_i), Q, n, D, L2, n_valid_segs, k_sel, units_per_split * unit);
   err = cudaGetLastError();
@@ -673,7 +670,8 @@ int launch_wgmma(const void* q, const void* c, void* part_v, void* part_i, void*
   constexpr int BQW = NWG * 64;
   const int Dp = qc::padded_width(D);
   const size_t bytes = wg_smem_bytes(BQW, Dp, n_stages, k_sel);
-  if (D % 8 || n_stages < 2 || n_stages > 4 || bytes > (size_t)qc::SMEM_LIMIT ||
+  // the ring's barriers fit 7 stages
+  if (D % 8 || n_stages < 2 || n_stages > 7 || bytes > (size_t)qc::SMEM_LIMIT ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, cmap;
@@ -699,10 +697,11 @@ int launch_wgmma(const void* q, const void* c, void* part_v, void* part_i, void*
 
 }  // namespace
 
-// mode 0: bf16 (the wgmma kernel; bq = 64 or 128 query rows per CTA and
-// n_stages = 2..4 ring stages as ops/topk.py::pass_a_plan chose them);
-// mode 1: bf16, overlap schedule; mode 2: int8 (both the WMMA kernel, which
-// ignores bq and n_stages).
+// modes 0 and 1: bf16, the wgmma kernel with bq = 64 or 128 query rows per
+// CTA and n_stages = 2..7 ring stages as ops/topk.py planned them (mode 0,
+// pass_a_plan: up to 4; mode 1, the overlap schedule, overlap_plan: the
+// deepest ring that fits); mode 2: int8 (the WMMA kernel, which ignores bq
+// and n_stages).
 extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* part_i,
                               void* out_v, void* out_i, int Q, int n, int D, int L2,
                               int n_valid_segs, int k_sel, int n_splits, int mode, int bq,
@@ -713,6 +712,7 @@ extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
+    case 1:
       if (bq == 128)
         return launch_wgmma<2>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
                                k_sel, n_splits, n_stages, st);
@@ -720,13 +720,23 @@ extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* 
         return launch_wgmma<1>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
                                k_sel, n_splits, n_stages, st);
       return (int)cudaErrorInvalidValue;
-    case 1:
-      return launch<__nv_bfloat16, true>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
-                                         n_valid_segs, k_sel, n_splits, st);
     case 2:
-      return launch<signed char, false>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
-                                        n_valid_segs, k_sel, n_splits, st);
+      return launch<signed char>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
+                                 n_valid_segs, k_sel, n_splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+#ifdef QC_PHASE_PROBE
+// tools/pass_a_phase.py: copy the first CTA's epilogue clocks out
+// (qc::phase_probe, 2 x 3 x qc::PROBE_TILES int64), then zero them.
+extern "C" int segtopk_phase_probe(long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, qc::phase_probe, sizeof(qc::phase_probe));
+  if (err != cudaSuccess) return (int)err;
+  void* p = nullptr;
+  err = cudaGetSymbolAddress(&p, qc::phase_probe);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemset(p, 0, sizeof(qc::phase_probe));
+}
+#endif

@@ -6,6 +6,9 @@ non-causal attention over (B, H, T, Dh) with a (B, T) key-padding mask
 hand-written Hopper kernel ``csrc/flash_attention.cu``; on a CPU tensor it
 computes :func:`flash_attention_plain`. The backward pass recomputes
 attention with the plain math, as the JAX package's ``_flash_bwd`` does.
+The kernel reads q, k and v through their strides and writes an output
+with q's strides, so the encoder's transposed (B, T, H, Dh) views cost no
+copy either way.
 """
 from __future__ import annotations
 
@@ -35,6 +38,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself when the kernel can read it through its strides (head
+    dimension contiguous, 16-byte aligned rows), else a contiguous copy."""
+    if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for n, s in zip(x.shape[:3], x.stride()[:3])
+                    if n > 1)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(x: torch.Tensor):
+    """(b, h, t) element strides, 0 for a dimension of size 1."""
+    return [s if n > 1 else 0 for n, s in zip(x.shape[:3], x.stride()[:3])]
+
+
 def _flash_forward(q, k, v, mask):
     global FLASH_LAUNCHES
     if q.device.type == "cpu":
@@ -56,15 +74,21 @@ def _flash_forward(q, k, v, mask):
                          f"mask {tuple(mask.shape)}")
     if not all(x.device == q.device for x in (k, v, mask)):
         raise ValueError("flash kernel: q, k, v and mask on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # strided views (the encoder's transposed heads) go in as they are
+    q, k, v = (_kernel_operand(x) for x in (q, k, v))
     mask = mask.to(torch.float32).contiguous()
-    out = torch.empty_like(q)
+    if mask.data_ptr() % 16:
+        mask = mask.clone()
+    out = torch.empty_like(q)  # q's strides where q is dense, else contiguous
+    strides = (ctypes.c_longlong * 12)(
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), b, h, t, dh, 1.0 / math.sqrt(dh),
+                out.data_ptr(), b, h, t, dh, strides, 1.0 / math.sqrt(dh),
                 _KERNEL_DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention")

@@ -18,8 +18,10 @@ for CPU tensors:
 
 Both kernels run one Hopper main loop (``csrc/qc_mainloop.cuh``: TMA
 loads into an ``mbarrier`` ring, ``wgmma`` on a resident query tile) and
-select in the accumulator registers. Their tiles, ring stages and corpus
-splits are planned here (:func:`pass_a_plan`, :func:`fused_plan`) and
+select in the accumulator registers; pass A's overlap schedule runs the
+same loop on a ring longer than a tile, so its two consumer warpgroups
+drift out of phase. Their tiles, ring stages and corpus splits are planned
+here (:func:`pass_a_plan`, :func:`overlap_plan`, :func:`fused_plan`) and
 handed to the C entry points.
 
 The true top-k rows lie in the top-k segments by maximum: were a top-k row's
@@ -340,6 +342,30 @@ def pass_a_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
             "smem": pass_a_smem_bytes(bq, d, stages, k_sel)}
 
 
+# the ring's barriers (two per stage and the query tile's) fit 128 bytes for
+# up to 7 stages
+OVERLAP_MAX_STAGES = 7
+
+
+def overlap_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
+                 sms: int = 132) -> dict:
+    """Tiles and grid of pass A's overlap schedule: :func:`pass_a_plan`'s
+    (``bq``, ``stages``, ``smem``, ``n_splits``), with a 128-row CTA's ring
+    made the deepest that fits, up to :data:`OVERLAP_MAX_STAGES` stages. A
+    ring longer than a tile's K chunks (6 at D = 384) lets the CTA's two
+    consumer warpgroups drift out of phase, one selecting while the other
+    multiplies. A 64-row CTA has one consumer warpgroup and nothing to
+    overlap: it keeps the default's plan. Takes every shape
+    :func:`pass_a_plan` takes and raises ``ValueError`` where it does."""
+    plan = pass_a_plan(q, d, k_sel, n_segs, seg_rows, sms)
+    if plan["bq"] == 64:
+        return plan
+    stages = max(s for s in range(plan["stages"], OVERLAP_MAX_STAGES + 1)
+                 if pass_a_smem_bytes(128, d, s, k_sel) <= SMEM_LIMIT)
+    return {**plan, "stages": stages,
+            "smem": pass_a_smem_bytes(128, d, stages, k_sel)}
+
+
 def fused_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
     """Tiles and grid of the fused kernel for ``q`` queries of width ``d``
     and ``vn`` valid rows: ``bq``, ``stages``, ``smem`` as in
@@ -457,12 +483,14 @@ def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
     corpus = corpus.contiguous()
     n_segs = -(-n // seg_rows)
     dev = queries.device
-    if mode == 0:  # the wgmma kernel: tiles and splits from the plan
+    if mode in (0, 1):  # the wgmma kernel: tiles and splits from the plan
         if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
-            raise ValueError("pass A (bf16) needs 16-byte aligned operands")
-        plan = pass_a_plan(q, d, k_sel, n_segs, seg_rows, _sm_count(dev))
+            raise ValueError(f"pass A ({schedule}) needs 16-byte aligned "
+                             "operands")
+        plan = (pass_a_plan if mode == 0 else overlap_plan)(
+            q, d, k_sel, n_segs, seg_rows, _sm_count(dev))
         bq, stages, n_splits = plan["bq"], plan["stages"], plan["n_splits"]
-    else:          # the WMMA kernel: 64-query tiles
+    else:               # the int8 WMMA kernel: 64-query tiles
         bq, stages = 64, 2
         n_units = -(-(n_segs * seg_rows) // max(_LANE, seg_rows))
         n_splits = max(1, min(n_units, -(-4 * _sm_count(dev) // -(-q // 64))))
@@ -504,7 +532,8 @@ def segtopk_pass_a_overlap(
     """Pass A in the overlap schedule (``_segtopk_kernel_overlap``):
     bit-identical to :func:`segtopk_pass_a`. For CPU tensors it runs
     :func:`segtopk_pass_a_plain`; for CUDA tensors it launches the overlap
-    schedule of ``csrc/segtopk.cu`` (bf16 operands) or raises."""
+    schedule of ``csrc/segtopk.cu`` (bf16 operands; tiles from
+    :func:`overlap_plan`) or raises."""
     global SEGTOPK_OVERLAP_LAUNCHES
     if not _on_card("segtopk_pass_a_overlap", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)

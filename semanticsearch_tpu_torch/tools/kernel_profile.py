@@ -1,6 +1,7 @@
-"""Time the two top-k kernels of a source tree on one CUDA card.
+"""Time the top-k and flash-attention kernels of a source tree on one
+CUDA card.
 
-    python -m semanticsearch_tpu_torch.tools.topk_profile \
+    python -m semanticsearch_tpu_torch.tools.kernel_profile \
         [--tree DIR] [--profiler] [--label NAME] [--out FILE.jsonl]
 
 ``chip_smoke.py`` is the record of the kernels' times; this runner adds the
@@ -8,15 +9,23 @@ two things it does not do. ``--tree`` names the root of another checkout
 (default: the one this file lies in), whose package, kernels and
 ``chip_smoke.time_ms`` are then the ones used, so two versions can be timed
 in turns on one card: run the script once per tree, all in one shell
-command. ``--profiler`` also runs each shape once under ``torch.profiler``
-and reports the device time by kernel name (selection and merge kernels
-apart, and free of the host's launch path, which CUDA events include).
+command; every kernel of the tree is built first, one nvcc per source.
+``--profiler`` also runs each shape once under ``torch.profiler`` and
+reports the device time by kernel name (selection and merge kernels apart,
+and free of the host's launch path, which CUDA events include).
 
 Shapes, those of ``chip_smoke.py`` phase 4: pass A at the shard size
-(32,768 queries x 1,250,000 x 384 bf16, 32-row segments, k_sel 11) and at
-the serve shape (64 queries x 20,000 rows, k_sel 41); the fused top-k at
+(32,768 queries x 1,250,000 x 384 bf16, 32-row segments, k_sel 11), in
+the default schedule and in the overlap schedule, and at the serve shape
+(64 queries x 20,000 rows, k_sel 41); the fused top-k at
 16,384 queries (k = 200) over the shard and at the live-search shape
-(10,000 queries x 22,000 rows, k = 200).
+(10,000 queries x 22,000 rows, k = 200); flash attention on the
+encoder's transposed (B, T, H, Dh) views at the serve shape (B 256, H 12,
+T 256, Dh 32, 40-256 real keys), at T = 1024 (B 2, 600-1000 real) and at
+the chunking batch (B 2,048, T 64, 3-12 real), with ``chip_smoke``'s
+inputs, and for these also the host's time per call (``*_host_ms``: 50
+calls queued without a wait), which CUDA events include whenever it is the
+longer.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -41,13 +51,15 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("topk_profile: no CUDA device", file=sys.stderr)
+        print("kernel_profile: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import time_ms
     from semanticsearch_tpu_torch.data import synth
-    from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.ops import _build, topk
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
 
     assert Path(topk.__file__).resolve().is_relative_to(tree), topk.__file__
+    _build.build_all()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -59,6 +71,8 @@ def main() -> int:
     live = corpus[:22000].contiguous()
     runs = {
         "pass_a_shard": lambda: topk.segtopk_pass_a(queries, corpus, n, 32, 11),
+        "overlap_shard": lambda: topk.segtopk_pass_a_overlap(queries, corpus,
+                                                             n, 32, 11),
         "pass_a_serve": lambda: topk.segtopk_pass_a(queries[:64], small,
                                                     20000, 32, 41),
         "fused_shard": lambda: topk.topk_scores_fused(queries[:16384], corpus,
@@ -66,9 +80,27 @@ def main() -> int:
         "fused_live": lambda: topk.topk_scores_fused(queries[:10000], live,
                                                      200),
     }
-    reps = {"pass_a_serve": 50, "fused_live": 5}
+    gen = torch.Generator().manual_seed(3)
+    for name, b, t, (lo, hi) in [("flash_serve", 256, 256, (40, 256)),
+                                 ("flash_t1024", 2, 1024, (600, 1000)),
+                                 ("flash_chunk", 2048, 64, (3, 12))]:
+        qkv = [torch.randn((b, t, 12, 32), generator=gen)
+               .to("cuda", torch.bfloat16).transpose(1, 2) for _ in range(3)]
+        lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
+        mask = (torch.arange(t)[None, :] < lengths[:, None]).float().to("cuda")
+        runs[name] = lambda qkv=qkv, mask=mask: fa.flash_attention(*qkv, mask)
+    reps = {"pass_a_serve": 50, "fused_live": 5, "flash_serve": 20,
+            "flash_t1024": 20, "flash_chunk": 20}
     for name, fn in runs.items():
         res[name + "_ms"] = time_ms(fn, reps=reps.get(name, 3))
+        if name.startswith("flash"):
+            # the host's side of a call: 50 calls queued without a wait
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            res[name + "_host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+            torch.cuda.synchronize()
     if args.profiler:
         from torch.profiler import ProfilerActivity, profile
 
@@ -81,7 +113,8 @@ def main() -> int:
             for ev in prof.key_averages():
                 dev_us = getattr(ev, "device_time_total",
                                  getattr(ev, "cuda_time_total", 0.0))
-                if dev_us > 0 and ("topk" in ev.key or "merge" in ev.key):
+                if dev_us > 0 and any(w in ev.key for w in
+                                      ("topk", "merge", "flash")):
                     kernel = ev.key.replace("(anonymous namespace)::", "")
                     rows[f"{name}: {kernel[:40]}"] = dev_us / 1e3
         res["profiler_device_ms_by_kernel"] = rows

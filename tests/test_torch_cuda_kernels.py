@@ -60,6 +60,27 @@ PASS_A_CASES = [
     (33, 2000, 8, 32, 11),       # the narrowest width
     (150, 6000, 768, 32, 11),    # a width that leaves room for 64-row tiles only
 ]
+# the overlap schedule runs two warpgroups on 128-row query tiles over a
+# deeper ring (more than 64 queries): every way a segment lies in the
+# registers, ragged query tiles and corpus ends, one K chunk a tile, an odd
+# count of them, eight (a ring shorter than a tile), k_sel 128 (64-row
+# tiles) and the serve shape (one warpgroup)
+OVERLAP_CASES = PASS_A_CASES + [
+    (64, 20000, 384, 32, 41),    # the serve shape
+    (200, 20011, 384, 1, 41),
+    (200, 20011, 384, 2, 41),
+    (200, 20011, 384, 4, 41),
+    (200, 20011, 384, 8, 41),
+    (200, 20011, 384, 32, 41),
+    (200, 20011, 384, 128, 41),
+    (200, 20011, 384, 256, 41),
+    (200, 3000, 72, 8, 20),      # D = 72 on 128-row tiles
+    (300, 10000, 64, 32, 11),    # one K chunk a tile
+    (300, 10000, 320, 16, 11),   # five K chunks a tile
+    (300, 50000, 512, 32, 11),   # eight K chunks, five stages
+    (1000, 100000, 384, 32, 11), # several query tiles and splits
+    (200, 30000, 384, 32, 128),  # k_sel 128: 64-row tiles
+]
 # the int8 schedule copies 16 int8 columns at a time: widths are multiples
 # of 16, so the same layouts with the width rounded up
 PASS_A_INT8_CASES = [(q, n, -(-d // 16) * 16, seg_rows, k_sel)
@@ -78,7 +99,7 @@ def test_segtopk_kernel_matches_plain(dev, q, n, d, seg_rows, k_sel):
     assert torch.equal(kv, pv)
 
 
-@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", PASS_A_CASES)
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", OVERLAP_CASES)
 def test_segtopk_overlap_is_bit_identical(dev, q, n, d, seg_rows, k_sel):
     Q, C = _grid((q, d), 3, dev), _grid((n, d), 4, dev)
     launches = topk.SEGTOPK_OVERLAP_LAUNCHES
@@ -89,6 +110,17 @@ def test_segtopk_overlap_is_bit_identical(dev, q, n, d, seg_rows, k_sel):
     assert topk.SEGTOPK_OVERLAP_LAUNCHES == launches + 1
     assert torch.equal(oi, ki) and torch.equal(ov, kv)
     assert torch.equal(oi, pi) and torch.equal(ov, pv)
+
+
+def test_segtopk_overlap_on_unit_rows_equals_default(dev):
+    """Real-valued scores (not integers): the two schedules sum the same
+    products in the same order, so they agree bit for bit here too."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    Q = torch.randn((700, 384), generator=g, device=dev).bfloat16()
+    C = torch.randn((60000, 384), generator=g, device=dev).bfloat16()
+    ov, oi = topk.segtopk_pass_a_overlap(Q, C, 60000, 32, 41)
+    kv, ki = topk.segtopk_pass_a(Q, C, 60000, 32, 41)
+    assert torch.equal(oi, ki) and torch.equal(ov, kv)
 
 
 @pytest.mark.parametrize("q,n,d,seg_rows,k_sel", PASS_A_INT8_CASES)
@@ -251,20 +283,98 @@ def test_twopass_kernel_path_matches_plain_path(dev):
     assert torch.equal(kv.cpu(), pv)
 
 
+def _flash_inputs(shape, dtype, layout, g, dev):
+    """q, k, v of logical shape (B, H, T, Dh): contiguous, or the
+    encoder's transposed views of (B, T, H, Dh) tensors."""
+    b, h, t, dh = shape
+    if layout == "contiguous":
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for _ in range(3)]
+    return [torch.randn((b, t, h, dh), generator=g, device=dev).to(dtype)
+            .transpose(1, 2) for _ in range(3)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("b,h,t,dh", [(3, 12, 64, 32), (2, 12, 256, 32),
                                       (1, 4, 1024, 32), (2, 2, 128, 16),
-                                      (2, 2, 128, 64), (2, 2, 128, 128)])
-def test_flash_kernel_matches_plain(dev, dtype, b, h, t, dh):
+                                      (2, 2, 128, 64), (2, 2, 128, 128),
+                                      (3, 2, 192, 64), (2, 2, 512, 128),
+                                      (2, 3, 1024, 16),
+                                      # enough CTAs that each takes several
+                                      # heads in turn (2, 3 and 6)
+                                      (1024, 4, 64, 128), (512, 12, 128, 64),
+                                      (600, 12, 256, 16)])
+def test_flash_kernel_matches_plain(dev, layout, dtype, b, h, t, dh):
     g = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = (torch.randn((b, h, t, dh), generator=g, device=dev).to(dtype)
-               for _ in range(3))
+    q, k, v = _flash_inputs((b, h, t, dh), dtype, layout, g, dev)
     mask = torch.ones((b, t), device=dev)
     mask[:, t - t // 3:] = 0.0
     mask[0, :] = 0.0  # every key masked: the mean of V
+    if b > 2:
+        mask[2, 64:] = 0.0  # all but the first key block masked: skipped
     got = fa.flash_attention(q, k, v, mask)
     want = fa.flash_attention_plain(q, k, v, mask)
+    assert got.shape == q.shape and got.stride() == q.stride()
     np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("heads_per_cta", ["one", "several"])
+@pytest.mark.parametrize("t", [128, 256, 1024])
+def test_flash_skips_blocks_without_a_real_key(dev, heads_per_cta, t):
+    """A key block with no real key is skipped for a row that has one,
+    whether such blocks lead, trail or sit between live ones: NaN keys and
+    values there change no bit of the output (a block that ran would give
+    0 * NaN = NaN). A batch large enough for 4,096 CTAs of one head lets
+    each CTA take several heads in turn."""
+    b, h = (4, 2) if heads_per_cta == "one" else (131072 // t, 4)
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn((b, h, t, 32), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    pattern = torch.zeros((4, t), device=dev)
+    pattern[0, :64] = 1.0                    # live block, dead tail
+    pattern[1, t - 64: t - 10] = 1.0         # dead lead
+    pattern[2, :30] = 1.0                    # live, dead, ..., live
+    pattern[2, t - 64: t - 40] = 1.0
+    pattern[3, 5] = 1.0                      # a single real key
+    mask = pattern.repeat(b // 4, 1)
+    got = fa.flash_attention(q, k, v, mask)
+    dead = (mask.view(b, t // 64, 64) == 0).all(dim=2)  # (B, blocks)
+    keys = dead.repeat_interleave(64, dim=1)[:, None, :, None]
+    k2 = torch.where(keys, torch.full_like(k, float("nan")), k)
+    v2 = torch.where(keys, torch.full_like(v, float("nan")), v)
+    again = fa.flash_attention(q, k2, v2, mask)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    want = fa.flash_attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=0, atol=1e-2)
+
+
+def test_flash_reads_the_encoders_views_without_copies(dev):
+    """The encoder hands the kernel transposed (B, T, H, Dh) views: the
+    wrapper allocates the output and nothing else, and the output's own
+    transpose back is contiguous, so the reshape after it is free."""
+    b, t, h, dh = 64, 256, 12, 32
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = [torch.randn((b, t, h * dh), generator=g, device=dev)
+         .to(torch.bfloat16) for _ in range(3)]
+    q, k, v = (y.view(b, t, h, dh).transpose(1, 2) for y in x)
+    mask = torch.ones((b, t), device=dev)
+    fa.flash_attention(q, k, v, mask)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = fa.FLASH_LAUNCHES
+    out = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.FLASH_LAUNCHES == launches + 1
+    assert out.transpose(1, 2).is_contiguous()
+    out_bytes = out.numel() * out.element_size()
+    assert torch.cuda.memory_allocated() - before == out_bytes
+    assert torch.cuda.max_memory_allocated() - before == out_bytes
+    want = fa.flash_attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=0, atol=1e-2)
 
 
@@ -273,8 +383,8 @@ def test_flash_kernel_at_the_chunking_batch(dev, b):
     """The chunking pipeline's encoder batches: up to 2,048 short sentences
     in the 64 bucket, each row keeping its own few leading keys."""
     g = torch.Generator(device=dev).manual_seed(8)
-    q, k, v = (torch.randn((b, 12, 64, 32), generator=g, device=dev)
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v = _flash_inputs((b, 12, 64, 32), torch.bfloat16, "transposed", g,
+                            dev)
     lens = torch.randint(3, 13, (b,), generator=g, device=dev)
     mask = (torch.arange(64, device=dev)[None, :] < lens[:, None]).float()
     got = fa.flash_attention(q, k, v, mask)

@@ -59,6 +59,28 @@ def test_forward_matches_jax(rng, jax_params, attention):
                                np.asarray(want_tokens), **TOL)
 
 
+@pytest.mark.parametrize("lengths", [(256, 64, 3), (200, 1, 129)])
+def test_flash_forward_with_dead_key_blocks_matches_jax(rng, jax_params,
+                                                        lengths):
+    """The flash path at T = 256, where rows of 64, 3 or 1 real tokens
+    leave whole 64-key blocks without a real key (blocks the kernel skips):
+    embeddings and token states match the JAX encoder's."""
+    b, t = len(lengths), 256
+    ids = rng.integers(3, SMALL["vocab_size"], size=(b, t)).astype(np.int32)
+    mask = (np.arange(t)[None, :] < np.asarray(lengths)[:, None]).astype(
+        np.int32)
+    jcfg = JCfg(**SMALL, attention="flash")
+    model = TModel(TCfg(**SMALL, attention="flash"))
+    model.load_state_dict(flax_to_state_dict(jax_params, SMALL["num_layers"]))
+    for tokens in (False, True):
+        want = JModel(jcfg).apply({"params": jax_params}, jnp.asarray(ids),
+                                  jnp.asarray(mask), return_tokens=tokens)
+        got = model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                    return_tokens=tokens)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
+
+
 def test_encode_buckets_match_jax(jax_params):
     """Texts of every bucket (64/128/256) in mixed order: reassembly keeps
     input order, and embeddings match the JAX encoder's."""

@@ -56,3 +56,46 @@ def test_flash_gradients_match_jax(rng):
     for g, w in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+def _block_mask(t, spans):
+    """(t,) mask with 1 on each [lo, hi) span: whole 64-key blocks between
+    the spans hold no real key."""
+    m = np.zeros(t, np.float32)
+    for lo, hi in spans:
+        m[lo:hi] = 1.0
+    return m
+
+
+@pytest.mark.parametrize("b,h,t,dh,rows", [
+    # the encoder's layout: (B, T, H, Dh) tensors seen as (B, H, T, Dh)
+    (2, 4, 128, 32, [[(0, 128)], [(0, 40)]]),
+    # dead blocks trailing, leading and between live ones; a row with
+    # every key masked (the mean of V)
+    (4, 2, 256, 16, [[(0, 64)], [(200, 250)], [(0, 30), (192, 220)], []]),
+    (3, 3, 192, 64, [[(5, 6)], [], [(64, 192)]]),
+    (2, 2, 64, 32, [[(0, 3)], []]),  # the chunking batch's one block
+])
+def test_flash_transposed_views_match_jax(rng, b, h, t, dh, rows):
+    q, k, v = (rng.standard_normal((b, t, h, dh)).astype(np.float32)
+               for _ in range(3))
+    mask = np.stack([_block_mask(t, spans) for spans in rows])
+    want = jflash(*(jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+                    for x in (q, k, v)), jnp.asarray(mask), 64, 64, True)
+    views = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = tfa.flash_attention(*views, torch.from_numpy(mask))
+    assert got.shape == (b, h, t, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    for i, spans in enumerate(rows):
+        if not spans:  # every key masked: the mean of V over all keys
+            np.testing.assert_allclose(
+                got.numpy()[i], np.broadcast_to(
+                    v[i].mean(axis=0)[:, None, :], (h, t, dh)),
+                rtol=2e-5, atol=2e-5)
+    # the same as on contiguous copies of the views
+    same = tfa.flash_attention(*(x.contiguous() for x in views),
+                               torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), same.numpy())
+    assert tfa.FLASH_LAUNCHES == 0

@@ -396,3 +396,95 @@ def test_fused_plan_raises_exactly_past_its_widest_d(k):
 ])
 def test_pick_splits(n_qtiles, n_units, expect):
     assert ttopk._pick_splits(n_qtiles, n_units, 1, n_units, 132) == expect
+
+
+# the overlap schedule's plan: the default's tiles and splits on the
+# deepest ring that fits
+_OVERLAP_D = [8, 64, 72, 128, 320, 384, 512, 576, 768, 1024]
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+@pytest.mark.parametrize("d", _OVERLAP_D)
+@pytest.mark.parametrize("q", _PLAN_Q)
+def test_overlap_plan_fits_on_the_deepest_ring(q, d, k_sel):
+    for n, seg_rows in [(100, 8), (20000, 32), (1_250_000, 32), (5000, 256)]:
+        n_segs = -(-n // seg_rows)
+        plan = ttopk.overlap_plan(q, d, k_sel, n_segs, seg_rows)
+        default = ttopk.pass_a_plan(q, d, k_sel, n_segs, seg_rows)
+        assert plan["smem"] == ttopk.pass_a_smem_bytes(
+            plan["bq"], d, plan["stages"], k_sel) <= ttopk.SMEM_LIMIT
+        assert plan["bq"] == default["bq"]
+        assert plan["n_splits"] == default["n_splits"]
+        if plan["bq"] == 64:  # one consumer warpgroup: the default's ring
+            assert plan == default
+            continue
+        assert default["stages"] <= plan["stages"] <= ttopk.OVERLAP_MAX_STAGES
+        assert (plan["stages"] == ttopk.OVERLAP_MAX_STAGES
+                or ttopk.pass_a_smem_bytes(plan["bq"], d, plan["stages"] + 1,
+                                           k_sel) > ttopk.SMEM_LIMIT)
+    # the shard shape: 128-row tiles on a ring longer than a tile's six K
+    # chunks, so the two warpgroups can drift out of phase
+    if d == 384 and k_sel == 11 and q > 64:
+        assert plan["bq"] == 128 and plan["stages"] == 7
+
+
+@pytest.mark.parametrize("k_sel", [1, 2, 11, 41, 64, 127, 128])
+def test_overlap_plan_fits_at_every_width(k_sel):
+    """Every width that is a multiple of 8 up to the widest: the default's
+    tiles and splits; on 128-row tiles a ring at least as deep as the
+    default's, within the shared memory, and no deeper ring would fit; on
+    64-row tiles (one warpgroup) the default's plan."""
+    for d in range(8, ttopk.pass_a_max_d(k_sel) + 1, 8):
+        for q in (64, 1000):
+            plan = ttopk.overlap_plan(q, d, k_sel, 40000, 32)
+            default = ttopk.pass_a_plan(q, d, k_sel, 40000, 32)
+            if plan["bq"] == 64:
+                assert plan == default
+                continue
+            assert {k: plan[k] for k in ("bq", "n_splits")} == {
+                k: default[k] for k in ("bq", "n_splits")}
+            assert default["stages"] <= plan["stages"]
+            assert plan["smem"] <= ttopk.SMEM_LIMIT
+            assert (plan["stages"] == ttopk.OVERLAP_MAX_STAGES
+                    or ttopk.pass_a_smem_bytes(plan["bq"], d,
+                                               plan["stages"] + 1, k_sel)
+                    > ttopk.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+def test_overlap_plan_raises_exactly_past_its_widest_d(k_sel):
+    widest = ttopk.pass_a_max_d(k_sel)
+    for q in _PLAN_Q:
+        assert ttopk.overlap_plan(q, widest, k_sel, 1000, 32)["bq"] == 64
+        with pytest.raises(ValueError, match=f"widths up to {widest}"):
+            ttopk.overlap_plan(q, widest + 8, k_sel, 1000, 32)
+
+
+def _probe_clocks(offset: float, epilogue: float, tiles: int = 50,
+                  period: float = 1000.0) -> np.ndarray:
+    """Epilogue clocks as the phase probe records them: warpgroup 1 starts
+    each epilogue ``offset`` tiles after warpgroup 0."""
+    from semanticsearch_tpu_torch.tools import pass_a_phase
+
+    clk = np.zeros((2, 3, pass_a_phase.PROBE_TILES), np.int64)
+    start = 10_000 + period * np.arange(tiles)
+    for wg, shift in ((0, 0.0), (1, offset * period)):
+        clk[wg, 0, :tiles] = start + shift
+        clk[wg, 1, :tiles] = start + shift + epilogue * period
+        clk[wg, 2, :tiles] = (start + shift) / 2  # a 2 GHz clock, in ns
+    return clk
+
+
+@pytest.mark.parametrize("offset,shared", [(0.0, 1.0), (0.1, 0.5),
+                                           (0.5, 0.0), (1.0, 49 / 50)])
+def test_pass_a_phase_stats(offset, shared):
+    """The phase runner's reading of the probe: warpgroups in step share
+    all their epilogue time, half a tile apart none of it."""
+    from semanticsearch_tpu_torch.tools import pass_a_phase
+
+    st = pass_a_phase.phase_stats(_probe_clocks(offset, 0.2))
+    assert st["tiles"] == 50 and st["tile_cycles"] == 1000.0
+    assert st["tile_ns"] == 500.0 and st["sm_ghz"] == pytest.approx(2.0)
+    assert st["epilogue_share"] == pytest.approx([0.2, 0.2])
+    assert st["wg1_behind_tiles"] == pytest.approx([offset] * 3)
+    assert st["both_in_epilogue_share"] == pytest.approx(shared)
