@@ -4,14 +4,20 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``semanticsearch_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card (phase 2), serves hybrid
-queries end to end through ``HybridQueryEngine`` at the default encoder's
-full width (phase 3), times every kernel at the per-chip shard size of
-1,250,000 x 384 bf16, pass A also at the serve shape and the fused top-k at
-the live-search shape (phase 4), and serves deep candidate lists over a live
-index: adds, removals, a 10,000-query search through the fused top-k,
-``tune_fusion`` and ``compact`` (phase 5), and chunks a 600-document corpus
-with one document of 3,939 sentences through ``ChunkPipeline`` (phase 6).
+against its plain PyTorch version on the card, every schedule (bf16,
+overlap, int8 and f32 pass A, bf16 and f32 fused top-k, bf16/fp16 and f32
+flash at any T and padded head widths, f32 and bf16 similarity) (phase 2),
+serves hybrid queries end to end through ``HybridQueryEngine`` at the
+default encoder's full width (phase 3), times every kernel at the per-chip
+shard size of 1,250,000 x 384 bf16, pass A also at the serve shape and the
+fused top-k at the live-search shape (phase 4), and serves deep candidate
+lists over a live index: adds, removals, a 10,000-query search through the
+fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
+600-document corpus with one document of 3,939 sentences through
+``ChunkPipeline`` (phase 6), and serves the f32 configuration (an f32
+encoder under flash attention over an f32 index) end to end, held against
+the same engine on the CPU, with one live round through the f32 fused
+top-k, and times the f32 schedules at the shard shape (phase 7).
 Progress and measurements go to stdout; the line before the last is the card's name and power limit, the
 one before it the JSON ``kernels`` record, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -57,7 +63,8 @@ def bound_ms(ops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-def flash_bound(mask, h: int, dh: int, itemsize: int = 2):
+def flash_bound(mask, h: int, dh: int, itemsize: int = 2,
+                peak: float = PEAK_BF16_FLOPS):
     """bound_ms of masked attention on this mask: q and o move once, k and
     v only at real keys (a masked key adds exactly 0), and the two products
     cover only those keys; a row with no real key needs every key (the mean
@@ -67,7 +74,21 @@ def flash_bound(mask, h: int, dh: int, itemsize: int = 2):
     keys = float(real.where(real > 0, t).sum())
     return bound_ms(4.0 * h * t * dh * keys,
                     2.0 * b * h * t * dh * itemsize
-                    + 2.0 * h * dh * itemsize * keys + 4.0 * b * t)
+                    + 2.0 * h * dh * itemsize * keys + 4.0 * b * t, peak)
+
+
+def nan_in_skipped_blocks(x, mask):
+    """x (B, H, T, Dh) with NaN at every key of a 64-key block that holds no
+    real key, in the batch rows that have one: the blocks the flash kernel
+    skips, so the NaN must change no bit of its output."""
+    import torch
+
+    b, t = mask.shape
+    nb = -(-t // 64)
+    dead = (torch.nn.functional.pad(mask, (0, nb * 64 - t)).view(b, nb, 64)
+            == 0).all(dim=2) & (mask > 0).any(dim=1, keepdim=True)
+    keys = dead.repeat_interleave(64, dim=1)[:, :t][:, None, :, None]
+    return torch.where(keys, torch.full_like(x, float("nan")), x)
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -97,23 +118,25 @@ def zero_counts() -> None:
 
     topk.SEGTOPK_LAUNCHES = topk.SEGTOPK_OVERLAP_LAUNCHES = 0
     topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
-    fa.FLASH_LAUNCHES = 0
-    sim.SIM_LAUNCHES = 0
+    topk.SEGTOPK_F32_LAUNCHES = topk.SEGTOPK_OVERLAP_F32_LAUNCHES = 0
+    topk.TOPK_FUSED_F32_LAUNCHES = 0
+    fa.FLASH_LAUNCHES = fa.FLASH_F32_LAUNCHES = 0
+    sim.SIM_LAUNCHES = sim.SIM_BF16_LAUNCHES = 0
 
 
-def topk_agree(v, i, ref_v, ref_i, tol: float):
+def topk_agree(v, i, ref_v, ref_i, tol: float, gap: float = None):
     """Compare a (Q, k) top-k with a (Q, k+1) reference. Scores must agree
     to ``tol``; indices must be equal at every position whose reference
-    score is more than ``tol`` from its neighbours (the k+1-th included),
-    i.e. everywhere but inside a tie. Returns (max_abs_err, mismatches
-    outside ties, mismatches inside ties)."""
+    score is more than ``gap`` (default ``tol``) from its neighbours (the
+    k+1-th included), i.e. everywhere but inside a (near-)tie. Returns
+    (max_abs_err, mismatches outside ties, mismatches inside ties)."""
     import torch
 
     k = v.shape[1]
     v, i = v.float().cpu(), i.long().cpu()
     rv, ri = ref_v.float().cpu(), ref_i.long().cpu()
     err = float((v - rv[:, :k]).abs().max())
-    close = (rv[:, 1:] - rv[:, :-1]).abs() <= tol
+    close = (rv[:, 1:] - rv[:, :-1]).abs() <= (tol if gap is None else gap)
     tied = torch.zeros_like(rv, dtype=torch.bool)
     tied[:, 1:] |= close
     tied[:, :-1] |= close
@@ -324,6 +347,94 @@ def phase_kernels(report):
           "scores in ascending row order")
     report["topk_fused"]["max_abs_err"] = fu_err
 
+    # the f32 schedules (an f32 index). Integer-valued rows in [-8, 8], the
+    # corpus's first half repeated as its second, so every sum is exact and
+    # scores and segment maxima tie: ids, tie order and values must equal
+    # the plain f32 version's, in both pass-A wrappers and the fused kernel.
+    # Then unit rows: values within D * 2^-24 (a D-long f32 chain's worst
+    # case), ids equal wherever the plain values are more than twice that
+    # apart, and few id differences inside such near-ties.
+    def small_f32(shape):
+        return torch.randint(-8, 9, shape, generator=gen, device=dev).float()
+
+    def tied(C):
+        C[C.shape[0] - C.shape[0] // 2:] = C[: C.shape[0] // 2].clone()
+        return C
+
+    def unit(shape):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return x / x.norm(dim=1, keepdim=True)
+
+    pass_a_f32 = (("segtopk_f32", topk.segtopk_pass_a),
+                  ("segtopk_overlap_f32", topk.segtopk_pass_a_overlap))
+    f32_err = {"segtopk_f32": 0.0, "segtopk_overlap_f32": 0.0,
+               "topk_fused_f32": 0.0}
+    for q, n, d, L2, k_sel in [(256, 20011, 384, 32, 41),
+                               (64, 20000, 384, 32, 41),
+                               (1024, 200000, 384, 32, 11),
+                               (17, 3000, 72, 8, 20), (9, 3000, 100, 16, 20),
+                               (70, 5000, 384, 256, 41),
+                               (200, 30000, 128, 1, 128),
+                               (33, 2000, 30, 4, 11)]:
+        Qm, C = small_f32((q, d)), tied(small_f32((n, d)))
+        pv, pi = topk.segtopk_pass_a_plain(Qm, C, n, L2, k_sel)
+        for key, fn in pass_a_f32:
+            kv, ki = fn(Qm, C, n, L2, k_sel)
+            torch.cuda.synchronize()
+            check(torch.equal(ki, pi) and torch.equal(kv, pv),
+                  f"f32 pass A ({fn.__name__}) == plain on integer rows with "
+                  f"ties (ids, tie order, values exact): Q={q} N={n} D={d} "
+                  f"L2={L2} k_sel={k_sel}")
+    for q, n, d, k in [(300, 40000, 384, 1), (300, 40000, 384, 10),
+                       (256, 20011, 384, 200), (129, 60000, 384, 2048),
+                       (3, 250000, 128, 200), (9, 3000, 72, 300),
+                       (9, 3000, 100, 300), (5, 300, 384, 500)]:
+        Qm, C = small_f32((q, d)), tied(small_f32((n, d)))
+        kv, ki = topk.topk_scores_fused(Qm, C, k)
+        pv, pi = topk.topk_scores_fused_plain(Qm, C, k)
+        torch.cuda.synchronize()
+        check(torch.equal(ki, pi) and torch.equal(kv, pv),
+              f"f32 fused top-k == plain on integer rows with ties (ids, tie "
+              f"order, values exact): Q={q} N={n} D={d} k={k}")
+    for d in (384, 72, 100):
+        tol = d * 2.0 ** -24
+        Qm, C = unit((300, d)), unit((50000, d))
+        pv, pi = topk.segtopk_pass_a_plain(Qm, C, 50000, 32, 42)
+        runs = [(key, fn(Qm, C, 50000, 32, 41)) for key, fn in pass_a_f32]
+        runs.append(("topk_fused_f32", topk.topk_scores_fused(Qm, C, 200)))
+        fv, fi = topk.topk_scores_fused_plain(Qm, C, 201)
+        for key, (kv, ki) in runs:
+            ref_v, ref_i = (fv, fi) if key == "topk_fused_f32" else (pv, pi)
+            err, bad, near = topk_agree(kv, ki, ref_v, ref_i, tol, gap=2 * tol)
+            f32_err[key] = max(f32_err[key], err)
+            check(err <= tol and bad == 0 and near <= kv.numel() // 100,
+                  f"{key} vs plain on unit rows, Q=300 N=50000 D={d}: max abs "
+                  f"err {err:.2e} <= D * 2^-24 = {tol:.2e}; ids equal outside "
+                  f"near-ties (gaps <= {2 * tol:.2e}); {near} id differences "
+                  f"inside them (<= 1% of {kv.numel()})")
+    for key, err in f32_err.items():
+        report[key]["max_abs_err"] = err
+
+    # int8 pass A on s8 wgmma: D = 384 and D = 72 (padded to 80 columns by
+    # the wrapper), k_sel 16 and 128, the serve shape and the shard shape
+    for q, n, d, L2, k_sel in [(64, 20000, 384, 32, 16),
+                               (64, 20000, 384, 32, 128),
+                               (64, 20000, 72, 32, 16),
+                               (64, 20000, 72, 32, 128),
+                               (2048, 200000, 72, 8, 128),
+                               (32768, 1_250_000, 384, 32, 16)]:
+        Q8 = _int_grid((q, d), gen, torch.int8)
+        C8 = _int_grid((n, d), gen, torch.int8)
+        iv, ii = topk.segtopk_pass_a_int8(Q8, C8, n, L2, k_sel)
+        jv, ji = topk.segtopk_pass_a_int8_plain(Q8, C8, n, L2, k_sel)
+        torch.cuda.synchronize()
+        report["segtopk_int8"]["max_abs_err"] = max(
+            report["segtopk_int8"]["max_abs_err"], float((iv - jv).abs().max()))
+        check(torch.equal(ii, ji) and torch.equal(iv, jv),
+              f"int8 pass A (s8 wgmma) == plain (ids and values exact): Q={q} "
+              f"N={n} D={d} L2={L2} k_sel={k_sel}")
+        del C8
+
     fl_err = 0.0
     # (B, T, Dh, dtype, keys kept): the serve and long-input shapes with a
     # third of the keys masked (whole trailing blocks at T = 256 and 1024,
@@ -378,6 +489,69 @@ def phase_kernels(report):
                   f"{float(want.float().abs().max()):.2f})")
     report["flash"]["max_abs_err"] = fl_err
 
+    # f32 q, k, v (an f32 encoder) run the f32 path: within the JAX f32
+    # test's 2e-5 of the plain version (TF32 off) at the serve shape, T =
+    # 1024 and the chunking batches, with dead key blocks, a row with every
+    # key masked, and NaN keys and values in the blocks the kernel skips,
+    # which must change no bit
+    f32_fl_err = 0.0
+    for b, t, (lo, hi) in [(256, 256, (40, 256)), (2, 1024, (600, 1000)),
+                           (2048, 64, (3, 12)), (813, 64, (3, 12))]:
+        qkv = [torch.randn((b, t, 12, 32), generator=gen, device=dev)
+               .transpose(1, 2) for _ in range(3)]
+        lens = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev)
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+        mask[1, :] = 0.0
+        if t >= 256:  # live blocks around dead ones
+            mask[0, :] = 0.0
+            mask[0, :30] = 1.0
+            mask[0, t - 64: t - 40] = 1.0
+        got = fa.flash_attention(*qkv, mask)
+        want = fa.flash_attention_plain(*qkv, mask)
+        again = fa.flash_attention(qkv[0], nan_in_skipped_blocks(qkv[1], mask),
+                                   nan_in_skipped_blocks(qkv[2], mask), mask)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        f32_fl_err = max(f32_fl_err, err)
+        within = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+        check(within and torch.equal(got, again)
+              and got.stride() == qkv[0].stride(),
+              f"f32 flash vs plain on strided views, B={b} H=12 T={t} Dh=32, "
+              f"{lo}-{hi} real keys: within 2e-5 + 2e-5 |o| (max abs err "
+              f"{err:.2e}); NaN in the skipped blocks changes no bit")
+    # T up to 128 that is not a multiple of 64 (tail blocks zero-filled), and
+    # head widths the kernel lacks (padded to the next of 16/32/64/128)
+    for dtype in (bf16, fp16, torch.float32):
+        worst = 0.0
+        for t in (32, 96, 128, 192):
+            for dh in (24, 48, 80):
+                qkv = [torch.randn((4, t, 12, dh), generator=gen, device=dev)
+                       .to(dtype).transpose(1, 2) for _ in range(3)]
+                lens = torch.randint(t // 2, t + 1, (4,), generator=gen,
+                                     device=dev)
+                mask = (torch.arange(t, device=dev)[None, :]
+                        < lens[:, None]).float()
+                mask[1, :] = 0.0
+                got = fa.flash_attention(*qkv, mask).float()
+                want = fa.flash_attention_plain(*qkv, mask).float()
+                if dtype == torch.float32:
+                    f32_fl_err = max(f32_fl_err,
+                                     float((got - want).abs().max()))
+                    worst = max(worst, float(((got - want).abs()
+                                              / (2e-5 + 2e-5 * want.abs()))
+                                             .max()))
+                else:
+                    fl_err = max(fl_err, float((got - want).abs().max()))
+                    worst = max(worst, float(((got - want).abs()
+                                              / want.abs().clamp(min=0.5))
+                                             .max()) / 2e-2)
+        check(worst <= 1.0,
+              f"flash in {dtype} at T = 32, 96, 128, 192 and Dh = 24, 48, 80 "
+              f"(B=4 H=12) vs plain: worst error {worst:.3f} of its bound "
+              "(f32: 2e-5 + 2e-5 |o|; bf16/fp16: 2e-2 max(|o|, 0.5))")
+    report["flash"]["max_abs_err"] = fl_err
+    report["flash_f32"]["max_abs_err"] = f32_fl_err
+
     # the similarity kernel: integer-valued f32 rows give sums exact in f32
     # (at most 384 * 127^2 < 2^24), so kernel == plain bit for bit
     for b, n, d, what in [(1, 4096, 384, "the long-document bucket"),
@@ -415,6 +589,31 @@ def phase_kernels(report):
               "products of total size <= 1, each rounding <= 6e-8); "
               "bit-symmetric and bit-reproducible")
     report["similarity"]["max_abs_err"] = sim_err
+
+    # bf16 input, widened to f32 as it is loaded: bit-equal to the plain
+    # version of the same bf16 input on integer rows, within D * 2^-24 of it
+    # on unit rows; bit-symmetric and bit-reproducible
+    for b, n, d in [(1, 4096, 384), (1, 3939, 384), (3, 77, 30),
+                    (256, 64, 384), (200, 128, 384)]:
+        E = _int_grid((b, n, d), gen)
+        S = sim.similarity_matrix(E)
+        torch.cuda.synchronize()
+        check(torch.equal(S, sim.similarity_matrix_plain(E))
+              and torch.equal(S, S.transpose(1, 2))
+              and torch.equal(S, sim.similarity_matrix(E)),
+              f"similarity kernel on bf16 input == plain bit for bit, S == "
+              f"S^T, two launches identical: B={b} n={n} d={d}")
+    bf_err = 0.0
+    for b, n in [(1, 3939), (256, 64)]:
+        E = sim.l2_normalize(torch.randn((b, n, 384), generator=gen,
+                                         device=dev)).bfloat16()
+        S = sim.similarity_matrix(E)
+        err = float((S - sim.similarity_matrix_plain(E)).abs().max())
+        bf_err = max(bf_err, err)
+        check(err <= 384 * 2.0 ** -24 and torch.equal(S, S.transpose(1, 2)),
+              f"similarity kernel on bf16 unit rows, B={b} n={n} d=384: max "
+              f"abs err {err:.3e} <= 384 * 2^-24; bit-symmetric")
+    report["similarity_bf16"]["max_abs_err"] = bf_err
 
 
 def _zipf_text(rng, words, n_words):
@@ -521,7 +720,7 @@ def phase_serve(report, tmp):
     check(cos > 0.99, f"flash vs stock encoder at T up to 1024, bf16: "
           f"least cosine {cos:.5f} > 0.99")
     return {"words": words, "encoder": encoder, "tmp": tmp,
-            "idx": os.path.join(tmp, "idx")}
+            "idx": os.path.join(tmp, "idx"), "tsv": tsv, "batches": batches}
 
 
 def phase_dense(report):
@@ -1013,6 +1212,37 @@ def time_similarity(report):
         "B*n*(n+1)*d operations (S is symmetric); library = f32 "
         "torch.matmul with TF32 off")
 
+    # bf16 input at the same shapes; no path passes bf16, so its launches
+    # are those of one direct call of the entry point
+    bf = report["similarity_bf16"]
+    for which, (b, n, d) in zip(("", "batched_"), SIM_SHAPES):
+        E = sim.l2_normalize(torch.randn((b, n, d), generator=gen,
+                                         device="cuda")).bfloat16()
+        if which == "":
+            zero_counts()
+            sim.similarity_matrix(E)
+            torch.cuda.synchronize()
+            bf["launches"] = sim.SIM_BF16_LAUNCHES
+        bf[which + "ms"] = time_ms(lambda: sim.similarity_matrix(E), reps=20,
+                                   warmup=3)
+        bf[which + "plain_ms"] = time_ms(
+            lambda: sim.similarity_matrix_plain(E), reps=20, warmup=3)
+        bf[which + "library_ms"] = time_ms(
+            lambda: torch.matmul(E.float(), E.float().transpose(1, 2)),
+            reps=20, warmup=3)
+        bf[which + "bound_ms"], bf[which + "bound_by"] = bound_ms(
+            1.0 * b * n * (n + 1) * d, 2.0 * b * n * d + 4.0 * b * n * n,
+            PEAK_F32_FLOPS)
+        log(f"  similarity on bf16 input B={b} n={n} d={d}: kernel "
+            f"{bf[which + 'ms']:.3f} ms, plain {bf[which + 'plain_ms']:.3f} "
+            f"ms, f32 torch.matmul of the widened input "
+            f"{bf[which + 'library_ms']:.3f} ms, bound "
+            f"{bf[which + 'bound_ms']:.3f} ms ({bf[which + 'bound_by']})")
+    bf["shape_note"] = (
+        "bf16 input (unit rows) at the f32 entry's shapes; library = f32 "
+        "torch.matmul of the input widened to f32 (the widening included); "
+        "launches = one direct call at (1, 4096, 384): no path passes bf16")
+
 
 def phase_chunk(report, ctx):
     import torch
@@ -1236,6 +1466,275 @@ def phase_chunk(report, ctx):
     time_similarity(report)
 
 
+# phase 7: the f32 configuration's live round, and the CPU comparison's batch
+F32_LIVE_ADDS, F32_LIVE_REMOVES, F32_LIVE_QUERIES = 2000, 500, 10000
+
+
+def phase_f32(report, ctx):
+    import torch
+
+    from semanticsearch_tpu_torch.core.config import EncoderConfig, IndexConfig
+    from semanticsearch_tpu_torch.data import synth
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+
+    log("== phase 7: the f32 configuration end to end (f32 encoder under "
+        "flash attention, f32 index; main path)")
+    rng = np.random.default_rng(31)
+    words, tmp = ctx["words"], ctx["tmp"]
+    enc_cfg = EncoderConfig(dtype="float32", attention="flash")
+    idx_cfg = IndexConfig(dtype="float32")
+    idx_dir = os.path.join(tmp, "idx_f32")
+    log(f"  encoder: {dataclasses.asdict(enc_cfg)}; index: "
+        f"{dataclasses.asdict(idx_cfg)}")
+    encoder = SentenceEncoder(enc_cfg, device="cuda", seed=0)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    engine = HybridQueryEngine.build(ctx["tsv"], encoder, idx_dir,
+                                     index_cfg=idx_cfg)
+    torch.cuda.synchronize()
+    log(f"  build over the phase-3 corpus (20,000 chunks): "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    t0 = time.perf_counter()
+    hybrid = [engine.search(b, k=10) for b in ctx["batches"]]
+    torch.cuda.synchronize()
+    log(f"  {sum(map(len, ctx['batches']))} hybrid queries in batches of 64: "
+        f"{time.perf_counter() - t0:.2f} s (host clock); launches: segtopk "
+        f"f32 {topk.SEGTOPK_F32_LAUNCHES}, flash f32 {fa.FLASH_F32_LAUNCHES}")
+    report["segtopk_f32"]["launches"] = topk.SEGTOPK_F32_LAUNCHES
+    report["flash_f32"]["launches"] = fa.FLASH_F32_LAUNCHES
+    check(engine.index._corpus.dtype == torch.float32
+          and topk.SEGTOPK_F32_LAUNCHES > 0 and fa.FLASH_F32_LAUNCHES > 0
+          and topk.SEGTOPK_LAUNCHES == 0 and fa.FLASH_LAUNCHES == 0,
+          "an f32 index and an f32 encoder: the f32 pass-A and f32 flash "
+          "schedules launched on the serve path, and no bf16 one")
+    check(all(len(q) == 10 for b in hybrid for q in b),
+          "10 hits per query")
+
+    # the same engine on the CPU (the index files, the encoder's seeded
+    # weights) on one batch: the dense leg within the f32 bound plus what
+    # the two encoders' query embeddings differ by, ids equal outside
+    # near-ties; the fused hybrid lists equal wherever the dense legs are
+    # equal in ids, which every query without a near-tie is
+    sample = ctx["batches"][0]
+    cpu_encoder = SentenceEncoder(enc_cfg, device="cpu", seed=0)
+    cpu_engine = HybridQueryEngine.load(idx_dir, cpu_encoder,
+                                        index_cfg=idx_cfg, device="cpu")
+    dq = float((encoder.encode_device(sample).cpu()
+                - cpu_encoder.encode_device(sample)).norm(dim=1).max())
+    tol = 384 * 2.0 ** -24 + dq
+
+    def dense(eng):
+        lists, _ = eng._leg_lists(eng._dispatch_legs(sample, 10, 41, True))
+        return (torch.tensor([[v for v, _ in lst] for lst in lists]),
+                torch.tensor([[r for _, r in lst] for lst in lists]))
+
+    cv, ci = dense(engine)
+    pv, pi = dense(cpu_engine)
+    err, bad, near = topk_agree(cv[:, :40], ci[:, :40], pv, pi, tol,
+                                gap=2 * tol)
+    check(err <= tol and bad == 0,
+          f"dense leg on the card == the CPU engine's on {len(sample)} "
+          f"queries (top-40): max abs err {err:.2e} <= 384 * 2^-24 + "
+          f"{dq:.2e} (the query embeddings' largest difference); ids equal "
+          f"outside near-ties ({near} differ inside them)")
+
+    def key(hits):
+        return [(h.chunk_id, h.score, h.dense_rank, h.lexical_rank)
+                for h in hits]
+
+    no_tie = [qi for qi in range(len(sample))
+              if bool(((pv[qi, 1:] - pv[qi, :-1]).abs() > 2 * tol).all())]
+    same = [qi for qi in range(len(sample)) if torch.equal(ci[qi], pi[qi])]
+    card_hits = engine.search(sample, k=10, candidates=40)
+    cpu_hits = cpu_engine.search(sample, k=10, candidates=40)
+    check(set(no_tie) <= set(same) and len(same) > len(sample) // 2
+          and all(key(card_hits[qi]) == key(cpu_hits[qi]) for qi in same),
+          f"fused hybrid top-10 on the card == the CPU engine's for all "
+          f"{len(same)} of {len(sample)} queries whose dense legs (top-41) "
+          f"are equal in ids, among them the {len(no_tie)} without a "
+          f"near-tie (gap <= {2 * tol:.2e})")
+    del cpu_engine, cpu_encoder
+
+    # one live round: adds, removals, a 10,000-query search at k = 50 (a
+    # dense fetch of 200 plus the tombstones') through the f32 fused top-k
+    n_main = engine.index.size
+    n_all = n_main + F32_LIVE_ADDS
+    engine.add_documents([f"f{i}" for i in range(F32_LIVE_ADDS)],
+                         [_zipf_text(rng, words, int(n)) for n in
+                          rng.integers(40, 241, size=F32_LIVE_ADDS)])
+    dead_rows = np.sort(rng.choice(n_all, size=F32_LIVE_REMOVES,
+                                   replace=False))
+    check(engine.remove_documents([engine.chunk_ids[r] for r in dead_rows])
+          == F32_LIVE_REMOVES,
+          f"added {F32_LIVE_ADDS} chunks to the f32 index and removed "
+          f"{F32_LIVE_REMOVES}")
+    queries = [_zipf_text(rng, words, int(rng.integers(3, 9)))
+               for _ in range(F32_LIVE_QUERIES)]
+    zero_counts()
+    t0 = time.perf_counter()
+    hits = engine.search(queries, k=50, hybrid=False)
+    torch.cuda.synchronize()
+    report["topk_fused_f32"]["launches"] = topk.TOPK_FUSED_F32_LAUNCHES
+    log(f"  {F32_LIVE_QUERIES} dense queries at k=50 over the live f32 index "
+        f"in {time.perf_counter() - t0:.2f} s (host clock); launches: "
+        f"topk_fused f32 {topk.TOPK_FUSED_F32_LAUNCHES}, flash f32 "
+        f"{fa.FLASH_F32_LAUNCHES}")
+    live_ids = set(engine.chunk_ids) - {engine.chunk_ids[r] for r in dead_rows}
+    check(topk.TOPK_FUSED_F32_LAUNCHES > 0 and topk.TOPK_FUSED_LAUNCHES == 0
+          and all(len(h) == 50 for h in hits)
+          and all(x.chunk_id in live_ids for h in hits for x in h),
+          "the f32 fused top-k launched on the live search (and no bf16 "
+          "one); 50 live hits per query")
+    ns = min(512, F32_LIVE_QUERIES)
+    q_emb = encoder.encode_device(queries[:ns])
+    dense_lists, _ = engine._leg_lists(
+        engine._dispatch_legs(queries, 50, None, False))
+    corpus = engine.index._corpus
+    delta = torch.from_numpy(engine._delta._host[:F32_LIVE_ADDS]).cuda()
+    S = torch.cat([q_emb @ corpus.T, q_emb @ delta.T], dim=1)
+    S[:, torch.from_numpy(dead_rows).cuda()] = -float("inf")
+    rv, ri = torch.sort(S, dim=1, descending=True, stable=True)
+    ev = torch.tensor([[v for v, _ in lst] for lst in dense_lists[:ns]])
+    ei = torch.tensor([[r for _, r in lst] for lst in dense_lists[:ns]])
+    ftol = 384 * 2.0 ** -24
+    err, bad, near = topk_agree(ev, ei, rv[:, :201], ri[:, :201], ftol,
+                                gap=2 * ftol)
+    check(ev.shape == (ns, 200) and err <= ftol and bad == 0,
+          f"dense leg over the live f32 index (main + delta - tombstones) == "
+          f"plain exact f32 top-200 on {ns} queries: max abs err {err:.2e} <= "
+          f"384 * 2^-24; ids equal outside near-ties ({near} differ inside)")
+    del engine, corpus, delta, S
+
+    # the f32 schedules at the shard shape: 1,250,000 x 384 f32 (1.92 GB)
+    n, d, q, k, qf_n = 1_250_000, 384, 32768, 10, 16384
+    corpus = synth.corpus(n, d, torch.float32, "cuda")
+    queries = synth.corpus(q, d, torch.float32, "cuda", start=20_000_000)
+    L2, k_sel = 32768 // 128 // 8, k + 1
+    pa, po = report["segtopk_f32"], report["segtopk_overlap_f32"]
+    zero_counts()
+    ov_v, ov_i = topk.topk_scores_twopass(queries, corpus, k=k,
+                                          block_n=32768, seg_split=8,
+                                          mxu_overlap=True)
+    torch.cuda.synchronize()
+    po["launches"] = topk.SEGTOPK_OVERLAP_F32_LAUNCHES
+    dv, di = topk.topk_scores_twopass(queries, corpus, k=k, block_n=32768,
+                                      seg_split=8)
+    check(po["launches"] > 0 and torch.equal(ov_i, di)
+          and torch.equal(ov_v, dv),
+          f"topk_scores_twopass(mxu_overlap=True) over the f32 shard "
+          f"launched the f32 schedule ({po['launches']}x) and equals the "
+          "default search bit for bit")
+    sample_q = torch.arange(0, q, q // 128, device="cuda")[:128]
+    rv, ri = topk.topk_scores_ref(queries[sample_q], corpus, k=k,
+                                  block_n=65536)
+    hits = sum(len(set(a) & set(b)) for a, b in
+               zip(di[sample_q].tolist(), ri.tolist()))
+    report["recall_at_10_f32"] = hits / (128 * k)
+    check(report["recall_at_10_f32"] == 1.0,
+          f"f32 two-pass recall@10 = {report['recall_at_10_f32']} on 128 "
+          "sampled queries against the plain exact top-k")
+    turns = [time_ms(f, reps=2) for f in (
+        lambda: topk.segtopk_pass_a(queries, corpus, n, L2, k_sel),
+        lambda: topk.segtopk_pass_a_overlap(queries, corpus, n, L2, k_sel))]
+    pa["ms"], po["ms"] = turns
+    pa["plain_ms"] = po["plain_ms"] = time_ms(
+        lambda: topk.segtopk_pass_a_plain(queries, corpus, n, L2, k_sel),
+        reps=1, warmup=0)
+
+    def f32_gemm_floor(qs):  # TF32 is off (main)
+        for s in range(0, n, 16384):
+            torch.matmul(qs, corpus[s: s + 16384].T)
+
+    pa["library_ms"] = po["library_ms"] = time_ms(
+        lambda: f32_gemm_floor(queries), reps=2)
+    pa["bound_ms"], pa["bound_by"] = bound_ms(
+        2.0 * q * n * d, 4.0 * (q * d + n * d) + 8.0 * q * k_sel,
+        PEAK_F32_FLOPS)
+    po["bound_ms"], po["bound_by"] = pa["bound_ms"], pa["bound_by"]
+    log(f"  f32 pass A (Q={q}, k_sel {k_sel}): kernel {pa['ms']:.2f} ms, "
+        f"through the overlap wrapper {po['ms']:.2f} ms, plain "
+        f"{pa['plain_ms']:.2f} ms, f32 GEMM floor {pa['library_ms']:.2f} ms, "
+        f"bound {pa['bound_ms']:.2f} ms ({pa['bound_by']}, f32 67 TFLOP/s)")
+    fu, qf, kf = report["topk_fused_f32"], queries[:qf_n], 200
+    fu["ms"] = time_ms(lambda: topk.topk_scores_fused(qf, corpus, kf), reps=2)
+    fv, fi = topk.topk_scores_fused(qf, corpus, kf)
+    fs = torch.arange(0, qf_n, qf_n // 128, device="cuda")
+    rv, ri = topk.topk_scores_ref(qf[fs], corpus, k=kf + 1, block_n=65536)
+    err, bad, near = topk_agree(fv[fs], fi[fs], rv, ri, ftol, gap=2 * ftol)
+    check(err <= ftol and bad == 0,
+          f"f32 fused top-{kf} at the shard shape == plain exact top-{kf} on "
+          f"128 sampled queries: max abs err {err:.2e}; ids equal outside "
+          f"near-ties ({near} differ inside)")
+    fu["plain_ms"] = 8 * time_ms(lambda: topk.topk_scores_fused_plain(
+        qf[:qf_n // 8], corpus, kf), reps=1, warmup=0)
+    fu["plain_note"] = "timed on 2,048 of the 16,384 queries, times 8"
+    fu["library_ms"] = time_ms(lambda: f32_gemm_floor(qf), reps=2)
+    fu["bound_ms"], fu["bound_by"] = bound_ms(
+        2.0 * qf_n * n * d, 4.0 * (qf_n * d + n * d) + 8.0 * qf_n * kf,
+        PEAK_F32_FLOPS)
+    log(f"  f32 fused top-{kf}, {qf_n} queries: kernel {fu['ms']:.2f} ms, "
+        f"plain {fu['plain_ms']:.2f} ms (2,048 queries x 8), f32 GEMM floor "
+        f"{fu['library_ms']:.2f} ms, bound {fu['bound_ms']:.2f} ms "
+        f"({fu['bound_by']})")
+    for entry in (pa, po, fu):
+        entry["shape_note"] = ("f32 shard 1,250,000 x 384; pass A at 32,768 "
+                               "queries, 32-row segments, k_sel 11; fused at "
+                               "16,384 queries, k = 200; library = f32 "
+                               "torch.matmul in 16,384-row column chunks, "
+                               "TF32 off")
+    del corpus, queries, ov_v, ov_i, dv, di
+
+    # f32 flash at phase 4's shapes, against SDPA in f32
+    fl = report["flash_f32"]
+    gen = torch.Generator().manual_seed(3)
+    h, dh = 12, 32
+    for which, b, t, (lo, hi) in [("", 256, 256, (40, 256)),
+                                  ("t1024_", 2, 1024, (600, 1000)),
+                                  ("chunk_", 2048, 64, (3, 12))]:
+        qkv = [torch.randn((b, t, h, dh), generator=gen)
+               .to("cuda").transpose(1, 2) for _ in range(3)]
+        lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
+        mask = (torch.arange(t)[None, :] < lengths[:, None]).float().to("cuda")
+        bool_mask = mask.bool()[:, None, None, :]
+        fl[which + "ms"] = time_ms(lambda: fa.flash_attention(*qkv, mask),
+                                   reps=20, warmup=3)
+        fl[which + "plain_ms"] = time_ms(
+            lambda: fa.flash_attention_plain(*qkv, mask), reps=5)
+        fl[which + "library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *qkv, attn_mask=bool_mask), reps=20, warmup=3)
+        fl[which + "bound_ms"], fl[which + "bound_by"] = flash_bound(
+            mask, h, dh, itemsize=4, peak=PEAK_F32_FLOPS)
+        log(f"  f32 flash B={b} H={h} T={t} Dh={dh}, {lo}-{hi} real keys: "
+            f"kernel {fl[which + 'ms']:.4f} ms, plain "
+            f"{fl[which + 'plain_ms']:.3f} ms, f32 SDPA "
+            f"{fl[which + 'library_ms']:.4f} ms, bound "
+            f"{fl[which + 'bound_ms']:.4f} ms ({fl[which + 'bound_by']})")
+    fl["shape_note"] = (
+        "f32 q, k, v; ms, plain_ms, library_ms, bound_ms at B=256 H=12 T=256 "
+        "Dh=32 with 40-256 real keys; t1024_* at B=2 T=1024; chunk_* at "
+        "B=2048 T=64 (3-12 real); library = f32 SDPA (TF32 off); bounds at "
+        "f32 67 TFLOP/s")
+
+    # a head width the kernel lacks: hidden 384 over 8 heads (Dh 48), bf16,
+    # padded to 64 columns on each call; the three pads timed alone
+    qkv = [torch.randn((256, 256, 8, 48), generator=gen)
+           .to("cuda", torch.bfloat16).transpose(1, 2) for _ in range(3)]
+    lengths = torch.randint(40, 257, (256,), generator=gen)
+    mask = (torch.arange(256)[None, :] < lengths[:, None]).float().to("cuda")
+    report["flash"]["dh48_ms"] = time_ms(lambda: fa.flash_attention(*qkv, mask),
+                                         reps=20, warmup=3)
+    report["flash"]["dh48_pad_ms"] = time_ms(lambda: [
+        torch.nn.functional.pad(x, (0, 16)) for x in qkv], reps=20, warmup=3)
+    log(f"  flash at Dh 48 (B=256 H=8 T=256, bf16, padded to 64): "
+        f"{report['flash']['dh48_ms']:.4f} ms, of which the pad of q, k, v "
+        f"alone {report['flash']['dh48_pad_ms']:.4f} ms")
+
+
 def main() -> int:
     try:
         import torch
@@ -1276,6 +1775,17 @@ def main() -> int:
                        "source": "semanticsearch_tpu_torch/csrc/similarity.cu",
                        "replaces": "semanticsearch_tpu/ops/similarity.py:49"},
     }
+    for key, name, base in [
+            ("segtopk_f32", "segtopk_pass_a (f32)", "segtopk"),
+            ("segtopk_overlap_f32", "segtopk_pass_a_overlap (f32)",
+             "segtopk_overlap"),
+            ("topk_fused_f32", "topk_scores_fused (f32)", "topk_fused"),
+            ("flash_f32", "flash_attention (f32)", "flash"),
+            ("similarity_bf16", "similarity_matrix (bf16 input)",
+             "similarity")]:
+        report[key] = {**{k: report[base][k] for k in ("route", "source",
+                                                       "replaces")},
+                       "name": name}
     t_start = time.perf_counter()
     try:
         phase_build()
@@ -1285,6 +1795,7 @@ def main() -> int:
             phase_dense(report)
             phase_live(report, ctx)
             phase_chunk(report, ctx)
+            phase_f32(report, ctx)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
@@ -1292,16 +1803,20 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     notes = ("plain_note", "library_note", "shape_note", "pass_b_ms",
              "serve_ms", "serve_library_ms", "live_ms", "live_library_ms",
+             "dh48_ms", "dh48_pad_ms",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk")
                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms")))
     kernels = [{**{key: report[k][key] for key in keys},
                 **{key: report[k][key] for key in notes if key in report[k]}}
                for k in ("segtopk", "segtopk_int8", "segtopk_overlap",
-                         "topk_fused", "flash", "similarity")]
+                         "segtopk_f32", "segtopk_overlap_f32", "topk_fused",
+                         "topk_fused_f32", "flash", "flash_f32", "similarity",
+                         "similarity_bf16")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
         f"{report['recall_at_10']}; int8 two-pass recall@10 "
-        f"{report['recall_at_10_int8']}; fused recall@200 "
+        f"{report['recall_at_10_int8']}; f32 two-pass recall@10 "
+        f"{report['recall_at_10_f32']}; fused recall@200 "
         f"{report['recall_at_200_fused']}; chunking: "
         f"{report['chunk_docs_differing_from_plain_s']} documents differ "
         f"from the plain S; total "

@@ -3,8 +3,10 @@
 // Replaces: semanticsearch_tpu/ops/flash_attention.py::_flash_kernel (the
 // Pallas TPU kernel launched by _flash_fwd_impl).
 //
-// What it computes. q, k, v (B, H, T, Dh) in bf16 or fp16, mask (B, T) f32
-// with 1 = real key. Scores s = (q.k) / sqrt(Dh) in f32; a masked key scores
+// What it computes. q, k, v (B, H, T, Dh) in bf16, fp16 or f32, mask (B, T)
+// f32 with 1 = real key; T at most 128 or a multiple of 64, Dh one of 16,
+// 32, 64, 128 (the wrapper pads other head widths up to 128 with zero
+// columns). Scores s = (q.k) / sqrt(Dh) in f32; a masked key scores
 // the finite -1e30 (not -inf), so a query whose keys are all masked gets the
 // mean of V, as the TPU kernel and the plain reference do. Online softmax
 // over KV blocks with the (m, l, acc) recurrence in f32; out = acc / max(l,
@@ -46,6 +48,24 @@
 //    no copy on the way in, nor the output on the way out. Rows move as
 //    16-byte vectors (the wrapper checks the alignment); O goes out through
 //    the warp's rows of the Q tile in shared memory.
+//  * A T that is not a multiple of 64 (T < 128 only) runs the TAIL
+//    instantiation: 64 query rows a CTA, the last key and query block loaded
+//    with zero fill (cp.async with 0 source bytes, no read past the rows),
+//    keys at or past T scored -inf (p = 0 exactly, even in a row whose keys
+//    are all masked, which averages V over its T keys only), the mask read a
+//    key at a time, query rows at or past T never stored. T a multiple of 64
+//    runs the code it ran before, bit for bit.
+//
+// The f32 path (flash_f32_kernel): the JAX kernel computes in f32 whatever
+// its input, and an f32 encoder is held to 2e-5 of the plain f32 attention;
+// bf16 P and tensor-core TF32 would miss that. So both products are f32
+// FMA chains on the CUDA cores. One CTA of 256 threads per (b, h, 64 query
+// rows), the live key blocks of 64 in turn: S = Q K^T by 4 x 4 register
+// micro-tiles (Dh in float4 steps) into shared memory, the online softmax by
+// four threads a row, then O += P V by 4 x Dh/16 micro-tiles kept in
+// registers across blocks. Dead key blocks are skipped as above; masked keys,
+// tails and all-masked rows follow the same rules. Bound by f32 FMAs (67
+// TFLOP/s) from about T = 256; not yet pipelined.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -119,6 +139,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(smem)), "l"(gmem)
                : "memory");
 }
+// 16 bytes, or 16 zero bytes when !valid (0 source bytes: nothing is read)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -137,7 +163,9 @@ __host__ __device__ inline size_t smem_bytes(int dh, int bq, int nkb) {
   return (size_t)NST * (bq + 2 * BKV) * row_ld(dh) * 2 + NST * BKV * 4 + (size_t)nkb * 8;
 }
 
-template <int DH, typename T, int NW>
+// TAIL: T is not a multiple of 64 (then below 128, NW = 4): zero-filled
+// tail rows, keys at or past T at -inf, the mask read a key at a time.
+template <int DH, typename T, int NW, bool TAIL>
 __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
   constexpr int BQ = NW * 16, LD = row_ld(DH), CH = DH / 8, NT = NW * 32;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -150,7 +178,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tg = lane & 3;  // fragment row group, thread in group
-  const int nkb = a.Tlen / BKV;
+  const int nkb = (a.Tlen + BKV - 1) / BKV;
   int bid = blockIdx.x;
   const int qb = bid % a.nqb;
   bid /= a.nqb;
@@ -167,7 +195,10 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     const T* src = qp + hi * a.q_sh;
     for (int i = tid; i < BQ * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * 8;
-      cp_async16(qs + r * LD + c, src + r * a.q_st + c);
+      if (TAIL)
+        cp_async16_zfill(qs + r * LD + c, src + r * a.q_st + c, qb * BQ + r < a.Tlen);
+      else
+        cp_async16(qs + r * LD + c, src + r * a.q_st + c);
     }
   };
   // the Q tile of head h0 starts on its way while the mask is read
@@ -176,8 +207,10 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
   // the key blocks that hold a real key, in order; all of them if none does
   int* flag = live + nkb;
   for (int j = warp; j < nkb; j += NW) {
-    const bool any = __any_sync(0xffffffffu, mp[j * BKV + lane] > 0.0f ||
-                                                 mp[j * BKV + 32 + lane] > 0.0f);
+    const int k0 = j * BKV + lane, k1 = k0 + 32;
+    const bool any = TAIL ? __any_sync(0xffffffffu, (k0 < a.Tlen && mp[k0] > 0.0f) ||
+                                                        (k1 < a.Tlen && mp[k1] > 0.0f))
+                          : __any_sync(0xffffffffu, mp[k0] > 0.0f || mp[k1] > 0.0f);
     if (lane == 0) flag[j] = any;
   }
   __syncthreads();
@@ -210,10 +243,20 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     for (int i = tid; i < BKV * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * 8;
       const long long row = (long long)kb * BKV + r;
-      cp_async16(ks + r * LD + c, ksrc + row * a.k_st + c);
-      cp_async16(vs + r * LD + c, vsrc + row * a.v_st + c);
+      if (TAIL) {
+        cp_async16_zfill(ks + r * LD + c, ksrc + row * a.k_st + c, row < a.Tlen);
+        cp_async16_zfill(vs + r * LD + c, vsrc + row * a.v_st + c, row < a.Tlen);
+      } else {
+        cp_async16(ks + r * LD + c, ksrc + row * a.k_st + c);
+        cp_async16(vs + r * LD + c, vsrc + row * a.v_st + c);
+      }
     }
-    if (tid < BKV / 4) cp_async16(m_s + stage * BKV + tid * 4, mp + kb * BKV + tid * 4);
+    if (TAIL) {
+      // read by every thread two barriers on; keys past T are -inf below
+      if (tid < BKV) m_s[stage * BKV + tid] = kb * BKV + tid < a.Tlen ? mp[kb * BKV + tid] : 0.0f;
+    } else if (tid < BKV / 4) {
+      cp_async16(m_s + stage * BKV + tid * 4, mp + kb * BKV + tid * 4);
+    }
   };
   // one commit group per item (empty past the last), the first with Q
   for (int it = 0; it < NST - 1; ++it) {
@@ -264,6 +307,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
 
     // online softmax in the registers
     float mx0 = NEG_INF, mx1 = NEG_INF;
+    const int key0 = TAIL ? live[j] * BKV + 2 * tg : 0;  // this thread's first key
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const float2 mk = *reinterpret_cast<const float2*>(ms + 8 * jj + 2 * tg);
@@ -271,6 +315,10 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
       s[jj][1] = mk.y > 0.0f ? s[jj][1] * a.scale_log2 : NEG_INF;
       s[jj][2] = mk.x > 0.0f ? s[jj][2] * a.scale_log2 : NEG_INF;
       s[jj][3] = mk.y > 0.0f ? s[jj][3] * a.scale_log2 : NEG_INF;
+      if (TAIL) {  // no key at all: p = 0 whatever the row's maximum
+        if (key0 + 8 * jj >= a.Tlen) s[jj][0] = s[jj][2] = -INFINITY;
+        if (key0 + 8 * jj + 1 >= a.Tlen) s[jj][1] = s[jj][3] = -INFINITY;
+      }
       mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
       mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
     }
@@ -337,6 +385,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
       T* dst = op + hi * a.o_sh;
       for (int e = lane; e < 16 * CH; e += 32) {
         const int r = e / CH, c = (e % CH) * 8;
+        if (TAIL && qb * BQ + warp * 16 + r >= a.Tlen) continue;
         *reinterpret_cast<uint4*>(dst + r * a.o_st + c) =
             *reinterpret_cast<const uint4*>(os + r * LD + c);
       }
@@ -357,25 +406,254 @@ inline int heads_per_cta(int H, long long ctas_per_head) {
   return 1;
 }
 
-template <int DH, typename T, int NW>
+template <int DH, typename T, int NW, bool TAIL>
 int launch(Args a, int B, cudaStream_t st) {
   constexpr int BQ = NW * 16;
-  a.nqb = a.Tlen / BQ;
+  a.nqb = (a.Tlen + BQ - 1) / BQ;
   a.hg = heads_per_cta(a.H, (long long)B * a.nqb);
-  const size_t smem = smem_bytes(DH, BQ, a.Tlen / BKV);
+  const size_t smem = smem_bytes(DH, BQ, (a.Tlen + BKV - 1) / BKV);
   const long long grid = (long long)a.nqb * (a.H / a.hg) * B;
   if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW, TAIL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<DH, T, NW><<<(unsigned)grid, NW * 32, smem, st>>>(a);
+  flash_fwd_kernel<DH, T, NW, TAIL><<<(unsigned)grid, NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int DH, typename T>
 int dispatch_rows(const Args& a, int B, cudaStream_t st) {
-  // 128 query rows a CTA (8 warps) where T allows it, else 64 (4 warps)
-  return a.Tlen % 128 == 0 ? launch<DH, T, 8>(a, B, st) : launch<DH, T, 4>(a, B, st);
+  // 128 query rows a CTA (8 warps) where T allows it, else 64 (4 warps);
+  // a T that is not a multiple of 64 (below 128) on the tail instantiation
+  if (a.Tlen % BKV) return launch<DH, T, 4, true>(a, B, st);
+  return a.Tlen % 128 == 0 ? launch<DH, T, 8, false>(a, B, st)
+                           : launch<DH, T, 4, false>(a, B, st);
+}
+
+// ------------------------------------------------------------- f32 path
+
+constexpr int F32_BQ = 64;        // query rows a CTA
+constexpr int F32_THREADS = 256;  // 16 x 16
+constexpr int F32_SLD = BKV + 4;  // row stride of the S / P tile
+
+__host__ __device__ constexpr int f32_ld(int dh) { return dh + 4; }
+__host__ __device__ inline size_t f32_smem_bytes(int dh, int nkb) {
+  return (size_t)(F32_BQ + 2 * BKV) * f32_ld(dh) * 4 + (size_t)F32_BQ * F32_SLD * 4 +
+         (size_t)(BKV + 2 * F32_BQ) * 4 + (size_t)nkb * 8;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(F32_THREADS) flash_f32_kernel(const Args a) {
+  constexpr int LD = f32_ld(DH), C4 = DH / 4, CPT = DH / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [F32_BQ][LD]
+  float* k_s = q_s + F32_BQ * LD;               // [BKV][LD]
+  float* v_s = k_s + BKV * LD;                  // [BKV][LD]
+  float* p_s = v_s + BKV * LD;                  // [F32_BQ][F32_SLD]: S, then P
+  float* m_s = p_s + F32_BQ * F32_SLD;          // [BKV] the block's mask
+  float* al_s = m_s + BKV;                      // [F32_BQ] each row's alpha
+  float* l_s = al_s + F32_BQ;                   // [F32_BQ] each row's sum, at the end
+  int* live = reinterpret_cast<int*>(l_s + F32_BQ);  // [nkb], then flags [nkb]
+  __shared__ int n_live;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int Tlen = a.Tlen;
+  const int nkb = (Tlen + BKV - 1) / BKV;
+  int bid = blockIdx.x;
+  const int qb = bid % a.nqb;
+  bid /= a.nqb;
+  const int h = bid % a.H, b = bid / a.H;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* mp = a.mask + (long long)b * Tlen;
+  const int row_base = qb * F32_BQ;
+
+  // the Q tile (zero rows past T) goes out while the mask is read
+  for (int i = tid; i < F32_BQ * C4; i += F32_THREADS) {
+    const int r = i / C4, c = (i % C4) * 4;
+    const long long row = row_base + r;
+    cp_async16_zfill(q_s + r * LD + c, qp + (row < Tlen ? row : 0) * a.q_st + c, row < Tlen);
+  }
+  cp_async_commit();
+
+  // the key blocks that hold a real key, in order; all of them if none does
+  int* flag = live + nkb;
+  for (int j = warp; j < nkb; j += F32_THREADS / 32) {
+    const int k0 = j * BKV + lane, k1 = k0 + 32;
+    const bool any = __any_sync(0xffffffffu, (k0 < Tlen && mp[k0] > 0.0f) ||
+                                                 (k1 < Tlen && mp[k1] > 0.0f));
+    if (lane == 0) flag[j] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nkb; base += 32) {
+      const bool f = base + lane < nkb && flag[base + lane];
+      const unsigned ballot = __ballot_sync(0xffffffffu, f);
+      if (f) live[n + __popc(ballot & ((1u << lane) - 1))] = base + lane;
+      n += __popc(ballot);
+    }
+    if (n == 0) {
+      for (int j = lane; j < nkb; j += 32) live[j] = j;
+      n = nkb;
+    }
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  const int nl = n_live;
+
+  // the softmax's row and quarter of the block (four threads a row, adjacent lanes)
+  const int srow = tid >> 2, part = tid & 3;
+  float m_run = NEG_INF, l_run = 0.0f;
+  float o[4][CPT];  // rows ty + 16i, columns tx + 16c
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) o[i][c] = 0.0f;
+
+  for (int j = 0; j < nl; ++j) {
+    const int kb = live[j];
+    for (int i = tid; i < BKV * C4; i += F32_THREADS) {
+      const int r = i / C4, c = (i % C4) * 4;
+      const long long row = (long long)kb * BKV + r;
+      const long long src = row < Tlen ? row : 0;
+      cp_async16_zfill(k_s + r * LD + c, kp + src * a.k_st + c, row < Tlen);
+      cp_async16_zfill(v_s + r * LD + c, vp + src * a.v_st + c, row < Tlen);
+    }
+    cp_async_commit();
+    if (tid < BKV) m_s[tid] = kb * BKV + tid < Tlen ? mp[kb * BKV + tid] : 0.0f;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // S = Q K^T, one f32 chain over Dh per score: rows ty + 16i, keys tx + 16jj
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < DH; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        kv[jj] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * jj) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
+          s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
+        }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int key = tx + 16 * jj;
+      const bool real = m_s[key] > 0.0f, past = kb * BKV + key >= Tlen;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p_s[(ty + 16 * i) * F32_SLD + key] =
+            past ? -INFINITY : (real ? s[i][jj] * a.scale_log2 : NEG_INF);
+    }
+    __syncthreads();
+
+    // online softmax: four threads a row, sixteen keys each
+    {
+      float* pr = p_s + srow * F32_SLD + part * 16;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) mx = fmaxf(mx, pr[e]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m_run, mx);
+      const float al = exp2f(m_run - mn);
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float p = exp2f(pr[e] - mn);
+        pr[e] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run = l_run * al + sum;
+      m_run = mn;
+      if (part == 0) al_s[srow] = al;
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V: rows ty + 16i, columns tx + 16c
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = al_s[ty + 16 * i];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) o[i][c] *= al;
+    }
+#pragma unroll 2
+    for (int key = 0; key < BKV; key += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * F32_SLD + key);
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float v0 = v_s[(key + 0) * LD + tx + 16 * c];
+        const float v1 = v_s[(key + 1) * LD + tx + 16 * c];
+        const float v2 = v_s[(key + 2) * LD + tx + 16 * c];
+        const float v3 = v_s[(key + 3) * LD + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][c] = fmaf(pv[i].x, v0, o[i][c]);
+          o[i][c] = fmaf(pv[i].y, v1, o[i][c]);
+          o[i][c] = fmaf(pv[i].z, v2, o[i][c]);
+          o[i][c] = fmaf(pv[i].w, v3, o[i][c]);
+        }
+      }
+    }
+    __syncthreads();  // K, V, S and alpha are rewritten by the next block
+  }
+
+  if (part == 0) l_s[srow] = l_run;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (row_base + r >= Tlen) continue;
+    const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
+    float* dst = op + (long long)(row_base + r) * a.o_st;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dst[tx + 16 * c] = o[i][c] * inv;
+  }
+}
+
+template <int DH>
+int launch_f32(Args a, int B, cudaStream_t st) {
+  a.nqb = (a.Tlen + F32_BQ - 1) / F32_BQ;
+  a.hg = 1;
+  const size_t smem = f32_smem_bytes(DH, (a.Tlen + BKV - 1) / BKV);
+  const long long grid = (long long)a.nqb * a.H * B;
+  if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_f32_kernel<DH><<<(unsigned)grid, F32_THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_f32(const Args& a, int B, int Dh, cudaStream_t st) {
+  switch (Dh) {
+    case 16: return launch_f32<16>(a, B, st);
+    case 32: return launch_f32<32>(a, B, st);
+    case 64: return launch_f32<64>(a, B, st);
+    case 128: return launch_f32<128>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -391,23 +669,24 @@ int dispatch_dh(const Args& a, int B, int Dh, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float16. T must be a multiple of 64; Dh one of
-// 16, 32, 64, 128. strides: 12 element strides, (b, h, t) of q, k, v and o
-// in that order; the head dimension is contiguous. Every base pointer must
-// be 16-byte aligned and every stride a multiple of 8 elements; the mask is
-// a contiguous (B, T) f32 array, 16-byte aligned. Returns cudaGetLastError()
-// after the launch.
+// dtype: 0 = bfloat16, 1 = float16, 2 = float32. T at most 128 or a multiple
+// of 64; Dh one of 16, 32, 64, 128. strides: 12 element strides, (b, h, t) of
+// q, k, v and o in that order; the head dimension is contiguous. Every base
+// pointer must be 16-byte aligned and every stride a multiple of 16 bytes;
+// the mask is a contiguous (B, T) f32 array, 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int Tlen, int Dh,
                                    const long long* strides, float scale, int dtype,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || Tlen <= 0 || Tlen % BKV) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Tlen <= 0 || (Tlen > 128 && Tlen % BKV)) return (int)cudaErrorInvalidValue;
   uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                     reinterpret_cast<uintptr_t>(mask);
   if (align % 16) return (int)cudaErrorInvalidValue;
+  const int vec = dtype == 2 ? 4 : 8;  // elements in 16 bytes
   for (int i = 0; i < 12; ++i)
-    if (strides[i] % 8) return (int)cudaErrorInvalidValue;
+    if (strides[i] % vec) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -425,5 +704,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dh<__nv_bfloat16>(a, B, Dh, st);
   if (dtype == 1) return dispatch_dh<__half>(a, B, Dh, st);
+  if (dtype == 2) return dispatch_f32(a, B, Dh, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,12 +2,13 @@
 // segments by maximum score, for Hopper (sm_90a).
 //
 // Replaces: semanticsearch_tpu/ops/topk.py::_segtopk_kernel (the Pallas TPU
-// kernel launched by topk_scores_twopass), its int8 mode (pass_a_int8=True,
-// topk.py:355-379) and _segtopk_kernel_overlap (mxu_overlap=True).
+// kernel launched by topk_scores_twopass) on bf16 and f32 operands, its int8
+// mode (pass_a_int8=True, topk.py:355-379) and _segtopk_kernel_overlap
+// (mxu_overlap=True).
 //
-// What it computes. Queries q (Q, D) and corpus c (N, D), row-major, either
-// both bf16 (f32 accumulation) or both int8 (int32 accumulation). Segment s
-// is the natural rows [s*L2, (s+1)*L2); segments with id < n_valid_segs are
+// What it computes. Queries q (Q, D) and corpus c (N, D), row-major, both
+// bf16 (f32 accumulation), both int8 (int32 accumulation) or both f32. Segment
+// s is the natural rows [s*L2, (s+1)*L2); segments with id < n_valid_segs are
 // ranked by max_r q.c_r, rows at or past n scoring 0 (the JAX kernel's zero
 // pad rows). In int8 mode the segment maximum is taken in int32 and only the
 // maximum converts to f32 (exact below 2^24, i.e. for D < 1040). Output per
@@ -65,86 +66,54 @@
 // other warpgroup's jitter into a stall. A CTA of 64 query rows has one
 // consumer warpgroup and keeps mode 0's ring.
 //
-// The int8 schedule (mode 2) keeps the earlier WMMA kernel below: 64-query
-// tiles, a two-stage cp.async ring of 64-wide K chunks, int8 x int8 -> int32
-// fragments in K-step-major tiles, the score tile reduced in shared memory.
-// It is bound by the shared-memory operand traffic of mma.sync-class
-// instructions.
+// The int8 schedule (mode 2): mode 0's kernel on int8 operands. A K chunk of
+// 128 bytes is 128 int8 columns, each stage four wgmma m64n128k32 s8 x s8 ->
+// s32, so a tile costs half the bytes and half the instructions of bf16 at
+// the same D. The s32 accumulators lie in the f32 ones' layout, and the same
+// register epilogue takes the segment maxima in int32 before it converts each
+// to f32. TMA needs 16-byte row pitches: widths are multiples of 16 (the
+// wrapper pads other widths with zero columns, which change no product).
+// Tiles and stages come from ops/topk.py::pass_a_int8_plan.
+//
+// The f32 schedule (mode 3): every score one f32 fmaf chain over k = 0..D-1
+// on the CUDA cores (f32_tile.cuh), bound by the 67 TFLOP/s of f32 FMAs. Each
+// CTA of 64 query rows computes a 64 x 128 score tile into shared memory per
+// corpus tile; the segment maxima and the lists are taken from that tile by
+// the block (reduce_tile below), lists kept sorted by insertion. A TF32
+// tensor-core product would miss the exact f32 top-k by its 10-bit mantissa.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <climits>
 #include <cmath>
 
+#include "f32_tile.cuh"
 #include "qc_mainloop.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;        // queries per CTA
-constexpr int BN = 128;       // corpus rows per tile
-constexpr int KC = 64;        // K (embedding) chunk per pipeline stage
-constexpr int KS = 16;        // K of one WMMA step
-constexpr int THREADS = 256;  // 8 warps: 2 (query) x 4 (corpus)
-constexpr int SPAD = BN + 4;  // row stride of the score tile (4-byte elements)
+constexpr int BN = qc::BN;  // corpus rows per tile
 constexpr float NEG_INF = -1e30f;
 
-// Operand traits: element type, accumulator, elements per 16-byte copy, and
-// the shared-memory tile layout.
-template <typename T>
-struct Op;
-template <>
-struct Op<signed char> {
-  using Acc = int;
-  static constexpr int VEC = 16;
-  static constexpr bool KMAJOR = true;
-  __device__ static Acc max(Acc a, Acc b) { return a > b ? a : b; }
-};
-
-// Element offset of (row, col) in a shared tile of `rows` rows: row-major
-// with row stride `ld`, or K-step-major (KS-wide, 16-byte rows).
-template <typename T>
-__device__ inline int tile_off(int row, int col, int rows, int ld) {
-  if (Op<T>::KMAJOR) return ((col / KS) * rows + row) * KS + col % KS;
-  return row * ld + col;
-}
-template <typename T>
-__host__ __device__ inline int tile_ld(int width) {
-  return Op<T>::KMAJOR ? KS : width + 16 / (int)sizeof(T);
-}
-template <typename T>
-__host__ __device__ inline size_t tile_elems(int rows, int width) {
-  return Op<T>::KMAJOR ? (size_t)rows * width : (size_t)rows * (width + 16 / sizeof(T));
-}
+// ---------------------------------------------------------- mode 3: f32
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
 
-template <typename T>
-struct Layout {
-  size_t q, c, s, m, run, lv, li, total;
-  __host__ __device__ Layout(int Dp, int nseg_tile, int k_sel) {
-    q = 0;
-    c = align128(q + sizeof(T) * tile_elems<T>(BQ, Dp));
-    s = align128(c + sizeof(T) * 2 * tile_elems<T>(BN, KC));
-    m = align128(s + 4 * BQ * SPAD);
-    run = align128(m + 4 * BQ * nseg_tile);
-    lv = align128(run + 4 * BQ);
-    li = align128(lv + sizeof(float) * BQ * k_sel);
-    total = align128(li + sizeof(int) * BQ * k_sel);
+// shared memory of the f32 kernel: operand tiles, the score tile, segment
+// maxima, running maxima, then one sorted (value, id) list per query row
+struct F32Layout {
+  size_t ops, s, m, run, lv, li, total;
+  __host__ __device__ F32Layout(int nseg_tile, int k_sel) {
+    ops = 0;
+    s = align128(ops + sizeof(f32t::Operands));
+    m = align128(s + sizeof(float) * f32t::BQ * f32t::SLD);
+    run = align128(m + sizeof(float) * f32t::BQ * nseg_tile);
+    lv = align128(run + sizeof(float) * f32t::BQ);
+    li = align128(lv + sizeof(float) * f32t::BQ * k_sel);
+    total = align128(li + sizeof(int) * f32t::BQ * k_sel);
   }
 };
-
-__device__ inline void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Insert (v, id) into one query's list, sorted by value descending. Ids
 // arrive in ascending order within a CTA, so an equal value goes after the
@@ -161,166 +130,88 @@ __device__ inline void list_insert(float* lv, int* li, int k_sel, float v, int i
   li[j] = id;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-segtopk_kernel(const T* __restrict__ q, const T* __restrict__ c, float* __restrict__ part_v,
-               int* __restrict__ part_i, int Q, int n, int D, int L2, int n_valid_segs, int k_sel,
-               long long rows_per_split) {
-  using Acc = typename Op<T>::Acc;
-  constexpr int VEC = Op<T>::VEC;
+__global__ void __launch_bounds__(f32t::THREADS)
+segtopk_f32_kernel(const float* __restrict__ q, const float* __restrict__ c,
+                   float* __restrict__ part_v, int* __restrict__ part_i, int Q, int n, int D,
+                   int L2, int n_valid_segs, int k_sel, long long rows_per_split) {
+  constexpr int BQ = f32t::BQ, SLD = f32t::SLD, THREADS = f32t::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int Dp = (D + KC - 1) / KC * KC;
-  const int qld = tile_ld<T>(Dp), cld = tile_ld<T>(KC);
   const int seg_t = L2 < BN ? L2 : BN;  // rows of one segment inside a tile
   const int nseg_tile = BN / seg_t;
-  Layout<T> lay(Dp, nseg_tile, k_sel);
-  T* q_s = reinterpret_cast<T*>(smem + lay.q);
-  T* c_s = reinterpret_cast<T*>(smem + lay.c);
-  Acc* s_s = reinterpret_cast<Acc*>(smem + lay.s);
-  Acc* m_s = reinterpret_cast<Acc*>(smem + lay.m);
-  Acc* run_s = reinterpret_cast<Acc*>(smem + lay.run);
+  const F32Layout lay(nseg_tile, k_sel);
+  f32t::Operands& ops = *reinterpret_cast<f32t::Operands*>(smem + lay.ops);
+  float* s_s = reinterpret_cast<float*>(smem + lay.s);
+  float* m_s = reinterpret_cast<float*>(smem + lay.m);
+  float* run_s = reinterpret_cast<float*>(smem + lay.run);
   float* lv_s = reinterpret_cast<float*>(smem + lay.lv);
   int* li_s = reinterpret_cast<int*>(smem + lay.li);
-  const size_t stage_elems = tile_elems<T>(BN, KC);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int warp_m = warp / 4;  // 32 query rows each
-  const int warp_n = warp % 4;  // 32 corpus rows each
   const int q0 = blockIdx.x * BQ;
   const int split = blockIdx.y;
-
   const long long seg_end = (long long)n_valid_segs * L2;
   const long long r_begin = (long long)split * rows_per_split;
   long long r_end = r_begin + rows_per_split;
   if (r_end > seg_end) r_end = seg_end;
   const int n_tiles = r_begin < r_end ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
-  const int kchunks = Dp / KC;
-  const int total = n_tiles * kchunks;
 
-  // resident query tile (zero rows past Q, zero columns past D)
-  const int qvec = Dp / VEC;
-  for (int idx = tid; idx < BQ * qvec; idx += THREADS) {
-    int r = idx / qvec, col = (idx % qvec) * VEC;
-    bool ok = (q0 + r < Q) && (col < D);
-    const T* src = ok ? q + (size_t)(q0 + r) * D + col : q;
-    cp_async16(q_s + tile_off<T>(r, col, BQ, qld), src, ok);
-  }
   for (int idx = tid; idx < BQ * k_sel; idx += THREADS) {
     lv_s[idx] = -INFINITY;
     li_s[idx] = INT_MAX;
   }
 
-  auto load_stage = [&](int step) {
-    const int tile = step / kchunks, kc = step % kchunks;
+  for (int tile = 0; tile < n_tiles; ++tile) {
     const long long r0 = r_begin + (long long)tile * BN;
-    T* dst = c_s + (step & 1) * stage_elems;
-    for (int idx = tid; idx < BN * KC / VEC; idx += THREADS) {
-      int r = idx / (KC / VEC), col8 = (idx % (KC / VEC)) * VEC;
-      long long grow = r0 + r;
-      int col = kc * KC + col8;
-      bool ok = grow < n && col < D;
-      const T* src = ok ? c + (size_t)grow * D + col : c;
-      cp_async16(dst + tile_off<T>(r, col8, BN, cld), src, ok);
-    }
-  };
-
-  // score tile of `tile` -> segment maxima -> lists
-  auto reduce_tile = [&](int tile) {
-    const Acc* st = s_s;
-    const long long r0 = r_begin + (long long)tile * BN;
+    f32t::score_tile(q, c, Q, n, D, q0, r0, ops, s_s);  // rows >= n score 0
+    // score tile -> segment maxima -> lists
     if (L2 <= BN) {
       for (int idx = tid; idx < BQ * nseg_tile; idx += THREADS) {
-        int r = idx % BQ, s = idx / BQ;
-        const Acc* row = st + r * SPAD + s * seg_t;
-        Acc m = row[0];
-        for (int j = 1; j < seg_t; ++j) m = Op<T>::max(m, row[j]);
-        m_s[s * BQ + r] = m;
+        const int r = idx % BQ, sg = idx / BQ;
+        const float* row = s_s + r * SLD + sg * seg_t;
+        float m = row[0];
+        for (int j = 1; j < seg_t; ++j) m = fmaxf(m, row[j]);
+        m_s[sg * BQ + r] = m;
       }
       __syncthreads();
       if (tid < BQ) {
         const int seg0 = (int)(r0 / L2);
-        for (int s = 0; s < nseg_tile; ++s) {
-          if (seg0 + s >= n_valid_segs) break;
-          list_insert(lv_s + tid * k_sel, li_s + tid * k_sel, k_sel, (float)m_s[s * BQ + tid],
-                      seg0 + s);
+        for (int sg = 0; sg < nseg_tile; ++sg) {
+          if (seg0 + sg >= n_valid_segs) break;
+          list_insert(lv_s + tid * k_sel, li_s + tid * k_sel, k_sel, m_s[sg * BQ + tid],
+                      seg0 + sg);
         }
       }
     } else {
       // a segment spans L2/BN whole tiles: fold this tile into the running
       // maximum of its segment; insert once its last tile is done
       const int r = tid / 4, part = tid % 4;
-      const Acc* row = st + r * SPAD + part * (BN / 4);
-      Acc m = row[0];
-      for (int j = 1; j < BN / 4; ++j) m = Op<T>::max(m, row[j]);
-      m = Op<T>::max(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = Op<T>::max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      const float* row = s_s + r * SLD + part * (BN / 4);
+      float m = row[0];
+      for (int j = 1; j < BN / 4; ++j) m = fmaxf(m, row[j]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
       if (part == 0) {
-        Acc run = (r0 % L2 == 0) ? m : Op<T>::max(run_s[r], m);
+        const float run = (r0 % L2 == 0) ? m : fmaxf(run_s[r], m);
         run_s[r] = run;
         if ((r0 + BN) % L2 == 0)
-          list_insert(lv_s + r * k_sel, li_s + r * k_sel, k_sel, (float)run, (int)(r0 / L2));
+          list_insert(lv_s + r * k_sel, li_s + r * k_sel, k_sel, run, (int)(r0 / L2));
       }
     }
-  };
-
-  if (total > 0) load_stage(0);
-  cp_async_commit();  // group 0: query tile + first corpus chunk
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[2][2];
-  for (int step = 0; step < total; ++step) {
-    const int tile = step / kchunks, kc = step % kchunks;
-    if (step + 1 < total) {
-      load_stage(step + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kc == 0) {
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], (Acc)0);
-    }
-    const T* cst = c_s + (step & 1) * stage_elems;
-#pragma unroll
-    for (int kk = 0; kk < KC / KS; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> b[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(
-            a[i], q_s + tile_off<T>(warp_m * 32 + i * 16, kc * KC + kk * KS, BQ, qld), qld);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], cst + tile_off<T>(warp_n * 32 + j * 16, kk * KS, BN, cld),
-                               cld);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-
-    if (kc == kchunks - 1) {
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(s_s + (warp_m * 32 + i * 16) * SPAD + warp_n * 32 + j * 16,
-                                  acc[i][j], SPAD, wmma::mem_row_major);
-      __syncthreads();
-      reduce_tile(tile);
-    }
-    __syncthreads();  // the stage and score tile are rewritten next step
+    // the next score_tile synchronises before it rewrites the score tile
   }
-  cp_async_wait<0>();
   __syncthreads();
 
   for (int idx = tid; idx < BQ * k_sel; idx += THREADS) {
-    int r = idx / k_sel;
+    const int r = idx / k_sel;
     if (q0 + r < Q) {
-      size_t o = ((size_t)split * Q + q0 + r) * k_sel + idx % k_sel;
+      const size_t o = ((size_t)split * Q + q0 + r) * k_sel + idx % k_sel;
       part_v[o] = lv_s[idx];
       part_i[o] = li_s[idx];
     }
   }
 }
 
-// ---------------------------------------------------------- mode 0: wgmma
+// ------------------------------------------------- modes 0, 1, 2: wgmma
 
 // row stride of the lists, in entries: odd, so the 16 inserting lanes of a
 // warp (16 rows, the same slot) fall on different banks
@@ -328,9 +219,20 @@ __host__ __device__ inline int list_stride(int k_sel) { return k_sel | 1; }
 
 // bytes of shared memory of the wgmma kernel: the main loop's, then the
 // lists (per query row list_stride(k_sel) values and as many ids)
-inline size_t wg_smem_bytes(int bq, int Dp, int n_stages, int k_sel) {
-  return qc::mainloop_bytes(bq, Dp, n_stages) + (size_t)bq * list_stride(k_sel) * 8;
+inline size_t wg_smem_bytes(int bq, int rb, int n_stages, int k_sel) {
+  return qc::mainloop_bytes(bq, rb, n_stages) + (size_t)bq * list_stride(k_sel) * 8;
 }
+
+// the epilogue's maxima in the accumulators' own type: fmaxf for f32, max
+// for s32 (whose maxima convert to f32 only once a segment is complete)
+__device__ __forceinline__ float acc_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int acc_max(int a, int b) { return max(a, b); }
+template <typename Acc>
+__device__ __forceinline__ Acc acc_lowest();
+template <>
+__device__ __forceinline__ float acc_lowest<float>() { return -INFINITY; }
+template <>
+__device__ __forceinline__ int acc_lowest<int>() { return INT_MIN; }
 
 // true where entry (v, id) ranks below entry (w, jd): lower value, or the
 // same value and a higher id
@@ -361,18 +263,20 @@ __device__ __noinline__ float list_replace(float* lv, int* li, int k_sel, int* w
   return wv;
 }
 
-template <int NWG>
+template <typename Op, int NWG>
 __global__ void __launch_bounds__((NWG + 1) * qc::WG_THREADS, 1)
 segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap cmap, float* __restrict__ part_v,
                      int* __restrict__ part_i, int Q, int D, int L2, int n_valid_segs, int k_sel,
                      long long rows_per_split, int n_stages) {
+  using Acc = typename Op::Acc;
   constexpr int BQW = NWG * 64;
+  constexpr int ELEM = sizeof(typename Op::Elem);
   extern __shared__ unsigned char smem_raw[];
-  const int Dp = qc::padded_width(D);
-  const int kchunks = Dp / qc::KC;
+  const int rb = qc::row_bytes(D, ELEM);
+  const int kchunks = rb / qc::CHUNK_BYTES;
   qc::Ring ring;
-  unsigned char* own = qc::ring_setup(ring, smem_raw, BQW, Dp, n_stages, NWG * 4);
+  unsigned char* own = qc::ring_setup(ring, smem_raw, BQW, rb, n_stages, NWG * 4);
   const int ls = list_stride(k_sel);
   float* lv_s = reinterpret_cast<float*>(own);
   int* li_s = reinterpret_cast<int*>(own + (size_t)BQW * ls * 4);
@@ -398,7 +302,8 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // ------------------------------------------------ producer warpgroup
     if (NWG == 2) qc::reg_dealloc<40>();
     if (tid == NWG * qc::WG_THREADS)
-      qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, r_begin, n_tiles);
+      qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, qc::CHUNK_BYTES / ELEM, r_begin,
+                  n_tiles);
   } else {
     // ----------------------------------------------- consumer warpgroups
     if (NWG == 2) qc::reg_alloc<232>();
@@ -426,41 +331,41 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         thr = list_replace(my_lv, my_li, k_sel, &worst, v, seg);
     };
 
-    qc::consume(ring, wg, BQW, kchunks, n_tiles, [&](int tile, float (&acc)[64]) {
+    qc::consume<Op>(ring, wg, BQW, kchunks, n_tiles, [&](int tile, Acc (&acc)[64]) {
       const long long r0 = r_begin + (long long)tile * BN;
       if (L2 <= BN) {
         // nothing in the tile beats a threshold of this warp's 16 rows (the
         // common case after the first tiles): 64 maxima and one vote
         const float thr_a = __shfl_sync(0xffffffffu, thr, quad_base);
         const float thr_b = __shfl_sync(0xffffffffu, thr, quad_base + 1);
-        float m_a = -INFINITY, m_b = -INFINITY;
+        Acc m_a = acc_lowest<Acc>(), m_b = acc_lowest<Acc>();
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          m_a = fmaxf(m_a, fmaxf(acc[4 * j], acc[4 * j + 1]));
-          m_b = fmaxf(m_b, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+          m_a = acc_max(m_a, acc_max(acc[4 * j], acc[4 * j + 1]));
+          m_b = acc_max(m_b, acc_max(acc[4 * j + 2], acc[4 * j + 3]));
         }
-        if (!__any_sync(0xffffffffu, m_a > thr_a || m_b > thr_b)) return;
+        if (!__any_sync(0xffffffffu, (float)m_a > thr_a || (float)m_b > thr_b)) return;
       }
       if (seg_t >= 8) {
         const int seg0 = (int)(r0 / L2);
-        float m0 = -INFINITY, m1 = -INFINITY;
+        Acc m0 = acc_lowest<Acc>(), m1 = acc_lowest<Acc>();
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          m0 = fmaxf(m0, fmaxf(acc[4 * j], acc[4 * j + 1]));
-          m1 = fmaxf(m1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+          m0 = acc_max(m0, acc_max(acc[4 * j], acc[4 * j + 1]));
+          m1 = acc_max(m1, acc_max(acc[4 * j + 2], acc[4 * j + 3]));
           if (((j + 1) & (bps - 1)) == 0) {  // a segment (or the tile) ends here
-            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-            const float mine = quad == 1 ? m1 : m0;
+            m0 = acc_max(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+            m1 = acc_max(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+            m0 = acc_max(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+            m1 = acc_max(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+            const float mine = (float)(quad == 1 ? m1 : m0);
             if (L2 <= BN) {
               offer(mine, seg0 + j / bps);
             } else {
               run = (r0 % L2 == 0) ? mine : fmaxf(run, mine);
               if ((r0 + BN) % L2 == 0) offer(run, seg0);
             }
-            m0 = m1 = -INFINITY;
+            m0 = m1 = acc_lowest<Acc>();
           }
         }
       } else {
@@ -472,31 +377,31 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int j = 0; j < 16; ++j) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
+            const Acc a = acc[4 * j + 2 * h], b = acc[4 * j + 2 * h + 1];
             const bool mine = quad == h;
             if (seg_t == 1) {
 #pragma unroll
               for (int t = 0; t < 4; ++t) {
-                const float va = __shfl_sync(0xffffffffu, a, quad_base + t);
-                const float vb = __shfl_sync(0xffffffffu, b, quad_base + t);
+                const float va = (float)__shfl_sync(0xffffffffu, a, quad_base + t);
+                const float vb = (float)__shfl_sync(0xffffffffu, b, quad_base + t);
                 if (mine) {
                   offer(va, seg0 + 8 * j + 2 * t);
                   offer(vb, seg0 + 8 * j + 2 * t + 1);
                 }
               }
             } else if (seg_t == 2) {
-              const float m = fmaxf(a, b);
+              const Acc m = acc_max(a, b);
 #pragma unroll
               for (int t = 0; t < 4; ++t) {
-                const float v = __shfl_sync(0xffffffffu, m, quad_base + t);
+                const float v = (float)__shfl_sync(0xffffffffu, m, quad_base + t);
                 if (mine) offer(v, seg0 + 4 * j + t);
               }
             } else {
-              float m = fmaxf(a, b);
-              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+              Acc m = acc_max(a, b);
+              m = acc_max(m, __shfl_xor_sync(0xffffffffu, m, 1));
 #pragma unroll
               for (int t = 0; t < 4; t += 2) {
-                const float v = __shfl_sync(0xffffffffu, m, quad_base + t);
+                const float v = (float)__shfl_sync(0xffffffffu, m, quad_base + t);
                 if (mine) offer(v, seg0 + 2 * j + t / 2);
               }
             }
@@ -638,24 +543,25 @@ inline void launch_merge(const void* part_v, const void* part_i, void* out_v, vo
         static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k_sel, n_splits);
 }
 
-template <typename T>
-int launch(const void* q, const void* c, void* part_v, void* part_i, void* out_v, void* out_i,
-           int Q, int n, int D, int L2, int n_valid_segs, int k_sel, int n_splits,
-           cudaStream_t st) {
-  if (D % Op<T>::VEC) return (int)cudaErrorInvalidValue;
-  const int Dp = (D + KC - 1) / KC * KC;
+// mode 3: the f32 kernel, 64 query rows a CTA
+int launch_f32(const void* q, const void* c, void* part_v, void* part_i, void* out_v, void* out_i,
+               int Q, int n, int D, int L2, int n_valid_segs, int k_sel, int n_splits,
+               cudaStream_t st) {
   const int seg_t = L2 < BN ? L2 : BN;
-  Layout<T> lay(Dp, BN / seg_t, k_sel);
-  cudaError_t err = cudaFuncSetAttribute(segtopk_kernel<T>,
+  const F32Layout lay(BN / seg_t, k_sel);
+  if (lay.total > (size_t)qc::SMEM_LIMIT ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(segtopk_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)lay.total);
   if (err != cudaSuccess) return (int)err;
   const long long unit = L2 > BN ? L2 : BN;  // split ranges end on segment boundaries
   const long long n_units = ((long long)n_valid_segs * L2 + unit - 1) / unit;
   const long long units_per_split = (n_units + n_splits - 1) / n_splits;
-  dim3 grid((Q + BQ - 1) / BQ, n_splits);
-  segtopk_kernel<T><<<grid, THREADS, lay.total, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(c), static_cast<float*>(part_v),
+  dim3 grid((Q + f32t::BQ - 1) / f32t::BQ, n_splits);
+  segtopk_f32_kernel<<<grid, f32t::THREADS, lay.total, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(c), static_cast<float*>(part_v),
       static_cast<int*>(part_i), Q, n, D, L2, n_valid_segs, k_sel, units_per_split * unit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -663,30 +569,30 @@ int launch(const void* q, const void* c, void* part_v, void* part_i, void* out_v
   return (int)cudaGetLastError();
 }
 
-template <int NWG>
+template <typename Op, int NWG>
 int launch_wgmma(const void* q, const void* c, void* part_v, void* part_i, void* out_v,
                  void* out_i, int Q, int n, int D, int L2, int n_valid_segs, int k_sel,
                  int n_splits, int n_stages, cudaStream_t st) {
   constexpr int BQW = NWG * 64;
-  const int Dp = qc::padded_width(D);
-  const size_t bytes = wg_smem_bytes(BQW, Dp, n_stages, k_sel);
-  // the ring's barriers fit 7 stages
-  if (D % 8 || n_stages < 2 || n_stages > 7 || bytes > (size_t)qc::SMEM_LIMIT ||
+  constexpr int ELEM = sizeof(typename Op::Elem);
+  const size_t bytes = wg_smem_bytes(BQW, qc::row_bytes(D, ELEM), n_stages, k_sel);
+  // TMA takes 16-byte row pitches; the ring's barriers fit 7 stages
+  if ((D * ELEM) % 16 || n_stages < 2 || n_stages > 7 || bytes > (size_t)qc::SMEM_LIMIT ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, cmap;
-  int rc = qc::make_tensor_map(&qmap, q, Q, D, BQW);
+  int rc = qc::make_tensor_map(&qmap, q, Q, D, BQW, Op::TMA_TYPE, ELEM);
   if (rc) return rc;
-  rc = qc::make_tensor_map(&cmap, c, n, D, BN);
+  rc = qc::make_tensor_map(&cmap, c, n, D, BN, Op::TMA_TYPE, ELEM);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(segtopk_wgmma_kernel<NWG>,
+  cudaError_t err = cudaFuncSetAttribute(segtopk_wgmma_kernel<Op, NWG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const long long unit = L2 > BN ? L2 : BN;  // split ranges end on segment boundaries
   const long long n_units = ((long long)n_valid_segs * L2 + unit - 1) / unit;
   const long long units_per_split = (n_units + n_splits - 1) / n_splits;
   dim3 grid((Q + BQW - 1) / BQW, n_splits);
-  segtopk_wgmma_kernel<NWG><<<grid, (NWG + 1) * qc::WG_THREADS, bytes, st>>>(
+  segtopk_wgmma_kernel<Op, NWG><<<grid, (NWG + 1) * qc::WG_THREADS, bytes, st>>>(
       qmap, cmap, static_cast<float*>(part_v), static_cast<int*>(part_i), Q, D, L2, n_valid_segs,
       k_sel, units_per_split * unit, n_stages);
   err = cudaGetLastError();
@@ -695,13 +601,27 @@ int launch_wgmma(const void* q, const void* c, void* part_v, void* part_i, void*
   return (int)cudaGetLastError();
 }
 
+template <typename Op>
+int launch_tiles(const void* q, const void* c, void* part_v, void* part_i, void* out_v,
+                 void* out_i, int Q, int n, int D, int L2, int n_valid_segs, int k_sel,
+                 int n_splits, int bq, int n_stages, cudaStream_t st) {
+  if (bq == 128)
+    return launch_wgmma<Op, 2>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
+                               k_sel, n_splits, n_stages, st);
+  if (bq == 64)
+    return launch_wgmma<Op, 1>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
+                               k_sel, n_splits, n_stages, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // modes 0 and 1: bf16, the wgmma kernel with bq = 64 or 128 query rows per
 // CTA and n_stages = 2..7 ring stages as ops/topk.py planned them (mode 0,
 // pass_a_plan: up to 4; mode 1, the overlap schedule, overlap_plan: the
-// deepest ring that fits); mode 2: int8 (the WMMA kernel, which ignores bq
-// and n_stages).
+// deepest ring that fits); mode 2: int8, the same kernel on s8 wgmma
+// (pass_a_int8_plan; D a multiple of 16); mode 3: f32 on the CUDA cores
+// (64 query rows a CTA; bq and n_stages are not read).
 extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* part_i,
                               void* out_v, void* out_i, int Q, int n, int D, int L2,
                               int n_valid_segs, int k_sel, int n_splits, int mode, int bq,
@@ -713,16 +633,14 @@ extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* 
   switch (mode) {
     case 0:
     case 1:
-      if (bq == 128)
-        return launch_wgmma<2>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
-                               k_sel, n_splits, n_stages, st);
-      if (bq == 64)
-        return launch_wgmma<1>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs,
-                               k_sel, n_splits, n_stages, st);
-      return (int)cudaErrorInvalidValue;
+      return launch_tiles<qc::Bf16Op>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
+                                      n_valid_segs, k_sel, n_splits, bq, n_stages, st);
     case 2:
-      return launch<signed char>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
-                                 n_valid_segs, k_sel, n_splits, st);
+      return launch_tiles<qc::S8Op>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
+                                    n_valid_segs, k_sel, n_splits, bq, n_stages, st);
+    case 3:
+      return launch_f32(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs, k_sel,
+                        n_splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

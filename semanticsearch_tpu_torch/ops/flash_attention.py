@@ -9,29 +9,45 @@ attention with the plain math, as the JAX package's ``_flash_bwd`` does.
 The kernel reads q, k and v through their strides and writes an output
 with q's strides, so the encoder's transposed (B, T, H, Dh) views cost no
 copy either way.
+
+The kernel takes bf16, fp16 and f32 (an f32 encoder; the f32 path computes
+both products in f32 FMAs, within 2e-5 of the plain version), any T up to
+128 and every multiple of 64 above it (a superset of the JAX kernel's T <=
+128 or multiples of 128), and head widths 16, 32, 64 and 128. Any other
+head width up to 128 is padded with zero columns to the next of those
+(:func:`_padded_heads`, one copy of q, k and v; the scale stays that of the
+real width) and the output sliced back; the CPU path takes the same route,
+so the tests here reach it.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from . import _build
 
 NEG_INF = -1e30
-# launches of the flash kernel (csrc/flash_attention.cu) in this process
+# launches of the flash kernel (csrc/flash_attention.cu) in this process:
+# bf16/fp16 and f32 q, k, v
 FLASH_LAUNCHES = 0
-_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+FLASH_F32_LAUNCHES = 0
+_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_KERNEL_BLOCK = 64  # the kernel's query and key block rows
+_KERNEL_BLOCK = 64  # the kernel's key block rows
+_KERNEL_MAX_TAIL_T = 128  # up to here T need not be a multiple of the block
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
+                          mask: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Plain attention in f32: masked keys score the finite NEG_INF, so a
-    query with every key masked averages V. Returns q's dtype."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    query with every key masked averages V. Returns q's dtype. ``scale``
+    defaults to 1/sqrt(Dh)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     s = torch.where(mask[:, None, None, :] > 0, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -41,11 +57,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when the kernel can read it through its strides (head
     dimension contiguous, 16-byte aligned rows), else a contiguous copy."""
+    vec = 16 // x.element_size()
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % 8 == 0 for n, s in zip(x.shape[:3], x.stride()[:3])
+            and all(s % vec == 0 for n, s in zip(x.shape[:3], x.stride()[:3])
                     if n > 1)):
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def _kernel_head_dim(dh: int) -> int:
+    """The kernel's head width that holds ``dh``: the next of 16, 32, 64,
+    128; raises ``ValueError`` past 128."""
+    for width in _KERNEL_HEAD_DIMS:
+        if dh <= width:
+            return width
+    raise ValueError(f"flash kernel: head dim {dh} > {_KERNEL_HEAD_DIMS[-1]} "
+                     "is not supported")
+
+
+def _padded_heads(attend, q, k, v, mask):
+    """``attend(q, k, v, mask, scale)`` at a head width the kernel takes:
+    q, k and v padded with zero columns to :func:`_kernel_head_dim` (a zero
+    column adds nothing to q.k, and V's zero columns give output columns
+    that are sliced away), the scale that of the real width."""
+    dh = q.shape[-1]
+    width = _kernel_head_dim(dh)
+    scale = 1.0 / math.sqrt(dh)
+    if width == dh:
+        return attend(q, k, v, mask, scale)
+    q, k, v = (torch.nn.functional.pad(x, (0, width - dh)) for x in (q, k, v))
+    return attend(q, k, v, mask, scale)[..., :dh]
 
 
 def _strides(x: torch.Tensor):
@@ -54,20 +95,29 @@ def _strides(x: torch.Tensor):
 
 
 def _flash_forward(q, k, v, mask):
-    global FLASH_LAUNCHES
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mask)
+        if q.shape[-1] > _KERNEL_HEAD_DIMS[-1]:
+            return flash_attention_plain(q, k, v, mask)
+        return _padded_heads(flash_attention_plain, q, k, v, mask)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {q.device}")
     b, h, t, dh = q.shape
     if q.dtype not in _KERNEL_DTYPES or not (k.dtype == v.dtype == q.dtype):
         raise NotImplementedError(
-            f"the flash kernel takes bfloat16 or float16 q, k, v; got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in _KERNEL_HEAD_DIMS or t % _KERNEL_BLOCK:
+            f"the flash kernel takes bfloat16, float16 or float32 q, k, v; "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if t > _KERNEL_MAX_TAIL_T and t % _KERNEL_BLOCK:
         raise ValueError(
-            f"flash kernel: head dim {dh} must be one of {_KERNEL_HEAD_DIMS} "
-            f"and T={t} a multiple of {_KERNEL_BLOCK}")
+            f"flash kernel: T={t} must be at most {_KERNEL_MAX_TAIL_T} or a "
+            f"multiple of {_KERNEL_BLOCK}")
+    return _padded_heads(_launch, q, k, v, mask)
+
+
+def _launch(q, k, v, mask, scale):
+    """Launch csrc/flash_attention.cu on CUDA tensors of a head width it
+    takes, or raise."""
+    global FLASH_LAUNCHES, FLASH_F32_LAUNCHES
+    b, h, t, dh = q.shape
     if k.shape != q.shape or v.shape != q.shape or mask.shape != (b, t):
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
@@ -88,11 +138,14 @@ def _flash_forward(q, k, v, mask):
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), b, h, t, dh, strides, 1.0 / math.sqrt(dh),
+                out.data_ptr(), b, h, t, dh, strides, scale,
                 _KERNEL_DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention")
-    FLASH_LAUNCHES += 1
+    if q.dtype == torch.float32:
+        FLASH_F32_LAUNCHES += 1
+    else:
+        FLASH_LAUNCHES += 1
     return out
 
 

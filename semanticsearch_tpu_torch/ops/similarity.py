@@ -3,10 +3,10 @@
 Counterpart of ``semanticsearch_tpu/ops/similarity.py``:
 
 - :func:`similarity_matrix` is ``E @ E.T`` in full float32. On a CUDA tensor
-  it launches the hand-written Hopper kernel ``csrc/similarity.cu`` (f32
-  FMAs on the CUDA cores in one fixed order: bit-reproducible and
-  bit-symmetric); on a CPU tensor it computes
-  :func:`similarity_matrix_plain`. It also takes a batch (B, n, d) of
+  (f32, or bf16 widened to f32 as it is loaded) it launches the
+  hand-written Hopper kernel ``csrc/similarity.cu`` (f32 FMAs on the CUDA
+  cores in one fixed order: bit-reproducible and bit-symmetric); on a CPU
+  tensor it computes :func:`similarity_matrix_plain`. It also takes a batch (B, n, d) of
   zero-padded documents, which is how the splitter and the grouper call it.
   :func:`similarity_matrix_pallas` is the same function under the name of
   the JAX package's blockwise kernel.
@@ -24,8 +24,11 @@ import torch
 
 from . import _build
 
-# launches of the Gram-matrix kernel (csrc/similarity.cu) in this process
+# launches of the Gram-matrix kernel (csrc/similarity.cu) in this process,
+# on f32 and on bf16 input
 SIM_LAUNCHES = 0
+SIM_BF16_LAUNCHES = 0
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def l2_normalize(x: torch.Tensor, axis: int = -1, eps: float = 1e-9
@@ -53,9 +56,10 @@ def similarity_matrix(emb: torch.Tensor) -> torch.Tensor:
 
     Full-precision accumulate: segmentation boundary decisions are sensitive
     to small similarity differences, so the product never runs in TF32 or
-    bf16. A CUDA tensor must be float32 and reaches the kernel or an error.
+    bf16. A CUDA tensor must be float32 or bfloat16 (whose products are
+    exact in f32) and reaches the kernel or an error.
     """
-    global SIM_LAUNCHES
+    global SIM_LAUNCHES, SIM_BF16_LAUNCHES
     if emb.ndim not in (2, 3):
         raise ValueError(f"similarity_matrix: emb of shape {tuple(emb.shape)}; "
                          "expected (n, d) or (B, n, d)")
@@ -63,9 +67,9 @@ def similarity_matrix(emb: torch.Tensor) -> torch.Tensor:
         return similarity_matrix_plain(emb)
     if emb.device.type != "cuda":
         raise ValueError(f"similarity_matrix: tensor on {emb.device}")
-    if emb.dtype != torch.float32:
+    if emb.dtype not in _KERNEL_DTYPES:
         raise NotImplementedError(
-            f"the similarity kernel takes float32; got {emb.dtype}")
+            f"the similarity kernel takes float32 or bfloat16; got {emb.dtype}")
     batch = emb if emb.ndim == 3 else emb[None]
     b, n, d = batch.shape
     if min(b, n, d) < 1:
@@ -74,16 +78,20 @@ def similarity_matrix(emb: torch.Tensor) -> torch.Tensor:
     if batch.data_ptr() % 16:  # the kernel loads 16 bytes at a time
         batch = batch.clone()
     out = torch.empty((b, n, n), dtype=torch.float32, device=emb.device)
-    fn = _build.load("similarity").similarity_gram_f32
+    fn = _build.load("similarity").similarity_gram
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     launched = ctypes.c_int(0)  # one launch per 65,535 documents
     with torch.cuda.device(emb.device):
         status = fn(batch.data_ptr(), out.data_ptr(), b, n, d,
+                    _KERNEL_DTYPES[emb.dtype],
                     torch.cuda.current_stream(emb.device).cuda_stream,
                     ctypes.byref(launched))
-    SIM_LAUNCHES += launched.value
+    if emb.dtype == torch.float32:
+        SIM_LAUNCHES += launched.value
+    else:
+        SIM_BF16_LAUNCHES += launched.value
     _build.check(status, "similarity_matrix")
     return out if emb.ndim == 3 else out[0]
 

@@ -16,13 +16,18 @@ for CPU tensors:
   :data:`FUSED_MAX_K`): one pass that keeps an exact running top-k per query
   (``csrc/topk_fused.cu``), the counterpart of ``topk_scores_pallas``.
 
-Both kernels run one Hopper main loop (``csrc/qc_mainloop.cuh``: TMA
-loads into an ``mbarrier`` ring, ``wgmma`` on a resident query tile) and
-select in the accumulator registers; pass A's overlap schedule runs the
-same loop on a ring longer than a tile, so its two consumer warpgroups
-drift out of phase. Their tiles, ring stages and corpus splits are planned
-here (:func:`pass_a_plan`, :func:`overlap_plan`, :func:`fused_plan`) and
-handed to the C entry points.
+On bf16 and int8 operands both kernels run one Hopper main loop
+(``csrc/qc_mainloop.cuh``: TMA loads into an ``mbarrier`` ring, ``wgmma`` on
+a resident query tile; s8 ``wgmma`` for int8) and select in the accumulator
+registers; pass A's overlap schedule runs the same loop on a ring longer
+than a tile, so its two consumer warpgroups drift out of phase. Their tiles,
+ring stages and corpus splits are planned here (:func:`pass_a_plan`,
+:func:`pass_a_int8_plan`, :func:`overlap_plan`, :func:`fused_plan`) and
+handed to the C entry points. f32 operands (an ``IndexConfig(dtype=
+"float32")`` index) run each kernel's f32 schedule: every score one f32 FMA
+chain on the CUDA cores (``csrc/f32_tile.cuh``), equal to the exact f32
+product on integer-valued rows and within D * 2^-24 * |q| |c| of it
+elsewhere (:func:`pass_a_f32_plan`, :func:`fused_f32_plan`).
 
 The true top-k rows lie in the top-k segments by maximum: were a top-k row's
 segment ranked below k, k segments would each hold a row scoring at least as
@@ -58,12 +63,17 @@ _LANE = 128
 _MAX_TWOPASS_Q = 32768
 # the fused kernel keeps k up to this (csrc/topk_fused.cu, MAX_K)
 FUSED_MAX_K = 2048
-# launches of each kernel in this process: pass A (csrc/segtopk.cu) in its
-# three schedules, and the fused top-k (csrc/topk_fused.cu)
+# launches of each kernel in this process, by wrapper and schedule: pass A
+# (csrc/segtopk.cu) in its bf16, overlap, int8 and f32 schedules (the f32
+# schedule counted apart for each of the two wrappers that reach it), and
+# the fused top-k (csrc/topk_fused.cu) in bf16 and f32
 SEGTOPK_LAUNCHES = 0
 SEGTOPK_OVERLAP_LAUNCHES = 0
 SEGTOPK_INT8_LAUNCHES = 0
+SEGTOPK_F32_LAUNCHES = 0
+SEGTOPK_OVERLAP_F32_LAUNCHES = 0
 TOPK_FUSED_LAUNCHES = 0
+TOPK_FUSED_F32_LAUNCHES = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -126,18 +136,38 @@ def swizzle_corpus(corpus: torch.Tensor, block_n: int = 8192) -> torch.Tensor:
             .transpose(1, 2).reshape(n_pad, d))
 
 
-def _unswizzle(corpus_swizzled: torch.Tensor, block_n: int) -> torch.Tensor:
+def _unswizzle(corpus_swizzled: torch.Tensor, block_n: int,
+               width: Optional[int] = None) -> torch.Tensor:
+    """Natural row order of a swizzled layout; with ``width``, written into
+    that many columns, zero past its own (the one copy either way)."""
     n_pad, d = corpus_swizzled.shape
     L = block_n // _LANE
-    return (corpus_swizzled.reshape(n_pad // block_n, L, _LANE, d)
-            .transpose(1, 2).reshape(n_pad, d))
+    nat = corpus_swizzled.reshape(n_pad // block_n, L, _LANE, d).transpose(1, 2)
+    if width is None or width == d:
+        return nat.reshape(n_pad, d)
+    out = corpus_swizzled.new_zeros((n_pad, width))
+    out[:, :d].view(n_pad // block_n, _LANE, L, d).copy_(nat)
+    return out
 
 
-def quantize_int8_global(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric per-tensor int8: returns (q8, scale)."""
+def _int8_into(q: torch.Tensor, width: Optional[int]) -> torch.Tensor:
+    """Rounded, clamped values ``q`` as int8, written straight into a zeroed
+    tensor ``width`` columns wide when that is wider (zero columns change no
+    product)."""
+    if width is None or width == q.shape[-1]:
+        return q.to(torch.int8)
+    out = torch.zeros((*q.shape[:-1], width), dtype=torch.int8, device=q.device)
+    out[..., :q.shape[-1]] = q
+    return out
+
+
+def quantize_int8_global(x: torch.Tensor, width: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8: returns (q8, scale). With ``width``, q8 is
+    that many columns wide, zero past x's own."""
     s = torch.clamp(x.float().abs().max() / 127.0, min=1e-12)
     q = torch.clamp(torch.round(x.float() / s), -127, 127)
-    return q.to(torch.int8), s
+    return _int8_into(q, width), s
 
 
 SEL_BLOCK = 256        # stage-2 block width
@@ -244,26 +274,32 @@ def _sm_count(dev: torch.device) -> int:
 #
 # The wgmma kernels (csrc/qc_mainloop.cuh) keep a query tile of 64 or 128
 # rows resident in shared memory and stream the corpus through a ring of
-# 2-4 stages of 128 rows x 64 columns. The choice is made here, in pure
-# functions the CPU tests reach, and handed to the C entry points, which
-# recompute the byte count with the same formulas and refuse a plan that
-# does not fit.
+# 2-4 stages of 128 rows x 128 bytes (64 bf16 or 128 int8 columns). The
+# choice is made here, in pure functions the CPU tests reach, and handed to
+# the C entry points, which recompute the byte count with the same formulas
+# and refuse a plan that does not fit. The f32 schedules take 64 query rows
+# a CTA and a shared memory that does not grow with the width.
 
 SMEM_LIMIT = 232448    # dynamic shared memory one block can get on sm_90
-_STAGE_BYTES = 128 * 64 * 2
+_CHUNK_BYTES = 128     # a ring stage's K chunk
+_STAGE_BYTES = 128 * _CHUNK_BYTES
 # (query rows per CTA, ring stages), in order of preference
 _TILE_CHOICES = ((128, 4), (128, 3), (64, 4), (64, 3), (64, 2))
 
 
-def _mainloop_bytes(bq: int, d: int, stages: int) -> int:
-    """qc::mainloop_bytes: alignment slack, query tile, ring, barriers."""
-    return 1024 + bq * _round_up(d, 64) * 2 + stages * _STAGE_BYTES + 128
+def _mainloop_bytes(bq: int, d: int, stages: int, elem: int = 2) -> int:
+    """qc::mainloop_bytes: alignment slack, query tile (rows of ``elem``-byte
+    values in whole 128-byte K chunks), ring, barriers."""
+    return (1024 + bq * _round_up(d * elem, _CHUNK_BYTES)
+            + stages * _STAGE_BYTES + 128)
 
 
-def pass_a_smem_bytes(bq: int, d: int, stages: int, k_sel: int) -> int:
-    """Shared memory of the bf16 pass-A kernel: the main loop's, then one
-    (value, id) list per query row, ``k_sel`` entries at an odd stride."""
-    return _mainloop_bytes(bq, d, stages) + bq * (k_sel | 1) * 8
+def pass_a_smem_bytes(bq: int, d: int, stages: int, k_sel: int,
+                      elem: int = 2) -> int:
+    """Shared memory of the wgmma pass-A kernel on ``elem``-byte operands
+    (2: bf16, 1: int8): the main loop's, then one (value, id) list per query
+    row, ``k_sel`` entries at an odd stride."""
+    return _mainloop_bytes(bq, d, stages, elem) + bq * (k_sel | 1) * 8
 
 
 def fused_smem_bytes(bq: int, d: int, stages: int) -> int:
@@ -281,11 +317,12 @@ def _widest(fits) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def pass_a_max_d(k_sel: int) -> int:
-    """The widest embedding the bf16 pass-A kernel takes at this ``k_sel``:
-    64 query rows and two stages must fit (1,536 at k_sel 1, 1,024 at 128).
-    """
-    return _widest(lambda d: pass_a_smem_bytes(64, d, 2, k_sel) <= SMEM_LIMIT)
+def pass_a_max_d(k_sel: int, elem: int = 2) -> int:
+    """The widest embedding the wgmma pass-A kernel takes at this ``k_sel``
+    on ``elem``-byte operands: 64 query rows and two stages must fit (bf16:
+    1,536 at k_sel 1, 1,024 at 128; int8: 3,072 and 2,048)."""
+    return _widest(lambda d: pass_a_smem_bytes(64, d, 2, k_sel, elem)
+                   <= SMEM_LIMIT)
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,6 +357,27 @@ def _pick_splits(n_qtiles: int, n_units: int, tiles_per_unit: int,
     return best
 
 
+def _segment_splits(q_tiles: int, n_segs: int, seg_rows: int,
+                    sms: int) -> int:
+    """Corpus splits of pass A, each a whole number of segments and of
+    128-row tiles (:func:`_pick_splits`)."""
+    unit = max(_LANE, seg_rows)
+    n_units = max(1, -(-(n_segs * seg_rows) // unit))
+    return _pick_splits(q_tiles, n_units, unit // _LANE, n_units, sms)
+
+
+def _wgmma_pass_a_plan(q, d, k_sel, n_segs, seg_rows, sms, elem, what):
+    widest = pass_a_max_d(k_sel, elem)
+    if d > widest:
+        raise ValueError(f"pass A ({what}) takes widths up to {widest} at "
+                         f"k_sel={k_sel}, got {d}")
+    bq, stages = _pick_tile(q, lambda b, s: pass_a_smem_bytes(
+        b, d, s, k_sel, elem) <= SMEM_LIMIT)
+    return {"bq": bq, "stages": stages,
+            "n_splits": _segment_splits(-(-q // bq), n_segs, seg_rows, sms),
+            "smem": pass_a_smem_bytes(bq, d, stages, k_sel, elem)}
+
+
 def pass_a_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
                 sms: int = 132) -> dict:
     """Tiles and grid of the bf16 pass-A kernel for ``q`` queries of width
@@ -328,18 +386,45 @@ def pass_a_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
     ``stages`` ring stages, ``smem`` bytes, ``n_splits`` corpus splits
     (each a whole number of segments and of 128-row tiles). Raises
     ``ValueError`` past :func:`pass_a_max_d`."""
-    if d > pass_a_max_d(k_sel):
-        raise ValueError(
-            f"pass A (bf16) takes widths up to {pass_a_max_d(k_sel)} at "
-            f"k_sel={k_sel}, got {d}")
-    bq, stages = _pick_tile(q, lambda b, s: pass_a_smem_bytes(
-        b, d, s, k_sel) <= SMEM_LIMIT)
-    unit = max(_LANE, seg_rows)
-    n_units = max(1, -(-(n_segs * seg_rows) // unit))
-    n_splits = _pick_splits(-(-q // bq), n_units, unit // _LANE, n_units,
-                            sms)
-    return {"bq": bq, "stages": stages, "n_splits": n_splits,
-            "smem": pass_a_smem_bytes(bq, d, stages, k_sel)}
+    return _wgmma_pass_a_plan(q, d, k_sel, n_segs, seg_rows, sms, 2, "bf16")
+
+
+def pass_a_int8_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
+                     sms: int = 132) -> dict:
+    """:func:`pass_a_plan` for the int8 schedule (s8 ``wgmma``, one byte a
+    value: a 128-byte K chunk holds 128 columns, so a query row takes half
+    the shared memory). Raises ``ValueError`` past
+    ``pass_a_max_d(k_sel, 1)``."""
+    return _wgmma_pass_a_plan(q, d, k_sel, n_segs, seg_rows, sms, 1, "int8")
+
+
+# the f32 schedules' shared memory (csrc/f32_tile.cuh, 64 query rows x 128
+# corpus rows a tile): two k-major operand tiles of 16 columns, double
+# buffered, then the 64 x 132 score tile
+_F32_OPERAND_BYTES = 2 * 16 * (64 + 4) * 4 + 2 * 16 * (128 + 4) * 4
+_F32_SCORE_BYTES = 64 * (128 + 4) * 4
+
+
+def pass_a_f32_smem_bytes(k_sel: int, seg_rows: int) -> int:
+    """segtopk.cu's F32Layout: operand and score tiles, the segment maxima
+    of a tile, running maxima, one sorted (value, id) list per query row,
+    each part 128-byte aligned."""
+    nseg_tile = _LANE // min(seg_rows, _LANE)
+    offset = _round_up(_F32_OPERAND_BYTES, 128) + _F32_SCORE_BYTES
+    for part in (4 * 64 * nseg_tile, 4 * 64, 4 * 64 * k_sel, 4 * 64 * k_sel):
+        offset = _round_up(offset, 128) + part
+    return _round_up(offset, 128)
+
+
+def pass_a_f32_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
+                    sms: int = 132) -> dict:
+    """Tiles and grid of pass A's f32 schedule: 64 query rows a CTA at any
+    width (``bq``, ``smem``, ``n_splits`` as in :func:`pass_a_plan`; the
+    operand tiles are double buffered in registers, ``stages`` 2)."""
+    del d  # the shared memory does not grow with the width
+    return {"bq": 64, "stages": 2,
+            "n_splits": _segment_splits(-(-q // 64), n_segs, seg_rows, sms),
+            "smem": pass_a_f32_smem_bytes(k_sel, seg_rows)}
 
 
 # the ring's barriers (two per stage and the query tile's) fit 128 bytes for
@@ -366,6 +451,19 @@ def overlap_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
             "smem": pass_a_smem_bytes(128, d, stages, k_sel)}
 
 
+def _fused_splits(q_tiles: int, k: int, vn: int, sms: int) -> int:
+    """Corpus splits of the fused top-k: whole 128-row tiles, every split
+    (the last too) of at least 4k rows."""
+    n_tiles = max(1, -(-vn // _LANE))
+    n_splits = _pick_splits(q_tiles, n_tiles, 1, max(1, vn // (4 * k)), sms)
+    while n_splits > 1:
+        rows = -(-n_tiles // n_splits) * _LANE
+        if vn - (n_splits - 1) * rows >= 4 * k:
+            break
+        n_splits = -(-n_tiles // -(-n_tiles // (n_splits - 1)))
+    return n_splits
+
+
 def fused_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
     """Tiles and grid of the fused kernel for ``q`` queries of width ``d``
     and ``vn`` valid rows: ``bq``, ``stages``, ``smem`` as in
@@ -385,19 +483,27 @@ def fused_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
                          f"{fused_max_d()}, got {d}")
     bq, stages = _pick_tile(q, lambda b, s: fused_smem_bytes(
         b, d, s) <= SMEM_LIMIT)
-    n_tiles = max(1, -(-vn // _LANE))
-    n_splits = _pick_splits(-(-q // bq), n_tiles, 1, max(1, vn // (4 * k)),
-                            sms)
-    # a split is a whole number of tiles: keep the last one at 4k rows too
-    while n_splits > 1:
-        rows = -(-n_tiles // n_splits) * _LANE
-        if vn - (n_splits - 1) * rows >= 4 * k:
-            break
-        n_splits = -(-n_tiles // -(-n_tiles // (n_splits - 1)))
+    n_splits = _fused_splits(-(-q // bq), k, vn, sms)
     cap = 2 * k + _LANE
     return {"bq": bq, "stages": stages, "n_splits": n_splits, "cap": cap,
             "smem": fused_smem_bytes(bq, d, stages),
             "scratch": n_splits * q * (cap * 8 + 4)}
+
+
+# topk_fused.cu's f32 kernel: operand and score tiles, a counter and a
+# threshold per query row, a 1 KB histogram per warp (eight)
+FUSED_F32_SMEM = _F32_OPERAND_BYTES + _F32_SCORE_BYTES + 64 * 8 + 8 * 1024
+
+
+def fused_f32_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
+    """:func:`fused_plan` for the f32 schedule: 64 query rows a CTA at any
+    width, the same buffers (``cap``, ``scratch``) and splits of at least 4k
+    rows; ``stages`` 2 (operand tiles double buffered in registers)."""
+    del d  # the shared memory does not grow with the width
+    n_splits = _fused_splits(-(-q // 64), k, vn, sms)
+    cap = 2 * k + _LANE
+    return {"bq": 64, "stages": 2, "n_splits": n_splits, "cap": cap,
+            "smem": FUSED_F32_SMEM, "scratch": n_splits * q * (cap * 8 + 4)}
 
 
 # ------------------------------------------------------------------- pass A
@@ -453,10 +559,29 @@ def segtopk_pass_a_int8_plain(
     return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
 
 
-# schedules of csrc/segtopk.cu: (mode, operand dtype, vector width)
-_PASS_A_MODES = {"bf16": (0, torch.bfloat16, 8),
-                 "overlap": (1, torch.bfloat16, 8),
-                 "int8": (2, torch.int8, 16)}
+def _f32_operands(what: str, queries: torch.Tensor,
+                  corpus: torch.Tensor) -> bool:
+    """True for two f32 operands (the f32 schedule), False for two bf16
+    ones; raises ``NotImplementedError`` for any other pair."""
+    dtypes = {queries.dtype, corpus.dtype}
+    if dtypes in ({torch.bfloat16}, {torch.float32}):
+        return dtypes == {torch.float32}
+    raise NotImplementedError(f"{what} takes two bfloat16 or two float32 "
+                              f"operands, got {queries.dtype} and "
+                              f"{corpus.dtype}")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned, copied only when it is not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+# schedules of csrc/segtopk.cu: (mode, operand dtype, plan)
+_PASS_A_MODES = {"bf16": (0, torch.bfloat16, pass_a_plan),
+                 "overlap": (1, torch.bfloat16, overlap_plan),
+                 "int8": (2, torch.int8, pass_a_int8_plan),
+                 "f32": (3, torch.float32, pass_a_f32_plan)}
 
 
 def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
@@ -464,12 +589,13 @@ def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch one schedule of ``csrc/segtopk.cu`` on CUDA tensors, or
     raise."""
-    mode, dtype, vec = _PASS_A_MODES[schedule]
+    mode, dtype, planner = _PASS_A_MODES[schedule]
     if queries.dtype != dtype or corpus.dtype != dtype:
         raise NotImplementedError(
             f"the {schedule} pass-A kernel takes {dtype} operands, got "
             f"{queries.dtype} and {corpus.dtype}")
     q, d = queries.shape
+    vec = {0: 8, 1: 8, 2: 16, 3: 1}[mode]  # TMA rows: 16-byte pitches
     if corpus.shape[1] != d or d % vec:
         raise ValueError(f"pass A ({schedule}) needs matching widths that are "
                          f"multiples of {vec}, got {d} and {corpus.shape[1]}")
@@ -479,21 +605,12 @@ def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
     if not 0 < k_sel <= _LANE or corpus.shape[0] < n:
         raise ValueError(f"pass A: k_sel={k_sel}, n={n}, corpus rows "
                          f"{corpus.shape[0]}")
-    queries = queries.contiguous()
-    corpus = corpus.contiguous()
+    queries = _aligned(queries)
+    corpus = _aligned(corpus)
     n_segs = -(-n // seg_rows)
     dev = queries.device
-    if mode in (0, 1):  # the wgmma kernel: tiles and splits from the plan
-        if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
-            raise ValueError(f"pass A ({schedule}) needs 16-byte aligned "
-                             "operands")
-        plan = (pass_a_plan if mode == 0 else overlap_plan)(
-            q, d, k_sel, n_segs, seg_rows, _sm_count(dev))
-        bq, stages, n_splits = plan["bq"], plan["stages"], plan["n_splits"]
-    else:               # the int8 WMMA kernel: 64-query tiles
-        bq, stages = 64, 2
-        n_units = -(-(n_segs * seg_rows) // max(_LANE, seg_rows))
-        n_splits = max(1, min(n_units, -(-4 * _sm_count(dev) // -(-q // 64))))
+    plan = planner(q, d, k_sel, n_segs, seg_rows, _sm_count(dev))
+    bq, stages, n_splits = plan["bq"], plan["stages"], plan["n_splits"]
     part_v = torch.empty((n_splits, q, k_sel), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_splits, q, k_sel), dtype=torch.int32, device=dev)
     out_v = torch.empty((q, k_sel), dtype=torch.float32, device=dev)
@@ -516,12 +633,17 @@ def segtopk_pass_a(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass A of the two-pass top-k; same contract as
     :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
-    tensors it launches ``csrc/segtopk.cu`` (bf16 operands) or raises."""
-    global SEGTOPK_LAUNCHES
+    tensors it launches ``csrc/segtopk.cu`` (bf16 operands, or the f32
+    schedule for f32 operands) or raises."""
+    global SEGTOPK_LAUNCHES, SEGTOPK_F32_LAUNCHES
     if not _on_card("segtopk_pass_a", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
-    out = _launch_pass_a("bf16", queries, corpus, n, seg_rows, k_sel)
-    SEGTOPK_LAUNCHES += 1
+    if _f32_operands("the pass-A kernel", queries, corpus):
+        out = _launch_pass_a("f32", queries, corpus, n, seg_rows, k_sel)
+        SEGTOPK_F32_LAUNCHES += 1
+    else:
+        out = _launch_pass_a("bf16", queries, corpus, n, seg_rows, k_sel)
+        SEGTOPK_LAUNCHES += 1
     return out
 
 
@@ -533,12 +655,17 @@ def segtopk_pass_a_overlap(
     bit-identical to :func:`segtopk_pass_a`. For CPU tensors it runs
     :func:`segtopk_pass_a_plain`; for CUDA tensors it launches the overlap
     schedule of ``csrc/segtopk.cu`` (bf16 operands; tiles from
-    :func:`overlap_plan`) or raises."""
-    global SEGTOPK_OVERLAP_LAUNCHES
+    :func:`overlap_plan`), or for f32 operands the f32 schedule (the same
+    function on the CUDA cores), or raises."""
+    global SEGTOPK_OVERLAP_LAUNCHES, SEGTOPK_OVERLAP_F32_LAUNCHES
     if not _on_card("segtopk_pass_a_overlap", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
-    out = _launch_pass_a("overlap", queries, corpus, n, seg_rows, k_sel)
-    SEGTOPK_OVERLAP_LAUNCHES += 1
+    if _f32_operands("the pass-A kernel", queries, corpus):
+        out = _launch_pass_a("f32", queries, corpus, n, seg_rows, k_sel)
+        SEGTOPK_OVERLAP_F32_LAUNCHES += 1
+    else:
+        out = _launch_pass_a("overlap", queries, corpus, n, seg_rows, k_sel)
+        SEGTOPK_OVERLAP_LAUNCHES += 1
     return out
 
 
@@ -548,10 +675,18 @@ def segtopk_pass_a_int8(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass A on int8 operands (the JAX kernel's int8 mode). For CPU
     tensors it runs :func:`segtopk_pass_a_int8_plain`; for CUDA tensors it
-    launches the int8 schedule of ``csrc/segtopk.cu`` or raises."""
+    launches the int8 schedule of ``csrc/segtopk.cu`` or raises. Operands
+    of a width that is not a multiple of 16 are padded with zero columns
+    (one copy each), which change no product."""
     global SEGTOPK_INT8_LAUNCHES
     if not _on_card("segtopk_pass_a_int8", queries, corpus):
         return segtopk_pass_a_int8_plain(queries, corpus, n, seg_rows, k_sel)
+    d = queries.shape[1]
+    if (queries.dtype == corpus.dtype == torch.int8 and corpus.shape[1] == d
+            and d % 16):
+        pad = _round_up(d, 16) - d
+        queries = torch.nn.functional.pad(queries, (0, pad))
+        corpus = torch.nn.functional.pad(corpus, (0, pad))
     out = _launch_pass_a("int8", queries, corpus, n, seg_rows, k_sel)
     SEGTOPK_INT8_LAUNCHES += 1
     return out
@@ -575,9 +710,9 @@ def topk_scores_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k for any k up to :data:`FUSED_MAX_K`; the contract of
     :func:`topk_scores_fused_plain`, which it runs for CPU tensors. For
-    CUDA tensors it launches ``csrc/topk_fused.cu`` (bf16 operands) or
-    raises."""
-    global TOPK_FUSED_LAUNCHES
+    CUDA tensors it launches ``csrc/topk_fused.cu`` (bf16 operands, or the
+    f32 schedule for f32 operands) or raises."""
+    global TOPK_FUSED_LAUNCHES, TOPK_FUSED_F32_LAUNCHES
     if not 0 < k <= FUSED_MAX_K:
         raise ValueError(f"the fused top-k supports 1 <= k <= {FUSED_MAX_K} "
                          f"(FUSED_MAX_K), got k={k}")
@@ -587,20 +722,16 @@ def topk_scores_fused(
                          f"{corpus.shape[0]} rows")
     if not _on_card("topk_scores_fused", queries, corpus):
         return topk_scores_fused_plain(queries, corpus, k, vn)
-    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the fused top-k kernel takes bfloat16 operands, got "
-            f"{queries.dtype} and {corpus.dtype}")
+    f32 = _f32_operands("the fused top-k kernel", queries, corpus)
     q, d = queries.shape
-    if corpus.shape[1] != d or d % 8:
-        raise ValueError(f"the fused top-k needs matching widths that are "
-                         f"multiples of 8, got {d} and {corpus.shape[1]}")
-    queries = queries.contiguous()
-    corpus = corpus.contiguous()
-    if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
-        raise ValueError("the fused top-k needs 16-byte aligned operands")
+    if corpus.shape[1] != d or (d % 8 and not f32):
+        raise ValueError(f"the fused top-k needs matching widths (multiples "
+                         f"of 8 in bf16), got {d} and {corpus.shape[1]}")
+    queries = _aligned(queries)
+    corpus = _aligned(corpus)
     dev = queries.device
-    plan = fused_plan(q, d, k, vn, _sm_count(dev))
+    plan = (fused_f32_plan if f32 else fused_plan)(q, d, k, vn,
+                                                   _sm_count(dev))
     n_splits, cap = plan["n_splits"], plan["cap"]
     keys = torch.empty((n_splits, q, cap), dtype=torch.int64, device=dev)
     counts = torch.empty((n_splits, q), dtype=torch.int32, device=dev)
@@ -608,13 +739,16 @@ def topk_scores_fused(
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     fn = _build.load("topk_fused").topk_fused
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     status = fn(queries.data_ptr(), corpus.data_ptr(), keys.data_ptr(),
                 counts.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
                 q, vn, d, k, n_splits, plan["bq"], plan["stages"], cap,
-                torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "topk_fused")
-    TOPK_FUSED_LAUNCHES += 1
+                int(f32), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "topk_fused (f32)" if f32 else "topk_fused")
+    if f32:
+        TOPK_FUSED_F32_LAUNCHES += 1
+    else:
+        TOPK_FUSED_LAUNCHES += 1
     return out_v, out_i
 
 
@@ -647,13 +781,15 @@ def topk_scores(
 
 # -------------------------------------------------------------- two-pass top-k
 
-def _quantize_rows_int8(queries: torch.Tensor) -> torch.Tensor:
+def _quantize_rows_int8(queries: torch.Tensor,
+                        width: Optional[int] = None) -> torch.Tensor:
     """Per-row symmetric int8, the scale taken in the queries' own dtype
-    as the JAX package does, rounding half to even."""
+    as the JAX package does, rounding half to even; with ``width``, that
+    many columns wide, zero past the queries' own."""
     sq = torch.clamp(queries.abs().amax(dim=1, keepdim=True) / 127.0,
                      min=1e-12)
-    return torch.clamp(torch.round(queries.float() / sq.float()),
-                       -127, 127).to(torch.int8)
+    return _int8_into(torch.clamp(torch.round(queries.float() / sq.float()),
+                                  -127, 127), width)
 
 
 def topk_scores_twopass(
@@ -741,21 +877,26 @@ def topk_scores_twopass(
                 "exceed 2^24 (127*127*d) and its f32 conversion is no "
                 "longer exact; segment ordering may perturb selection",
                 stacklevel=2)
+        # the s8 kernel's TMA loads need widths that are multiples of 16:
+        # the operands are quantized (or read back) straight into that width
+        w8 = _round_up(d, 16)
         if corpus_swizzled_q8 is not None:
             assert corpus_swizzled_q8.dtype == torch.int8
-            corpus_q8 = _unswizzle(corpus_swizzled_q8, block_n)
+            corpus_q8 = _unswizzle(corpus_swizzled_q8, block_n, w8)
         else:
             src = corpus_swizzled if (corpus_swizzled is not None
                                       and not gather_from_swizzled) else corpus
-            corpus_q8, _ = quantize_int8_global(src)
             if src is corpus_swizzled:
-                corpus_q8 = _unswizzle(corpus_q8, block_n)
+                corpus_q8 = _unswizzle(quantize_int8_global(src)[0], block_n,
+                                       w8)
+            else:
+                corpus_q8, _ = quantize_int8_global(src, w8)
 
     out_v, out_i = [], []
     for s in range(0, max(q, 1), _MAX_TWOPASS_Q):
         qs = queries[s: s + _MAX_TWOPASS_Q]
         if pass_a_int8:
-            _, seg_ids = segtopk_pass_a_int8(_quantize_rows_int8(qs),
+            _, seg_ids = segtopk_pass_a_int8(_quantize_rows_int8(qs, w8),
                                              corpus_q8, n, L2, k_sel)
         else:
             pass_a = segtopk_pass_a_overlap if mxu_overlap else segtopk_pass_a

@@ -5,14 +5,20 @@ needed there):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Pass A (all three schedules) and the fused top-k run on integer-valued
-bf16 or int8 inputs, whose dot products are exact in f32 whatever the
-summation order, so kernel and plain version must agree bit for bit.
-Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2 (a few half-precision ulps at the outputs' scale).
-The similarity kernel is f32 throughout: bit-equal to its plain version on
-integer-valued rows, within 1e-5 of it on unit-norm rows (two summation
-orders of a 384-term f32 dot product of magnitude at most 1), and always
-bit-symmetric and bit-reproducible."""
+Pass A (all four schedules) and the fused top-k run on integer-valued
+bf16, int8 or f32 inputs, whose dot products are exact in f32 whatever the
+summation order, so kernel and plain version must agree bit for bit. On
+unit-norm f32 rows the f32 schedules agree with the plain f32 product (TF32
+off) to D * 2^-24 (a D-long f32 chain's worst case), and in ids wherever
+the plain values are more than twice that apart.
+Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2
+(a few half-precision ulps at the outputs' scale), and in f32 to the JAX
+test's 2e-5.
+The similarity kernel computes in f32 throughout: bit-equal to its plain
+version on integer-valued rows (f32 or bf16 input), within 1e-5 of it on
+unit-norm f32 rows (two summation orders of a 384-term f32 dot product of
+magnitude at most 1) and D * 2^-24 on bf16 ones, and always bit-symmetric
+and bit-reproducible."""
 import numpy as np
 import pytest
 import torch
@@ -81,10 +87,14 @@ OVERLAP_CASES = PASS_A_CASES + [
     (1000, 100000, 384, 32, 11), # several query tiles and splits
     (200, 30000, 384, 32, 128),  # k_sel 128: 64-row tiles
 ]
-# the int8 schedule copies 16 int8 columns at a time: widths are multiples
-# of 16, so the same layouts with the width rounded up
+# the int8 schedule (s8 wgmma) at the same layouts, at widths rounded up to
+# the 16 its TMA rows need and at the widths themselves (the wrapper pads
+# them); k_sel 16 and 128; the serve and a many-query shape
 PASS_A_INT8_CASES = [(q, n, -(-d // 16) * 16, seg_rows, k_sel)
-                     for q, n, d, seg_rows, k_sel in PASS_A_CASES]
+                     for q, n, d, seg_rows, k_sel in PASS_A_CASES] + [
+    (17, 3000, 72, 8, 20), (33, 2000, 8, 32, 11), (64, 20000, 384, 32, 16),
+    (64, 20000, 384, 32, 128), (1000, 100000, 384, 32, 16),
+    (300, 50000, 72, 32, 128)]
 
 
 @pytest.mark.parametrize("q,n,d,seg_rows,k_sel", PASS_A_CASES)
@@ -185,13 +195,16 @@ def test_wgmma_kernels_refuse_widths_past_their_plans(dev):
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
-def test_segtopk_int8_refuses_width_not_multiple_of_16(dev):
+def test_segtopk_int8_pads_width_not_multiple_of_16(dev):
+    """D = 72 int8 operands: the wrapper pads them to 80 columns of zeros
+    and the s8 kernel equals the plain version bit for bit."""
     Q, C = _grid((17, 72), 5, dev, torch.int8), _grid((3000, 72), 6, dev,
                                                       torch.int8)
     launches = topk.SEGTOPK_INT8_LAUNCHES
-    with pytest.raises(ValueError, match="multiples of 16"):
-        topk.segtopk_pass_a_int8(Q, C, 3000, 8, 20)
-    assert topk.SEGTOPK_INT8_LAUNCHES == launches
+    kv, ki = topk.segtopk_pass_a_int8(Q, C, 3000, 8, 20)
+    pv, pi = topk.segtopk_pass_a_int8_plain(Q, C, 3000, 8, 20)
+    assert topk.SEGTOPK_INT8_LAUNCHES == launches + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
 @pytest.mark.parametrize("q,n,d,k,valid_n", [
@@ -408,6 +421,272 @@ def test_flash_backward_on_cuda(dev):
         assert torch.equal(a.grad, b.grad)
 
 
+# ------------------------------------------------- f32 schedules (top-k)
+
+def _small_grid(shape, seed, dev):
+    """f32 integers in [-8, 8]: every dot product exact in f32, and many
+    equal scores."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-8, 9, shape, generator=g, device=dev).float()
+
+
+def _tied(C):
+    """Each row of the first half again in the second: equal scores (and
+    equal segment maxima) far apart in the corpus."""
+    n = C.shape[0]
+    C[n - n // 2:] = C[: n // 2].clone()
+    return C
+
+
+def _unit(shape, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _near_tie_agree(v, i, pv, pi, tol):
+    """A (Q, k) result against a (Q, k+1) plain one: (max |v - pv|, id
+    mismatches where the plain value is more than 2 tol from both its
+    neighbours, id mismatches skipped inside such near-ties)."""
+    k = v.shape[1]
+    err = float((v - pv[:, :k]).abs().max())
+    close = (pv[:, 1:] - pv[:, :-1]).abs() <= 2 * tol
+    near = torch.zeros_like(pv, dtype=torch.bool)
+    near[:, 1:] |= close
+    near[:, :-1] |= close
+    mism = i != pi[:, :k]
+    return (err, int((mism & ~near[:, :k]).sum()),
+            int((mism & near[:, :k]).sum()))
+
+
+F32_PASS_A_CASES = [
+    (64, 4096, 384, 32, 11),     # whole tiles
+    (200, 20011, 384, 32, 41),   # ragged corpus and query tiles
+    (5, 300, 384, 32, 41),       # fewer segments than k_sel: placeholders
+    (70, 5000, 384, 256, 41),    # segments spanning several tiles
+    (33, 1000, 128, 1, 11),      # one-row segments
+    (17, 3000, 72, 8, 20),       # D = 72
+    (9, 3000, 100, 16, 20),      # a width that is not a multiple of 8
+    (33, 2000, 30, 32, 11),      # ... nor of 4: scalar loads
+    (1, 5000, 384, 32, 11),      # one query
+    (65, 4097, 384, 32, 11),     # one query past a 64-row tile
+    (40, 100, 384, 8, 11),       # a corpus smaller than one tile
+    (200, 30000, 128, 32, 128),  # the largest k_sel
+    (70, 3000, 384, 4, 20),
+    (130, 5000, 384, 512, 7),    # segments of four tiles
+    (64, 20000, 384, 32, 41),    # the serve shape
+]
+
+
+@pytest.mark.parametrize("wrapper", ["default", "overlap"])
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", F32_PASS_A_CASES)
+def test_segtopk_f32_on_integer_rows(dev, wrapper, q, n, d, seg_rows, k_sel):
+    """f32 operands reach the f32 schedule through either wrapper, each on
+    its own counter; on integer rows with built-in ties its ids, tie order
+    and values equal the plain version's."""
+    Q, C = _small_grid((q, d), 50, dev), _tied(_small_grid((n, d), 51, dev))
+    fn, counter = {"default": (topk.segtopk_pass_a, "SEGTOPK_F32_LAUNCHES"),
+                   "overlap": (topk.segtopk_pass_a_overlap,
+                               "SEGTOPK_OVERLAP_F32_LAUNCHES")}[wrapper]
+    launches = getattr(topk, counter)
+    kv, ki = fn(Q, C, n, seg_rows, k_sel)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, n, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    assert getattr(topk, counter) == launches + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("d", [384, 72, 100])
+def test_segtopk_f32_on_unit_rows(dev, d):
+    Q, C = _unit((300, d), 52, dev), _unit((50000, d), 53, dev)
+    tol = d * 2.0 ** -24
+    kv, ki = topk.segtopk_pass_a(Q, C, 50000, 32, 41)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, 50000, 32, 42)
+    err, bad, skipped = _near_tie_agree(kv, ki, pv, pi, tol)
+    assert err <= tol and bad == 0
+    assert skipped <= kv.numel() // 100, skipped
+
+
+F32_FUSED_CASES = [
+    (64, 4096, 384, 128, -1),    # whole tiles
+    (200, 20011, 384, 200, -1),  # ragged corpus and query tiles
+    (33, 1000, 128, 129, 900),   # rows past valid_n never appear
+    (5, 300, 384, 500, -1),      # k > rows: (-1e30, 0) tail
+    (70, 50000, 384, 2048, -1),  # the largest k
+    (9, 3000, 72, 300, -1),      # D = 72
+    (9, 3000, 100, 300, -1),     # a width that is not a multiple of 8
+    (33, 2000, 30, 100, -1),     # ... nor of 4
+    (1, 5000, 384, 200, -1),     # one query
+    (65, 4097, 384, 128, -1),    # one query past a 64-row tile
+    (40, 100, 384, 50, -1),      # a corpus smaller than one tile
+    (300, 40000, 384, 1, -1),    # k = 1
+    (300, 40000, 384, 10, -1),   # k = 10
+    (129, 60000, 384, 2048, -1), # many splits at the largest k
+    (3, 250000, 128, 200, -1),   # many splits: the round-by-round merge
+    (70, 5000, 384, 200, 0),     # no valid row at all
+]
+
+
+@pytest.mark.parametrize("q,n,d,k,valid_n", F32_FUSED_CASES)
+def test_topk_fused_f32_on_integer_rows(dev, q, n, d, k, valid_n):
+    Q, C = _small_grid((q, d), 54, dev), _tied(_small_grid((n, d), 55, dev))
+    launches = topk.TOPK_FUSED_F32_LAUNCHES, topk.TOPK_FUSED_LAUNCHES
+    kv, ki = topk.topk_scores_fused(Q, C, k, valid_n=valid_n)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, k, valid_n=valid_n)
+    torch.cuda.synchronize()
+    assert (topk.TOPK_FUSED_F32_LAUNCHES, topk.TOPK_FUSED_LAUNCHES) == (
+        launches[0] + 1, launches[1])
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("d", [384, 72, 100])
+def test_topk_fused_f32_on_unit_rows(dev, d):
+    Q, C = _unit((300, d), 56, dev), _unit((50000, d), 57, dev)
+    tol = d * 2.0 ** -24
+    kv, ki = topk.topk_scores_fused(Q, C, 200)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, 201)
+    err, bad, skipped = _near_tie_agree(kv, ki, pv, pi, tol)
+    assert err <= tol and bad == 0
+    assert skipped <= kv.numel() // 100, skipped
+
+
+def test_twopass_f32_index_matches_cpu(dev):
+    """An f32 index's two-pass search on the card: pass A's f32 schedule,
+    then pass B, equal to the CPU path on integer rows."""
+    Q, C = _small_grid((300, 100), 58, dev), _tied(_small_grid((50000, 100),
+                                                               59, dev))
+    for kw in ({}, {"mxu_overlap": True}):
+        kv, ki = topk.topk_scores_twopass(Q, C, k=40, block_n=16384,
+                                          seg_split=4, **kw)
+        pv, pi = topk.topk_scores_twopass(Q.cpu(), C.cpu(), k=40,
+                                          block_n=16384, seg_split=4, **kw)
+        assert torch.equal(ki.cpu(), pi) and torch.equal(kv.cpu(), pv), kw
+
+
+# ------------------------------------------------------ flash: f32, T, Dh
+
+def _flash_mask(b, t, g, dev, lo=None):
+    """Each row its own leading real keys (at least ``lo``), row 1 with
+    every key masked (the mean of V over its T keys)."""
+    lens = torch.randint(lo or max(1, t // 2), t + 1, (b,), generator=g,
+                         device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    mask[1 % b, :] = 0.0
+    return mask
+
+
+def _nan_in_skipped_blocks(x, mask):
+    """x with NaN at every key of a 64-key block that holds no real key, in
+    batch rows that have one (the blocks the kernel skips)."""
+    b, t = mask.shape
+    nb = -(-t // 64)
+    padded = torch.nn.functional.pad(mask, (0, nb * 64 - t))
+    dead = (padded.view(b, nb, 64) == 0).all(dim=2)
+    dead &= (mask > 0).any(dim=1, keepdim=True)
+    keys = dead.repeat_interleave(64, dim=1)[:, :t][:, None, :, None]
+    return torch.where(keys, torch.full_like(x, float("nan")), x)
+
+
+@pytest.mark.parametrize("b,h,t,dh,lo", [
+    (256, 12, 256, 32, 40),    # the serve shape
+    (2, 12, 1024, 32, 600),    # T = 1024, where "auto" picks flash
+    (2048, 12, 64, 32, 3),     # the chunking batch
+    (813, 12, 64, 32, 3),
+    (4, 2, 512, 128, 10),      # the widest head
+    (3, 2, 192, 64, 1),
+    (5, 3, 128, 16, 60),
+])
+def test_flash_f32_matches_plain(dev, b, h, t, dh, lo):
+    """f32 q, k, v on the encoder's transposed views: the f32 path, within
+    the JAX f32 test's 2e-5 of the plain version (TF32 off); NaN keys and
+    values in skipped blocks change no bit."""
+    g = torch.Generator(device=dev).manual_seed(60)
+    q, k, v = _flash_inputs((b, h, t, dh), torch.float32, "transposed", g,
+                            dev)
+    mask = _flash_mask(b, t, g, dev, lo)
+    if t >= 192:
+        mask[2 % b, 40:t - 64] = 0.0  # dead blocks between live ones
+    launches = fa.FLASH_F32_LAUNCHES, fa.FLASH_LAUNCHES
+    got = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (fa.FLASH_F32_LAUNCHES, fa.FLASH_LAUNCHES) == (launches[0] + 1,
+                                                          launches[1])
+    assert got.dtype == torch.float32 and got.stride() == q.stride()
+    want = fa.flash_attention_plain(q, k, v, mask)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+    again = fa.flash_attention(q, _nan_in_skipped_blocks(k, mask),
+                               _nan_in_skipped_blocks(v, mask), mask)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("t", [1, 32, 96, 100, 128, 192])
+@pytest.mark.parametrize("dh", [24, 48, 80, 32])
+def test_flash_any_t_and_padded_head_widths(dev, dtype, t, dh):
+    """T up to 128 need not be a multiple of 64 (tail blocks zero-filled,
+    keys past T never weigh, rows past T never stored); a head width the
+    kernel lacks runs padded to the next of 16/32/64/128 with the real
+    width's scale. Against the plain version: 2e-5 in f32, a few
+    half-precision ulps of each output otherwise."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    b, h = 5, 3
+    q, k, v = _flash_inputs((b, h, t, dh), dtype, "transposed", g, dev)
+    mask = _flash_mask(b, t, g, dev)
+    got = fa.flash_attention(q, k, v, mask)
+    want = fa.flash_attention_plain(q, k, v, mask)
+    assert got.shape == q.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    else:
+        diff = (got.float() - want.float()).abs()
+        assert float((diff / want.float().abs().clamp(min=0.5)).max()) <= 2e-2
+    if t in (1, 32, 96, 100):  # 64-key blocks with a tail: NaN past T is
+        # never read (the views' storage ends at T; a copy padded with NaN
+        # past T, sliced back, must give the same bits)
+        big = [torch.full((b, 128, h, dh), float("nan"), device=dev,
+                          dtype=dtype) for _ in range(3)]
+        for x, y in zip(big, (q, k, v)):
+            x[:, :t] = y.transpose(1, 2)
+        views = [x[:, :t].transpose(1, 2) for x in big]
+        assert torch.equal(fa.flash_attention(*views, mask), got)
+
+
+# ------------------------------------------------------ bf16 similarity
+
+@pytest.mark.parametrize("b,n,d", [(1, 4096, 384), (1, 3939, 384),
+                                   (1, 130, 72), (3, 77, 30), (256, 64, 384),
+                                   (200, 128, 384)])
+def test_similarity_bf16_matches_plain(dev, b, n, d):
+    """bf16 input widened to f32 on load: on integer rows (exact in bf16,
+    sums exact in f32) bit-equal to the plain version of the same input."""
+    E = _grid((b, n, d), 62, dev)
+    E[-1, n - n // 3:] = 0.0
+    launches = sim.SIM_BF16_LAUNCHES, sim.SIM_LAUNCHES
+    S = sim.similarity_matrix(E)
+    torch.cuda.synchronize()
+    assert (sim.SIM_BF16_LAUNCHES, sim.SIM_LAUNCHES) == (launches[0] + 1,
+                                                         launches[1])
+    assert S.shape == (b, n, n) and S.dtype == torch.float32
+    assert torch.equal(S, sim.similarity_matrix_plain(E))
+    assert torch.equal(S, S.transpose(1, 2))
+    assert torch.equal(S[0], sim.similarity_matrix(E[0]))
+
+
+def test_similarity_bf16_on_unit_rows(dev):
+    g = torch.Generator(device=dev).manual_seed(63)
+    E = sim.l2_normalize(torch.randn((3, 700, 384), generator=g,
+                                     device=dev)).bfloat16()
+    S = sim.similarity_matrix(E)
+    err = float((S - sim.similarity_matrix_plain(E)).abs().max())
+    assert err <= 384 * 2.0 ** -24
+    assert torch.equal(S, S.transpose(1, 2))
+    assert torch.equal(S, sim.similarity_matrix(E))
+
+
 @pytest.mark.parametrize("b,n,d", [
     (1, 4096, 384),   # the long-document bucket: wide tiles
     (1, 3939, 384),   # n not a multiple of the tile nor of 4
@@ -494,26 +773,98 @@ def test_batched_signals_on_cuda_match_cpu(dev):
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
-    x = torch.zeros((4, 64), device=dev)  # float32: no kernel takes it
+    """What the kernels still refuse raises, and nothing is launched:
+    float64 operands, a bf16 tensor sent to the int8 wrapper, k past 2048,
+    head widths past 128, a T past 128 that is not a multiple of 64, empty
+    input."""
+    x = torch.zeros((4, 64), device=dev, dtype=torch.float64)
+    launches = (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
+                topk.SEGTOPK_OVERLAP_LAUNCHES, topk.SEGTOPK_INT8_LAUNCHES,
+                topk.TOPK_FUSED_LAUNCHES, topk.TOPK_FUSED_F32_LAUNCHES,
+                fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES, sim.SIM_LAUNCHES,
+                sim.SIM_BF16_LAUNCHES)
     with pytest.raises(NotImplementedError):
         topk.segtopk_pass_a(x, x, 4, 1, 2)
     with pytest.raises(NotImplementedError):
+        topk.segtopk_pass_a_overlap(x, x, 4, 1, 2)
+    with pytest.raises(NotImplementedError):
         topk.topk_scores_fused(x, x, 2)
+    with pytest.raises(NotImplementedError):
+        topk.segtopk_pass_a(x.float(), x.bfloat16(), 4, 1, 2)
     with pytest.raises(NotImplementedError):
         topk.segtopk_pass_a_int8(x.bfloat16(), x.bfloat16(), 4, 1, 2)
     with pytest.raises(ValueError, match="2048"):
         topk.topk_scores_fused(x.bfloat16(), x.bfloat16(), 2049)
-    y = torch.zeros((1, 1, 64, 32), device=dev)
+    with pytest.raises(ValueError, match="2048"):
+        topk.topk_scores_fused(x.float(), x.float(), 2049)
+    y = torch.zeros((1, 1, 64, 32), device=dev, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         fa.flash_attention(y, y, y, torch.ones((1, 64), device=dev))
-    z = torch.zeros((1, 1, 96, 32), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        fa.flash_attention(z, z, z, torch.ones((1, 96), device=dev))
-    launches = sim.SIM_LAUNCHES
-    with pytest.raises(NotImplementedError, match="float32"):
-        sim.similarity_matrix(x.bfloat16())
-    with pytest.raises(NotImplementedError, match="float32"):
-        sim.similarity_matrix(x.double())
+    for dtype in (torch.bfloat16, torch.float32):
+        wide = torch.zeros((1, 1, 64, 136), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="136"):
+            fa.flash_attention(wide, wide, wide, torch.ones((1, 64), device=dev))
+        ragged = torch.zeros((1, 1, 160, 32), device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            fa.flash_attention(ragged, ragged, ragged,
+                               torch.ones((1, 160), device=dev))
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        sim.similarity_matrix(x)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        sim.similarity_matrix(x.half())
     with pytest.raises(ValueError, match="empty"):
-        sim.similarity_matrix(x[:0])
-    assert sim.SIM_LAUNCHES == launches
+        sim.similarity_matrix(x[:0].float())
+    with pytest.raises(ValueError, match="empty"):
+        sim.similarity_matrix(x[:0].bfloat16())
+    assert launches == (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
+                        topk.SEGTOPK_OVERLAP_LAUNCHES,
+                        topk.SEGTOPK_INT8_LAUNCHES, topk.TOPK_FUSED_LAUNCHES,
+                        topk.TOPK_FUSED_F32_LAUNCHES, fa.FLASH_LAUNCHES,
+                        fa.FLASH_F32_LAUNCHES, sim.SIM_LAUNCHES,
+                        sim.SIM_BF16_LAUNCHES)
+
+
+def test_wrappers_take_what_they_refused(dev):
+    """The refusals the kernels no longer make, each a parity case against
+    its plain version, counted on its own launch counter: f32 pass A (both
+    wrappers) and f32 fused top-k, f32 flash, flash at T = 96, bf16
+    similarity, int8 pass A at D = 72."""
+    x = _grid((4, 64), 40, dev, torch.float32)
+    before = topk.SEGTOPK_F32_LAUNCHES, topk.SEGTOPK_OVERLAP_F32_LAUNCHES
+    for wrapper in (topk.segtopk_pass_a, topk.segtopk_pass_a_overlap):
+        kv, ki = wrapper(x, x, 4, 1, 2)
+        pv, pi = topk.segtopk_pass_a_plain(x, x, 4, 1, 2)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert (topk.SEGTOPK_F32_LAUNCHES, topk.SEGTOPK_OVERLAP_F32_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    launches = topk.TOPK_FUSED_F32_LAUNCHES
+    kv, ki = topk.topk_scores_fused(x, x, 2)
+    pv, pi = topk.topk_scores_fused_plain(x, x, 2)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert topk.TOPK_FUSED_F32_LAUNCHES == launches + 1
+    g = torch.Generator(device=dev).manual_seed(41)
+    y = torch.randn((1, 1, 64, 32), generator=g, device=dev)
+    launches = fa.FLASH_F32_LAUNCHES
+    got = fa.flash_attention(y, y, y, torch.ones((1, 64), device=dev))
+    assert fa.FLASH_F32_LAUNCHES == launches + 1
+    np.testing.assert_allclose(
+        got.cpu().numpy(), fa.flash_attention_plain(
+            y, y, y, torch.ones((1, 64), device=dev)).cpu().numpy(),
+        rtol=2e-5, atol=2e-5)
+    z = torch.randn((1, 1, 96, 32), generator=g, device=dev).bfloat16()
+    launches = fa.FLASH_LAUNCHES
+    got = fa.flash_attention(z, z, z, torch.ones((1, 96), device=dev))
+    assert fa.FLASH_LAUNCHES == launches + 1
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), fa.flash_attention_plain(
+            z, z, z, torch.ones((1, 96), device=dev)).float().cpu().numpy(),
+        rtol=0, atol=1e-2)
+    launches = sim.SIM_BF16_LAUNCHES
+    E = x.bfloat16()
+    assert torch.equal(sim.similarity_matrix(E), sim.similarity_matrix_plain(E))
+    assert sim.SIM_BF16_LAUNCHES == launches + 1
+    Q8, C8 = _grid((5, 72), 42, dev, torch.int8), _grid((700, 72), 43, dev,
+                                                         torch.int8)
+    kv, ki = topk.segtopk_pass_a_int8(Q8, C8, 700, 8, 20)
+    pv, pi = topk.segtopk_pass_a_int8_plain(Q8, C8, 700, 8, 20)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)

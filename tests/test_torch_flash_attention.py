@@ -99,3 +99,62 @@ def test_flash_transposed_views_match_jax(rng, b, h, t, dh, rows):
                                torch.from_numpy(mask))
     np.testing.assert_array_equal(got.numpy(), same.numpy())
     assert tfa.FLASH_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("b,h,t,dh", [
+    (2, 8, 96, 48),   # hidden 384 over 8 heads at max_len 96
+    (3, 2, 32, 24),
+    (2, 3, 128, 80),
+    (1, 2, 100, 20),  # a T the JAX kernel takes as one block
+])
+def test_flash_padded_heads_match_jax(rng, monkeypatch, b, h, t, dh):
+    """A head width the kernel lacks goes through the pad-and-slice route
+    on the CPU too: the plain version sees q, k, v padded with zero columns
+    to the next of 16/32/64/128 and the real width's scale, and the sliced
+    result equals JAX's kernel in interpret mode (2e-5)."""
+    q, k, v = (rng.standard_normal((b, t, h, dh)).astype(np.float32)
+               for _ in range(3))
+    mask = np.ones((b, t), np.float32)
+    mask[0, t - t // 3:] = 0.0
+    mask[-1, :] = 0.0  # every key masked: the mean of V
+    want = jflash(*(jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+                    for x in (q, k, v)), jnp.asarray(mask), 128, 128, True)
+    seen = []
+    plain = tfa.flash_attention_plain
+
+    def spy(q_, k_, v_, mask_, scale=None):
+        seen.append((q_.shape[-1], scale))
+        return plain(q_, k_, v_, mask_, scale)
+
+    monkeypatch.setattr(tfa, "flash_attention_plain", spy)
+    views = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)]
+    got = tfa.flash_attention(*views, torch.from_numpy(mask))
+    width = next(w for w in (16, 32, 64, 128) if w >= dh)
+    assert seen == [(width, 1.0 / np.sqrt(dh))]
+    assert got.shape == (b, h, t, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    assert tfa.FLASH_LAUNCHES == tfa.FLASH_F32_LAUNCHES == 0
+
+
+def test_flash_kernel_head_dims():
+    assert [tfa._kernel_head_dim(d) for d in (1, 16, 17, 32, 48, 64, 65, 80,
+                                             128)] == [16, 16, 32, 32, 64, 64,
+                                                       128, 128, 128]
+    with pytest.raises(ValueError, match="129"):
+        tfa._kernel_head_dim(129)
+
+
+def test_flash_wide_heads_on_the_cpu_take_the_plain_version(rng):
+    """Past 128 the kernel has no width, but a CPU tensor computes the plain
+    version as it always did (the card raises)."""
+    q, k, v = (rng.standard_normal((1, 2, 64, 136)).astype(np.float32)
+               for _ in range(3))
+    mask = np.ones((1, 64), np.float32)
+    want = jflash(*(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(mask),
+                  64, 64, True)
+    got = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+

@@ -488,3 +488,128 @@ def test_pass_a_phase_stats(offset, shared):
     assert st["epilogue_share"] == pytest.approx([0.2, 0.2])
     assert st["wg1_behind_tiles"] == pytest.approx([offset] * 3)
     assert st["both_in_epilogue_share"] == pytest.approx(shared)
+
+
+# -------------------------------------- narrow widths: int8 padding, f32
+
+@pytest.mark.parametrize("d", [72, 100])
+def test_twopass_int8_at_unpadded_widths_matches_jax(rng, d):
+    """A width that is not a multiple of 16: the port quantizes straight
+    into a 16-column multiple (zero columns change no product) and must
+    still give the JAX function's results."""
+    Q = _unit(rng, (6, d))
+    C = _unit(rng, (700, d))
+    j, t = _both_twopass(Q, C, k=7, block_n=256, pass_a_int8=True)
+    _assert_same(j, t)
+    j, t = _both_twopass(Q, C, single_copy=True, k=7, block_n=256,
+                         pass_a_int8=True)
+    _assert_same(j, t)
+    assert ttopk.SEGTOPK_INT8_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("d", [72, 100])
+def test_int8_quantizers_pad_to_width(rng, d):
+    """Quantized into a wider tensor: the same values as the JAX
+    quantizers' in the first d columns, zeros past them, one copy."""
+    X = rng.standard_normal((300, d)).astype(np.float32)
+    w = -(-d // 16) * 16
+    tq, ts = ttopk.quantize_int8_global(torch.from_numpy(X), w)
+    jq, js = jtopk.quantize_int8_global(jnp.asarray(X))
+    assert tq.shape == (300, w) and tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy()[:, :d], np.asarray(jq))
+    assert not tq.numpy()[:, d:].any()
+    np.testing.assert_allclose(float(ts), float(js), rtol=1e-7)
+    rows = ttopk._quantize_rows_int8(torch.from_numpy(X), w)
+    np.testing.assert_array_equal(
+        rows.numpy()[:, :d],
+        ttopk._quantize_rows_int8(torch.from_numpy(X)).numpy())
+    assert not rows.numpy()[:, d:].any()
+    swz = ttopk.swizzle_corpus(torch.from_numpy(X), 256)
+    nat = ttopk._unswizzle(swz, 256, w)
+    assert nat.shape == (swz.shape[0], w)
+    np.testing.assert_array_equal(nat.numpy()[:300, :d], X)
+    assert not nat.numpy()[:, d:].any() and not nat.numpy()[300:].any()
+
+
+@pytest.mark.parametrize("mode", [{}, {"mxu_overlap": True}])
+@pytest.mark.parametrize("d", [72, 100])
+def test_twopass_f32_at_narrow_widths_matches_jax(rng, d, mode):
+    """An f32 index at widths the f32 schedule takes and bf16 would not
+    (100 is no multiple of 8), in the default and overlap modes."""
+    Q = rng.standard_normal((6, d)).astype(np.float32)
+    C = rng.standard_normal((700, d)).astype(np.float32)
+    j, t = _both_twopass(Q, C, k=7, block_n=256, **mode)
+    _assert_same(j, t)
+    assert ttopk.SEGTOPK_F32_LAUNCHES == ttopk.SEGTOPK_OVERLAP_F32_LAUNCHES == 0
+
+
+# the int8 schedule's plan: pass_a_plan's tiles on one-byte operands
+_INT8_PLAN_D = [16, 80, 384, 768, 1024, 2048]
+
+
+@pytest.mark.parametrize("k_sel", [1, 16, 41, 128])
+@pytest.mark.parametrize("d", _INT8_PLAN_D)
+@pytest.mark.parametrize("q", _PLAN_Q)
+def test_pass_a_int8_plan_fits(q, d, k_sel):
+    for n, seg_rows in [(100, 8), (20000, 32), (1_250_000, 32), (5000, 256)]:
+        n_segs = -(-n // seg_rows)
+        plan = ttopk.pass_a_int8_plan(q, d, k_sel, n_segs, seg_rows)
+        _check_tile(plan, q, ttopk.pass_a_smem_bytes(
+            plan["bq"], d, plan["stages"], k_sel, elem=1))
+        # a query row takes whole 128-byte chunks: d int8 columns, half of
+        # the same width in bf16
+        assert plan["smem"] <= ttopk.pass_a_smem_bytes(
+            plan["bq"], d, plan["stages"], k_sel)
+        unit = max(128, seg_rows)
+        n_units = -(-(n_segs * seg_rows) // unit)
+        per = -(-n_units // plan["n_splits"])
+        assert (plan["n_splits"] - 1) * per < n_units
+        assert plan["n_splits"] == ttopk._segment_splits(
+            -(-q // plan["bq"]), n_segs, seg_rows, 132)
+    # the shard shape: 128 query rows a CTA on four stages
+    if d == 384 and k_sel <= 41 and q > 64:
+        assert plan["bq"] == 128 and plan["stages"] == 4
+
+
+@pytest.mark.parametrize("k_sel", [1, 16, 41, 128])
+def test_pass_a_int8_plan_raises_exactly_past_its_widest_d(k_sel):
+    widest = ttopk.pass_a_max_d(k_sel, 1)
+    assert widest >= 2 * ttopk.pass_a_max_d(k_sel) - 64 and widest % 64 == 0
+    for q in _PLAN_Q:
+        ttopk.pass_a_int8_plan(q, widest, k_sel, 1000, 32)
+        with pytest.raises(ValueError, match=f"int8.*widths up to {widest}"):
+            ttopk.pass_a_int8_plan(q, widest + 16, k_sel, 1000, 32)
+    assert ttopk.pass_a_smem_bytes(64, widest + 64, 2, k_sel, 1) > \
+        ttopk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+@pytest.mark.parametrize("seg_rows", [1, 2, 4, 8, 32, 128, 256])
+def test_pass_a_f32_plan_fits_at_any_width(k_sel, seg_rows):
+    """The f32 schedule: 64 query rows a CTA, shared memory independent of
+    the width (so no widest width), splits of whole segments and tiles as
+    for the wgmma schedules."""
+    for q in _PLAN_Q:
+        plans = [ttopk.pass_a_f32_plan(q, d, k_sel, 40000 // seg_rows + 1,
+                                       seg_rows) for d in (8, 100, 384, 4096)]
+        assert all(p == plans[0] for p in plans)
+        plan = plans[0]
+        assert plan["bq"] == 64 and plan["smem"] <= ttopk.SMEM_LIMIT
+        assert plan["smem"] == ttopk.pass_a_f32_smem_bytes(k_sel, seg_rows)
+        assert plan["n_splits"] == ttopk._segment_splits(
+            -(-q // 64), 40000 // seg_rows + 1, seg_rows, 132)
+
+
+@pytest.mark.parametrize("k", [1, 128, 200, 2048])
+@pytest.mark.parametrize("q", _PLAN_Q)
+def test_fused_f32_plan_keeps_splits_at_4k_rows(q, k):
+    for vn in (0, 100, 20011, 22000, 1_250_000):
+        plan = ttopk.fused_f32_plan(q, 100, k, vn)
+        assert plan == ttopk.fused_f32_plan(q, 4096, k, vn)
+        assert plan["bq"] == 64 and plan["smem"] == ttopk.FUSED_F32_SMEM
+        assert plan["smem"] <= ttopk.SMEM_LIMIT
+        assert plan["cap"] == 2 * k + 128
+        assert plan["scratch"] == plan["n_splits"] * q * (plan["cap"] * 8 + 4)
+        if plan["n_splits"] > 1:
+            rows = -(-(-(-vn // 128)) // plan["n_splits"]) * 128
+            assert rows >= 4 * k and vn - (plan["n_splits"] - 1) * rows >= 4 * k

@@ -108,3 +108,22 @@ def test_fused_k_limit():
         ttopk.topk_scores_fused(x, x, 4, valid_n=3)
     v, i = ttopk.topk_scores_fused(x, x, ttopk.FUSED_MAX_K)
     assert v.shape == i.shape == (2, ttopk.FUSED_MAX_K)
+
+
+@pytest.mark.parametrize("d", [72, 100])
+@pytest.mark.parametrize("integer", [True, False])
+def test_fused_f32_at_narrow_widths_matches_jax(rng, d, integer):
+    """f32 operands at widths the f32 schedule takes and the bf16 kernel
+    would not (100 is no multiple of 8)."""
+    if integer:
+        Q = rng.integers(-8, 9, size=(5, d)).astype(np.float32)
+        C = rng.integers(-8, 9, size=(700, d)).astype(np.float32)
+        C[350:] = C[:350]  # every score twice: ties across the corpus
+    else:
+        Q = rng.standard_normal((5, d)).astype(np.float32)
+        C = rng.standard_normal((700, d)).astype(np.float32)
+    j = _jax_fused(Q, C, 130)
+    tv, ti = ttopk.topk_scores_fused(torch.from_numpy(Q), torch.from_numpy(C),
+                                     130)
+    _assert_same(j, (tv.numpy(), ti.numpy()), integer)
+    assert ttopk.TOPK_FUSED_F32_LAUNCHES == 0
