@@ -6,11 +6,13 @@
 Builds the Hopper kernels from ``semanticsearch_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, every schedule (bf16,
 overlap, int8 and f32 pass A, bf16 and f32 fused top-k, bf16/fp16 and f32
-flash at any T and padded head widths, f32 and bf16 similarity) (phase 2),
+flash at any T and every head width, f32 and bf16 similarity, stacked
+short documents and padded widths included) (phase 2),
 serves hybrid queries end to end through ``HybridQueryEngine`` at the
 default encoder's full width (phase 3), times every kernel at the per-chip
 shard size of 1,250,000 x 384 bf16, pass A also at the serve shape and the
-fused top-k at the live-search shape (phase 4), and serves deep candidate
+fused top-k at the live-search shape, flash also at head widths 256 and
+320 (phase 4), and serves deep candidate
 lists over a live index: adds, removals, a 10,000-query search through the
 fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
 600-document corpus with one document of 3,939 sentences through
@@ -50,9 +52,10 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores,
-# f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16, TF32 and int8 tensor
+# cores, f32 outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -549,6 +552,44 @@ def phase_kernels(report):
               f"flash in {dtype} at T = 32, 96, 128, 192 and Dh = 24, 48, 80 "
               f"(B=4 H=12) vs plain: worst error {worst:.3f} of its bound "
               "(f32: 2e-5 + 2e-5 |o|; bf16/fp16: 2e-2 max(|o|, 0.5))")
+    # head widths past 128, as the JAX kernel takes them: 192 padded to the
+    # 256-wide instantiation, 256, and 320 on the wide path (128 columns of
+    # V and O a CTA); dead key blocks with NaN in them change no bit
+    for dtype in (bf16, torch.float32):
+        worst, same = 0.0, True
+        for t in (96, 256):
+            for dh in (192, 256, 320):
+                qkv = [torch.randn((4, t, 6, dh), generator=gen, device=dev)
+                       .to(dtype).transpose(1, 2) for _ in range(3)]
+                lens = torch.randint(t // 2, t + 1, (4,), generator=gen,
+                                     device=dev)
+                mask = (torch.arange(t, device=dev)[None, :]
+                        < lens[:, None]).float()
+                mask[1, :] = 0.0
+                if t == 256:
+                    mask[2, 40:t - 64] = 0.0  # dead blocks between live ones
+                out = fa.flash_attention(*qkv, mask)
+                got = out.float()
+                want = fa.flash_attention_plain(*qkv, mask).float()
+                same &= torch.equal(out, fa.flash_attention(
+                    qkv[0], nan_in_skipped_blocks(qkv[1], mask),
+                    nan_in_skipped_blocks(qkv[2], mask), mask))
+                if dtype == torch.float32:
+                    f32_fl_err = max(f32_fl_err,
+                                     float((got - want).abs().max()))
+                    worst = max(worst, float(((got - want).abs()
+                                              / (2e-5 + 2e-5 * want.abs()))
+                                             .max()))
+                else:
+                    fl_err = max(fl_err, float((got - want).abs().max()))
+                    worst = max(worst, float(((got - want).abs()
+                                              / want.abs().clamp(min=0.5))
+                                             .max()) / 2e-2)
+        check(worst <= 1.0 and same,
+              f"flash in {dtype} at Dh = 192, 256, 320 and T = 96, 256 (B=4 "
+              f"H=6) vs plain: worst error {worst:.3f} of its bound (f32: "
+              "2e-5 + 2e-5 |o|; bf16: 2e-2 max(|o|, 0.5)); NaN in the "
+              "skipped blocks changes no bit")
     report["flash"]["max_abs_err"] = fl_err
     report["flash_f32"]["max_abs_err"] = f32_fl_err
 
@@ -575,6 +616,26 @@ def phase_kernels(report):
               and torch.equal(S, again),
               f"similarity kernel == plain bit for bit, S == S^T, two "
               f"launches identical; {what}: B={b} n={n} d={d}")
+    # documents of 8-64 rows stacked 128 / n to a tile (the last tile
+    # part-full), the triangle's edge inside a tile (n = 63, 65, 129), and
+    # widths padded to whole 16-byte rows by one copy, on f32 and bf16
+    # input: bit for bit, each document the same alone as in its batch
+    for b, n, d in [(37, 8, 384), (21, 16, 384), (9, 32, 384), (5, 64, 384),
+                    (3, 63, 384), (3, 65, 384), (2, 129, 384), (3, 150, 77),
+                    (3, 150, 100)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            E = _int_grid((b, n, d), gen, dtype)
+            S = sim.similarity_matrix(E)
+            alone = all(torch.equal(sim.similarity_matrix(E[i]), S[i])
+                        for i in (0, b // 2, b - 1))
+            plan = sim.similarity_plan(b, n, d, dtype)
+            torch.cuda.synchronize()
+            check(torch.equal(S, sim.similarity_matrix_plain(E))
+                  and torch.equal(S, S.transpose(1, 2)) and alone,
+                  f"similarity kernel == plain bit for bit, S == S^T, alone "
+                  f"== in the batch; {dtype}, B={b} n={n} d={d} "
+                  f"({plan['docs_per_tile']} documents a tile, "
+                  f"{plan['ctas']} CTAs, {plan['col_pad']} columns padded)")
     sim_err = 0.0
     for b, n in [(1, 3939), (256, 64)]:
         E = sim.l2_normalize(torch.randn((b, n, 384), generator=gen,
@@ -582,12 +643,14 @@ def phase_kernels(report):
         S = sim.similarity_matrix(E)
         err = float((S - sim.similarity_matrix_plain(E)).abs().max())
         sim_err = max(sim_err, err)
+        alone = torch.equal(sim.similarity_matrix(E[-1]), S[-1])
         check(err <= 1e-5 and torch.equal(S, S.transpose(1, 2))
-              and torch.equal(S, sim.similarity_matrix(E)),
+              and torch.equal(S, sim.similarity_matrix(E)) and alone,
               f"similarity kernel vs plain on unit rows, B={b} n={n} d=384: "
-              f"max abs err {err:.3e} <= 1e-5 (two orders of summing 384 f32 "
-              "products of total size <= 1, each rounding <= 6e-8); "
-              "bit-symmetric and bit-reproducible")
+              f"max abs err {err:.3e} <= 1e-5 (the 3xTF32 split drops 2^-22 "
+              "of each product; the two accumulators round a few ulps of "
+              "sums of size <= 1); bit-symmetric, bit-reproducible, a "
+              "document alone == in its batch")
     report["similarity"]["max_abs_err"] = sim_err
 
     # bf16 input, widened to f32 as it is loaded: bit-equal to the plain
@@ -821,12 +884,16 @@ def phase_dense(report):
     seg["serve_ms"] = (serve[0] + serve[3]) / 2
     ov["serve_ms"] = (serve[1] + serve[2]) / 2
     seg["serve_library_ms"] = time_ms(lambda: torch.matmul(qs, cs.T), reps=50)
+    seg["serve_bound_ms"], seg["serve_bound_by"] = bound_ms(
+        2.0 * 64 * 20000 * d, 2.0 * (64 + 20000) * d + 8.0 * 64 * 41)
+    ov["serve_bound_ms"] = seg["serve_bound_ms"]
     log(f"  pass B alone: {seg['pass_b_ms']:.2f} ms per {q} queries; pass A at "
         f"the serve shape (64 x 20,000, k_sel 41): kernel "
         f"{seg['serve_ms']:.4f} ms, overlap schedule (one warpgroup) "
         f"{ov['serve_ms']:.4f} ms (turns "
         f"{', '.join(f'{t:.4f}' for t in serve)}), bf16 torch.matmul "
-        f"{seg['serve_library_ms']:.4f} ms")
+        f"{seg['serve_library_ms']:.4f} ms, bound "
+        f"{seg['serve_bound_ms']:.4f} ms ({seg['serve_bound_by']})")
 
     # int8 pass A, driven through topk_scores_twopass(pass_a_int8=True)
     i8 = report["segtopk_int8"]
@@ -905,9 +972,12 @@ def phase_dense(report):
     ql, cl = queries[:10000], corpus[:22000]
     fu["live_ms"] = time_ms(lambda: topk.topk_scores_fused(ql, cl, kf), reps=5)
     fu["live_library_ms"] = time_ms(lambda: torch.matmul(ql, cl.T), reps=5)
+    fu["live_bound_ms"], fu["live_bound_by"] = bound_ms(
+        2.0 * 10000 * 22000 * d, 2.0 * (10000 + 22000) * d + 8.0 * 10000 * kf)
     log(f"  fused top-{kf} at the live shape (10,000 x 22,000): kernel "
         f"{fu['live_ms']:.3f} ms, bf16 torch.matmul "
-        f"{fu['live_library_ms']:.3f} ms")
+        f"{fu['live_library_ms']:.3f} ms, bound {fu['live_bound_ms']:.3f} ms "
+        f"({fu['live_bound_by']})")
 
     # flash on the encoder's transposed views of (B, T, H, Dh) tensors: the
     # serve shape (256 chunks of 40-256 tokens), T = 1024 (the "auto" rule's
@@ -937,12 +1007,40 @@ def phase_dense(report):
             f"ms, SDPA {fl[which + 'library_ms']:.4f} ms, bound "
             f"{fl[which + 'bound_ms']:.4f} ms ({fl[which + 'bound_by']}, the "
             "real keys)")
+    # head widths past 128 (no configuration of the repo has one): 256 and
+    # 320 (the wide path) at B=64 H=8 T=256, 40-256 real keys, bf16 and f32
+    for entry, dtype, peak, size in (
+            (fl, torch.bfloat16, PEAK_BF16_FLOPS, 2),
+            (report["flash_f32"], torch.float32, PEAK_F32_FLOPS, 4)):
+        for width in (256, 320):
+            b, t, hw, key = 64, 256, 8, f"dh{width}_"
+            qkv = [torch.randn((b, t, hw, width), generator=gen)
+                   .to("cuda", dtype).transpose(1, 2) for _ in range(3)]
+            lengths = torch.randint(40, t + 1, (b,), generator=gen)
+            mask = (torch.arange(t)[None, :]
+                    < lengths[:, None]).float().to("cuda")
+            bool_mask = mask.bool()[:, None, None, :]
+            entry[key + "ms"] = time_ms(lambda: fa.flash_attention(*qkv, mask),
+                                        reps=10, warmup=2)
+            entry[key + "plain_ms"] = time_ms(
+                lambda: fa.flash_attention_plain(*qkv, mask), reps=3)
+            entry[key + "library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *qkv, attn_mask=bool_mask), reps=10, warmup=2)
+            entry[key + "bound_ms"], entry[key + "bound_by"] = flash_bound(
+                mask, hw, width, size, peak)
+            log(f"  flash {dtype} B={b} H={hw} T={t} Dh={width}, 40-256 real "
+                f"keys: kernel {entry[key + 'ms']:.4f} ms, plain "
+                f"{entry[key + 'plain_ms']:.3f} ms, SDPA "
+                f"{entry[key + 'library_ms']:.4f} ms, bound "
+                f"{entry[key + 'bound_ms']:.4f} ms ({entry[key + 'bound_by']})")
     fl["shape_note"] = (
         "ms, plain_ms, library_ms, bound_ms at B=256 H=12 T=256 Dh=32 with "
         "40-256 real keys; t1024_* at B=2 T=1024 (600-1000 real); chunk_* at "
-        "B=2048 T=64 (3-12 real); q, k, v transposed (B, T, H, Dh) views; "
-        "bounds count the real keys' K and V and products (a row with none "
-        "counts every key)")
+        "B=2048 T=64 (3-12 real); dh256_*, dh320_* at B=64 H=8 T=256 (40-256 "
+        "real) with Dh 256 and 320 (the wide path); q, k, v transposed "
+        "(B, T, H, Dh) views; bounds count the real keys' K and V and "
+        "products (a row with none counts every key)")
 
 
 # phase 5: chunks added to and removed from the phase-3 index, and queries
@@ -1168,7 +1266,10 @@ def _boundaries(map_tsv):
 
 def time_similarity(report):
     """The similarity kernel at SIM_SHAPES beside its plain version, the f32
-    ``torch.matmul`` and the bound (f32 FMA peak outside the tensor cores)."""
+    ``torch.matmul`` and two bounds on the same bytes: the schedule's (the
+    upper triangle's products on the tensor cores: three TF32 products a
+    term for f32 input, one bf16 product for bf16 input) and the f32 FMA
+    bound of the same products outside the tensor cores."""
     import torch
 
     from semanticsearch_tpu_torch.ops import similarity as sim
@@ -1195,22 +1296,27 @@ def time_similarity(report):
         ms, plain_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         lib_ms = time_ms(library, reps=20, warmup=3)
         # S == S^T: n(n+1)/2 dot products of width d are what the function
-        # needs; the kernel does the full square, 2 b n^2 d operations
-        bnd, by = bound_ms(1.0 * b * n * (n + 1) * d,
-                           4.0 * b * (n * d + n * n), PEAK_F32_FLOPS)
+        # needs; the kernel runs three TF32 products of each
+        nbytes = 4.0 * b * (n * d + n * n)
+        bnd, by = bound_ms(3.0 * b * n * (n + 1) * d, nbytes, PEAK_TF32_FLOPS)
+        fma, _ = bound_ms(1.0 * b * n * (n + 1) * d, nbytes, PEAK_F32_FLOPS)
         entry.update({which + "ms": ms, which + "plain_ms": plain_ms,
                       which + "library_ms": lib_ms, which + "bound_ms": bnd,
-                      which + "bound_by": by})
-        log(f"  similarity B={b} n={n} d={d}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, f32 torch.matmul {lib_ms:.3f} ms, bound "
-            f"{bnd:.3f} ms ({by}, the upper triangle's products); the "
-            f"kernel does the full square at "
-            f"{2e-9 * b * n * n * d / ms:.1f} TFLOP/s")
+                      which + "bound_by": by, which + "fma_bound_ms": fma})
+        log(f"  similarity B={b} n={n} d={d}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, f32 torch.matmul {lib_ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}; 3xTF32 on the upper triangle), f32 FMA "
+            f"bound {fma:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns)})")
     entry["shape_note"] = (
         "ms, plain_ms, bound_ms, library_ms at B=1, n=4096 (3,939 real "
-        "rows), d=384; batched_* at B=256, n=64, d=384; bound_ms counts "
-        "B*n*(n+1)*d operations (S is symmetric); library = f32 "
+        "rows), d=384; batched_* at B=256, n=64, d=384; library = f32 "
         "torch.matmul with TF32 off")
+    entry["bound_note"] = (
+        "bound_ms: 3*B*n*(n+1)*d operations (three TF32 products of the "
+        "upper triangle's terms) at 495 TFLOP/s; fma_bound_ms: B*n*(n+1)*d "
+        "at the f32 FMA peak, 67 TFLOP/s; both against 4*B*(n*d + n^2) "
+        "bytes")
 
     # bf16 input at the same shapes; no path passes bf16, so its launches
     # are those of one direct call of the entry point
@@ -1230,18 +1336,26 @@ def time_similarity(report):
         bf[which + "library_ms"] = time_ms(
             lambda: torch.matmul(E.float(), E.float().transpose(1, 2)),
             reps=20, warmup=3)
+        nbytes = 2.0 * b * n * d + 4.0 * b * n * n
         bf[which + "bound_ms"], bf[which + "bound_by"] = bound_ms(
-            1.0 * b * n * (n + 1) * d, 2.0 * b * n * d + 4.0 * b * n * n,
-            PEAK_F32_FLOPS)
+            1.0 * b * n * (n + 1) * d, nbytes, PEAK_BF16_FLOPS)
+        bf[which + "fma_bound_ms"], _ = bound_ms(
+            1.0 * b * n * (n + 1) * d, nbytes, PEAK_F32_FLOPS)
         log(f"  similarity on bf16 input B={b} n={n} d={d}: kernel "
-            f"{bf[which + 'ms']:.3f} ms, plain {bf[which + 'plain_ms']:.3f} "
+            f"{bf[which + 'ms']:.4f} ms, plain {bf[which + 'plain_ms']:.4f} "
             f"ms, f32 torch.matmul of the widened input "
-            f"{bf[which + 'library_ms']:.3f} ms, bound "
-            f"{bf[which + 'bound_ms']:.3f} ms ({bf[which + 'bound_by']})")
+            f"{bf[which + 'library_ms']:.4f} ms, bound "
+            f"{bf[which + 'bound_ms']:.4f} ms ({bf[which + 'bound_by']}; bf16 "
+            f"wgmma on the upper triangle), f32 FMA bound "
+            f"{bf[which + 'fma_bound_ms']:.4f} ms")
     bf["shape_note"] = (
         "bf16 input (unit rows) at the f32 entry's shapes; library = f32 "
         "torch.matmul of the input widened to f32 (the widening included); "
         "launches = one direct call at (1, 4096, 384): no path passes bf16")
+    bf["bound_note"] = (
+        "bound_ms: B*n*(n+1)*d operations (one bf16 product of the upper "
+        "triangle's terms) at 989 TFLOP/s; fma_bound_ms: the same at 67 "
+        "TFLOP/s; both against 2*B*n*d + 4*B*n^2 bytes")
 
 
 def phase_chunk(report, ctx):
@@ -1717,8 +1831,9 @@ def phase_f32(report, ctx):
     fl["shape_note"] = (
         "f32 q, k, v; ms, plain_ms, library_ms, bound_ms at B=256 H=12 T=256 "
         "Dh=32 with 40-256 real keys; t1024_* at B=2 T=1024; chunk_* at "
-        "B=2048 T=64 (3-12 real); library = f32 SDPA (TF32 off); bounds at "
-        "f32 67 TFLOP/s")
+        "B=2048 T=64 (3-12 real); dh256_*, dh320_* (timed in phase 4) at "
+        "B=64 H=8 T=256 (40-256 real) with Dh 256 and 320 (the wide path); "
+        "library = f32 SDPA (TF32 off); bounds at f32 67 TFLOP/s")
 
     # a head width the kernel lacks: hidden 384 over 8 heads (Dh 48), bf16,
     # padded to 64 columns on each call; the three pads timed alone
@@ -1801,10 +1916,14 @@ def main() -> int:
         return 1
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    notes = ("plain_note", "library_note", "shape_note", "pass_b_ms",
-             "serve_ms", "serve_library_ms", "live_ms", "live_library_ms",
-             "dh48_ms", "dh48_pad_ms",
+    notes = ("plain_note", "library_note", "shape_note", "bound_note",
+             "pass_b_ms", "serve_ms", "serve_library_ms", "serve_bound_ms",
+             "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
+             "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk")
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "fma_bound_ms")),
+             *(f"dh{w}_{key}" for w in (256, 320)
                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms")))
     kernels = [{**{key: report[k][key] for key in keys},

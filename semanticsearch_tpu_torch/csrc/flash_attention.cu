@@ -5,12 +5,13 @@
 //
 // What it computes. q, k, v (B, H, T, Dh) in bf16, fp16 or f32, mask (B, T)
 // f32 with 1 = real key; T at most 128 or a multiple of 64, Dh one of 16,
-// 32, 64, 128 (the wrapper pads other head widths up to 128 with zero
-// columns). Scores s = (q.k) / sqrt(Dh) in f32; a masked key scores
-// the finite -1e30 (not -inf), so a query whose keys are all masked gets the
-// mean of V, as the TPU kernel and the plain reference do. Online softmax
-// over KV blocks with the (m, l, acc) recurrence in f32; out = acc / max(l,
-// 1e-30), written in q's dtype.
+// 32, 64, 128, 256 (the wrapper pads other head widths up to 256 with zero
+// columns) or a multiple of 8 above 256 (the wide path at the end).
+// Scores s = (q.k) / sqrt(Dh) in f32; a masked key scores the finite -1e30
+// (not -inf), so a query whose keys are all masked gets the mean of V, as
+// the TPU kernel and the plain reference do. Online softmax over KV blocks
+// with the (m, l, acc) recurrence in f32; out = acc / max(l, 1e-30),
+// written in q's dtype.
 //
 // What bounds it on this card. 4*B*H*T^2*Dh operations against 8*B*H*T*Dh
 // bytes of q, k, v and o: T/2 operations per byte. At the encoder's T = 64
@@ -156,18 +157,25 @@ __device__ __forceinline__ void cp_async_wait() {
 // Shared memory: NST Q tiles (bq rows each, by head), NST stages of K and V
 // (64 rows each) and of the mask (64 f32), per key block a flag and the list
 // of live blocks (T/64 ints each). Rows are Dh + 8 elements apart, so the
-// eight 16-byte rows an ldmatrix reads fall on different banks.
-constexpr int NST = 3;  // ring stages: two blocks' copies in flight under one's products
+// eight 16-byte rows an ldmatrix reads fall on different banks. Ring stages:
+// three (two blocks' copies in flight under one's products) up to Dh = 128;
+// two at Dh = 256, where three would not fit.
+__host__ __device__ constexpr int ring_stages(int dh) { return dh <= 128 ? 3 : 2; }
 __host__ __device__ constexpr int row_ld(int dh) { return dh + 8; }
 __host__ __device__ inline size_t smem_bytes(int dh, int bq, int nkb) {
-  return (size_t)NST * (bq + 2 * BKV) * row_ld(dh) * 2 + NST * BKV * 4 + (size_t)nkb * 8;
+  const int nst = ring_stages(dh);
+  return (size_t)nst * (bq + 2 * BKV) * row_ld(dh) * 2 + nst * BKV * 4 + (size_t)nkb * 8;
 }
 
 // TAIL: T is not a multiple of 64 (then below 128, NW = 4): zero-filled
 // tail rows, keys at or past T at -inf, the mask read a key at a time.
+// Dh = 256 keeps Q's fragments in shared memory and loads them a key block
+// at a time: in registers they would take 64 more a thread beside O's 128.
 template <int DH, typename T, int NW, bool TAIL>
 __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
   constexpr int BQ = NW * 16, LD = row_ld(DH), CH = DH / 8, NT = NW * 32;
+  constexpr int NST = ring_stages(DH);
+  constexpr bool Q_IN_REGS = DH <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);  // [NST][BQ][LD], head hi in hi % NST
   T* k_s = q_s + NST * BQ * LD;         // [NST][BKV][LD]
@@ -264,7 +272,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     cp_async_commit();
   }
 
-  uint32_t qa[DH / 16][4];  // Q's A fragments, this warp's 16 rows
+  uint32_t qa[Q_IN_REGS ? DH / 16 : 1][4];  // Q's A fragments, this warp's 16 rows
   float o[DH / 8][4];       // O: rows g and g + 8, columns 8d + 2tg + {0, 1}
   float m0 = NEG_INF, m1 = NEG_INF;  // running maxima of rows g, g + 8 (log2 units)
   float l0 = 0.0f, l1 = 0.0f;        // this thread's part of the running sums
@@ -277,9 +285,11 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     cp_async_commit();
     T* qs = q_s + (hi % NST) * BQ * LD;
     if (j == 0) {  // a new head: its Q fragments, fresh statistics
+      if constexpr (Q_IN_REGS) {
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        ldsm_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < DH / 16; ++kk)
+          ldsm_x4(qa[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
       m0 = m1 = NEG_INF;
@@ -295,13 +305,16 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     for (int jj = 0; jj < 8; ++jj) s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
+      const int qk = Q_IN_REGS ? kk : 0;
+      if constexpr (!Q_IN_REGS)
+        ldsm_x4(qa[0], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bb[4];
         ldsm_x4(bb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
                         ((lane >> 3) & 1) * 8);
-        Mma<T>::run(s[2 * np], qa[kk], bb[0], bb[1]);
-        Mma<T>::run(s[2 * np + 1], qa[kk], bb[2], bb[3]);
+        Mma<T>::run(s[2 * np], qa[qk], bb[0], bb[1]);
+        Mma<T>::run(s[2 * np + 1], qa[qk], bb[2], bb[3]);
       }
     }
 
@@ -424,10 +437,12 @@ int launch(Args a, int B, cudaStream_t st) {
 template <int DH, typename T>
 int dispatch_rows(const Args& a, int B, cudaStream_t st) {
   // 128 query rows a CTA (8 warps) where T allows it, else 64 (4 warps);
-  // a T that is not a multiple of 64 (below 128) on the tail instantiation
+  // a T that is not a multiple of 64 (below 128) on the tail instantiation.
+  // Dh = 256 always takes 64 rows: 128 would not fit shared memory.
   if (a.Tlen % BKV) return launch<DH, T, 4, true>(a, B, st);
-  return a.Tlen % 128 == 0 ? launch<DH, T, 8, false>(a, B, st)
-                           : launch<DH, T, 4, false>(a, B, st);
+  if constexpr (DH <= 128)
+    if (a.Tlen % 128 == 0) return launch<DH, T, 8, false>(a, B, st);
+  return launch<DH, T, 4, false>(a, B, st);
 }
 
 // ------------------------------------------------------------- f32 path
@@ -646,23 +661,280 @@ int launch_f32(Args a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------- wide heads
+
+// Head widths past 256 (any multiple of 8), every input type: f32 FMAs on
+// values widened as they are loaded, one CTA of 256 threads per (b, h, 64
+// query rows, 128 columns of V and O). For each live key block the CTA takes
+// S = Q K^T over the whole of Dh, 128 columns of Q and K at a time staged in
+// shared memory (so Q is read again per key block: these widths are rare and
+// this path is about taking them at all), then the online softmax and
+// O += P V on its own 128 columns of V, as in the f32 path; masks, tails and
+// dead blocks follow the same rules. The CTAs of one (b, h, rows) compute
+// the same S and differ only in the columns of V they read and of O they
+// write. Bound by f32 FMAs (4 B H T^2 Dh at 67 TFLOP/s, and S once more per
+// column group).
+constexpr int WIDE_COLS = 128;            // columns of a Q, K or V chunk
+constexpr int WIDE_LD = WIDE_COLS + 4;    // their row stride in shared memory
+
+__host__ __device__ inline size_t wide_smem_bytes(int nkb) {
+  return (size_t)(F32_BQ + BKV) * WIDE_LD * 4 + (size_t)F32_BQ * F32_SLD * 4 +
+         (size_t)(BKV + 2 * F32_BQ) * 4 + (size_t)nkb * 8;
+}
+
+// four consecutive elements as f32 (the row is 16-byte aligned, the column a
+// multiple of 4)
+__device__ __forceinline__ float4 load4_f32(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4_f32(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4_f32(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_f32(__half* p, float v) { *p = __float2half(v); }
+
+// rows row0..row0+63 of x (zero at or past Tlen), columns c0..c0+127 (zero
+// at or past dh), as f32 into dst [64][WIDE_LD]
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, const T* x, long long st, long long row0,
+                                           int Tlen, int c0, int dh) {
+  for (int i = threadIdx.x; i < BKV * WIDE_COLS / 4; i += F32_THREADS) {
+    const int r = i / (WIDE_COLS / 4), c = (i % (WIDE_COLS / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < Tlen && c0 + c < dh) v = load4_f32(x + (row0 + r) * st + c0 + c);
+    *reinterpret_cast<float4*>(dst + r * WIDE_LD + c) = v;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(F32_THREADS) flash_wide_kernel(const Args a, int dh, int ncg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [F32_BQ][WIDE_LD]: a chunk of Q
+  float* kv_s = q_s + F32_BQ * WIDE_LD;         // [BKV][WIDE_LD]: a chunk of K, then of V
+  float* p_s = kv_s + BKV * WIDE_LD;            // [F32_BQ][F32_SLD]: S, then P
+  float* m_s = p_s + F32_BQ * F32_SLD;          // [BKV] the block's mask
+  float* al_s = m_s + BKV;                      // [F32_BQ] each row's alpha
+  float* l_s = al_s + F32_BQ;                   // [F32_BQ] each row's sum, at the end
+  int* live = reinterpret_cast<int*>(l_s + F32_BQ);  // [nkb], then flags [nkb]
+  __shared__ int n_live;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int Tlen = a.Tlen;
+  const int nkb = (Tlen + BKV - 1) / BKV;
+  int bid = blockIdx.x;
+  const int qb = bid % a.nqb;
+  bid /= a.nqb;
+  const int cg = bid % ncg;
+  bid /= ncg;
+  const int h = bid % a.H, b = bid / a.H;
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* mp = a.mask + (long long)b * Tlen;
+  const int row_base = qb * F32_BQ, col0 = cg * WIDE_COLS;
+
+  // the key blocks that hold a real key, in order; all of them if none does
+  int* flag = live + nkb;
+  for (int j = warp; j < nkb; j += F32_THREADS / 32) {
+    const int k0 = j * BKV + lane, k1 = k0 + 32;
+    const bool any = __any_sync(0xffffffffu, (k0 < Tlen && mp[k0] > 0.0f) ||
+                                                 (k1 < Tlen && mp[k1] > 0.0f));
+    if (lane == 0) flag[j] = any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nkb; base += 32) {
+      const bool f = base + lane < nkb && flag[base + lane];
+      const unsigned ballot = __ballot_sync(0xffffffffu, f);
+      if (f) live[n + __popc(ballot & ((1u << lane) - 1))] = base + lane;
+      n += __popc(ballot);
+    }
+    if (n == 0) {
+      for (int j = lane; j < nkb; j += 32) live[j] = j;
+      n = nkb;
+    }
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  const int nl = n_live;
+
+  const int srow = tid >> 2, part = tid & 3;
+  float m_run = NEG_INF, l_run = 0.0f;
+  float o[4][WIDE_COLS / 16];  // rows ty + 16i, columns col0 + tx + 16c
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < WIDE_COLS / 16; ++c) o[i][c] = 0.0f;
+
+  for (int j = 0; j < nl; ++j) {
+    const int kb = live[j];
+    if (tid < BKV) m_s[tid] = kb * BKV + tid < Tlen ? mp[kb * BKV + tid] : 0.0f;
+    // S = Q K^T over the whole of Dh, one f32 chain per score in column order
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.0f;
+    for (int c0 = 0; c0 < dh; c0 += WIDE_COLS) {
+      load_chunk(q_s, qp, a.q_st, row_base, Tlen, c0, dh);
+      load_chunk(kv_s, kp, a.k_st, (long long)kb * BKV, Tlen, c0, dh);
+      __syncthreads();
+      const int cols = dh - c0 < WIDE_COLS ? dh - c0 : WIDE_COLS;
+#pragma unroll 4
+      for (int d = 0; d < cols; d += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * WIDE_LD + d);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          kv[jj] = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * jj) * WIDE_LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
+            s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
+            s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
+            s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
+          }
+      }
+      __syncthreads();  // the chunks are rewritten next
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int key = tx + 16 * jj;
+      const bool real = m_s[key] > 0.0f, past = kb * BKV + key >= Tlen;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p_s[(ty + 16 * i) * F32_SLD + key] =
+            past ? -INFINITY : (real ? s[i][jj] * a.scale_log2 : NEG_INF);
+    }
+    // this CTA's columns of the block's V go in while the softmax runs
+    load_chunk(kv_s, vp, a.v_st, (long long)kb * BKV, Tlen, col0, dh);
+    __syncthreads();
+
+    // online softmax: four threads a row, sixteen keys each
+    {
+      float* pr = p_s + srow * F32_SLD + part * 16;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) mx = fmaxf(mx, pr[e]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m_run, mx);
+      const float al = exp2f(m_run - mn);
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float p = exp2f(pr[e] - mn);
+        pr[e] = p;
+        sum += p;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run = l_run * al + sum;
+      m_run = mn;
+      if (part == 0) al_s[srow] = al;
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V on this CTA's columns
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = al_s[ty + 16 * i];
+#pragma unroll
+      for (int c = 0; c < WIDE_COLS / 16; ++c) o[i][c] *= al;
+    }
+#pragma unroll 2
+    for (int key = 0; key < BKV; key += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * F32_SLD + key);
+#pragma unroll
+      for (int c = 0; c < WIDE_COLS / 16; ++c) {
+        const float v0 = kv_s[(key + 0) * WIDE_LD + tx + 16 * c];
+        const float v1 = kv_s[(key + 1) * WIDE_LD + tx + 16 * c];
+        const float v2 = kv_s[(key + 2) * WIDE_LD + tx + 16 * c];
+        const float v3 = kv_s[(key + 3) * WIDE_LD + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[i][c] = fmaf(pv[i].x, v0, o[i][c]);
+          o[i][c] = fmaf(pv[i].y, v1, o[i][c]);
+          o[i][c] = fmaf(pv[i].z, v2, o[i][c]);
+          o[i][c] = fmaf(pv[i].w, v3, o[i][c]);
+        }
+      }
+    }
+    __syncthreads();  // V, S, the mask and alpha are rewritten by the next block
+  }
+
+  if (part == 0) l_s[srow] = l_run;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (row_base + r >= Tlen) continue;
+    const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
+    T* dst = op + (long long)(row_base + r) * a.o_st;
+#pragma unroll
+    for (int c = 0; c < WIDE_COLS / 16; ++c) {
+      const int col = col0 + tx + 16 * c;
+      if (col < dh) store_f32(dst + col, o[i][c] * inv);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(Args a, int B, int dh, cudaStream_t st) {
+  a.nqb = (a.Tlen + F32_BQ - 1) / F32_BQ;
+  a.hg = 1;
+  const int ncg = (dh + WIDE_COLS - 1) / WIDE_COLS;
+  const size_t smem = wide_smem_bytes((a.Tlen + BKV - 1) / BKV);
+  const long long grid = (long long)a.nqb * ncg * a.H * B;
+  if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_wide_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_wide_kernel<T><<<(unsigned)grid, F32_THREADS, smem, st>>>(a, dh, ncg);
+  return (int)cudaGetLastError();
+}
+
 int dispatch_f32(const Args& a, int B, int Dh, cudaStream_t st) {
+  if (Dh > 256) return launch_wide<float>(a, B, Dh, st);
   switch (Dh) {
     case 16: return launch_f32<16>(a, B, st);
     case 32: return launch_f32<32>(a, B, st);
     case 64: return launch_f32<64>(a, B, st);
     case 128: return launch_f32<128>(a, B, st);
+    case 256: return launch_f32<256>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 int dispatch_dh(const Args& a, int B, int Dh, cudaStream_t st) {
+  if (Dh > 256) return launch_wide<T>(a, B, Dh, st);
   switch (Dh) {
     case 16: return dispatch_rows<16, T>(a, B, st);
     case 32: return dispatch_rows<32, T>(a, B, st);
     case 64: return dispatch_rows<64, T>(a, B, st);
     case 128: return dispatch_rows<128, T>(a, B, st);
+    case 256: return dispatch_rows<256, T>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -670,16 +942,17 @@ int dispatch_dh(const Args& a, int B, int Dh, cudaStream_t st) {
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float16, 2 = float32. T at most 128 or a multiple
-// of 64; Dh one of 16, 32, 64, 128. strides: 12 element strides, (b, h, t) of
-// q, k, v and o in that order; the head dimension is contiguous. Every base
-// pointer must be 16-byte aligned and every stride a multiple of 16 bytes;
-// the mask is a contiguous (B, T) f32 array, 16-byte aligned. Returns
+// of 64; Dh one of 16, 32, 64, 128, 256, or a multiple of 8 above 256.
+// strides: 12 element strides, (b, h, t) of q, k, v and o in that order;
+// the head dimension is contiguous. Every base pointer must be 16-byte
+// aligned and every stride a multiple of 16 bytes; the mask is a contiguous (B, T) f32 array, 16-byte aligned. Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, int B, int H, int Tlen, int Dh,
                                    const long long* strides, float scale, int dtype,
                                    void* stream) {
-  if (B <= 0 || H <= 0 || Tlen <= 0 || (Tlen > 128 && Tlen % BKV)) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Tlen <= 0 || (Tlen > 128 && Tlen % BKV) || (Dh > 256 && Dh % 8))
+    return (int)cudaErrorInvalidValue;
   uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                     reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                     reinterpret_cast<uintptr_t>(mask);

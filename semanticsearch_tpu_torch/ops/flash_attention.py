@@ -13,11 +13,13 @@ copy either way.
 The kernel takes bf16, fp16 and f32 (an f32 encoder; the f32 path computes
 both products in f32 FMAs, within 2e-5 of the plain version), any T up to
 128 and every multiple of 64 above it (a superset of the JAX kernel's T <=
-128 or multiples of 128), and head widths 16, 32, 64 and 128. Any other
-head width up to 128 is padded with zero columns to the next of those
-(:func:`_padded_heads`, one copy of q, k and v; the scale stays that of the
-real width) and the output sliced back; the CPU path takes the same route,
-so the tests here reach it.
+128 or multiples of 128), and every head width, as the JAX kernel does:
+16, 32, 64, 128 and 256 as they are, any other up to 256 padded with zero
+columns to the next of those, and past 256 (the kernel's wide path, 128
+columns of V and O a CTA) padded to a multiple of 8 (:func:`_padded_heads`,
+one copy of q, k and v; the scale stays that of the real width), the output
+sliced back. The CPU path takes the same route, so the tests here reach
+it.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ NEG_INF = -1e30
 FLASH_LAUNCHES = 0
 FLASH_F32_LAUNCHES = 0
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-_KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+_KERNEL_WIDE_STEP = 8  # past 256: 16-byte rows in every dtype
 _KERNEL_BLOCK = 64  # the kernel's key block rows
 _KERNEL_MAX_TAIL_T = 128  # up to here T need not be a multiple of the block
 
@@ -67,12 +70,11 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
 
 def _kernel_head_dim(dh: int) -> int:
     """The kernel's head width that holds ``dh``: the next of 16, 32, 64,
-    128; raises ``ValueError`` past 128."""
+    128, 256; past 256, ``dh`` rounded up to a multiple of 8."""
     for width in _KERNEL_HEAD_DIMS:
         if dh <= width:
             return width
-    raise ValueError(f"flash kernel: head dim {dh} > {_KERNEL_HEAD_DIMS[-1]} "
-                     "is not supported")
+    return -(-dh // _KERNEL_WIDE_STEP) * _KERNEL_WIDE_STEP
 
 
 def _padded_heads(attend, q, k, v, mask):
@@ -96,8 +98,6 @@ def _strides(x: torch.Tensor):
 
 def _flash_forward(q, k, v, mask):
     if q.device.type == "cpu":
-        if q.shape[-1] > _KERNEL_HEAD_DIMS[-1]:
-            return flash_attention_plain(q, k, v, mask)
         return _padded_heads(flash_attention_plain, q, k, v, mask)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: tensors on {q.device}")

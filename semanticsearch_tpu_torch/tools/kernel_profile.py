@@ -1,8 +1,9 @@
-"""Time the top-k and flash-attention kernels of a source tree on one
-CUDA card.
+"""Time the top-k, flash-attention and similarity kernels of a source tree
+on one CUDA card.
 
     python -m semanticsearch_tpu_torch.tools.kernel_profile \
-        [--tree DIR] [--profiler] [--label NAME] [--out FILE.jsonl]
+        [--tree DIR] [--profiler] [--only PREFIX,...] [--label NAME] \
+        [--out FILE.jsonl]
 
 ``chip_smoke.py`` is the record of the kernels' times; this runner adds the
 two things it does not do. ``--tree`` names the root of another checkout
@@ -10,9 +11,10 @@ two things it does not do. ``--tree`` names the root of another checkout
 ``chip_smoke.time_ms`` are then the ones used, so two versions can be timed
 in turns on one card: run the script once per tree, all in one shell
 command; every kernel of the tree is built first, one nvcc per source.
-``--profiler`` also runs each shape once under ``torch.profiler`` and
-reports the device time by kernel name (selection and merge kernels apart,
-and free of the host's launch path, which CUDA events include).
+``--profiler`` also runs each shape once (the similarity shapes five
+times, reported per call) under ``torch.profiler`` and reports the device
+time by kernel name (selection and merge kernels apart, and free of the
+host's launch path, which CUDA events include).
 
 Shapes, those of ``chip_smoke.py`` phase 4: pass A at the shard size
 (32,768 queries x 1,250,000 x 384 bf16, 32-row segments, k_sel 11), in
@@ -25,7 +27,11 @@ T 256, Dh 32, 40-256 real keys), at T = 1024 (B 2, 600-1000 real) and at
 the chunking batch (B 2,048, T 64, 3-12 real), with ``chip_smoke``'s
 inputs, and for these also the host's time per call (``*_host_ms``: 50
 calls queued without a wait), which CUDA events include whenever it is the
-longer.
+longer; the similarity kernel at ``chip_smoke.SIM_SHAPES`` on unit f32
+rows (the long document's 4096 bucket with 3,939 real rows, and 256
+documents of 64 rows). ``--only`` keeps the shapes whose names start with
+one of the given prefixes (``pass_a``, ``overlap``, ``fused``, ``flash``,
+``sim``); the shard is built only when a shape needs it.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--profiler", action="store_true")
+    ap.add_argument("--only", default="")
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -53,10 +60,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_profile: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import time_ms
+    from chip_smoke import LONG_DOC_SENTENCES, SIM_SHAPES, time_ms
     from semanticsearch_tpu_torch.data import synth
     from semanticsearch_tpu_torch.ops import _build, topk
     from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import similarity as sim
 
     assert Path(topk.__file__).resolve().is_relative_to(tree), topk.__file__
     _build.build_all()
@@ -64,22 +72,33 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     res = {"tree": str(tree), "label": args.label or tree.name, "card": smi}
-    n, d = 1_250_000, 384
-    corpus = synth.corpus(n, d, torch.bfloat16, "cuda")
-    queries = synth.corpus(32768, d, torch.bfloat16, "cuda", start=20_000_000)
-    small = corpus[:20000].contiguous()
-    live = corpus[:22000].contiguous()
-    runs = {
-        "pass_a_shard": lambda: topk.segtopk_pass_a(queries, corpus, n, 32, 11),
-        "overlap_shard": lambda: topk.segtopk_pass_a_overlap(queries, corpus,
-                                                             n, 32, 11),
-        "pass_a_serve": lambda: topk.segtopk_pass_a(queries[:64], small,
-                                                    20000, 32, 41),
-        "fused_shard": lambda: topk.topk_scores_fused(queries[:16384], corpus,
-                                                      200),
-        "fused_live": lambda: topk.topk_scores_fused(queries[:10000], live,
-                                                     200),
-    }
+    only = tuple(p for p in args.only.split(",") if p)
+
+    def wanted(name):
+        return not only or name.startswith(only)
+
+    runs = {}
+    if any(wanted(name) for name in ("pass_a_shard", "overlap_shard",
+                                     "pass_a_serve", "fused_shard",
+                                     "fused_live")):
+        n, d = 1_250_000, 384
+        corpus = synth.corpus(n, d, torch.bfloat16, "cuda")
+        queries = synth.corpus(32768, d, torch.bfloat16, "cuda",
+                               start=20_000_000)
+        small = corpus[:20000].contiguous()
+        live = corpus[:22000].contiguous()
+        runs.update({
+            "pass_a_shard": lambda: topk.segtopk_pass_a(queries, corpus, n,
+                                                        32, 11),
+            "overlap_shard": lambda: topk.segtopk_pass_a_overlap(
+                queries, corpus, n, 32, 11),
+            "pass_a_serve": lambda: topk.segtopk_pass_a(queries[:64], small,
+                                                        20000, 32, 41),
+            "fused_shard": lambda: topk.topk_scores_fused(queries[:16384],
+                                                          corpus, 200),
+            "fused_live": lambda: topk.topk_scores_fused(queries[:10000],
+                                                         live, 200),
+        })
     gen = torch.Generator().manual_seed(3)
     for name, b, t, (lo, hi) in [("flash_serve", 256, 256, (40, 256)),
                                  ("flash_t1024", 2, 1024, (600, 1000)),
@@ -89,8 +108,17 @@ def main() -> int:
         lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
         mask = (torch.arange(t)[None, :] < lengths[:, None]).float().to("cuda")
         runs[name] = lambda qkv=qkv, mask=mask: fa.flash_attention(*qkv, mask)
+    for name, (b, n_rows, width) in zip(("sim_long", "sim_batched"),
+                                        SIM_SHAPES):
+        E = sim.l2_normalize(torch.randn((b, n_rows, width), generator=gen)
+                             .to("cuda"))
+        if b == 1:
+            E[:, LONG_DOC_SENTENCES:] = 0.0  # the bucket's zero rows
+        runs[name] = lambda E=E: sim.similarity_matrix(E)
+    runs = {name: fn for name, fn in runs.items() if wanted(name)}
     reps = {"pass_a_serve": 50, "fused_live": 5, "flash_serve": 20,
-            "flash_t1024": 20, "flash_chunk": 20}
+            "flash_t1024": 20, "flash_chunk": 20, "sim_long": 20,
+            "sim_batched": 20}
     for name, fn in runs.items():
         res[name + "_ms"] = time_ms(fn, reps=reps.get(name, 3))
         if name.startswith("flash"):
@@ -106,17 +134,20 @@ def main() -> int:
 
         rows = {}
         for name, fn in runs.items():
+            calls = 5 if name.startswith("sim") else 1
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                fn()
+                for _ in range(calls):
+                    fn()
                 torch.cuda.synchronize()
             for ev in prof.key_averages():
                 dev_us = getattr(ev, "device_time_total",
                                  getattr(ev, "cuda_time_total", 0.0))
                 if dev_us > 0 and any(w in ev.key for w in
-                                      ("topk", "merge", "flash")):
+                                      ("topk", "merge", "flash", "gram",
+                                       "split")):
                     kernel = ev.key.replace("(anonymous namespace)::", "")
-                    rows[f"{name}: {kernel[:40]}"] = dev_us / 1e3
+                    rows[f"{name}: {kernel[:40]}"] = dev_us / 1e3 / calls
         res["profiler_device_ms_by_kernel"] = rows
         if not rows:
             print("torch.profiler showed no device time for the kernels")

@@ -14,11 +14,13 @@ the plain values are more than twice that apart.
 Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2
 (a few half-precision ulps at the outputs' scale), and in f32 to the JAX
 test's 2e-5.
-The similarity kernel computes in f32 throughout: bit-equal to its plain
-version on integer-valued rows (f32 or bf16 input), within 1e-5 of it on
-unit-norm f32 rows (two summation orders of a 384-term f32 dot product of
-magnitude at most 1) and D * 2^-24 on bf16 ones, and always bit-symmetric
-and bit-reproducible."""
+The similarity kernel accumulates in f32 (3xTF32 on f32 input, bf16
+products on bf16 input): bit-equal to its plain version on integer-valued
+rows (f32 or bf16 input), within 1e-5 of it on unit-norm f32 rows (the
+split drops 2^-22 of each product; the accumulations round at most a few
+ulps of a sum of magnitude at most 1) and D * 2^-24 on bf16 ones, and
+always bit-symmetric, bit-reproducible and the same for a document alone
+as in its padded bucket."""
 import numpy as np
 import pytest
 import torch
@@ -655,6 +657,41 @@ def test_flash_any_t_and_padded_head_widths(dev, dtype, t, dh):
         assert torch.equal(fa.flash_attention(*views, mask), got)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("t", [96, 128, 256])
+@pytest.mark.parametrize("dh", [136, 192, 256, 320, 520])
+def test_flash_wide_head_widths(dev, dtype, t, dh):
+    """Head widths past 128: 256 wide (136 and 192 padded to it; 64-row
+    tiles, two ring stages, Q's fragments from shared memory), and the wide
+    path past 256 (128 columns of V and O a CTA). Against the plain version
+    on the encoder's transposed views: f32 2e-5 + 2e-5 |o|, otherwise
+    2e-2 max(|o|, 0.5); dead key blocks carry NaN and change no bit."""
+    g = torch.Generator(device=dev).manual_seed(68)
+    b, h = 3, 2
+    q, k, v = _flash_inputs((b, h, t, dh), dtype, "transposed", g, dev)
+    mask = _flash_mask(b, t, g, dev)
+    if t >= 192:
+        mask[0, :] = 0.0
+        mask[0, :30] = 1.0
+        mask[0, t - 64: t - 40] = 1.0  # live blocks around dead ones
+    counter = "FLASH_F32_LAUNCHES" if dtype == torch.float32 else "FLASH_LAUNCHES"
+    launches = getattr(fa, counter)
+    got = fa.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert getattr(fa, counter) == launches + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = fa.flash_attention_plain(q, k, v, mask).float()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert bool((diff <= 2e-5 + 2e-5 * want.abs()).all())
+    else:
+        assert float((diff / want.abs().clamp(min=0.5)).max()) <= 2e-2
+    again = fa.flash_attention(q, _nan_in_skipped_blocks(k, mask),
+                               _nan_in_skipped_blocks(v, mask), mask)
+    assert torch.equal(got, again)
+
+
 # ------------------------------------------------------ bf16 similarity
 
 @pytest.mark.parametrize("b,n,d", [(1, 4096, 384), (1, 3939, 384),
@@ -739,6 +776,69 @@ def test_similarity_kernel_on_unit_rows(dev, b, n, d):
     assert torch.equal(sim.similarity_matrix(flat[1:].view(b, n, d)), S)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(37, 8), (21, 16), (9, 32), (5, 64),
+                                 (3, 63), (3, 65), (2, 129), (2, 257)])
+def test_similarity_stacked_buckets_and_triangle_edges(dev, dtype, b, n):
+    """Buckets 8-64 stack 128 / n documents in one tile (the last tile
+    part-full), n = 63, 65 and 129 put the triangle's edge inside a tile:
+    equal to the plain version bit for bit on integer rows, each document
+    the same alone as in the batch, and one launch."""
+    E = _grid((b, n, 384), 64, dev, dtype)
+    E[-1, n - n // 3:] = 0.0
+    before = sim.SIM_LAUNCHES + sim.SIM_BF16_LAUNCHES
+    S = sim.similarity_matrix(E)
+    torch.cuda.synchronize()
+    assert sim.SIM_LAUNCHES + sim.SIM_BF16_LAUNCHES == before + 1
+    assert torch.equal(S, sim.similarity_matrix_plain(E))
+    assert torch.equal(S, S.transpose(1, 2))
+    for i in (0, b // 2, b - 1):
+        assert torch.equal(sim.similarity_matrix(E[i]), S[i])
+    # a document on unit rows: alone, in its bucket, and in a batch
+    g = torch.Generator(device=dev).manual_seed(65)
+    U = sim.l2_normalize(torch.randn((b, n, 384), generator=g, device=dev))
+    U = U.to(dtype)
+    SU = sim.similarity_matrix(U)
+    assert torch.equal(SU[1], sim.similarity_matrix(U[1]))
+    bucket = torch.nn.functional.pad(U[1], (0, 0, 0, 128))[None]
+    assert torch.equal(sim.similarity_matrix(bucket)[0, :n, :n], SU[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [30, 77, 100, 8, 1])
+def test_similarity_pads_the_width(dev, dtype, d):
+    """A width whose rows are not whole 16-byte TMA rows runs on the kernel
+    with zero columns added by one padded copy: bit-equal to the plain
+    version on integer rows."""
+    E = _grid((3, 150, d), 66, dev, dtype)
+    plan = sim.similarity_plan(3, 150, d, dtype)
+    assert plan["pitch"] >= d
+    S = sim.similarity_matrix(E)
+    assert torch.equal(S, sim.similarity_matrix_plain(E))
+    assert torch.equal(S, S.transpose(1, 2))
+
+
+def test_similarity_releases_its_scratch(dev):
+    """A padded copy of a width that is not whole 16-byte rows lives for the
+    call only."""
+    g = torch.Generator(device=dev).manual_seed(67)
+    E = torch.randn((4, 600, 78), generator=g, device=dev)
+    Eb = torch.randn((4, 600, 100), generator=g, device=dev).bfloat16()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    for x in (E, Eb):
+        torch.cuda.reset_peak_memory_stats(dev)
+        S = sim.similarity_matrix(x)
+        torch.cuda.synchronize()
+        plan = sim.similarity_plan(*x.shape, x.dtype)
+        assert plan["scratch_bytes"] > 0
+        assert (torch.cuda.max_memory_allocated(dev)
+                >= base + S.numel() * 4 + plan["scratch_bytes"])
+        assert torch.cuda.memory_allocated(dev) == base + S.numel() * 4
+        del S
+    assert torch.cuda.memory_allocated(dev) == base
+
+
 def test_similarity_plain_ignores_tf32_setting(dev):
     g = torch.Generator(device=dev).manual_seed(14)
     E = sim.l2_normalize(torch.randn((512, 384), generator=g, device=dev))
@@ -775,8 +875,7 @@ def test_batched_signals_on_cuda_match_cpu(dev):
 def test_wrappers_raise_instead_of_falling_back(dev):
     """What the kernels still refuse raises, and nothing is launched:
     float64 operands, a bf16 tensor sent to the int8 wrapper, k past 2048,
-    head widths past 128, a T past 128 that is not a multiple of 64, empty
-    input."""
+    a T past 128 that is not a multiple of 64, empty input."""
     x = torch.zeros((4, 64), device=dev, dtype=torch.float64)
     launches = (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
                 topk.SEGTOPK_OVERLAP_LAUNCHES, topk.SEGTOPK_INT8_LAUNCHES,
@@ -801,9 +900,6 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(NotImplementedError):
         fa.flash_attention(y, y, y, torch.ones((1, 64), device=dev))
     for dtype in (torch.bfloat16, torch.float32):
-        wide = torch.zeros((1, 1, 64, 136), device=dev, dtype=dtype)
-        with pytest.raises(ValueError, match="136"):
-            fa.flash_attention(wide, wide, wide, torch.ones((1, 64), device=dev))
         ragged = torch.zeros((1, 1, 160, 32), device=dev, dtype=dtype)
         with pytest.raises(ValueError, match="multiple of 64"):
             fa.flash_attention(ragged, ragged, ragged,

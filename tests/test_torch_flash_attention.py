@@ -137,17 +137,46 @@ def test_flash_padded_heads_match_jax(rng, monkeypatch, b, h, t, dh):
     assert tfa.FLASH_LAUNCHES == tfa.FLASH_F32_LAUNCHES == 0
 
 
+@pytest.mark.parametrize("dh,width", [(192, 256), (256, 256), (320, 320)])
+def test_flash_wide_heads_match_jax(rng, monkeypatch, dh, width):
+    """Head widths past 128, as the JAX kernel takes them: the plain version
+    sees the kernel's width (192 padded to 256; 320 on the wide path as it
+    is) with the real width's scale, and matches JAX's kernel in interpret
+    mode to 2e-5, masked tail and all-masked row included."""
+    b, h, t = 2, 2, 96
+    q, k, v, mask = _inputs(rng, b, h, t, dh)
+    mask[1, :] = 0.0
+    want = jflash(*(jnp.asarray(x) for x in (q, k, v, mask)), 32, 32, True)
+    seen = []
+    plain = tfa.flash_attention_plain
+
+    def spy(q_, k_, v_, mask_, scale=None):
+        seen.append((q_.shape[-1], scale))
+        return plain(q_, k_, v_, mask_, scale)
+
+    monkeypatch.setattr(tfa, "flash_attention_plain", spy)
+    got = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v, mask)))
+    assert seen == [(width, 1.0 / np.sqrt(dh))]
+    assert got.shape == (b, h, t, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    assert tfa.FLASH_LAUNCHES == tfa.FLASH_F32_LAUNCHES == 0
+
+
 def test_flash_kernel_head_dims():
+    """Every head width has a kernel width, as the JAX kernel takes any:
+    the next of 16-256, past 256 the next multiple of 8 (the wide path)."""
     assert [tfa._kernel_head_dim(d) for d in (1, 16, 17, 32, 48, 64, 65, 80,
                                              128)] == [16, 16, 32, 32, 64, 64,
                                                        128, 128, 128]
-    with pytest.raises(ValueError, match="129"):
-        tfa._kernel_head_dim(129)
+    assert [tfa._kernel_head_dim(d) for d in (129, 136, 192, 255, 256, 257,
+                                             320, 321, 1000)] == [
+        256, 256, 256, 256, 256, 264, 320, 328, 1000]
 
 
 def test_flash_wide_heads_on_the_cpu_take_the_plain_version(rng):
-    """Past 128 the kernel has no width, but a CPU tensor computes the plain
-    version as it always did (the card raises)."""
+    """Past 128 a CPU tensor computes the plain version on the padded route
+    the card takes (136 padded to 256), equal to the JAX kernel."""
     q, k, v = (rng.standard_normal((1, 2, 64, 136)).astype(np.float32)
                for _ in range(3))
     mask = np.ones((1, 64), np.float32)

@@ -92,6 +92,149 @@ def test_wrapper_rejects_what_it_cannot_take():
         tsim.similarity_matrix(torch.zeros((4, 4), device="meta"))
 
 
+def _plan_tiles(plan, b):
+    """(first document, ti, tj, documents) of every CTA, decoded as
+    csrc/similarity.cu's gram_kernel decodes blockIdx.x, launch by launch
+    (65,535 documents each)."""
+    tiles, group, pairs = (plan["tiles_per_doc"], plan["docs_per_tile"],
+                           plan["pairs"])
+    for b0 in range(0, b, 65535):
+        nb = min(65535, b - b0)
+        if tiles == 1:
+            for cta in range(-(-nb // group)):
+                doc = b0 + cta * group
+                yield doc, 0, 0, min(group, b0 + nb - doc)
+            continue
+        for cta in range(nb * pairs):
+            p, ti = cta % pairs, 0
+            while p >= tiles - ti:
+                p -= tiles - ti
+                ti += 1
+            yield b0 + cta // pairs, ti, ti + p, 1
+
+
+def _stored(plan, n, doc0, ti, tj, docs):
+    """(document, i, j) of the elements a CTA stores, i <= j: its tile's
+    rows and columns that fall in the same document of the tile, on or above
+    that document's diagonal (the kernel's epilogue rule), among those its
+    warpgroups compute (at ``wg_cols`` 64 each only its own half)."""
+    t = plan["tile"]
+    li = ti * t + np.arange(t)[:, None]
+    lj = tj * t + np.arange(t)[None, :]
+    rd, ri = li // n, li % n
+    cd, cj = lj // n, lj % n
+    keep = (rd == cd) & (rd < docs) & (ri <= cj)
+    if plan["wg_cols"] == 64:
+        keep &= (np.arange(t)[:, None] // 64) == (np.arange(t)[None, :] // 64)
+    rows, cols = np.nonzero(keep)
+    return doc0 + rd[rows, 0], ri[rows, 0], cj[0, cols]
+
+
+@pytest.mark.parametrize("n", [1, 8, 63, 64, 65, 127, 128, 129, 3939, 4096])
+def test_similarity_plan_covers_the_triangle_once(n):
+    """Every (ti <= tj) tile pair of every document is one CTA; below 130
+    rows every element (i, j) of every document is stored exactly once as
+    (i, j) or its mirror; the ring fits 232,448 bytes in both dtypes."""
+    b = 5 if n < 1000 else 2
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = tsim.similarity_plan(b, n, 384, dtype)
+        ctas = list(_plan_tiles(plan, b))
+        assert len(ctas) == plan["ctas"] and plan["launches"] == 1
+        t = plan["tiles_per_doc"]
+        assert t == -(-n // 128)
+        if t > 1:
+            pairs = sorted((doc, ti, tj) for doc, ti, tj, _ in ctas)
+            assert pairs == [(doc, ti, tj) for doc in range(b)
+                             for ti in range(t) for tj in range(ti, t)]
+        else:
+            assert plan["docs_per_tile"] == 128 // n
+            assert sum(docs for _, _, _, docs in ctas) == b
+        assert plan["wg_cols"] == (64 if n in (1, 8, 64) else 128)
+        if n < 130:
+            count = np.zeros((b, n, n), np.int64)
+            for cta in ctas:
+                doc, i, j = _stored(plan, n, *cta)
+                np.add.at(count, (doc, i, j), 1)
+                off = i != j
+                np.add.at(count, (doc[off], j[off], i[off]), 1)
+            assert (count == 1).all()
+        assert plan["smem_bytes"] <= 232448
+        assert 1 <= plan["stages"] <= min(8, plan["kchunks"])
+        assert plan["stage_bytes"] == ((1 if t == 1 else 2) + (
+            1 if dtype == torch.float32 else 0)) * 16384
+
+
+def test_similarity_plan_ring_pad_and_scratch():
+    f32 = tsim.similarity_plan(1, 4096, 384)
+    assert (f32["stages"], f32["smem_bytes"], f32["ctas"], f32["kchunks"]) == (
+        4, 1152 + 4 * 49152, 32 * 33 // 2, 12)
+    assert f32["split"] and f32["scratch_bytes"] == 0  # E read as it is
+    short = tsim.similarity_plan(256, 64, 384)
+    assert (short["docs_per_tile"], short["ctas"], short["stages"],
+            short["wg_cols"]) == (2, 128, 7, 64)
+    bf = tsim.similarity_plan(1, 4096, 384, torch.bfloat16)
+    assert (bf["kchunks"], bf["stages"], bf["scratch_bytes"]) == (6, 6, 0)
+    for d, f32_pad, bf16_pad in [(30, 2, 2), (72, 0, 0), (77, 3, 3),
+                                 (100, 0, 4), (384, 0, 0)]:
+        a = tsim.similarity_plan(3, 77, d)
+        c = tsim.similarity_plan(3, 77, d, torch.bfloat16)
+        assert (a["col_pad"], c["col_pad"]) == (f32_pad, bf16_pad)
+        assert a["pitch"] % 4 == 0 and c["pitch"] % 8 == 0
+        assert a["scratch_bytes"] == (3 * 77 * a["pitch"] * 4 if f32_pad
+                                      else 0)
+        assert c["scratch_bytes"] == (3 * 77 * c["pitch"] * 2 if bf16_pad
+                                      else 0)
+    many = tsim.similarity_plan(65535 + 3, 8, 16)
+    assert (many["launches"], many["ctas"]) == (2, 4096 + 1)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        tsim.similarity_plan(1, 8, 16, torch.float16)
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest, ties away
+    from zero, 10 explicit mantissa bits (the low 13 bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32x3(emb):
+    """The kernel's 3xTF32 scheme with every sum exact (float64) and rounded
+    once: hi = tf32(x), lo = tf32(x - hi); small = a_lo b_hi + a_hi b_lo and
+    big = a_hi b_hi, each rounded to f32, then big + small in f32."""
+    hi = _tf32(emb)
+    lo = _tf32(emb - hi)
+    h, l_ = hi.double(), lo.double()
+    big = (h @ h.T).float()
+    small = (l_ @ h.T + h @ l_.T).float()
+    return big + small
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -11, 1 + 3 * 2.0 ** -12,
+                      -(1 + 2.0 ** -11), 127.0, -2048.0, 2049.0])
+    want = torch.tensor([1.0, 1 + 2.0 ** -10, 1 + 2.0 ** -10, 1 + 2.0 ** -10,
+                         -(1 + 2.0 ** -10), 127.0, -2048.0, 2050.0])
+    assert torch.equal(_tf32(x), want)
+
+
+def test_tf32x3_scheme_matches_jax(rng):
+    """The split's numerics before the card: exact on integer rows in
+    [-127, 127] at d = 384 (hi = x, lo = 0, sums below 2^24), within 1e-5
+    of the JAX f32 product on unit rows at d = 384."""
+    x = rng.integers(-127, 128, size=(90, 384)).astype(np.float32)
+    got = _tf32x3(torch.from_numpy(x))
+    assert torch.equal(_tf32(torch.from_numpy(x)), torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy(), _jax_sim("einsum", x))
+    u = _unit_rows(rng, 200, 384)
+    got = _tf32x3(torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(got, _jax_sim("einsum", u), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got, got.T)
+    # the split itself: x = hi + lo to within 2^-22 |x|
+    t = torch.from_numpy(u)
+    hi = _tf32(t)
+    rest = (t.double() - hi.double() - _tf32(t - hi).double()).abs()
+    assert bool((rest <= 2.0 ** -22 * t.double().abs()).all())
+
+
 def test_l2_normalize_and_adjacent_match_jax(rng):
     x = rng.standard_normal((19, 48)).astype(np.float32)
     x[4] = 0.0  # a zero row stays zero (eps clamp)
