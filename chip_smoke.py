@@ -19,7 +19,8 @@ fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
 ``ChunkPipeline`` (phase 6), and serves the f32 configuration (an f32
 encoder under flash attention over an f32 index) end to end, held against
 the same engine on the CPU, with one live round through the f32 fused
-top-k, and times the f32 schedules at the shard shape (phase 7).
+top-k, and times the f32 schedules (3xTF32 wgmma) at the shard shape, pass
+A at the serve shape and the fused top-k at the live round's (phase 7).
 Progress and measurements go to stdout; the line before the last is the card's name and power limit, the
 one before it the JSON ``kernels`` record, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -350,10 +351,11 @@ def phase_kernels(report):
           "scores in ascending row order")
     report["topk_fused"]["max_abs_err"] = fu_err
 
-    # the f32 schedules (an f32 index). Integer-valued rows in [-8, 8], the
-    # corpus's first half repeated as its second, so every sum is exact and
-    # scores and segment maxima tie: ids, tie order and values must equal
-    # the plain f32 version's, in both pass-A wrappers and the fused kernel.
+    # the f32 schedules (an f32 index, 3xTF32 wgmma). Integer-valued rows in
+    # [-8, 8], the corpus's first half repeated as its second, so every sum
+    # is exact and scores and segment maxima tie: ids, tie order and values
+    # must equal the plain f32 version's, in both pass-A wrappers and the
+    # fused kernel, at D = 30 (padded to 32), 72, 100, 128, 384 and 1,024.
     # Then unit rows: values within D * 2^-24 (a D-long f32 chain's worst
     # case), ids equal wherever the plain values are more than twice that
     # apart, and few id differences inside such near-ties.
@@ -378,7 +380,9 @@ def phase_kernels(report):
                                (17, 3000, 72, 8, 20), (9, 3000, 100, 16, 20),
                                (70, 5000, 384, 256, 41),
                                (200, 30000, 128, 1, 128),
-                               (33, 2000, 30, 4, 11)]:
+                               (33, 2000, 30, 4, 11),
+                               (129, 20011, 1024, 32, 41),
+                               (64, 20000, 1024, 8, 128)]:
         Qm, C = small_f32((q, d)), tied(small_f32((n, d)))
         pv, pi = topk.segtopk_pass_a_plain(Qm, C, n, L2, k_sel)
         for key, fn in pass_a_f32:
@@ -391,7 +395,8 @@ def phase_kernels(report):
     for q, n, d, k in [(300, 40000, 384, 1), (300, 40000, 384, 10),
                        (256, 20011, 384, 200), (129, 60000, 384, 2048),
                        (3, 250000, 128, 200), (9, 3000, 72, 300),
-                       (9, 3000, 100, 300), (5, 300, 384, 500)]:
+                       (9, 3000, 100, 300), (5, 300, 384, 500),
+                       (129, 20011, 1024, 200), (17, 5000, 1024, 2048)]:
         Qm, C = small_f32((q, d)), tied(small_f32((n, d)))
         kv, ki = topk.topk_scores_fused(Qm, C, k)
         pv, pi = topk.topk_scores_fused_plain(Qm, C, k)
@@ -399,7 +404,7 @@ def phase_kernels(report):
         check(torch.equal(ki, pi) and torch.equal(kv, pv),
               f"f32 fused top-k == plain on integer rows with ties (ids, tie "
               f"order, values exact): Q={q} N={n} D={d} k={k}")
-    for d in (384, 72, 100):
+    for d in (384, 72, 100, 1024):
         tol = d * 2.0 ** -24
         Qm, C = unit((300, d)), unit((50000, d))
         pv, pi = topk.segtopk_pass_a_plain(Qm, C, 50000, 32, 42)
@@ -1588,7 +1593,6 @@ def phase_f32(report, ctx):
     import torch
 
     from semanticsearch_tpu_torch.core.config import EncoderConfig, IndexConfig
-    from semanticsearch_tpu_torch.data import synth
     from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
     from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
     from semanticsearch_tpu_torch.ops import flash_attention as fa
@@ -1688,6 +1692,9 @@ def phase_f32(report, ctx):
           f"{F32_LIVE_REMOVES}")
     queries = [_zipf_text(rng, words, int(rng.integers(3, 9)))
                for _ in range(F32_LIVE_QUERIES)]
+    # the fused launch of this search: every query over the main index, k =
+    # the dense depth (4 * 50) plus the tombstones' over-fetch in 64s
+    live_k = 200 + -(-F32_LIVE_REMOVES // 64) * 64
     zero_counts()
     t0 = time.perf_counter()
     hits = engine.search(queries, k=50, hybrid=False)
@@ -1722,9 +1729,29 @@ def phase_f32(report, ctx):
           f"plain exact f32 top-200 on {ns} queries: max abs err {err:.2e} <= "
           f"384 * 2^-24; ids equal outside near-ties ({near} differ inside)")
     del engine, corpus, delta, S
+    time_f32_topk(report, n_main, live_k)
+    time_f32_flash(report)
 
-    # the f32 schedules at the shard shape: 1,250,000 x 384 f32 (1.92 GB)
-    n, d, q, k, qf_n = 1_250_000, 384, 32768, 10, 16384
+
+# the f32 shard: 1,250,000 x 384 f32 (1.92 GB), 32,768 queries (16,384 for
+# the fused top-k)
+F32_SHARD = (1_250_000, 384, 32768, 16384)
+
+
+def time_f32_topk(report, n_main, live_k):
+    """The f32 schedules of pass A and the fused top-k at the shard shape,
+    pass A at the serve shape and the fused top-k at the shape of the live
+    round's launch (F32_LIVE_QUERIES over the n_main-row main index at
+    live_k), each beside its plain version (at the shard), f32
+    torch.matmul and two bounds; and f32 recall@10 at the shard."""
+    import torch
+
+    from semanticsearch_tpu_torch.data import synth
+    from semanticsearch_tpu_torch.ops import topk
+
+    n, d, q, qf_n = F32_SHARD
+    k = 10
+    ftol = d * 2.0 ** -24
     corpus = synth.corpus(n, d, torch.float32, "cuda")
     queries = synth.corpus(q, d, torch.float32, "cuda", start=20_000_000)
     L2, k_sel = 32768 // 128 // 8, k + 1
@@ -1765,14 +1792,36 @@ def phase_f32(report, ctx):
 
     pa["library_ms"] = po["library_ms"] = time_ms(
         lambda: f32_gemm_floor(queries), reps=2)
-    pa["bound_ms"], pa["bound_by"] = bound_ms(
-        2.0 * q * n * d, 4.0 * (q * d + n * d) + 8.0 * q * k_sel,
-        PEAK_F32_FLOPS)
-    po["bound_ms"], po["bound_by"] = pa["bound_ms"], pa["bound_by"]
+
+    def f32_bounds(entry, prefix, q_rows, n_rows, out_bytes):
+        """Two bounds on the same bytes: the schedule's three TF32 products
+        a score at 495 TFLOP/s (bound_ms, the least time), and one f32 FMA
+        a score at 67 TFLOP/s (fma_bound_ms)."""
+        nbytes = 4.0 * (q_rows + n_rows) * d + out_bytes
+        entry[prefix + "bound_ms"], entry[prefix + "bound_by"] = bound_ms(
+            3 * 2.0 * q_rows * n_rows * d, nbytes, PEAK_TF32_FLOPS)
+        entry[prefix + "tf32x3_bound_ms"] = entry[prefix + "bound_ms"]
+        entry[prefix + "fma_bound_ms"] = bound_ms(
+            2.0 * q_rows * n_rows * d, nbytes, PEAK_F32_FLOPS)[0]
+
+    for entry in (pa, po):
+        f32_bounds(entry, "", q, n, 8.0 * q * k_sel)
     log(f"  f32 pass A (Q={q}, k_sel {k_sel}): kernel {pa['ms']:.2f} ms, "
         f"through the overlap wrapper {po['ms']:.2f} ms, plain "
         f"{pa['plain_ms']:.2f} ms, f32 GEMM floor {pa['library_ms']:.2f} ms, "
-        f"bound {pa['bound_ms']:.2f} ms ({pa['bound_by']}, f32 67 TFLOP/s)")
+        f"bound {pa['bound_ms']:.2f} ms ({pa['bound_by']}, 3xTF32 at 495 "
+        f"TFLOP/s; f32 FMAs {pa['fma_bound_ms']:.2f} ms)")
+    # the serve shape: one 64-query batch over 20,000 rows, k_sel 41
+    qs, cs = queries[:64], corpus[:20000].contiguous()
+    pa["serve_ms"] = time_ms(
+        lambda: topk.segtopk_pass_a(qs, cs, 20000, 32, 41), reps=50)
+    pa["serve_library_ms"] = time_ms(lambda: torch.matmul(qs, cs.T), reps=50)
+    f32_bounds(pa, "serve_", 64, 20000, 8.0 * 64 * 41)
+    log(f"  f32 pass A at the serve shape (64 x 20,000, k_sel 41): kernel "
+        f"{pa['serve_ms']:.4f} ms, f32 torch.matmul "
+        f"{pa['serve_library_ms']:.4f} ms, bound {pa['serve_bound_ms']:.4f} "
+        f"ms ({pa['serve_bound_by']}; f32 FMAs "
+        f"{pa['serve_fma_bound_ms']:.4f} ms)")
     fu, qf, kf = report["topk_fused_f32"], queries[:qf_n], 200
     fu["ms"] = time_ms(lambda: topk.topk_scores_fused(qf, corpus, kf), reps=2)
     fv, fi = topk.topk_scores_fused(qf, corpus, kf)
@@ -1787,22 +1836,43 @@ def phase_f32(report, ctx):
         qf[:qf_n // 8], corpus, kf), reps=1, warmup=0)
     fu["plain_note"] = "timed on 2,048 of the 16,384 queries, times 8"
     fu["library_ms"] = time_ms(lambda: f32_gemm_floor(qf), reps=2)
-    fu["bound_ms"], fu["bound_by"] = bound_ms(
-        2.0 * qf_n * n * d, 4.0 * (qf_n * d + n * d) + 8.0 * qf_n * kf,
-        PEAK_F32_FLOPS)
+    f32_bounds(fu, "", qf_n, n, 8.0 * qf_n * kf)
     log(f"  f32 fused top-{kf}, {qf_n} queries: kernel {fu['ms']:.2f} ms, "
         f"plain {fu['plain_ms']:.2f} ms (2,048 queries x 8), f32 GEMM floor "
         f"{fu['library_ms']:.2f} ms, bound {fu['bound_ms']:.2f} ms "
-        f"({fu['bound_by']})")
+        f"({fu['bound_by']}, 3xTF32; f32 FMAs {fu['fma_bound_ms']:.2f} ms)")
+    # the live round's launch: 10,000 queries over the 20,000-row main
+    # index at k = 712, on the shard's first rows
+    ql, cl = queries[:F32_LIVE_QUERIES], corpus[:n_main].contiguous()
+    fu["live_ms"] = time_ms(
+        lambda: topk.topk_scores_fused(ql, cl, live_k), reps=5)
+    fu["live_library_ms"] = time_ms(lambda: torch.matmul(ql, cl.T), reps=5)
+    f32_bounds(fu, "live_", F32_LIVE_QUERIES, n_main,
+               8.0 * F32_LIVE_QUERIES * live_k)
+    log(f"  f32 fused top-{live_k} at the live round's shape "
+        f"({F32_LIVE_QUERIES:,} x {n_main:,}): kernel {fu['live_ms']:.3f} ms, "
+        f"f32 torch.matmul {fu['live_library_ms']:.3f} ms, bound "
+        f"{fu['live_bound_ms']:.3f} ms ({fu['live_bound_by']}; f32 FMAs "
+        f"{fu['live_fma_bound_ms']:.3f} ms)")
     for entry in (pa, po, fu):
-        entry["shape_note"] = ("f32 shard 1,250,000 x 384; pass A at 32,768 "
-                               "queries, 32-row segments, k_sel 11; fused at "
-                               "16,384 queries, k = 200; library = f32 "
-                               "torch.matmul in 16,384-row column chunks, "
-                               "TF32 off")
+        entry["shape_note"] = (
+            "f32 shard 1,250,000 x 384; pass A at 32,768 queries, 32-row "
+            "segments, k_sel 11 (serve_*: 64 x 20,000, k_sel 41); fused at "
+            f"16,384 queries, k = 200 (live_*: {F32_LIVE_QUERIES:,} x "
+            f"{n_main:,}, k = {live_k}); library = f32 torch.matmul (in "
+            "16,384-row column chunks at the shard), TF32 off; bound_ms = "
+            "tf32x3_bound_ms (three TF32 products a score), fma_bound_ms "
+            "(one f32 FMA)")
     del corpus, queries, ov_v, ov_i, dv, di
 
-    # f32 flash at phase 4's shapes, against SDPA in f32
+
+def time_f32_flash(report):
+    """f32 flash at phase 4's shapes, against SDPA in f32; and the bf16
+    flash at a padded head width (Dh 48)."""
+    import torch
+
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+
     fl = report["flash_f32"]
     gen = torch.Generator().manual_seed(3)
     h, dh = 12, 32
@@ -1920,6 +1990,8 @@ def main() -> int:
              "pass_b_ms", "serve_ms", "serve_library_ms", "serve_bound_ms",
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
+             "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
+             "live_tf32x3_bound_ms", "live_fma_bound_ms",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk")
                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms", "fma_bound_ms")),

@@ -75,12 +75,21 @@
 // wrapper pads other widths with zero columns, which change no product).
 // Tiles and stages come from ops/topk.py::pass_a_int8_plan.
 //
-// The f32 schedule (mode 3): every score one f32 fmaf chain over k = 0..D-1
-// on the CUDA cores (f32_tile.cuh), bound by the 67 TFLOP/s of f32 FMAs. Each
-// CTA of 64 query rows computes a 64 x 128 score tile into shared memory per
-// corpus tile; the segment maxima and the lists are taken from that tile by
-// the block (reduce_tile below), lists kept sorted by insertion. A TF32
-// tensor-core product would miss the exact f32 top-k by its 10-bit mantissa.
+// The f32 schedule (mode 3): mode 0's kernel and register epilogue on the
+// 3xTF32 main loop of tf32_mainloop.cuh. Both f32 operands stream through
+// the ring, a stage one 32-column K chunk of the query tile and of the
+// corpus tile (48 KB at 128 query rows, whatever D); the consumers write the
+// corpus box's TF32 lo plane beside it as it lands (the raw box is its hi
+// plane, truncated by the tensor cores), split the query fragments in
+// registers, and run three TF32 wgmma products per K step, the small
+// terms in an accumulator of their own; the two sums meet once per tile in
+// the f32 layout the epilogue reads. Values are within about 2^-21 |q| |c|
+// of the plain f32 product (inside the D * 2^-24 an f32 index may differ
+// by), and equal to it bit for bit on integer-valued rows. What bounds it:
+// three TF32 products per score at 495 TFLOP/s, and the query tile read
+// again from L2 for every corpus tile. TMA needs 16-byte row pitches: f32
+// widths are multiples of 4 (the wrapper pads others with zero columns).
+// Tiles and stages come from ops/topk.py::pass_a_f32_plan.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,139 +97,26 @@
 #include <climits>
 #include <cmath>
 
-#include "f32_tile.cuh"
 #include "qc_mainloop.cuh"
+#include "tf32_mainloop.cuh"
 
 namespace {
 
 constexpr int BN = qc::BN;  // corpus rows per tile
 constexpr float NEG_INF = -1e30f;
 
-// ---------------------------------------------------------- mode 3: f32
-
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// shared memory of the f32 kernel: operand tiles, the score tile, segment
-// maxima, running maxima, then one sorted (value, id) list per query row
-struct F32Layout {
-  size_t ops, s, m, run, lv, li, total;
-  __host__ __device__ F32Layout(int nseg_tile, int k_sel) {
-    ops = 0;
-    s = align128(ops + sizeof(f32t::Operands));
-    m = align128(s + sizeof(float) * f32t::BQ * f32t::SLD);
-    run = align128(m + sizeof(float) * f32t::BQ * nseg_tile);
-    lv = align128(run + sizeof(float) * f32t::BQ);
-    li = align128(lv + sizeof(float) * f32t::BQ * k_sel);
-    total = align128(li + sizeof(int) * f32t::BQ * k_sel);
-  }
-};
-
-// Insert (v, id) into one query's list, sorted by value descending. Ids
-// arrive in ascending order within a CTA, so an equal value goes after the
-// entries already there and, at the boundary, is rejected.
-__device__ inline void list_insert(float* lv, int* li, int k_sel, float v, int id) {
-  if (!(v > lv[k_sel - 1])) return;
-  int j = k_sel - 1;
-  while (j > 0 && lv[j - 1] < v) {
-    lv[j] = lv[j - 1];
-    li[j] = li[j - 1];
-    --j;
-  }
-  lv[j] = v;
-  li[j] = id;
-}
-
-__global__ void __launch_bounds__(f32t::THREADS)
-segtopk_f32_kernel(const float* __restrict__ q, const float* __restrict__ c,
-                   float* __restrict__ part_v, int* __restrict__ part_i, int Q, int n, int D,
-                   int L2, int n_valid_segs, int k_sel, long long rows_per_split) {
-  constexpr int BQ = f32t::BQ, SLD = f32t::SLD, THREADS = f32t::THREADS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int seg_t = L2 < BN ? L2 : BN;  // rows of one segment inside a tile
-  const int nseg_tile = BN / seg_t;
-  const F32Layout lay(nseg_tile, k_sel);
-  f32t::Operands& ops = *reinterpret_cast<f32t::Operands*>(smem + lay.ops);
-  float* s_s = reinterpret_cast<float*>(smem + lay.s);
-  float* m_s = reinterpret_cast<float*>(smem + lay.m);
-  float* run_s = reinterpret_cast<float*>(smem + lay.run);
-  float* lv_s = reinterpret_cast<float*>(smem + lay.lv);
-  int* li_s = reinterpret_cast<int*>(smem + lay.li);
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.y;
-  const long long seg_end = (long long)n_valid_segs * L2;
-  const long long r_begin = (long long)split * rows_per_split;
-  long long r_end = r_begin + rows_per_split;
-  if (r_end > seg_end) r_end = seg_end;
-  const int n_tiles = r_begin < r_end ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
-
-  for (int idx = tid; idx < BQ * k_sel; idx += THREADS) {
-    lv_s[idx] = -INFINITY;
-    li_s[idx] = INT_MAX;
-  }
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const long long r0 = r_begin + (long long)tile * BN;
-    f32t::score_tile(q, c, Q, n, D, q0, r0, ops, s_s);  // rows >= n score 0
-    // score tile -> segment maxima -> lists
-    if (L2 <= BN) {
-      for (int idx = tid; idx < BQ * nseg_tile; idx += THREADS) {
-        const int r = idx % BQ, sg = idx / BQ;
-        const float* row = s_s + r * SLD + sg * seg_t;
-        float m = row[0];
-        for (int j = 1; j < seg_t; ++j) m = fmaxf(m, row[j]);
-        m_s[sg * BQ + r] = m;
-      }
-      __syncthreads();
-      if (tid < BQ) {
-        const int seg0 = (int)(r0 / L2);
-        for (int sg = 0; sg < nseg_tile; ++sg) {
-          if (seg0 + sg >= n_valid_segs) break;
-          list_insert(lv_s + tid * k_sel, li_s + tid * k_sel, k_sel, m_s[sg * BQ + tid],
-                      seg0 + sg);
-        }
-      }
-    } else {
-      // a segment spans L2/BN whole tiles: fold this tile into the running
-      // maximum of its segment; insert once its last tile is done
-      const int r = tid / 4, part = tid % 4;
-      const float* row = s_s + r * SLD + part * (BN / 4);
-      float m = row[0];
-      for (int j = 1; j < BN / 4; ++j) m = fmaxf(m, row[j]);
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      if (part == 0) {
-        const float run = (r0 % L2 == 0) ? m : fmaxf(run_s[r], m);
-        run_s[r] = run;
-        if ((r0 + BN) % L2 == 0)
-          list_insert(lv_s + r * k_sel, li_s + r * k_sel, k_sel, run, (int)(r0 / L2));
-      }
-    }
-    // the next score_tile synchronises before it rewrites the score tile
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < BQ * k_sel; idx += THREADS) {
-    const int r = idx / k_sel;
-    if (q0 + r < Q) {
-      const size_t o = ((size_t)split * Q + q0 + r) * k_sel + idx % k_sel;
-      part_v[o] = lv_s[idx];
-      part_i[o] = li_s[idx];
-    }
-  }
-}
-
-// ------------------------------------------------- modes 0, 1, 2: wgmma
+// ------------------------------------------------ the wgmma kernel
 
 // row stride of the lists, in entries: odd, so the 16 inserting lanes of a
 // warp (16 rows, the same slot) fall on different banks
 __host__ __device__ inline int list_stride(int k_sel) { return k_sel | 1; }
 
-// bytes of shared memory of the wgmma kernel: the main loop's, then the
-// lists (per query row list_stride(k_sel) values and as many ids)
-inline size_t wg_smem_bytes(int bq, int rb, int n_stages, int k_sel) {
-  return qc::mainloop_bytes(bq, rb, n_stages) + (size_t)bq * list_stride(k_sel) * 8;
+// bytes of shared memory of the wgmma kernel: the main loop's
+// (qc_mainloop.cuh's for bf16 and int8, tf32_mainloop.cuh's for f32), then
+// the lists (per query row list_stride(k_sel) values and as many ids)
+template <typename Op>
+inline size_t wg_smem_bytes(int bq, int D, int n_stages, int k_sel) {
+  return tf32q::mainloop_bytes_of<Op>(bq, D, n_stages) + (size_t)bq * list_stride(k_sel) * 8;
 }
 
 // the epilogue's maxima in the accumulators' own type: fmaxf for f32, max
@@ -272,11 +168,17 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   using Acc = typename Op::Acc;
   constexpr int BQW = NWG * 64;
   constexpr int ELEM = sizeof(typename Op::Elem);
+  constexpr bool F32 = std::is_same<Op, tf32q::F32Op>::value;  // the 3xTF32 main loop
   extern __shared__ unsigned char smem_raw[];
   const int rb = qc::row_bytes(D, ELEM);
   const int kchunks = rb / qc::CHUNK_BYTES;
   qc::Ring ring;
-  unsigned char* own = qc::ring_setup(ring, smem_raw, BQW, rb, n_stages, NWG * 4);
+  tf32q::Ring ring32;
+  unsigned char* own;
+  if constexpr (F32)
+    own = tf32q::ring_setup(ring32, smem_raw, BQW, n_stages, NWG * 4);
+  else
+    own = qc::ring_setup(ring, smem_raw, BQW, rb, n_stages, NWG * 4);
   const int ls = list_stride(k_sel);
   float* lv_s = reinterpret_cast<float*>(own);
   int* li_s = reinterpret_cast<int*>(own + (size_t)BQW * ls * 4);
@@ -301,9 +203,13 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (tid >= NWG * qc::WG_THREADS) {
     // ------------------------------------------------ producer warpgroup
     if (NWG == 2) qc::reg_dealloc<40>();
-    if (tid == NWG * qc::WG_THREADS)
-      qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, qc::CHUNK_BYTES / ELEM, r_begin,
-                  n_tiles);
+    if (tid == NWG * qc::WG_THREADS) {
+      if constexpr (F32)
+        tf32q::produce(ring32, &qmap, &cmap, q0, kchunks, r_begin, n_tiles);
+      else
+        qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, qc::CHUNK_BYTES / ELEM, r_begin,
+                    n_tiles);
+    }
   } else {
     // ----------------------------------------------- consumer warpgroups
     if (NWG == 2) qc::reg_alloc<232>();
@@ -331,7 +237,7 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         thr = list_replace(my_lv, my_li, k_sel, &worst, v, seg);
     };
 
-    qc::consume<Op>(ring, wg, BQW, kchunks, n_tiles, [&](int tile, Acc (&acc)[64]) {
+    auto epilogue = [&](int tile, Acc (&acc)[64]) {
       const long long r0 = r_begin + (long long)tile * BN;
       if (L2 <= BN) {
         // nothing in the tile beats a threshold of this warp's 16 rows (the
@@ -408,7 +314,11 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           }
         }
       }
-    });
+    };
+    if constexpr (F32)
+      tf32q::consume<NWG>(ring32, kchunks, n_tiles, epilogue);
+    else
+      qc::consume<Op>(ring, wg, BQW, kchunks, n_tiles, epilogue);
 
     // each warp owns its 16 rows' lists and writes them out itself, every
     // entry at its rank by (value desc, id asc); empty slots rank last, in
@@ -543,39 +453,13 @@ inline void launch_merge(const void* part_v, const void* part_i, void* out_v, vo
         static_cast<float*>(out_v), static_cast<int*>(out_i), Q, k_sel, n_splits);
 }
 
-// mode 3: the f32 kernel, 64 query rows a CTA
-int launch_f32(const void* q, const void* c, void* part_v, void* part_i, void* out_v, void* out_i,
-               int Q, int n, int D, int L2, int n_valid_segs, int k_sel, int n_splits,
-               cudaStream_t st) {
-  const int seg_t = L2 < BN ? L2 : BN;
-  const F32Layout lay(BN / seg_t, k_sel);
-  if (lay.total > (size_t)qc::SMEM_LIMIT ||
-      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(segtopk_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)lay.total);
-  if (err != cudaSuccess) return (int)err;
-  const long long unit = L2 > BN ? L2 : BN;  // split ranges end on segment boundaries
-  const long long n_units = ((long long)n_valid_segs * L2 + unit - 1) / unit;
-  const long long units_per_split = (n_units + n_splits - 1) / n_splits;
-  dim3 grid((Q + f32t::BQ - 1) / f32t::BQ, n_splits);
-  segtopk_f32_kernel<<<grid, f32t::THREADS, lay.total, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(c), static_cast<float*>(part_v),
-      static_cast<int*>(part_i), Q, n, D, L2, n_valid_segs, k_sel, units_per_split * unit);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  launch_merge(part_v, part_i, out_v, out_i, Q, k_sel, n_splits, st);
-  return (int)cudaGetLastError();
-}
-
 template <typename Op, int NWG>
 int launch_wgmma(const void* q, const void* c, void* part_v, void* part_i, void* out_v,
                  void* out_i, int Q, int n, int D, int L2, int n_valid_segs, int k_sel,
                  int n_splits, int n_stages, cudaStream_t st) {
   constexpr int BQW = NWG * 64;
   constexpr int ELEM = sizeof(typename Op::Elem);
-  const size_t bytes = wg_smem_bytes(BQW, qc::row_bytes(D, ELEM), n_stages, k_sel);
+  const size_t bytes = wg_smem_bytes<Op>(BQW, D, n_stages, k_sel);
   // TMA takes 16-byte row pitches; the ring's barriers fit 7 stages
   if ((D * ELEM) % 16 || n_stages < 2 || n_stages > 7 || bytes > (size_t)qc::SMEM_LIMIT ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
@@ -620,8 +504,8 @@ int launch_tiles(const void* q, const void* c, void* part_v, void* part_i, void*
 // CTA and n_stages = 2..7 ring stages as ops/topk.py planned them (mode 0,
 // pass_a_plan: up to 4; mode 1, the overlap schedule, overlap_plan: the
 // deepest ring that fits); mode 2: int8, the same kernel on s8 wgmma
-// (pass_a_int8_plan; D a multiple of 16); mode 3: f32 on the CUDA cores
-// (64 query rows a CTA; bq and n_stages are not read).
+// (pass_a_int8_plan; D a multiple of 16); mode 3: f32, the same kernel on
+// the 3xTF32 main loop (pass_a_f32_plan: 2-4 stages; D a multiple of 4).
 extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* part_i,
                               void* out_v, void* out_i, int Q, int n, int D, int L2,
                               int n_valid_segs, int k_sel, int n_splits, int mode, int bq,
@@ -639,8 +523,8 @@ extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* 
       return launch_tiles<qc::S8Op>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
                                     n_valid_segs, k_sel, n_splits, bq, n_stages, st);
     case 3:
-      return launch_f32(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2, n_valid_segs, k_sel,
-                        n_splits, st);
+      return launch_tiles<tf32q::F32Op>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
+                                        n_valid_segs, k_sel, n_splits, bq, n_stages, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,6 +1,7 @@
 // Full-f32 products on the TF32 tensor cores, for Hopper (sm_90a): the
-// 3xTF32 split. Used by similarity.cu; meant for every f32 product that
-// wants the tensor cores' rate without their 10-bit mantissa.
+// 3xTF32 split. Used by similarity.cu and by tf32_mainloop.cuh (the top-k
+// kernels' f32 schedules): every f32 product of the port that wants the
+// tensor cores' rate without their 10-bit mantissa.
 //
 // An f32 value x splits into two TF32 values (f32 bit patterns whose low 13
 // mantissa bits are zero), both rounded to nearest with cvt.rna:
@@ -70,6 +71,31 @@ __device__ __forceinline__ void split_stage(uint32_t box, uint32_t lo, int float
                  : "memory");
     asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo + i), "f"(l.x),
                  "f"(l.y), "f"(l.z), "f"(l.w)
+                 : "memory");
+  }
+}
+
+// The lo parts of `floats` f32 values at shared address `box` to `lo` at
+// the same offsets, for a box whose raw f32 values the TF32 products read
+// as its hi parts: the tensor cores drop the low 13 mantissa bits of a TF32
+// operand (truncation), so hi = trunc(x) and lo = tf32(x - trunc(x)), the
+// difference exact in f32 and lo within 2^-21 |x| of it; the box itself is
+// not written. Integer values up to 2048 in magnitude have lo = 0. `thread`
+// of `threads` takes every threads-th 16 bytes; the caller orders these
+// writes before wgmma's reads as for split_stage.
+__device__ __forceinline__ void split_stage_lo(uint32_t box, uint32_t lo, int floats, int thread,
+                                               int threads) {
+#pragma unroll 4
+  for (int i = thread * 16; i < floats * 4; i += threads * 16) {
+    float v[4], l[4];
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "r"(box + i));
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      l[e] = round_tf32(v[e] - __uint_as_float(__float_as_uint(v[e]) & ~0x1FFFu));
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo + i), "f"(l[0]),
+                 "f"(l[1]), "f"(l[2]), "f"(l[3])
                  : "memory");
   }
 }

@@ -58,15 +58,15 @@
 //    read the per-buffer counts, so no sentinel is written anywhere: a
 //    query with fewer than k rows ends in (-1e30, 0) slots written last.
 //
-// The f32 schedule (topk_fused_f32_kernel). Every score is one f32 fmaf chain
-// over k = 0..D-1 on the CUDA cores (f32_tile.cuh; a TF32 tensor-core product
-// would miss the exact f32 top-k), bound by the 67 TFLOP/s of f32 FMAs. A CTA
-// of 64 query rows writes each 64 x 128 score tile to shared memory, and each
-// of its eight warps filters its own eight query rows from there: a ballot
-// over a row's 128 scores against the row's threshold appends the survivors
-// to the same buffers, cut by the same warp_cut, and the same sort and merges
-// finish the call. Rows ascend through a CTA's range, so ties resolve as in
-// the bf16 kernel.
+// The f32 schedule: the same kernel and register epilogue on the 3xTF32
+// main loop of tf32_mainloop.cuh (both operands streamed, the corpus box's
+// TF32 lo plane written beside it as it lands, the raw box its hi plane,
+// three TF32 wgmma products per K step, the small terms in an accumulator
+// of their own, summed once per tile). Scores are within about 2^-21 |q| |c| of the plain f32
+// product, inside the D * 2^-24 an f32 index may differ by, and equal to it
+// bit for bit on integer-valued rows; bound by three TF32 products per score
+// at 495 TFLOP/s. TMA needs f32 widths that are multiples of 4 (the wrapper
+// pads others with zero columns); ops/topk.py::fused_f32_plan plans it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,8 +74,8 @@
 #include <climits>
 #include <cmath>
 
-#include "f32_tile.cuh"
 #include "qc_mainloop.cuh"
+#include "tf32_mainloop.cuh"
 
 namespace {
 
@@ -84,10 +84,13 @@ constexpr int MAX_K = 2048;
 constexpr float NEG_INF = -1e30f;
 constexpr int HIST_BYTES = 256 * 4;  // one radix histogram per consumer warp
 
-// bytes of shared memory: the main loop's, then per query row a counter and
-// a threshold, then the consumer warps' histograms
-inline size_t fused_smem_bytes(int bq, int rb, int n_stages) {
-  return qc::mainloop_bytes(bq, rb, n_stages) + (size_t)bq * 8 + (size_t)(bq / 16) * HIST_BYTES;
+// bytes of shared memory: the main loop's (qc_mainloop.cuh's for bf16,
+// tf32_mainloop.cuh's for f32), then per query row a counter and a
+// threshold, then the consumer warps' histograms
+template <typename Op>
+inline size_t fused_smem_bytes(int bq, int D, int n_stages) {
+  return tf32q::mainloop_bytes_of<Op>(bq, D, n_stages) + (size_t)bq * 8 +
+         (size_t)(bq / 16) * HIST_BYTES;
 }
 
 // (value, row) as one unsigned key: larger key = higher value, then lower row
@@ -202,18 +205,25 @@ __device__ __noinline__ unsigned long long warp_cut(unsigned long long* keys, in
   return kth;
 }
 
-template <int NWG>
+template <typename Op, int NWG>
 __global__ void __launch_bounds__((NWG + 1) * qc::WG_THREADS, 1)
 topk_fused_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __grid_constant__ CUtensorMap cmap, unsigned long long* __restrict__ keys,
                   int* __restrict__ counts, int Q, int n_valid, int D, int k, int cap,
                   long long rows_per_split, int n_stages) {
   constexpr int BQW = NWG * 64;
+  constexpr int ELEM = sizeof(typename Op::Elem);
+  constexpr bool F32 = std::is_same<Op, tf32q::F32Op>::value;  // the 3xTF32 main loop
   extern __shared__ unsigned char smem_raw[];
-  const int rb = qc::row_bytes(D, 2);
+  const int rb = qc::row_bytes(D, ELEM);
   const int kchunks = rb / qc::CHUNK_BYTES;
   qc::Ring ring;
-  unsigned char* own = qc::ring_setup(ring, smem_raw, BQW, rb, n_stages, NWG * 4);
+  tf32q::Ring ring32;
+  unsigned char* own;
+  if constexpr (F32)
+    own = tf32q::ring_setup(ring32, smem_raw, BQW, n_stages, NWG * 4);
+  else
+    own = qc::ring_setup(ring, smem_raw, BQW, rb, n_stages, NWG * 4);
   int* cnt_s = reinterpret_cast<int*>(own);
   float* thr_s = reinterpret_cast<float*>(own + (size_t)BQW * 4);
   unsigned* hist_s = reinterpret_cast<unsigned*>(own + (size_t)BQW * 8);
@@ -235,8 +245,13 @@ topk_fused_kernel(const __grid_constant__ CUtensorMap qmap,
   if (tid >= NWG * qc::WG_THREADS) {
     // ------------------------------------------------ producer warpgroup
     if (NWG == 2) qc::reg_dealloc<40>();
-    if (tid == NWG * qc::WG_THREADS)
-      qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, qc::CHUNK_BYTES / 2, r_begin, n_tiles);
+    if (tid == NWG * qc::WG_THREADS) {
+      if constexpr (F32)
+        tf32q::produce(ring32, &qmap, &cmap, q0, kchunks, r_begin, n_tiles);
+      else
+        qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, qc::CHUNK_BYTES / ELEM, r_begin,
+                    n_tiles);
+    }
   } else {
     // ----------------------------------------------- consumer warpgroups
     if (NWG == 2) qc::reg_alloc<232>();
@@ -275,7 +290,7 @@ topk_fused_kernel(const __grid_constant__ CUtensorMap qmap,
       if (ok_b) thr_b = thr_s[row_b];
     };
 
-    qc::consume<qc::Bf16Op>(ring, wg, BQW, kchunks, n_tiles, [&](int tile, float (&acc)[64]) {
+    auto epilogue = [&](int tile, float (&acc)[64]) {
       const long long r0 = r_begin + (long long)tile * BN;
       const int limit = (int)(r_end - r0 < BN ? r_end - r0 : BN);  // valid columns
       // the thread's maxima over four groups of 32 columns, for each of its
@@ -316,91 +331,16 @@ topk_fused_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       __syncwarp();
       cut_rows(cap - BN);  // a tile adds at most BN keys to a buffer
-    });
+    };
+    if constexpr (F32)
+      tf32q::consume<NWG>(ring32, kchunks, n_tiles, epilogue);
+    else
+      qc::consume<Op>(ring, wg, BQW, kchunks, n_tiles, epilogue);
 
     __syncwarp();
     cut_rows(k);
     if (lane < 16 && q0 + row0 + lane < Q)
       counts[(size_t)split * Q + q0 + row0 + lane] = cnt_s[row0 + lane];
-  }
-}
-
-// The f32 schedule: 64 query rows a CTA, the score tile in shared memory,
-// each warp filtering its own 8 rows into the (query, split) buffers.
-constexpr int F32_ROWS_PER_WARP = f32t::BQ / (f32t::THREADS / 32);
-
-inline size_t fused_f32_smem_bytes() {
-  return sizeof(f32t::Operands) + sizeof(float) * f32t::BQ * f32t::SLD + (size_t)f32t::BQ * 8 +
-         (size_t)(f32t::THREADS / 32) * HIST_BYTES;
-}
-
-__global__ void __launch_bounds__(f32t::THREADS)
-topk_fused_f32_kernel(const float* __restrict__ q, const float* __restrict__ c,
-                      unsigned long long* __restrict__ keys, int* __restrict__ counts, int Q,
-                      int n_valid, int D, int k, int cap, long long rows_per_split) {
-  constexpr int BQ = f32t::BQ;
-  extern __shared__ __align__(128) unsigned char smem[];
-  f32t::Operands& ops = *reinterpret_cast<f32t::Operands*>(smem);
-  float* s_s = reinterpret_cast<float*>(smem + sizeof(f32t::Operands));
-  int* cnt_s = reinterpret_cast<int*>(s_s + BQ * f32t::SLD);
-  float* thr_s = reinterpret_cast<float*>(cnt_s + BQ);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid & 31;
-  unsigned* hist = reinterpret_cast<unsigned*>(thr_s + BQ) + warp * 256;
-  const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.y;
-  const long long r_begin = (long long)split * rows_per_split;
-  long long r_end = r_begin + rows_per_split;
-  if (r_end > n_valid) r_end = n_valid;
-  const int n_tiles = r_begin < r_end ? (int)((r_end - r_begin + BN - 1) / BN) : 0;
-  // the warp's rows that exist
-  const int row0 = warp * F32_ROWS_PER_WARP;
-  int rows = Q - q0 - row0;
-  rows = rows < 0 ? 0 : (rows > F32_ROWS_PER_WARP ? F32_ROWS_PER_WARP : rows);
-  if (tid < BQ) {
-    cnt_s[tid] = 0;
-    thr_s[tid] = -INFINITY;
-  }
-  // (score_tile synchronises the block before the counters are read)
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const long long r0 = r_begin + (long long)tile * BN;
-    const int limit = (int)(r_end - r0 < BN ? r_end - r0 : BN);  // valid columns
-    f32t::score_tile(q, c, Q, n_valid, D, q0, r0, ops, s_s);
-    for (int rr = 0; rr < rows; ++rr) {
-      const int row = row0 + rr;
-      unsigned long long* buf = keys + ((size_t)split * Q + q0 + row) * cap;
-      const float thr = thr_s[row];
-      int cnt = cnt_s[row];
-#pragma unroll
-      for (int j = 0; j < BN / 32; ++j) {
-        const int col = lane + 32 * j;
-        const float v = s_s[row * f32t::SLD + col];
-        const bool take = col < limit && v > thr;
-        const unsigned m = __ballot_sync(0xffffffffu, take);
-        if (take) buf[cnt + __popc(m & ((1u << lane) - 1u))] = make_key(v, (int)(r0 + col));
-        cnt += __popc(m);
-      }
-      __syncwarp();
-      if (cnt > cap - BN) {  // a tile adds at most BN keys to a buffer
-        const unsigned long long kth = warp_cut(buf, cnt, k, hist);
-        __syncwarp();
-        if (lane == 0) thr_s[row] = key_value(kth);
-        cnt = k;
-      }
-      if (lane == 0) cnt_s[row] = cnt;
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int rr = 0; rr < rows; ++rr) {
-    const int row = row0 + rr;
-    int cnt = cnt_s[row];
-    if (cnt > k) {
-      warp_cut(keys + ((size_t)split * Q + q0 + row) * cap, cnt, k, hist);
-      cnt = k;
-    }
-    if (lane == 0) counts[(size_t)split * Q + q0 + row] = cnt;
-    __syncwarp();
   }
 }
 
@@ -594,69 +534,64 @@ long long split_rows(int n_valid, int n_splits) {
   return (n_tiles + n_splits - 1) / n_splits * BN;
 }
 
-template <int NWG>
+template <typename Op, int NWG>
 int launch(const void* q, const void* c, void* keys, void* counts, void* out_v, void* out_i,
            int Q, int n_valid, int D, int k, int n_splits, int n_stages, int cap,
            cudaStream_t st) {
   constexpr int BQW = NWG * 64;
-  const size_t bytes = fused_smem_bytes(BQW, qc::row_bytes(D, 2), n_stages);
-  if (D % 8 || n_stages < 2 || n_stages > 4 || bytes > (size_t)qc::SMEM_LIMIT ||
+  constexpr int ELEM = sizeof(typename Op::Elem);
+  const size_t bytes = fused_smem_bytes<Op>(BQW, D, n_stages);
+  // TMA takes 16-byte row pitches
+  if ((D * ELEM) % 16 || n_stages < 2 || n_stages > 4 || bytes > (size_t)qc::SMEM_LIMIT ||
       (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, cmap;
-  int rc = qc::make_tensor_map(&qmap, q, Q, D, BQW, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2);
+  int rc = qc::make_tensor_map(&qmap, q, Q, D, BQW, Op::TMA_TYPE, ELEM);
   if (rc) return rc;
   // an empty range starts no copy: its map may stand on any valid address
-  rc = qc::make_tensor_map(&cmap, n_valid > 0 ? c : q, n_valid, D, BN,
-                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2);
+  rc = qc::make_tensor_map(&cmap, n_valid > 0 ? c : q, n_valid, D, BN, Op::TMA_TYPE, ELEM);
   if (rc) return rc;
-  cudaError_t err = cudaFuncSetAttribute(topk_fused_kernel<NWG>,
+  cudaError_t err = cudaFuncSetAttribute(topk_fused_kernel<Op, NWG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Q + BQW - 1) / BQW, n_splits);
-  topk_fused_kernel<NWG><<<grid, (NWG + 1) * qc::WG_THREADS, bytes, st>>>(
+  topk_fused_kernel<Op, NWG><<<grid, (NWG + 1) * qc::WG_THREADS, bytes, st>>>(
       qmap, cmap, static_cast<unsigned long long*>(keys), static_cast<int*>(counts), Q, n_valid,
       D, k, cap, split_rows(n_valid, n_splits), n_stages);
   return finish(keys, counts, out_v, out_i, Q, k, n_splits, cap, st);
 }
 
-int launch_f32(const void* q, const void* c, void* keys, void* counts, void* out_v, void* out_i,
-               int Q, int n_valid, int D, int k, int n_splits, int cap, cudaStream_t st) {
-  const size_t bytes = fused_f32_smem_bytes();
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(c)) % 16)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(topk_fused_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + f32t::BQ - 1) / f32t::BQ, n_splits);
-  topk_fused_f32_kernel<<<grid, f32t::THREADS, bytes, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(c),
-      static_cast<unsigned long long*>(keys), static_cast<int*>(counts), Q, n_valid, D, k, cap,
-      split_rows(n_valid, n_splits));
-  return finish(keys, counts, out_v, out_i, Q, k, n_splits, cap, st);
+template <typename Op>
+int launch_tiles(const void* q, const void* c, void* keys, void* counts, void* out_v,
+                 void* out_i, int Q, int n_valid, int D, int k, int n_splits, int bq,
+                 int n_stages, int cap, cudaStream_t st) {
+  if (bq == 128)
+    return launch<Op, 2>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, n_stages,
+                         cap, st);
+  if (bq == 64)
+    return launch<Op, 1>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, n_stages,
+                         cap, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // keys: n_splits * Q * cap 8-byte slots, counts: n_splits * Q ints (scratch,
-// uninitialised). dtype 0 (bf16): bq = 64 or 128 query rows per CTA and
-// n_stages = 2..4 ring stages, as ops/topk.py::fused_plan chose them; dtype 1
-// (f32): 64 query rows a CTA (fused_f32_plan), bq and n_stages not read.
-// cap >= k + 128 slots per buffer.
+// uninitialised). bq = 64 or 128 query rows per CTA and n_stages = 2..4 ring
+// stages, as ops/topk.py planned them: dtype 0 (bf16) on qc_mainloop.cuh
+// (fused_plan), dtype 1 (f32) on the 3xTF32 main loop (fused_f32_plan; D a
+// multiple of 4). cap >= k + 128 slots per buffer.
 extern "C" int topk_fused(const void* q, const void* c, void* keys, void* counts, void* out_v,
                           void* out_i, int Q, int n_valid, int D, int k, int n_splits, int bq,
                           int n_stages, int cap, int dtype, void* stream) {
   if (Q <= 0 || n_valid < 0 || D <= 0 || k <= 0 || k > MAX_K || n_splits <= 0 || cap < k + BN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_tiles<qc::Bf16Op>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k,
+                                    n_splits, bq, n_stages, cap, st);
   if (dtype == 1)
-    return launch_f32(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, cap, st);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  if (bq == 128)
-    return launch<2>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, n_stages, cap,
-                     st);
-  if (bq == 64)
-    return launch<1>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k, n_splits, n_stages, cap,
-                     st);
+    return launch_tiles<tf32q::F32Op>(q, c, keys, counts, out_v, out_i, Q, n_valid, D, k,
+                                      n_splits, bq, n_stages, cap, st);
   return (int)cudaErrorInvalidValue;
 }

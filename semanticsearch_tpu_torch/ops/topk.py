@@ -24,10 +24,13 @@ than a tile, so its two consumer warpgroups drift out of phase. Their tiles,
 ring stages and corpus splits are planned here (:func:`pass_a_plan`,
 :func:`pass_a_int8_plan`, :func:`overlap_plan`, :func:`fused_plan`) and
 handed to the C entry points. f32 operands (an ``IndexConfig(dtype=
-"float32")`` index) run each kernel's f32 schedule: every score one f32 FMA
-chain on the CUDA cores (``csrc/f32_tile.cuh``), equal to the exact f32
-product on integer-valued rows and within D * 2^-24 * |q| |c| of it
-elsewhere (:func:`pass_a_f32_plan`, :func:`fused_f32_plan`).
+"float32")`` index) run each kernel's f32 schedule: the same epilogues on a
+3xTF32 main loop (``csrc/tf32_mainloop.cuh``: both operands streamed, each
+value split into TF32 hi and lo parts, three TF32 ``wgmma`` products per
+step, the small terms summed apart), equal to the exact f32 product on
+integer-valued rows and within about 2^-21 |q| |c| of it elsewhere, inside
+the D * 2^-24 an f32 index may differ by (:func:`pass_a_f32_plan`,
+:func:`fused_f32_plan`; widths padded to a multiple of 4 by one copy).
 
 The true top-k rows lie in the top-k segments by maximum: were a top-k row's
 segment ranked below k, k segments would each hold a row scoring at least as
@@ -274,11 +277,13 @@ def _sm_count(dev: torch.device) -> int:
 #
 # The wgmma kernels (csrc/qc_mainloop.cuh) keep a query tile of 64 or 128
 # rows resident in shared memory and stream the corpus through a ring of
-# 2-4 stages of 128 rows x 128 bytes (64 bf16 or 128 int8 columns). The
-# choice is made here, in pure functions the CPU tests reach, and handed to
-# the C entry points, which recompute the byte count with the same formulas
-# and refuse a plan that does not fit. The f32 schedules take 64 query rows
-# a CTA and a shared memory that does not grow with the width.
+# 2-4 stages of 128 rows x 128 bytes (64 bf16 or 128 int8 columns). The f32
+# schedules (csrc/tf32_mainloop.cuh) stream both operands: a stage is one
+# 32-column K chunk of the query tile and of the corpus tile plus the
+# corpus box's lo plane, so their shared memory does not grow with the
+# width. The choice is made here, in pure functions the CPU tests reach,
+# and handed to the C entry points, which recompute the byte count with the
+# same formulas and refuse a plan that does not fit.
 
 SMEM_LIMIT = 232448    # dynamic shared memory one block can get on sm_90
 _CHUNK_BYTES = 128     # a ring stage's K chunk
@@ -331,8 +336,8 @@ def fused_max_d() -> int:
     return _widest(lambda d: fused_smem_bytes(64, d, 2) <= SMEM_LIMIT)
 
 
-def _pick_tile(q: int, fits) -> Tuple[int, int]:
-    for bq, stages in _TILE_CHOICES:
+def _pick_tile(q: int, fits, choices=_TILE_CHOICES) -> Tuple[int, int]:
+    for bq, stages in choices:
         if (bq == 64 or q > 64) and fits(bq, stages):
             return bq, stages
     raise ValueError("no tile fits the shared memory")
@@ -398,33 +403,35 @@ def pass_a_int8_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
     return _wgmma_pass_a_plan(q, d, k_sel, n_segs, seg_rows, sms, 1, "int8")
 
 
-# the f32 schedules' shared memory (csrc/f32_tile.cuh, 64 query rows x 128
-# corpus rows a tile): two k-major operand tiles of 16 columns, double
-# buffered, then the 64 x 132 score tile
-_F32_OPERAND_BYTES = 2 * 16 * (64 + 4) * 4 + 2 * 16 * (128 + 4) * 4
-_F32_SCORE_BYTES = 64 * (128 + 4) * 4
+# the f32 schedules' tiles, in order of preference: 128 query rows a CTA
+# (64 for a batch of at most 64), the deepest ring that fits
+_F32_TILE_CHOICES = ((128, 4), (128, 3), (128, 2), (64, 4), (64, 3), (64, 2))
 
 
-def pass_a_f32_smem_bytes(k_sel: int, seg_rows: int) -> int:
-    """segtopk.cu's F32Layout: operand and score tiles, the segment maxima
-    of a tile, running maxima, one sorted (value, id) list per query row,
-    each part 128-byte aligned."""
-    nseg_tile = _LANE // min(seg_rows, _LANE)
-    offset = _round_up(_F32_OPERAND_BYTES, 128) + _F32_SCORE_BYTES
-    for part in (4 * 64 * nseg_tile, 4 * 64, 4 * 64 * k_sel, 4 * 64 * k_sel):
-        offset = _round_up(offset, 128) + part
-    return _round_up(offset, 128)
+def _f32_mainloop_bytes(bq: int, stages: int) -> int:
+    """tf32q::mainloop_bytes: alignment slack, ring (a stage: the query
+    tile's K chunk, the corpus tile's and its lo plane), barriers."""
+    return 1024 + stages * (bq * _CHUNK_BYTES + 2 * _STAGE_BYTES) + 128
+
+
+def pass_a_f32_smem_bytes(bq: int, stages: int, k_sel: int) -> int:
+    """Shared memory of pass A's f32 schedule: the 3xTF32 main loop's, then
+    the lists as in :func:`pass_a_smem_bytes`; independent of the width."""
+    return _f32_mainloop_bytes(bq, stages) + bq * (k_sel | 1) * 8
 
 
 def pass_a_f32_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
                     sms: int = 132) -> dict:
-    """Tiles and grid of pass A's f32 schedule: 64 query rows a CTA at any
-    width (``bq``, ``smem``, ``n_splits`` as in :func:`pass_a_plan`; the
-    operand tiles are double buffered in registers, ``stages`` 2)."""
+    """Tiles and grid of pass A's f32 schedule at any width (``bq``,
+    ``stages``, ``smem``, ``n_splits`` as in :func:`pass_a_plan`): 128
+    query rows a CTA on 4 stages at k_sel up to 33, 3 up to 81, 2 past
+    that (64 rows, for at most 64 queries, on 4 at every k_sel)."""
     del d  # the shared memory does not grow with the width
-    return {"bq": 64, "stages": 2,
-            "n_splits": _segment_splits(-(-q // 64), n_segs, seg_rows, sms),
-            "smem": pass_a_f32_smem_bytes(k_sel, seg_rows)}
+    bq, stages = _pick_tile(q, lambda b, s: pass_a_f32_smem_bytes(
+        b, s, k_sel) <= SMEM_LIMIT, _F32_TILE_CHOICES)
+    return {"bq": bq, "stages": stages,
+            "n_splits": _segment_splits(-(-q // bq), n_segs, seg_rows, sms),
+            "smem": pass_a_f32_smem_bytes(bq, stages, k_sel)}
 
 
 # the ring's barriers (two per stage and the query tile's) fit 128 bytes for
@@ -490,20 +497,25 @@ def fused_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
             "scratch": n_splits * q * (cap * 8 + 4)}
 
 
-# topk_fused.cu's f32 kernel: operand and score tiles, a counter and a
-# threshold per query row, a 1 KB histogram per warp (eight)
-FUSED_F32_SMEM = _F32_OPERAND_BYTES + _F32_SCORE_BYTES + 64 * 8 + 8 * 1024
+def fused_f32_smem_bytes(bq: int, stages: int) -> int:
+    """Shared memory of the fused kernel's f32 schedule: the 3xTF32 main
+    loop's, then as in :func:`fused_smem_bytes`; independent of the
+    width."""
+    return _f32_mainloop_bytes(bq, stages) + bq * 8 + (bq // 16) * 1024
 
 
 def fused_f32_plan(q: int, d: int, k: int, vn: int, sms: int = 132) -> dict:
-    """:func:`fused_plan` for the f32 schedule: 64 query rows a CTA at any
-    width, the same buffers (``cap``, ``scratch``) and splits of at least 4k
-    rows; ``stages`` 2 (operand tiles double buffered in registers)."""
+    """:func:`fused_plan` for the f32 schedule at any width: 128 query rows
+    a CTA (64 for at most 64 queries) on 4 stages, the same buffers
+    (``cap``, ``scratch``) and splits of at least 4k rows."""
     del d  # the shared memory does not grow with the width
-    n_splits = _fused_splits(-(-q // 64), k, vn, sms)
+    bq, stages = _pick_tile(q, lambda b, s: fused_f32_smem_bytes(
+        b, s) <= SMEM_LIMIT, _F32_TILE_CHOICES)
+    n_splits = _fused_splits(-(-q // bq), k, vn, sms)
     cap = 2 * k + _LANE
-    return {"bq": 64, "stages": 2, "n_splits": n_splits, "cap": cap,
-            "smem": FUSED_F32_SMEM, "scratch": n_splits * q * (cap * 8 + 4)}
+    return {"bq": bq, "stages": stages, "n_splits": n_splits, "cap": cap,
+            "smem": fused_f32_smem_bytes(bq, stages),
+            "scratch": n_splits * q * (cap * 8 + 4)}
 
 
 # ------------------------------------------------------------------- pass A
@@ -577,6 +589,21 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _pad_f32_width(queries: torch.Tensor, corpus: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 operands of a width that is not a multiple of 4 (the f32
+    schedules' tensor maps need 16-byte rows) widened with zero columns,
+    one copy each; a zero column splits into hi = lo = 0 and adds exactly
+    0 to every product. Other widths and types are returned as they are."""
+    d = queries.shape[1]
+    if (queries.dtype != torch.float32 or corpus.dtype != torch.float32
+            or corpus.shape[1] != d or d % 4 == 0):
+        return queries, corpus
+    pad = _round_up(d, 4) - d
+    return (torch.nn.functional.pad(queries, (0, pad)),
+            torch.nn.functional.pad(corpus, (0, pad)))
+
+
 # schedules of csrc/segtopk.cu: (mode, operand dtype, plan)
 _PASS_A_MODES = {"bf16": (0, torch.bfloat16, pass_a_plan),
                  "overlap": (1, torch.bfloat16, overlap_plan),
@@ -595,7 +622,7 @@ def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
             f"the {schedule} pass-A kernel takes {dtype} operands, got "
             f"{queries.dtype} and {corpus.dtype}")
     q, d = queries.shape
-    vec = {0: 8, 1: 8, 2: 16, 3: 1}[mode]  # TMA rows: 16-byte pitches
+    vec = {0: 8, 1: 8, 2: 16, 3: 4}[mode]  # TMA rows: 16-byte pitches
     if corpus.shape[1] != d or d % vec:
         raise ValueError(f"pass A ({schedule}) needs matching widths that are "
                          f"multiples of {vec}, got {d} and {corpus.shape[1]}")
@@ -634,12 +661,14 @@ def segtopk_pass_a(
     """Pass A of the two-pass top-k; same contract as
     :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
     tensors it launches ``csrc/segtopk.cu`` (bf16 operands, or the f32
-    schedule for f32 operands) or raises."""
+    schedule for f32 operands, at a width not a multiple of 4 padded with
+    zero columns) or raises."""
     global SEGTOPK_LAUNCHES, SEGTOPK_F32_LAUNCHES
     if not _on_card("segtopk_pass_a", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
     if _f32_operands("the pass-A kernel", queries, corpus):
-        out = _launch_pass_a("f32", queries, corpus, n, seg_rows, k_sel)
+        out = _launch_pass_a("f32", *_pad_f32_width(queries, corpus), n,
+                             seg_rows, k_sel)
         SEGTOPK_F32_LAUNCHES += 1
     else:
         out = _launch_pass_a("bf16", queries, corpus, n, seg_rows, k_sel)
@@ -655,13 +684,15 @@ def segtopk_pass_a_overlap(
     bit-identical to :func:`segtopk_pass_a`. For CPU tensors it runs
     :func:`segtopk_pass_a_plain`; for CUDA tensors it launches the overlap
     schedule of ``csrc/segtopk.cu`` (bf16 operands; tiles from
-    :func:`overlap_plan`), or for f32 operands the f32 schedule (the same
-    function on the CUDA cores), or raises."""
+    :func:`overlap_plan`), or for f32 operands the f32 schedule (the
+    3xTF32 main loop, whose two consumer warpgroups move in step, so there
+    is no phase to overlap: the default's launch), or raises."""
     global SEGTOPK_OVERLAP_LAUNCHES, SEGTOPK_OVERLAP_F32_LAUNCHES
     if not _on_card("segtopk_pass_a_overlap", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
     if _f32_operands("the pass-A kernel", queries, corpus):
-        out = _launch_pass_a("f32", queries, corpus, n, seg_rows, k_sel)
+        out = _launch_pass_a("f32", *_pad_f32_width(queries, corpus), n,
+                             seg_rows, k_sel)
         SEGTOPK_OVERLAP_F32_LAUNCHES += 1
     else:
         out = _launch_pass_a("overlap", queries, corpus, n, seg_rows, k_sel)
@@ -711,7 +742,8 @@ def topk_scores_fused(
     """Exact top-k for any k up to :data:`FUSED_MAX_K`; the contract of
     :func:`topk_scores_fused_plain`, which it runs for CPU tensors. For
     CUDA tensors it launches ``csrc/topk_fused.cu`` (bf16 operands, or the
-    f32 schedule for f32 operands) or raises."""
+    f32 schedule for f32 operands, at a width not a multiple of 4 padded
+    with zero columns) or raises."""
     global TOPK_FUSED_LAUNCHES, TOPK_FUSED_F32_LAUNCHES
     if not 0 < k <= FUSED_MAX_K:
         raise ValueError(f"the fused top-k supports 1 <= k <= {FUSED_MAX_K} "
@@ -727,6 +759,8 @@ def topk_scores_fused(
     if corpus.shape[1] != d or (d % 8 and not f32):
         raise ValueError(f"the fused top-k needs matching widths (multiples "
                          f"of 8 in bf16), got {d} and {corpus.shape[1]}")
+    queries, corpus = _pad_f32_width(queries, corpus)
+    d = queries.shape[1]
     queries = _aligned(queries)
     corpus = _aligned(corpus)
     dev = queries.device

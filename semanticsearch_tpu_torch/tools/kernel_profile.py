@@ -29,9 +29,14 @@ inputs, and for these also the host's time per call (``*_host_ms``: 50
 calls queued without a wait), which CUDA events include whenever it is the
 longer; the similarity kernel at ``chip_smoke.SIM_SHAPES`` on unit f32
 rows (the long document's 4096 bucket with 3,939 real rows, and 256
-documents of 64 rows). ``--only`` keeps the shapes whose names start with
-one of the given prefixes (``pass_a``, ``overlap``, ``fused``, ``flash``,
-``sim``); the shard is built only when a shape needs it.
+documents of 64 rows); and the two f32 schedules (the shapes of
+``chip_smoke.py`` phase 7) on the f32 shard (1,250,000 x 384): pass A at
+32,768 queries (k_sel 11) and at the serve shape (64 x 20,000, k_sel 41),
+the fused top-k at 16,384 queries (k = 200) and at the f32 live round's
+shape (10,000 queries over 20,000 rows, k = 712). ``--only`` keeps the
+shapes whose names start with one of the given prefixes (``pass_a``,
+``overlap``, ``fused``, ``flash``, ``sim``, ``f32``); a shard is built
+only when a shape needs it.
 """
 from __future__ import annotations
 
@@ -99,6 +104,23 @@ def main() -> int:
             "fused_live": lambda: topk.topk_scores_fused(queries[:10000],
                                                          live, 200),
         })
+    if any(wanted(name) for name in ("f32_pass_a_shard", "f32_pass_a_serve",
+                                     "f32_fused_shard", "f32_fused_live")):
+        n, d = 1_250_000, 384
+        corpus32 = synth.corpus(n, d, torch.float32, "cuda")
+        queries32 = synth.corpus(32768, d, torch.float32, "cuda",
+                                 start=20_000_000)
+        small32 = corpus32[:20000].contiguous()
+        runs.update({
+            "f32_pass_a_shard": lambda: topk.segtopk_pass_a(
+                queries32, corpus32, n, 32, 11),
+            "f32_pass_a_serve": lambda: topk.segtopk_pass_a(
+                queries32[:64], small32, 20000, 32, 41),
+            "f32_fused_shard": lambda: topk.topk_scores_fused(
+                queries32[:16384], corpus32, 200),
+            "f32_fused_live": lambda: topk.topk_scores_fused(
+                queries32[:10000], small32, 712),
+        })
     gen = torch.Generator().manual_seed(3)
     for name, b, t, (lo, hi) in [("flash_serve", 256, 256, (40, 256)),
                                  ("flash_t1024", 2, 1024, (600, 1000)),
@@ -116,7 +138,8 @@ def main() -> int:
             E[:, LONG_DOC_SENTENCES:] = 0.0  # the bucket's zero rows
         runs[name] = lambda E=E: sim.similarity_matrix(E)
     runs = {name: fn for name, fn in runs.items() if wanted(name)}
-    reps = {"pass_a_serve": 50, "fused_live": 5, "flash_serve": 20,
+    reps = {"pass_a_serve": 50, "fused_live": 5, "f32_pass_a_serve": 50,
+            "f32_fused_live": 5, "flash_serve": 20,
             "flash_t1024": 20, "flash_chunk": 20, "sim_long": 20,
             "sim_batched": 20}
     for name, fn in runs.items():

@@ -21,6 +21,8 @@ split drops 2^-22 of each product; the accumulations round at most a few
 ulps of a sum of magnitude at most 1) and D * 2^-24 on bf16 ones, and
 always bit-symmetric, bit-reproducible and the same for a document alone
 as in its padded bucket."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -550,6 +552,100 @@ def test_topk_fused_f32_on_unit_rows(dev, d):
     err, bad, skipped = _near_tie_agree(kv, ki, pv, pi, tol)
     assert err <= tol and bad == 0
     assert skipped <= kv.numel() // 100, skipped
+
+
+# the 3xTF32 main loop at every width class (30 and 100 padded to a
+# multiple of 4 by the wrapper, 1 and 2-4 K chunks, 12, 32 and 64 of them),
+# every k_sel the plans give another ring (1 and 11: 4 stages, 41: 3, 128:
+# 2), segments inside a column pair, inside a tile, and over two tiles, and
+# ragged query tiles (64 rows for 17, 33 and 64 queries, 128 past that)
+# over corpora that end inside a tile
+F32_WIDTHS = [30, 72, 100, 384, 1024, 2048]
+F32_GRID_CASES = [
+    (q, 2000 + 37 * i, d, seg_rows, k_sel)
+    for i, (d, (seg_rows, k_sel), q) in enumerate(
+        (d, sk, (17, 33, 64, 129)[(j + m) % 4])
+        for m, d in enumerate(F32_WIDTHS)
+        for j, sk in enumerate([(1, 1), (4, 11), (32, 41), (256, 128)]))]
+
+
+@pytest.mark.parametrize("wrapper", ["default", "overlap"])
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", F32_GRID_CASES)
+def test_segtopk_f32_grid_on_integer_rows(dev, wrapper, q, n, d, seg_rows,
+                                          k_sel):
+    """The f32 schedule at every width, k_sel and segment length class:
+    ids, tie order and values equal to the plain version's on integer
+    rows with ties, through both wrappers."""
+    Q, C = _small_grid((q, d), 60, dev), _tied(_small_grid((n, d), 61, dev))
+    fn = {"default": topk.segtopk_pass_a,
+          "overlap": topk.segtopk_pass_a_overlap}[wrapper]
+    kv, ki = fn(Q, C, n, seg_rows, k_sel)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, n, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+@pytest.mark.parametrize("d", F32_WIDTHS)
+def test_segtopk_f32_grid_on_unit_rows(dev, d, k_sel):
+    """Unit rows at every width and ring: values within D * 2^-24 of the
+    plain f32 product, ids equal outside near-ties, at most 1 % of ids
+    differing inside them; the overlap wrapper equal to the default bit for
+    bit."""
+    Q, C = _unit((129, d), 62, dev), _unit((20011, d), 63, dev)
+    tol = d * 2.0 ** -24
+    kv, ki = topk.segtopk_pass_a(Q, C, 20011, 32, k_sel)
+    ov, oi = topk.segtopk_pass_a_overlap(Q, C, 20011, 32, k_sel)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, 20011, 32, k_sel + 1)
+    err, bad, skipped = _near_tie_agree(kv, ki, pv, pi, tol)
+    assert err <= tol and bad == 0
+    assert skipped <= kv.numel() // 100, skipped
+    assert torch.equal(oi, ki) and torch.equal(ov, kv)
+
+
+@pytest.mark.parametrize("k", [1, 200, 2048])
+@pytest.mark.parametrize("q", [17, 33, 64, 129])
+@pytest.mark.parametrize("d", F32_WIDTHS)
+def test_topk_fused_f32_grid_on_integer_rows(dev, d, q, k):
+    Q, C = _small_grid((q, d), 64, dev), _tied(_small_grid((9001, d), 65,
+                                                           dev))
+    kv, ki = topk.topk_scores_fused(Q, C, k)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, k)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("k", [1, 200, 2048])
+@pytest.mark.parametrize("d", F32_WIDTHS)
+def test_topk_fused_f32_grid_on_unit_rows(dev, d, k):
+    Q, C = _unit((129, d), 66, dev), _unit((20011, d), 67, dev)
+    tol = d * 2.0 ** -24
+    kv, ki = topk.topk_scores_fused(Q, C, k)
+    pv, pi = topk.topk_scores_fused_plain(Q, C, k + 1)
+    err, bad, skipped = _near_tie_agree(kv, ki, pv, pi, tol)
+    assert err <= tol and bad == 0
+    assert skipped <= kv.numel() // 100, skipped
+
+
+def test_f32_kernels_refuse_a_plan_that_does_not_fit(dev):
+    """The C entry points recompute the f32 main loop's bytes and refuse
+    a ring deeper than fits: no launch, an error."""
+    from semanticsearch_tpu_torch.ops import _build
+
+    x = torch.zeros((200, 384), device=dev)
+    part = torch.empty((1, 200, 128), device=dev)
+    ids = torch.empty((1, 200, 128), device=dev, dtype=torch.int32)
+    fn = _build.load("segtopk").segtopk_pass_a
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = [x.data_ptr(), x.data_ptr(), part.data_ptr(), ids.data_ptr(),
+            part.data_ptr(), ids.data_ptr(), 200, 200, 384, 8, 25, 128, 1, 3,
+            128]
+    assert topk.pass_a_f32_smem_bytes(128, 3, 128) > topk.SMEM_LIMIT
+    assert fn(*args, 3, stream) != 0  # three stages do not fit at k_sel 128
+    assert fn(*args, 2, stream) == 0
+    torch.cuda.synchronize()
 
 
 def test_twopass_f32_index_matches_cpu(dev):

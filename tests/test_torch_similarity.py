@@ -17,6 +17,8 @@ from semanticsearch_tpu.ops import similarity as jsim
 from semanticsearch_tpu_torch.core import config as tcfg
 from semanticsearch_tpu_torch.ops import similarity as tsim
 
+from _tf32_model import tf32 as _tf32, tf32x3 as _tf32x3
+
 
 def _unit_rows(rng, n, d):
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -188,24 +190,6 @@ def test_similarity_plan_ring_pad_and_scratch():
     assert (many["launches"], many["ctas"]) == (2, 4096 + 1)
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         tsim.similarity_plan(1, 8, 16, torch.float16)
-
-
-def _tf32(x):
-    """x rounded to TF32 as cvt.rna.tf32.f32 rounds: to nearest, ties away
-    from zero, 10 explicit mantissa bits (the low 13 bits cleared)."""
-    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32x3(emb):
-    """The kernel's 3xTF32 scheme with every sum exact (float64) and rounded
-    once: hi = tf32(x), lo = tf32(x - hi); small = a_lo b_hi + a_hi b_lo and
-    big = a_hi b_hi, each rounded to f32, then big + small in f32."""
-    hi = _tf32(emb)
-    lo = _tf32(emb - hi)
-    h, l_ = hi.double(), lo.double()
-    big = (h @ h.T).float()
-    small = (l_ @ h.T + h @ l_.T).float()
-    return big + small
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():

@@ -229,11 +229,11 @@ def test_twopass_int8_matches_jax(rng, q, n, d, k, block_n, unit_q):
     assert ttopk.SEGTOPK_INT8_LAUNCHES == 0
 
 
-def test_int8_pass_a_plain_matches_jax_kernel(rng, monkeypatch):
-    """Pass A alone in int8: the JAX kernel's segment order (int32 maxima
-    converted to f32) equals the plain version's, values exactly."""
-    Q = _unit(rng, (8, 64))
-    C = _unit(rng, (300, 64))
+def _jax_pass_a(Q, C, k, block_n, monkeypatch, **kw):
+    """The JAX package's pass-A kernel in interpret mode, recorded as
+    topk_scores_twopass launches it: (segment maxima, segment ids) of the Q
+    queries, each as wide as the kernel's k_sel scratch (128), segments of
+    block_n / 128 rows."""
     outs = []
     real = jtopk.pl.pallas_call
 
@@ -243,15 +243,25 @@ def test_int8_pass_a_plain_matches_jax_kernel(rng, monkeypatch):
 
     monkeypatch.setattr(jtopk.pl, "pallas_call", recording_pallas_call)
     jtopk.topk_scores_twopass.__wrapped__(
-        jnp.asarray(Q), jnp.asarray(C), k=5, block_q=8, block_n=128,
-        q_chunk=8, interpret=True, pass_a_int8=True)
+        jnp.asarray(Q), jnp.asarray(C), k=k, block_q=8, block_n=block_n,
+        q_chunk=8, interpret=True, **kw)
+    monkeypatch.undo()
     jv, ji = (np.asarray(o) for o in outs[0])
+    return jv[:Q.shape[0]], ji[:Q.shape[0]]
+
+
+def test_int8_pass_a_plain_matches_jax_kernel(rng, monkeypatch):
+    """Pass A alone in int8: the JAX kernel's segment order (int32 maxima
+    converted to f32) equals the plain version's, values exactly."""
+    Q = _unit(rng, (8, 64))
+    C = _unit(rng, (300, 64))
+    jv, ji = _jax_pass_a(Q, C, 5, 128, monkeypatch, pass_a_int8=True)
     q8 = ttopk._quantize_rows_int8(torch.from_numpy(Q))
     c8, _ = ttopk.quantize_int8_global(torch.from_numpy(C))
     k_sel = 5 + 1 + 5
     tv, ti = ttopk.segtopk_pass_a_int8(q8, c8, 300, 1, k_sel)
-    np.testing.assert_array_equal(ti.numpy(), ji[:8, :k_sel])
-    np.testing.assert_array_equal(tv.numpy(), jv[:8, :k_sel])
+    np.testing.assert_array_equal(ti.numpy(), ji[:, :k_sel])
+    np.testing.assert_array_equal(tv.numpy(), jv[:, :k_sel])
 
 
 def test_twopass_int8_prequantized_matches_jax(rng):
@@ -583,33 +593,126 @@ def test_pass_a_int8_plan_raises_exactly_past_its_widest_d(k_sel):
         ttopk.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("k_sel", [1, 11, 41, 128])
+# the f32 schedules' plans (csrc/tf32_mainloop.cuh): 128 query rows a CTA
+# (64 for a batch of at most 64) on the deepest ring of 48 KB stages that
+# fits beside the lists, whatever the width
+_F32_PLAN_D = [4, 32, 100, 384, 1024, 2048, 4096]
+
+
+@pytest.mark.parametrize("k_sel", [1, 11, 33, 34, 41, 81, 82, 128])
 @pytest.mark.parametrize("seg_rows", [1, 2, 4, 8, 32, 128, 256])
 def test_pass_a_f32_plan_fits_at_any_width(k_sel, seg_rows):
-    """The f32 schedule: 64 query rows a CTA, shared memory independent of
-    the width (so no widest width), splits of whole segments and tiles as
-    for the wgmma schedules."""
+    """Pass A's f32 schedule: the same plan at every width (nothing in
+    shared memory grows with it), within 232,448 bytes, on the deepest ring
+    that fits (4 stages at k_sel <= 33, 3 to 81, 2 past that on 128-row
+    tiles), splits of whole segments and tiles as for the bf16 schedule."""
+    n_segs = 40000 // seg_rows + 1
     for q in _PLAN_Q:
-        plans = [ttopk.pass_a_f32_plan(q, d, k_sel, 40000 // seg_rows + 1,
-                                       seg_rows) for d in (8, 100, 384, 4096)]
+        plans = [ttopk.pass_a_f32_plan(q, d, k_sel, n_segs, seg_rows)
+                 for d in _F32_PLAN_D]
         assert all(p == plans[0] for p in plans)
         plan = plans[0]
-        assert plan["bq"] == 64 and plan["smem"] <= ttopk.SMEM_LIMIT
-        assert plan["smem"] == ttopk.pass_a_f32_smem_bytes(k_sel, seg_rows)
+        bq, stages = plan["bq"], plan["stages"]
+        assert bq == (128 if q > 64 else 64) and 2 <= stages <= 4
+        assert plan["smem"] == ttopk.pass_a_f32_smem_bytes(
+            bq, stages, k_sel) <= ttopk.SMEM_LIMIT == 232448
+        assert (stages == 4 or ttopk.pass_a_f32_smem_bytes(
+            bq, stages + 1, k_sel) > ttopk.SMEM_LIMIT)
+        if bq == 128:
+            assert stages == (4 if k_sel <= 33 else 3 if k_sel <= 81 else 2)
         assert plan["n_splits"] == ttopk._segment_splits(
-            -(-q // 64), 40000 // seg_rows + 1, seg_rows, 132)
+            -(-q // bq), n_segs, seg_rows, 132)
+    # a stage is the query tile's K chunk, the corpus tile's and its lo plane
+    assert ttopk.pass_a_f32_smem_bytes(128, 2, 1) - ttopk.pass_a_f32_smem_bytes(
+        128, 1, 1) == 128 * 128 + 2 * 128 * 128
 
 
-@pytest.mark.parametrize("k", [1, 128, 200, 2048])
+@pytest.mark.parametrize("k", [1, 128, 200, 712, 2048])
 @pytest.mark.parametrize("q", _PLAN_Q)
 def test_fused_f32_plan_keeps_splits_at_4k_rows(q, k):
+    """The fused kernel's f32 schedule: the same plan at every width, 4
+    stages within 232,448 bytes, the bf16 schedule's buffers, and splits of
+    at least 4k rows."""
     for vn in (0, 100, 20011, 22000, 1_250_000):
-        plan = ttopk.fused_f32_plan(q, 100, k, vn)
-        assert plan == ttopk.fused_f32_plan(q, 4096, k, vn)
-        assert plan["bq"] == 64 and plan["smem"] == ttopk.FUSED_F32_SMEM
-        assert plan["smem"] <= ttopk.SMEM_LIMIT
+        plans = [ttopk.fused_f32_plan(q, d, k, vn) for d in _F32_PLAN_D]
+        assert all(p == plans[0] for p in plans)
+        plan = plans[0]
+        assert plan["bq"] == (128 if q > 64 else 64) and plan["stages"] == 4
+        assert plan["smem"] == ttopk.fused_f32_smem_bytes(
+            plan["bq"], 4) <= ttopk.SMEM_LIMIT
         assert plan["cap"] == 2 * k + 128
         assert plan["scratch"] == plan["n_splits"] * q * (plan["cap"] * 8 + 4)
         if plan["n_splits"] > 1:
             rows = -(-(-(-vn // 128)) // plan["n_splits"]) * 128
             assert rows >= 4 * k and vn - (plan["n_splits"] - 1) * rows >= 4 * k
+
+
+@pytest.mark.parametrize("d", [30, 100])
+def test_f32_width_pad_keeps_the_plain_result(rng, d):
+    """The f32 schedules' tensor maps need widths that are multiples of 4:
+    the wrappers pad other widths with zero columns, one copy each, and
+    leave the rest alone. On the padded operands the plain pass A and the
+    plain fused top-k give the unpadded results: bit for bit on integer
+    rows, within D * 2^-24 on unit rows with ids equal outside near-ties."""
+    w = -(-d // 4) * 4
+    Qi = torch.from_numpy(rng.integers(-8, 9, size=(9, d)).astype(np.float32))
+    Ci = torch.from_numpy(rng.integers(-8, 9, size=(700, d)).astype(np.float32))
+    Ci[350:] = Ci[:350].clone()
+    Qu, Cu = (torch.from_numpy(_unit(rng, s)) for s in ((9, d), (700, d)))
+    tol = d * 2.0 ** -24
+    for Q, C, exact in ((Qi, Ci, True), (Qu, Cu, False)):
+        Qp, Cp = ttopk._pad_f32_width(Q, C)
+        assert Qp.shape == (9, w) and Cp.shape == (700, w)
+        assert torch.equal(Qp[:, :d], Q) and torch.equal(Cp[:, :d], C)
+        assert not Qp[:, d:].any() and not Cp[:, d:].any()
+        if w == d:  # nothing copied
+            assert Qp is Q and Cp is C
+        pairs = [(ttopk.segtopk_pass_a_plain(Qp, Cp, 700, 8, 21),
+                  ttopk.segtopk_pass_a_plain(Q, C, 700, 8, 21)),
+                 (ttopk.topk_scores_fused_plain(Qp, Cp, 150),
+                  ttopk.topk_scores_fused_plain(Q, C, 150))]
+        for (pv, pi), (v, i) in pairs:
+            if exact:
+                assert torch.equal(pi, i) and torch.equal(pv, v)
+            else:
+                assert float((pv - v).abs().max()) <= tol
+                gap = (v[:, 1:] - v[:, :-1]).abs() > 2 * tol
+                apart = torch.ones_like(v, dtype=torch.bool)
+                apart[:, 1:] &= gap
+                apart[:, :-1] &= gap
+                assert torch.equal(pi[apart], i[apart])
+    # bf16 operands and widths that are multiples of 4 pass untouched
+    b = Qi.to(torch.bfloat16)
+    assert ttopk._pad_f32_width(b, b)[0] is b
+
+
+@pytest.mark.parametrize("d", [30, 100])
+@pytest.mark.parametrize("integer", [True, False])
+def test_tf32x3_pass_a_model_matches_jax_kernel(rng, monkeypatch, d, integer):
+    """Pass A on 3xTF32 scores (the f32 schedule's numerics, modelled in
+    torch) against the JAX pass-A kernel in interpret mode: on integer rows
+    with ties bit for bit, ids and tie order included; on unit rows values
+    within D * 2^-24, ids equal outside near-ties."""
+    from _tf32_model import segtopk_model
+
+    if integer:
+        Q = rng.integers(-8, 9, size=(6, d)).astype(np.float32)
+        C = rng.integers(-8, 9, size=(700, d)).astype(np.float32)
+        C[350:] = C[:350]
+    else:
+        Q, C = _unit(rng, (6, d)), _unit(rng, (700, d))
+    jv, ji = (x[:, :10] for x in _jax_pass_a(Q, C, 9, 256, monkeypatch))
+    mv, mi = segtopk_model(torch.from_numpy(Q), torch.from_numpy(C), 700, 2,
+                           10)
+    mv, mi = mv.numpy(), mi.numpy()
+    if integer:
+        np.testing.assert_array_equal(mi, ji)
+        np.testing.assert_array_equal(mv, jv)
+    else:
+        tol = d * 2.0 ** -24
+        np.testing.assert_allclose(mv, jv, rtol=0, atol=tol)
+        gap = np.abs(np.diff(jv, axis=1)) > 2 * tol
+        apart = np.ones_like(jv, dtype=bool)
+        apart[:, 1:] &= gap
+        apart[:, :-1] &= gap
+        np.testing.assert_array_equal(mi[apart], ji[apart])

@@ -127,3 +127,41 @@ def test_fused_f32_at_narrow_widths_matches_jax(rng, d, integer):
                                      130)
     _assert_same(j, (tv.numpy(), ti.numpy()), integer)
     assert ttopk.TOPK_FUSED_F32_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("d", [30, 100])
+@pytest.mark.parametrize("k", [1, 130])
+@pytest.mark.parametrize("integer", [True, False])
+def test_tf32x3_topk_model_matches_jax_kernel(rng, d, k, integer):
+    """The fused top-k on 3xTF32 scores (the f32 schedule's numerics,
+    modelled in torch) against the JAX ``_topk_kernel`` in interpret mode:
+    on integer rows with ties bit for bit, ids and tie order included; on
+    unit rows values within D * 2^-24, ids equal outside near-ties."""
+    from _tf32_model import topk_model
+
+    if integer:
+        Q = rng.integers(-8, 9, size=(5, d)).astype(np.float32)
+        C = rng.integers(-8, 9, size=(700, d)).astype(np.float32)
+        C[350:] = C[:350]  # every score twice: ties across the corpus
+    else:
+        Q = rng.standard_normal((5, d)).astype(np.float32)
+        C = rng.standard_normal((700, d)).astype(np.float32)
+        Q /= np.linalg.norm(Q, axis=1, keepdims=True)
+        C /= np.linalg.norm(C, axis=1, keepdims=True)
+    jv, ji = _jax_fused(Q, C, k)
+    mv, mi = (x.numpy() for x in topk_model(torch.from_numpy(Q),
+                                            torch.from_numpy(C), k))
+    if integer:
+        _assert_same((jv, ji), (mv, mi), True)
+        return
+    tol = d * 2.0 ** -24
+    np.testing.assert_allclose(mv, jv, rtol=0, atol=tol)
+    # ids equal wherever the JAX values are more than 2 tol from both
+    # neighbours (the k+1-th from the model's own wider list)
+    wider = topk_model(torch.from_numpy(Q), torch.from_numpy(C), k + 1)[0]
+    ref = np.concatenate([jv, wider.numpy()[:, k:]], axis=1)
+    gap = np.abs(np.diff(ref, axis=1)) > 2 * tol
+    apart = np.ones_like(ref, dtype=bool)
+    apart[:, 1:] &= gap
+    apart[:, :-1] &= gap
+    np.testing.assert_array_equal(mi[apart[:, :k]], ji[apart[:, :k]])
