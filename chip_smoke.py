@@ -12,7 +12,8 @@ serves hybrid queries end to end through ``HybridQueryEngine`` at the
 default encoder's full width (phase 3), times every kernel at the per-chip
 shard size of 1,250,000 x 384 bf16, pass A also at the serve shape and the
 fused top-k at the live-search shape, flash also at head widths 256 and
-320 (phase 4), and serves deep candidate
+320 (320 on the wide path, its own entry), f32 flash beside both its bounds
+(three TF32 products, and f32 FMAs) (phase 4), and serves deep candidate
 lists over a live index: adds, removals, a 10,000-query search through the
 fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
 600-document corpus with one document of 3,939 sentences through
@@ -20,7 +21,8 @@ fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
 encoder under flash attention over an f32 index) end to end, held against
 the same engine on the CPU, with one live round through the f32 fused
 top-k, and times the f32 schedules (3xTF32 wgmma) at the shard shape, pass
-A at the serve shape and the fused top-k at the live round's (phase 7).
+A at the serve shape and the fused top-k at the live round's, and f32 flash
+(3xTF32 mma.sync) at phase 4's shapes (phase 7).
 Progress and measurements go to stdout; the line before the last is the card's name and power limit, the
 one before it the JSON ``kernels`` record, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -81,6 +83,17 @@ def flash_bound(mask, h: int, dh: int, itemsize: int = 2,
                     + 2.0 * h * dh * itemsize * keys + 4.0 * b * t, peak)
 
 
+def flash_f32_bounds(entry, prefix, mask, h, dh):
+    """The f32 flash's two bounds on the same bytes: its schedule's three
+    TF32 products a term at 495 TFLOP/s (bound_ms, the least time), and one
+    f32 FMA a term at 67 TFLOP/s (fma_bound_ms)."""
+    entry[prefix + "bound_ms"], entry[prefix + "bound_by"] = flash_bound(
+        mask, h, dh, 4, PEAK_TF32_FLOPS / 3)
+    entry[prefix + "tf32x3_bound_ms"] = entry[prefix + "bound_ms"]
+    entry[prefix + "fma_bound_ms"] = flash_bound(mask, h, dh, 4,
+                                                 PEAK_F32_FLOPS)[0]
+
+
 def nan_in_skipped_blocks(x, mask):
     """x (B, H, T, Dh) with NaN at every key of a 64-key block that holds no
     real key, in the batch rows that have one: the blocks the flash kernel
@@ -124,7 +137,7 @@ def zero_counts() -> None:
     topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
     topk.SEGTOPK_F32_LAUNCHES = topk.SEGTOPK_OVERLAP_F32_LAUNCHES = 0
     topk.TOPK_FUSED_F32_LAUNCHES = 0
-    fa.FLASH_LAUNCHES = fa.FLASH_F32_LAUNCHES = 0
+    fa.FLASH_LAUNCHES = fa.FLASH_F32_LAUNCHES = fa.FLASH_WIDE_LAUNCHES = 0
     sim.SIM_LAUNCHES = sim.SIM_BF16_LAUNCHES = 0
 
 
@@ -558,12 +571,17 @@ def phase_kernels(report):
               f"(B=4 H=12) vs plain: worst error {worst:.3f} of its bound "
               "(f32: 2e-5 + 2e-5 |o|; bf16/fp16: 2e-2 max(|o|, 0.5))")
     # head widths past 128, as the JAX kernel takes them: 192 padded to the
-    # 256-wide instantiation, 256, and 320 on the wide path (128 columns of
-    # V and O a CTA); dead key blocks with NaN in them change no bit
-    for dtype in (bf16, torch.float32):
-        worst, same = 0.0, True
+    # 256-wide instantiation, 256, and 320 and 520 on the wide path (S once
+    # per 64 query rows, its own launch counter); dead key blocks with NaN
+    # in them change no bit
+    wide_err = {}
+    for dtype in (bf16, fp16, torch.float32):
+        worst, same, wide_err[dtype] = 0.0, True, 0.0
+        calls = wide_calls = 0
+        before = (fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES,
+                  fa.FLASH_WIDE_LAUNCHES)
         for t in (96, 256):
-            for dh in (192, 256, 320):
+            for dh in (192, 256, 320, 520):
                 qkv = [torch.randn((4, t, 6, dh), generator=gen, device=dev)
                        .to(dtype).transpose(1, 2) for _ in range(3)]
                 lens = torch.randint(t // 2, t + 1, (4,), generator=gen,
@@ -579,6 +597,11 @@ def phase_kernels(report):
                 same &= torch.equal(out, fa.flash_attention(
                     qkv[0], nan_in_skipped_blocks(qkv[1], mask),
                     nan_in_skipped_blocks(qkv[2], mask), mask))
+                calls += 2
+                if dh > 256:
+                    wide_calls += 2
+                    wide_err[dtype] = max(wide_err[dtype],
+                                          float((got - want).abs().max()))
                 if dtype == torch.float32:
                     f32_fl_err = max(f32_fl_err,
                                      float((got - want).abs().max()))
@@ -590,13 +613,22 @@ def phase_kernels(report):
                     worst = max(worst, float(((got - want).abs()
                                               / want.abs().clamp(min=0.5))
                                              .max()) / 2e-2)
-        check(worst <= 1.0 and same,
-              f"flash in {dtype} at Dh = 192, 256, 320 and T = 96, 256 (B=4 "
-              f"H=6) vs plain: worst error {worst:.3f} of its bound (f32: "
-              "2e-5 + 2e-5 |o|; bf16: 2e-2 max(|o|, 0.5)); NaN in the "
-              "skipped blocks changes no bit")
+        narrow = calls - wide_calls
+        launched = (fa.FLASH_LAUNCHES - before[0],
+                    fa.FLASH_F32_LAUNCHES - before[1],
+                    fa.FLASH_WIDE_LAUNCHES - before[2])
+        want_launched = ((0, narrow) if dtype == torch.float32
+                         else (narrow, 0)) + (wide_calls,)
+        check(worst <= 1.0 and same and launched == want_launched,
+              f"flash in {dtype} at Dh = 192, 256, 320, 520 and T = 96, 256 "
+              f"(B=4 H=6) vs plain: worst error {worst:.3f} of its bound "
+              "(f32: 2e-5 + 2e-5 |o|; bf16, fp16: 2e-2 max(|o|, 0.5)); NaN "
+              "in the skipped blocks changes no bit; launches (bf16/fp16, "
+              f"f32, wide) {launched}, the wide kernel for Dh past 256")
     report["flash"]["max_abs_err"] = fl_err
     report["flash_f32"]["max_abs_err"] = f32_fl_err
+    report["flash_wide"]["max_abs_err"] = max(wide_err[bf16], wide_err[fp16])
+    report["flash_wide"]["f32_max_abs_err"] = wide_err[torch.float32]
 
     # the similarity kernel: integer-valued f32 rows give sums exact in f32
     # (at most 384 * 127^2 < 2^24), so kernel == plain bit for bit
@@ -740,8 +772,10 @@ def phase_serve(report, tmp):
         f"{time.perf_counter() - t0:.2f} s (host clock)")
     report["segtopk"]["launches"] = topk.SEGTOPK_LAUNCHES
     report["flash"]["launches"] = fa.FLASH_LAUNCHES
+    report["flash_wide"]["launches"] = fa.FLASH_WIDE_LAUNCHES
     log(f"  launches on the serve path: segtopk {topk.SEGTOPK_LAUNCHES}, "
-        f"flash {fa.FLASH_LAUNCHES}")
+        f"flash {fa.FLASH_LAUNCHES}, flash past Dh 256 "
+        f"{fa.FLASH_WIDE_LAUNCHES}")
     check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
           "both kernels launched on the serve path")
 
@@ -1012,13 +1046,16 @@ def phase_dense(report):
             f"ms, SDPA {fl[which + 'library_ms']:.4f} ms, bound "
             f"{fl[which + 'bound_ms']:.4f} ms ({fl[which + 'bound_by']}, the "
             "real keys)")
-    # head widths past 128 (no configuration of the repo has one): 256 and
-    # 320 (the wide path) at B=64 H=8 T=256, 40-256 real keys, bf16 and f32
-    for entry, dtype, peak, size in (
-            (fl, torch.bfloat16, PEAK_BF16_FLOPS, 2),
-            (report["flash_f32"], torch.float32, PEAK_F32_FLOPS, 4)):
+    # head widths past 128 (no configuration of the repo has one): 256 (the
+    # 256-wide schedules) and 320 (the wide path) at B=64 H=8 T=256, 40-256
+    # real keys, bf16 and f32
+    wide = report["flash_wide"]
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
         for width in (256, 320):
-            b, t, hw, key = 64, 256, 8, f"dh{width}_"
+            b, t, hw = 64, 256, 8
+            entry, key = ((wide, "f32_" if f32 else "") if width > 256 else
+                          (report["flash_f32"] if f32 else fl, f"dh{width}_"))
             qkv = [torch.randn((b, t, hw, width), generator=gen)
                    .to("cuda", dtype).transpose(1, 2) for _ in range(3)]
             lengths = torch.randint(40, t + 1, (b,), generator=gen)
@@ -1032,18 +1069,30 @@ def phase_dense(report):
             entry[key + "library_ms"] = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     *qkv, attn_mask=bool_mask), reps=10, warmup=2)
-            entry[key + "bound_ms"], entry[key + "bound_by"] = flash_bound(
-                mask, hw, width, size, peak)
+            if f32:
+                flash_f32_bounds(entry, key, mask, hw, width)
+            else:
+                entry[key + "bound_ms"], entry[key + "bound_by"] = (
+                    flash_bound(mask, hw, width))
             log(f"  flash {dtype} B={b} H={hw} T={t} Dh={width}, 40-256 real "
                 f"keys: kernel {entry[key + 'ms']:.4f} ms, plain "
                 f"{entry[key + 'plain_ms']:.3f} ms, SDPA "
                 f"{entry[key + 'library_ms']:.4f} ms, bound "
-                f"{entry[key + 'bound_ms']:.4f} ms ({entry[key + 'bound_by']})")
+                f"{entry[key + 'bound_ms']:.4f} ms ({entry[key + 'bound_by']}"
+                + (f"; 3xTF32 at 495 TFLOP/s; f32 FMAs "
+                   f"{entry[key + 'fma_bound_ms']:.4f} ms)" if f32 else ")"))
+    wide["shape_note"] = (
+        "Dh 320 at B=64 H=8 T=256 (40-256 real keys), q, k, v transposed "
+        "(B, T, H, Dh) views; ms, plain_ms, library_ms (SDPA), bound_ms in "
+        "bf16; f32_* the same in f32 (library: f32 SDPA, TF32 off; "
+        "f32_bound_ms = f32_tf32x3_bound_ms, three TF32 products a term at "
+        "495 TFLOP/s; f32_fma_bound_ms one f32 FMA at 67 TFLOP/s); bounds "
+        "count the real keys")
     fl["shape_note"] = (
         "ms, plain_ms, library_ms, bound_ms at B=256 H=12 T=256 Dh=32 with "
         "40-256 real keys; t1024_* at B=2 T=1024 (600-1000 real); chunk_* at "
-        "B=2048 T=64 (3-12 real); dh256_*, dh320_* at B=64 H=8 T=256 (40-256 "
-        "real) with Dh 256 and 320 (the wide path); q, k, v transposed "
+        "B=2048 T=64 (3-12 real); dh256_* at B=64 H=8 T=256 (40-256 real) "
+        "with Dh 256 (Dh 320: the flash_wide entry); q, k, v transposed "
         "(B, T, H, Dh) views; bounds count the real keys' K and V and "
         "products (a row with none counts every key)")
 
@@ -1624,6 +1673,7 @@ def phase_f32(report, ctx):
         f"f32 {topk.SEGTOPK_F32_LAUNCHES}, flash f32 {fa.FLASH_F32_LAUNCHES}")
     report["segtopk_f32"]["launches"] = topk.SEGTOPK_F32_LAUNCHES
     report["flash_f32"]["launches"] = fa.FLASH_F32_LAUNCHES
+    report["flash_wide"]["launches"] += fa.FLASH_WIDE_LAUNCHES
     check(engine.index._corpus.dtype == torch.float32
           and topk.SEGTOPK_F32_LAUNCHES > 0 and fa.FLASH_F32_LAUNCHES > 0
           and topk.SEGTOPK_LAUNCHES == 0 and fa.FLASH_LAUNCHES == 0,
@@ -1891,19 +1941,22 @@ def time_f32_flash(report):
         fl[which + "library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 *qkv, attn_mask=bool_mask), reps=20, warmup=3)
-        fl[which + "bound_ms"], fl[which + "bound_by"] = flash_bound(
-            mask, h, dh, itemsize=4, peak=PEAK_F32_FLOPS)
+        flash_f32_bounds(fl, which, mask, h, dh)
         log(f"  f32 flash B={b} H={h} T={t} Dh={dh}, {lo}-{hi} real keys: "
             f"kernel {fl[which + 'ms']:.4f} ms, plain "
             f"{fl[which + 'plain_ms']:.3f} ms, f32 SDPA "
             f"{fl[which + 'library_ms']:.4f} ms, bound "
-            f"{fl[which + 'bound_ms']:.4f} ms ({fl[which + 'bound_by']})")
+            f"{fl[which + 'bound_ms']:.4f} ms ({fl[which + 'bound_by']}, "
+            f"3xTF32 at 495 TFLOP/s; f32 FMAs "
+            f"{fl[which + 'fma_bound_ms']:.4f} ms)")
     fl["shape_note"] = (
         "f32 q, k, v; ms, plain_ms, library_ms, bound_ms at B=256 H=12 T=256 "
         "Dh=32 with 40-256 real keys; t1024_* at B=2 T=1024; chunk_* at "
-        "B=2048 T=64 (3-12 real); dh256_*, dh320_* (timed in phase 4) at "
-        "B=64 H=8 T=256 (40-256 real) with Dh 256 and 320 (the wide path); "
-        "library = f32 SDPA (TF32 off); bounds at f32 67 TFLOP/s")
+        "B=2048 T=64 (3-12 real); dh256_* (timed in phase 4) at B=64 H=8 "
+        "T=256 (40-256 real) with Dh 256 (Dh 320: the flash_wide entry); "
+        "library = f32 SDPA (TF32 off); bound_ms = tf32x3_bound_ms (three "
+        "TF32 products a term at 495 TFLOP/s), fma_bound_ms (one f32 FMA at "
+        "67 TFLOP/s)")
 
     # a head width the kernel lacks: hidden 384 over 8 heads (Dh 48), bf16,
     # padded to 64 columns on each call; the three pads timed alone
@@ -1960,6 +2013,12 @@ def main() -> int:
                        "source": "semanticsearch_tpu_torch/csrc/similarity.cu",
                        "replaces": "semanticsearch_tpu/ops/similarity.py:49"},
     }
+    report["flash_wide"] = {
+        **{k: report["flash"][k] for k in ("route", "source", "replaces")},
+        "name": "flash_attention (head widths past 256)",
+        "launches_note": "the serve paths' launches (phases 3 and 7): no "
+                         "configuration has a head wider than 256, so none "
+                         "launches it; phases 2 and 4 call it directly"}
     for key, name, base in [
             ("segtopk_f32", "segtopk_pass_a (f32)", "segtopk"),
             ("segtopk_overlap_f32", "segtopk_pass_a_overlap (f32)",
@@ -1991,19 +2050,18 @@ def main() -> int:
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
-             "live_tf32x3_bound_ms", "live_fma_bound_ms",
-             *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk")
+             "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
+             *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
+                                              "dh256", "f32")
                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms", "fma_bound_ms")),
-             *(f"dh{w}_{key}" for w in (256, 320)
-               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms")))
+                           "library_ms", "fma_bound_ms", "tf32x3_bound_ms",
+                           "max_abs_err")))
     kernels = [{**{key: report[k][key] for key in keys},
                 **{key: report[k][key] for key in notes if key in report[k]}}
                for k in ("segtopk", "segtopk_int8", "segtopk_overlap",
                          "segtopk_f32", "segtopk_overlap_f32", "topk_fused",
-                         "topk_fused_f32", "flash", "flash_f32", "similarity",
-                         "similarity_bf16")]
+                         "topk_fused_f32", "flash", "flash_f32", "flash_wide",
+                         "similarity", "similarity_bf16")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
         f"{report['recall_at_10']}; int8 two-pass recall@10 "
         f"{report['recall_at_10_int8']}; f32 two-pass recall@10 "

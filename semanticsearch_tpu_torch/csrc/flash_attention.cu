@@ -57,22 +57,43 @@
 //    key at a time, query rows at or past T never stored. T a multiple of 64
 //    runs the code it ran before, bit for bit.
 //
-// The f32 path (flash_f32_kernel): the JAX kernel computes in f32 whatever
+// The f32 path (flash_tf32_kernel): the JAX kernel computes in f32 whatever
 // its input, and an f32 encoder is held to 2e-5 of the plain f32 attention;
-// bf16 P and tensor-core TF32 would miss that. So both products are f32
-// FMA chains on the CUDA cores. One CTA of 256 threads per (b, h, 64 query
-// rows), the live key blocks of 64 in turn: S = Q K^T by 4 x 4 register
-// micro-tiles (Dh in float4 steps) into shared memory, the online softmax by
-// four threads a row, then O += P V by 4 x Dh/16 micro-tiles kept in
-// registers across blocks. Dead key blocks are skipped as above; masked keys,
-// tails and all-masked rows follow the same rules. Bound by f32 FMAs (67
-// TFLOP/s) from about T = 256; not yet pipelined.
+// bf16 P or one TF32 product (2^-11) would miss that. So both products run
+// on the TF32 tensor cores by the 3xTF32 split of tf32x3.cuh, in the
+// register form above: mma.sync m16n8k8 (TF32, f32 accumulation), one warp
+// per 16 query rows, 64 rows a CTA, S, P, the running (m, l) and O in
+// registers. An operand is split as its fragment is loaded, never in
+// shared memory: it goes in raw as its own hi part (the tensor cores
+// truncate it to TF32) beside lo = x - trunc(x), and each product is three,
+// a_lo b_hi + a_hi b_lo + a_hi b_hi. An ldmatrix (b16) of rows of four f32
+// gives both the A fragment of Q and the B fragment of K; V's B fragment
+// (V transposed, which ldmatrix cannot do for 32-bit elements) is two
+// scalar loads a step from rows Dh + 8 floats apart, on 32 different banks.
+// S's n-tiles hold their keys permuted (C column 2t is key t, 2t + 1 is key
+// t + 4), so the C fragment of S is P's A fragment as it stands. S keeps
+// its small terms in an accumulator of their own until the softmax; O
+// folds them into its own (at Dh = 256 O alone is 128 registers a thread):
+// a product's rounding lands at 2^-23 of O, far inside the 2e-5. K and V
+// blocks stream through a cp.async ring as items of their own (a block's V
+// lands while its S is taken), Q tiles of the CTA's heads in turn beside
+// them (one head at Dh = 256). Dead key blocks are skipped as above;
+// masked keys, tails and all-masked rows follow the same rules. What holds
+// it (PERF.md): at the serve shape the products and their splits take 60 %
+// of the time and the rest (moving q, k, v and o) does not overlap them;
+// mma.sync runs TF32 at about two thirds of wgmma's rate on this card.
+//
+// The wide path (flash_wide_kernel, head widths past 256) is described
+// where it begins.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+#include <type_traits>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -447,56 +468,15 @@ int dispatch_rows(const Args& a, int B, cudaStream_t st) {
 
 // ------------------------------------------------------------- f32 path
 
-constexpr int F32_BQ = 64;        // query rows a CTA
-constexpr int F32_THREADS = 256;  // 16 x 16
-constexpr int F32_SLD = BKV + 4;  // row stride of the S / P tile
-
-__host__ __device__ constexpr int f32_ld(int dh) { return dh + 4; }
-__host__ __device__ inline size_t f32_smem_bytes(int dh, int nkb) {
-  return (size_t)(F32_BQ + 2 * BKV) * f32_ld(dh) * 4 + (size_t)F32_BQ * F32_SLD * 4 +
-         (size_t)(BKV + 2 * F32_BQ) * 4 + (size_t)nkb * 8;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(F32_THREADS) flash_f32_kernel(const Args a) {
-  constexpr int LD = f32_ld(DH), C4 = DH / 4, CPT = DH / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // [F32_BQ][LD]
-  float* k_s = q_s + F32_BQ * LD;               // [BKV][LD]
-  float* v_s = k_s + BKV * LD;                  // [BKV][LD]
-  float* p_s = v_s + BKV * LD;                  // [F32_BQ][F32_SLD]: S, then P
-  float* m_s = p_s + F32_BQ * F32_SLD;          // [BKV] the block's mask
-  float* al_s = m_s + BKV;                      // [F32_BQ] each row's alpha
-  float* l_s = al_s + F32_BQ;                   // [F32_BQ] each row's sum, at the end
-  int* live = reinterpret_cast<int*>(l_s + F32_BQ);  // [nkb], then flags [nkb]
-  __shared__ int n_live;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int Tlen = a.Tlen;
-  const int nkb = (Tlen + BKV - 1) / BKV;
-  int bid = blockIdx.x;
-  const int qb = bid % a.nqb;
-  bid /= a.nqb;
-  const int h = bid % a.H, b = bid / a.H;
-  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const float* mp = a.mask + (long long)b * Tlen;
-  const int row_base = qb * F32_BQ;
-
-  // the Q tile (zero rows past T) goes out while the mask is read
-  for (int i = tid; i < F32_BQ * C4; i += F32_THREADS) {
-    const int r = i / C4, c = (i % C4) * 4;
-    const long long row = row_base + r;
-    cp_async16_zfill(q_s + r * LD + c, qp + (row < Tlen ? row : 0) * a.q_st + c, row < Tlen);
-  }
-  cp_async_commit();
-
-  // the key blocks that hold a real key, in order; all of them if none does
+// The key blocks that hold a real key, in order, into live[0 .. n) (every
+// block if none does; live + nkb is scratch for a flag a block), n into
+// *n_live and returned. Every thread of the CTA calls it; it ends on a
+// barrier.
+__device__ __forceinline__ int find_live_blocks(const float* mp, int Tlen, int* live,
+                                                int* n_live) {
+  const int nkb = (Tlen + BKV - 1) / BKV, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   int* flag = live + nkb;
-  for (int j = warp; j < nkb; j += F32_THREADS / 32) {
+  for (int j = warp; j < nkb; j += blockDim.x / 32) {
     const int k0 = j * BKV + lane, k1 = k0 + 32;
     const bool any = __any_sync(0xffffffffu, (k0 < Tlen && mp[k0] > 0.0f) ||
                                                  (k1 < Tlen && mp[k1] > 0.0f));
@@ -515,223 +495,346 @@ __global__ void __launch_bounds__(F32_THREADS) flash_f32_kernel(const Args a) {
       for (int j = lane; j < nkb; j += 32) live[j] = j;
       n = nkb;
     }
-    if (lane == 0) n_live = n;
+    if (lane == 0) *n_live = n;
   }
   __syncthreads();
-  const int nl = n_live;
+  return *n_live;
+}
 
-  // the softmax's row and quarter of the block (four threads a row, adjacent lanes)
-  const int srow = tid >> 2, part = tid & 3;
-  float m_run = NEG_INF, l_run = 0.0f;
-  float o[4][CPT];  // rows ty + 16i, columns tx + 16c
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) o[i][c] = 0.0f;
+// A ring stage holds one 64-key block, of K or of V: K's rows Dh + 4
+// floats apart (the eight 16-byte rows of an ldmatrix on different banks),
+// V's Dh + 8 (the 32 lanes' scalar B-fragment loads, rows t and columns g,
+// on different banks). Three stages (a block's K and V in flight under the
+// previous block's products) and two Q tiles (one head's in use, the next
+// head's on its way) up to Dh = 128; at Dh = 256 one Q tile (64 KB) and two
+// stages fill shared memory, and the CTA takes one head. Three CTAs of four
+// warps an SM up to Dh = 64 (168 registers), one above. (128 rows a CTA,
+// eight warps, was 1 % faster at the serve shape and a third slower at T =
+// 1024, where it halves the CTAs: PERF.md.)
+constexpr int TF_NW = 4, TF_BQ = TF_NW * 16;
+__host__ __device__ constexpr int tf_ldk(int dh) { return dh + 4; }
+__host__ __device__ constexpr int tf_ldv(int dh) { return dh + 8; }
+__host__ __device__ constexpr int tf_stages(int dh) { return dh <= 128 ? 3 : 2; }
+__host__ __device__ constexpr int tf_q_tiles(int dh) { return dh <= 128 ? 2 : 1; }
+__host__ __device__ inline size_t tf_smem_bytes(int dh, int nkb) {
+  return ((size_t)tf_q_tiles(dh) * TF_BQ * tf_ldk(dh) +
+          (size_t)tf_stages(dh) * BKV * (tf_ldv(dh) + 1)) * 4 + (size_t)nkb * 8;
+}
+// the key that row r (0..7) of an 8-key n-tile of S stands for: C column
+// 2t is key t and 2t + 1 is key t + 4, so a thread's C fragment of S is its
+// A fragment of P V without a shuffle
+__device__ __forceinline__ int key_perm(int r) { return (r >> 1) + (r & 1) * 4; }
 
-  for (int j = 0; j < nl; ++j) {
-    const int kb = live[j];
-    for (int i = tid; i < BKV * C4; i += F32_THREADS) {
+// Q's rows at or past T (TAIL) are zero-filled and never stored; keys at
+// or past T score -inf; the mask is read a key at a time.
+template <int DH, bool TAIL>
+__global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kernel(const Args a) {
+  constexpr int BQ = TF_BQ, NT = TF_NW * 32, LDK = tf_ldk(DH), LDV = tf_ldv(DH), C4 = DH / 4;
+  constexpr int NST = tf_stages(DH), NQ = tf_q_tiles(DH);
+  constexpr bool Q_IN_REGS = DH <= 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [NQ][BQ][LDK], head hi in hi % NQ
+  float* t_s = q_s + NQ * BQ * LDK;             // [NST][BKV][LDV]: a K or a V block
+  float* m_s = t_s + NST * BKV * LDV;           // [NST][BKV]: a K block's mask
+  int* live = reinterpret_cast<int*>(m_s + NST * BKV);  // [nkb], then flags [nkb]
+  __shared__ int n_live;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tg = lane & 3;  // fragment row group, thread in group
+  int bid = blockIdx.x;
+  const int qb = bid % a.nqb;
+  bid /= a.nqb;
+  const int nhg = a.H / a.hg;
+  const int h0 = (bid % nhg) * a.hg, b = bid / nhg;  // heads h0 .. h0 + hg - 1
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h0 * a.q_sh +
+                    (long long)qb * BQ * a.q_st;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h0 * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h0 * a.v_sh;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h0 * a.o_sh +
+              ((long long)qb * BQ + warp * 16) * a.o_st;
+  const float* mp = a.mask + (long long)b * a.Tlen;
+
+  auto load_q = [&](int hi) {  // the Q tile of head h0 + hi
+    float* qs = q_s + (hi % NQ) * BQ * LDK;
+    const float* src = qp + hi * a.q_sh;
+    for (int i = tid; i < BQ * C4; i += NT) {
+      const int r = i / C4, c = (i % C4) * 4;
+      if (TAIL)
+        cp_async16_zfill(qs + r * LDK + c, src + r * a.q_st + c, qb * BQ + r < a.Tlen);
+      else
+        cp_async16(qs + r * LDK + c, src + r * a.q_st + c);
+    }
+  };
+  load_q(0);  // on its way while the mask is read
+  const int nl = find_live_blocks(mp, a.Tlen, live, &n_live);
+  const int n_items = 2 * nl * a.hg;
+
+  // item it: the K (it even) or V (odd) block of the CTA's (it / 2)-th
+  // (head, live block), into stage it % NST; a head's first K block brings
+  // the head's Q tile, and every K block its mask
+  auto load_item = [&](int it) {
+    const int blk = it >> 1, hi = blk / nl, kb = live[blk % nl], stage = it % NST;
+    const bool is_v = it & 1;
+    if (!is_v && blk % nl == 0 && hi > 0) load_q(hi);
+    float* ts = t_s + stage * BKV * LDV;
+    const int ld = is_v ? LDV : LDK;
+    const float* src = is_v ? vp + hi * a.v_sh : kp + hi * a.k_sh;
+    const long long st = is_v ? a.v_st : a.k_st;
+    for (int i = tid; i < BKV * C4; i += NT) {
       const int r = i / C4, c = (i % C4) * 4;
       const long long row = (long long)kb * BKV + r;
-      const long long src = row < Tlen ? row : 0;
-      cp_async16_zfill(k_s + r * LD + c, kp + src * a.k_st + c, row < Tlen);
-      cp_async16_zfill(v_s + r * LD + c, vp + src * a.v_st + c, row < Tlen);
+      if (TAIL)
+        cp_async16_zfill(ts + r * ld + c, src + row * st + c, row < a.Tlen);
+      else
+        cp_async16(ts + r * ld + c, src + row * st + c);
     }
+    if (is_v) return;
+    if (TAIL) {
+      // read by every thread two barriers on; keys past T are -inf below
+      if (tid < BKV) m_s[stage * BKV + tid] = kb * BKV + tid < a.Tlen ? mp[kb * BKV + tid] : 0.0f;
+    } else if (tid < BKV / 4) {
+      cp_async16(m_s + stage * BKV + tid * 4, mp + kb * BKV + tid * 4);
+    }
+  };
+  // one commit group per item (empty past the last), the first with Q
+  for (int it = 0; it < NST - 1; ++it) {
+    if (it < n_items) load_item(it);
     cp_async_commit();
-    if (tid < BKV) m_s[tid] = kb * BKV + tid < Tlen ? mp[kb * BKV + tid] : 0.0f;
-    cp_async_wait<0>();
-    __syncthreads();
-
-    // S = Q K^T, one f32 chain over Dh per score: rows ty + 16i, keys tx + 16jj
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * LD + d);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        kv[jj] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * jj) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
-          s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
-        }
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int key = tx + 16 * jj;
-      const bool real = m_s[key] > 0.0f, past = kb * BKV + key >= Tlen;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p_s[(ty + 16 * i) * F32_SLD + key] =
-            past ? -INFINITY : (real ? s[i][jj] * a.scale_log2 : NEG_INF);
-    }
-    __syncthreads();
-
-    // online softmax: four threads a row, sixteen keys each
-    {
-      float* pr = p_s + srow * F32_SLD + part * 16;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) mx = fmaxf(mx, pr[e]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m_run, mx);
-      const float al = exp2f(m_run - mn);
-      float sum = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float p = exp2f(pr[e] - mn);
-        pr[e] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run = l_run * al + sum;
-      m_run = mn;
-      if (part == 0) al_s[srow] = al;
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V: rows ty + 16i, columns tx + 16c
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = al_s[ty + 16 * i];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) o[i][c] *= al;
-    }
-#pragma unroll 2
-    for (int key = 0; key < BKV; key += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * F32_SLD + key);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float v0 = v_s[(key + 0) * LD + tx + 16 * c];
-        const float v1 = v_s[(key + 1) * LD + tx + 16 * c];
-        const float v2 = v_s[(key + 2) * LD + tx + 16 * c];
-        const float v3 = v_s[(key + 3) * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][c] = fmaf(pv[i].x, v0, o[i][c]);
-          o[i][c] = fmaf(pv[i].y, v1, o[i][c]);
-          o[i][c] = fmaf(pv[i].z, v2, o[i][c]);
-          o[i][c] = fmaf(pv[i].w, v3, o[i][c]);
-        }
-      }
-    }
-    __syncthreads();  // K, V, S and alpha are rewritten by the next block
   }
+  // item i has landed for every thread and item i - 1's stage is free;
+  // item i + NST - 1 goes out
+  auto next = [&](int i) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();
+    if (i + NST - 1 < n_items) load_item(i + NST - 1);
+    cp_async_commit();
+  };
 
-  if (part == 0) l_s[srow] = l_run;
-  __syncthreads();
+  uint32_t qa[Q_IN_REGS ? DH / 8 : 1][4];  // Q's raw A fragments, this warp's 16 rows
+  float o[DH / 8][4];  // O: rows g and g + 8, columns 8d + 2tg + {0, 1}
+  float m0 = NEG_INF, m1 = NEG_INF;  // running maxima of rows g, g + 8 (log2 units)
+  float l0 = 0.0f, l1 = 0.0f;        // this thread's part of the running sums
+
+  for (int blk = 0, hi = 0, j = 0; blk < nl * a.hg; ++blk) {
+    next(2 * blk);
+    const float* qs = q_s + (hi % NQ) * BQ * LDK + warp * 16 * LDK;  // the warp's rows
+    const float* ks = t_s + (2 * blk % NST) * BKV * LDV;
+    const float* ms = m_s + (2 * blk % NST) * BKV;
+    if (j == 0) {  // a new head: its Q fragments, fresh statistics
+      if constexpr (Q_IN_REGS) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (row_base + r >= Tlen) continue;
-    const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
-    float* dst = op + (long long)(row_base + r) * a.o_st;
+        for (int kk = 0; kk < DH / 8; ++kk)
+          ldsm_x4(qa[kk], qs + (lane & 15) * LDK + kk * 8 + (lane >> 4) * 4);
+      }
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) dst[tx + 16 * c] = o[i][c] * inv;
+      for (int d = 0; d < DH / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+      m0 = m1 = NEG_INF;
+      l0 = l1 = 0.0f;
+    }
+
+    // S (16 x 64) = Q K^T on 3xTF32, the small terms in their own sum:
+    // n-tile jj holds keys 8jj + key_perm(0..7)
+    float s[8][4], sl[8][4];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[jj][e] = sl[jj][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      uint32_t qh[4], ql[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qh[e] = qa[kk][e];
+      } else {
+        ldsm_x4(qh, qs + (lane & 15) * LDK + kk * 8 + (lane >> 4) * 4);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ql[e] = tf32x3::lo_of_raw(qh[e]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, ks + (np * 16 + (lane >> 4) * 8 + key_perm(lane & 7)) * LDK + kk * 8 +
+                        ((lane >> 3) & 1) * 4);
+        tf32x3::mma3_m16n8k8(s[2 * np], sl[2 * np], qh, ql, bb[0], bb[1]);
+        tf32x3::mma3_m16n8k8(s[2 * np + 1], sl[2 * np + 1], qh, ql, bb[2], bb[3]);
+      }
+    }
+
+    // online softmax in the registers; s becomes P (f32)
+    float mx0 = NEG_INF, mx1 = NEG_INF;
+    const int key0 = TAIL ? live[j] * BKV + tg : 0;  // this thread's first key
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float mk0 = ms[8 * jj + tg], mk1 = ms[8 * jj + tg + 4];
+      s[jj][0] = mk0 > 0.0f ? (s[jj][0] + sl[jj][0]) * a.scale_log2 : NEG_INF;
+      s[jj][1] = mk1 > 0.0f ? (s[jj][1] + sl[jj][1]) * a.scale_log2 : NEG_INF;
+      s[jj][2] = mk0 > 0.0f ? (s[jj][2] + sl[jj][2]) * a.scale_log2 : NEG_INF;
+      s[jj][3] = mk1 > 0.0f ? (s[jj][3] + sl[jj][3]) * a.scale_log2 : NEG_INF;
+      if (TAIL) {  // no key at all: p = 0 whatever the row's maximum
+        if (key0 + 8 * jj >= a.Tlen) s[jj][0] = s[jj][2] = -INFINITY;
+        if (key0 + 8 * jj + 4 >= a.Tlen) s[jj][1] = s[jj][3] = -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      s[jj][0] = exp2f(s[jj][0] - mn0);
+      s[jj][1] = exp2f(s[jj][1] - mn0);
+      s[jj][2] = exp2f(s[jj][2] - mn1);
+      s[jj][3] = exp2f(s[jj][3] - mn1);
+      sum0 += s[jj][0] + s[jj][1];
+      sum1 += s[jj][2] + s[jj][3];
+    }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      o[d][0] *= al0;
+      o[d][1] *= al0;
+      o[d][2] *= al1;
+      o[d][3] *= al1;
+    }
+
+    // O (16 x DH) += P (16 x 64) V (64 x DH) on 3xTF32, the small terms
+    // folded into O: k-step jj takes keys 8jj .. 8jj + 7 in order, so its
+    // A fragment is S's n-tile jj as it stands
+    next(2 * blk + 1);
+    const float* vs = t_s + ((2 * blk + 1) % NST) * BKV * LDV;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const uint32_t ph[4] = {__float_as_uint(s[jj][0]), __float_as_uint(s[jj][2]),
+                              __float_as_uint(s[jj][1]), __float_as_uint(s[jj][3])};
+      uint32_t pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pl[e] = tf32x3::lo_of_raw(ph[e]);
+      const float* v0 = vs + (8 * jj + tg) * LDV + g;  // B: (key t, column g), (key t + 4, g)
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d)
+        tf32x3::mma3_m16n8k8(o[d], o[d], ph, pl, __float_as_uint(v0[8 * d]),
+                             __float_as_uint(v0[4 * LDV + 8 * d]));
+    }
+
+    if (j + 1 == nl) {  // the head's last block: out = acc / l
+      const float t0 = l0 + __shfl_xor_sync(0xffffffffu, l0, 1);
+      const float t1 = l1 + __shfl_xor_sync(0xffffffffu, l1, 1);
+      const float inv0 = 1.0f / fmaxf(t0 + __shfl_xor_sync(0xffffffffu, t0, 2), 1e-30f);
+      const float inv1 = 1.0f / fmaxf(t1 + __shfl_xor_sync(0xffffffffu, t1, 2), 1e-30f);
+      // the warp's own rows of this head's Q tile stage its output (the
+      // tile is refilled two heads on, after a barrier)
+      float* os = q_s + (hi % NQ) * BQ * LDK + warp * 16 * LDK;
+      __syncwarp();
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        *reinterpret_cast<float2*>(os + g * LDK + 8 * d + 2 * tg) =
+            make_float2(o[d][0] * inv0, o[d][1] * inv0);
+        *reinterpret_cast<float2*>(os + (g + 8) * LDK + 8 * d + 2 * tg) =
+            make_float2(o[d][2] * inv1, o[d][3] * inv1);
+      }
+      __syncwarp();
+      float* dst = op + hi * a.o_sh;
+      for (int e = lane; e < 16 * C4; e += 32) {
+        const int r = e / C4, c = (e % C4) * 4;
+        if (TAIL && qb * BQ + warp * 16 + r >= a.Tlen) continue;
+        *reinterpret_cast<float4*>(dst + r * a.o_st + c) =
+            *reinterpret_cast<const float4*>(os + r * LDK + c);
+      }
+    }
+    if (++j == nl) {
+      j = 0;
+      ++hi;
+    }
   }
 }
 
-template <int DH>
-int launch_f32(Args a, int B, cudaStream_t st) {
-  a.nqb = (a.Tlen + F32_BQ - 1) / F32_BQ;
-  a.hg = 1;
-  const size_t smem = f32_smem_bytes(DH, (a.Tlen + BKV - 1) / BKV);
-  const long long grid = (long long)a.nqb * a.H * B;
+template <int DH, bool TAIL>
+int launch_tf32(Args a, int B, cudaStream_t st) {
+  a.nqb = (a.Tlen + TF_BQ - 1) / TF_BQ;
+  a.hg = tf_q_tiles(DH) > 1 ? heads_per_cta(a.H, (long long)B * a.nqb) : 1;
+  const size_t smem = tf_smem_bytes(DH, (a.Tlen + BKV - 1) / BKV);
+  const long long grid = (long long)a.nqb * (a.H / a.hg) * B;
   if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_f32_kernel<DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_tf32_kernel<DH, TAIL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_f32_kernel<DH><<<(unsigned)grid, F32_THREADS, smem, st>>>(a);
+  flash_tf32_kernel<DH, TAIL><<<(unsigned)grid, TF_NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+int dispatch_tf32(const Args& a, int B, cudaStream_t st) {
+  return a.Tlen % BKV ? launch_tf32<DH, true>(a, B, st) : launch_tf32<DH, false>(a, B, st);
 }
 
 // ------------------------------------------------------------- wide heads
 
-// Head widths past 256 (any multiple of 8), every input type: f32 FMAs on
-// values widened as they are loaded, one CTA of 256 threads per (b, h, 64
-// query rows, 128 columns of V and O). For each live key block the CTA takes
-// S = Q K^T over the whole of Dh, 128 columns of Q and K at a time staged in
-// shared memory (so Q is read again per key block: these widths are rare and
-// this path is about taking them at all), then the online softmax and
-// O += P V on its own 128 columns of V, as in the f32 path; masks, tails and
-// dead blocks follow the same rules. The CTAs of one (b, h, rows) compute
-// the same S and differ only in the columns of V they read and of O they
-// write. Bound by f32 FMAs (4 B H T^2 Dh at 67 TFLOP/s, and S once more per
-// column group).
-constexpr int WIDE_COLS = 128;            // columns of a Q, K or V chunk
-constexpr int WIDE_LD = WIDE_COLS + 4;    // their row stride in shared memory
+// Head widths past 256 (any multiple of 8), every input type, on the
+// tensor cores: bf16 and fp16 on the m16n8k16 products of the kernel above
+// (P rounded to the input type), f32 on 3xTF32 as in the f32 path. One CTA
+// of eight warps per (b, h, 64 query rows), S = Q K^T computed once per key
+// block over the whole of Dh. Nothing of that width fits registers or a
+// ring stage whole, so Q, K and V stream through a cp.async ring in chunks
+// of 64 columns (64 rows of Q and of K a stage for S, 64 keys of V for
+// P V), and the warps split the work two ways: warp w takes the 16 rows
+// 16 (w % 4) and, of S, the 32 keys 32 (w / 4); of O, the 32 columns
+// 32 (w / 4) of every 64-column chunk, so O costs Dh / 4 registers a thread.
+// S goes to shared memory for the online softmax (four threads a row), and
+// P comes back as each warp's A fragments of its 16 rows, in the input type
+// (f32: raw, its lo part taken as it is used). Up to NCH chunks of O a CTA
+// (5: Dh <= 320, 9: <= 576); past 576 the columns go to groups of 576, one
+// CTA each, which compute the same S. Two CTAs an SM for bf16 and fp16 up to
+// Dh 320 (128 registers), whose barriers a chunk otherwise leave the SM
+// idle; one otherwise. Dead key blocks, masks, tails and all-masked rows
+// follow the rules above.
+constexpr int WCH = 64;          // columns of a Q, K or V chunk
+constexpr int W_THREADS = 256;   // eight warps
+constexpr int W_NST = 3;         // ring stages
+constexpr int W_LDC = WCH + 8;   // chunk row stride (elements); f32 Q, K and P: WCH + 4
+constexpr int W_SLD = BKV + 4;   // row stride of the S tile (f32)
 
+template <typename T>
 __host__ __device__ inline size_t wide_smem_bytes(int nkb) {
-  return (size_t)(F32_BQ + BKV) * WIDE_LD * 4 + (size_t)F32_BQ * F32_SLD * 4 +
-         (size_t)(BKV + 2 * F32_BQ) * 4 + (size_t)nkb * 8;
+  const int ldp = sizeof(T) == 4 ? WCH + 4 : W_LDC;
+  return ((size_t)W_NST * 2 * BKV * W_LDC + (size_t)BKV * ldp) * sizeof(T) +
+         ((size_t)BKV * W_SLD + 2 * BKV) * 4 + (size_t)nkb * 8;
 }
 
-// four consecutive elements as f32 (the row is 16-byte aligned, the column a
-// multiple of 4)
-__device__ __forceinline__ float4 load4_f32(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
-__device__ __forceinline__ float4 load4_f32(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ float4 load4_f32(const __half* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
-  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ void store_f32(__half* p, float v) { *p = __float2half(v); }
-
-// rows row0..row0+63 of x (zero at or past Tlen), columns c0..c0+127 (zero
-// at or past dh), as f32 into dst [64][WIDE_LD]
 template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst, const T* x, long long st, long long row0,
-                                           int Tlen, int c0, int dh) {
-  for (int i = threadIdx.x; i < BKV * WIDE_COLS / 4; i += F32_THREADS) {
-    const int r = i / (WIDE_COLS / 4), c = (i % (WIDE_COLS / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < Tlen && c0 + c < dh) v = load4_f32(x + (row0 + r) * st + c0 + c);
-    *reinterpret_cast<float4*>(dst + r * WIDE_LD + c) = v;
-  }
+__device__ __forceinline__ void store_pair(T* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = Mma<T>::pack(x, y);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(F32_THREADS) flash_wide_kernel(const Args a, int dh, int ncg) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);  // [F32_BQ][WIDE_LD]: a chunk of Q
-  float* kv_s = q_s + F32_BQ * WIDE_LD;         // [BKV][WIDE_LD]: a chunk of K, then of V
-  float* p_s = kv_s + BKV * WIDE_LD;            // [F32_BQ][F32_SLD]: S, then P
-  float* m_s = p_s + F32_BQ * F32_SLD;          // [BKV] the block's mask
-  float* al_s = m_s + BKV;                      // [F32_BQ] each row's alpha
-  float* l_s = al_s + F32_BQ;                   // [F32_BQ] each row's sum, at the end
-  int* live = reinterpret_cast<int*>(l_s + F32_BQ);  // [nkb], then flags [nkb]
+template <typename T, int NCH>
+__global__ void __launch_bounds__(W_THREADS, sizeof(T) == 2 && NCH <= 5 ? 2 : 1)
+    flash_wide_kernel(const Args a, int dh, int ncg) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LDQK = F32 ? WCH + 4 : W_LDC, LDP = LDQK, VEC = 16 / sizeof(T), CV = WCH / VEC;
+  constexpr int KS = F32 ? 8 : 16;  // keys (and columns) a product step
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* c_s = reinterpret_cast<T*>(smem);  // [W_NST][2][BKV][W_LDC]: Q and K chunks, or a V chunk
+  T* p_s = c_s + W_NST * 2 * BKV * W_LDC;                     // [BKV][LDP]: P
+  float* s_s = reinterpret_cast<float*>(p_s + BKV * LDP);     // [BKV][W_SLD]: S
+  float* al_s = s_s + BKV * W_SLD;                            // [BKV] each row's alpha
+  float* l_s = al_s + BKV;                                    // [BKV] each row's sum, at the end
+  int* live = reinterpret_cast<int*>(l_s + BKV);              // [nkb], then flags [nkb]
   __shared__ int n_live;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wr = warp & 3, wh = warp >> 2;  // rows 16 wr; keys (S) or columns (O) 32 wh
   const int Tlen = a.Tlen;
-  const int nkb = (Tlen + BKV - 1) / BKV;
   int bid = blockIdx.x;
   const int qb = bid % a.nqb;
   bid /= a.nqb;
@@ -743,106 +846,120 @@ __global__ void __launch_bounds__(F32_THREADS) flash_wide_kernel(const Args a, i
   const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
   T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
   const float* mp = a.mask + (long long)b * Tlen;
-  const int row_base = qb * F32_BQ, col0 = cg * WIDE_COLS;
+  const int row0 = qb * BKV, col0 = cg * NCH * WCH;
+  const int nchs = (dh + WCH - 1) / WCH;                         // chunks of S's sum
+  const int nchv = min(NCH, (dh - col0 + WCH - 1) / WCH);        // chunks of V and O here
+  const int ipb = nchs + nchv;                                   // ring items a key block
 
-  // the key blocks that hold a real key, in order; all of them if none does
-  int* flag = live + nkb;
-  for (int j = warp; j < nkb; j += F32_THREADS / 32) {
-    const int k0 = j * BKV + lane, k1 = k0 + 32;
-    const bool any = __any_sync(0xffffffffu, (k0 < Tlen && mp[k0] > 0.0f) ||
-                                                 (k1 < Tlen && mp[k1] > 0.0f));
-    if (lane == 0) flag[j] = any;
+  const int nl = find_live_blocks(mp, Tlen, live, &n_live);
+  const int n_items = nl * ipb;
+
+  // rows r0 .. r0 + 63 of x (zero at or past T), columns c0 .. c0 + 63
+  // (zero at or past dh), to dst with rows ld apart
+  auto load_tile = [&](T* dst, int ld, const T* x, long long st, long long r0, int c0) {
+    for (int i = tid; i < BKV * CV; i += W_THREADS) {
+      const int r = i / CV, c = (i % CV) * VEC;
+      const bool ok = r0 + r < Tlen && c0 + c < dh;
+      cp_async16_zfill(dst + r * ld + c, x + (ok ? (r0 + r) * st + c0 + c : 0), ok);
+    }
+  };
+  // item it of key block it / ipb: S's chunk c (Q and K) for c < nchs, else
+  // V's chunk c - nchs of this CTA's columns
+  auto load_item = [&](int it) {
+    const int kb = live[it / ipb], c = it % ipb;
+    T* dst = c_s + (it % W_NST) * 2 * BKV * W_LDC;
+    if (c < nchs) {
+      load_tile(dst, LDQK, qp, a.q_st, row0, c * WCH);
+      load_tile(dst + BKV * W_LDC, LDQK, kp, a.k_st, (long long)kb * BKV, c * WCH);
+    } else {
+      load_tile(dst, W_LDC, vp, a.v_st, (long long)kb * BKV, col0 + (c - nchs) * WCH);
+    }
+  };
+  for (int it = 0; it < W_NST - 1; ++it) {
+    if (it < n_items) load_item(it);
+    cp_async_commit();
   }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int base = 0; base < nkb; base += 32) {
-      const bool f = base + lane < nkb && flag[base + lane];
-      const unsigned ballot = __ballot_sync(0xffffffffu, f);
-      if (f) live[n + __popc(ballot & ((1u << lane) - 1))] = base + lane;
-      n += __popc(ballot);
-    }
-    if (n == 0) {
-      for (int j = lane; j < nkb; j += 32) live[j] = j;
-      n = nkb;
-    }
-    if (lane == 0) n_live = n;
-  }
-  __syncthreads();
-  const int nl = n_live;
-
-  const int srow = tid >> 2, part = tid & 3;
-  float m_run = NEG_INF, l_run = 0.0f;
-  float o[4][WIDE_COLS / 16];  // rows ty + 16i, columns col0 + tx + 16c
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < WIDE_COLS / 16; ++c) o[i][c] = 0.0f;
-
-  for (int j = 0; j < nl; ++j) {
-    const int kb = live[j];
-    if (tid < BKV) m_s[tid] = kb * BKV + tid < Tlen ? mp[kb * BKV + tid] : 0.0f;
-    // S = Q K^T over the whole of Dh, one f32 chain per score in column order
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.0f;
-    for (int c0 = 0; c0 < dh; c0 += WIDE_COLS) {
-      load_chunk(q_s, qp, a.q_st, row_base, Tlen, c0, dh);
-      load_chunk(kv_s, kp, a.k_st, (long long)kb * BKV, Tlen, c0, dh);
-      __syncthreads();
-      const int cols = dh - c0 < WIDE_COLS ? dh - c0 : WIDE_COLS;
-#pragma unroll 4
-      for (int d = 0; d < cols; d += 4) {
-        float4 qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          qv[i] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * i) * WIDE_LD + d);
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          kv[jj] = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * jj) * WIDE_LD + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            s[i][jj] = fmaf(qv[i].x, kv[jj].x, s[i][jj]);
-            s[i][jj] = fmaf(qv[i].y, kv[jj].y, s[i][jj]);
-            s[i][jj] = fmaf(qv[i].z, kv[jj].z, s[i][jj]);
-            s[i][jj] = fmaf(qv[i].w, kv[jj].w, s[i][jj]);
-          }
-      }
-      __syncthreads();  // the chunks are rewritten next
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int key = tx + 16 * jj;
-      const bool real = m_s[key] > 0.0f, past = kb * BKV + key >= Tlen;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p_s[(ty + 16 * i) * F32_SLD + key] =
-            past ? -INFINITY : (real ? s[i][jj] * a.scale_log2 : NEG_INF);
-    }
-    // this CTA's columns of the block's V go in while the softmax runs
-    load_chunk(kv_s, vp, a.v_st, (long long)kb * BKV, Tlen, col0, dh);
+  auto next = [&](int i) {  // as in the f32 path
+    cp_async_wait<W_NST - 2>();
     __syncthreads();
+    if (i + W_NST - 1 < n_items) load_item(i + W_NST - 1);
+    cp_async_commit();
+    return c_s + (i % W_NST) * 2 * BKV * W_LDC;
+  };
 
-    // online softmax: four threads a row, sixteen keys each
-    {
-      float* pr = p_s + srow * F32_SLD + part * 16;
+  float o[NCH][4][4];  // chunk c: columns col0 + 64c + 32wh + 8n + 2tg + {0, 1}
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) o[c][n][0] = o[c][n][1] = o[c][n][2] = o[c][n][3] = 0.0f;
+  const int srow = tid >> 2, part = tid & 3;  // the softmax's row and quarter
+  float m_run = NEG_INF, l_run = 0.0f;
+
+  for (int j = 0, i = 0; j < nl; ++j) {
+    const int kb = live[j];
+    // this warp's S (16 x 32) over Dh, chunk by chunk; f32: small terms apart
+    float s[4][4], sl[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.0f;
+    for (int c = 0; c < nchs; ++c) {
+      const T* stage = next(i++);
+      const T* qs = stage + wr * 16 * LDQK;
+      const T* ks = stage + BKV * W_LDC + wh * 32 * LDQK;
+#pragma unroll
+      for (int kk = 0; kk < WCH / KS; ++kk) {
+        uint32_t qa[4], ql[4];
+        ldsm_x4(qa, qs + (lane & 15) * LDQK + kk * KS + (lane >> 4) * (KS / 2));
+        if constexpr (F32) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ql[e] = tf32x3::lo_of_raw(qa[e]);
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(bb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDQK + kk * KS +
+                          ((lane >> 3) & 1) * (KS / 2));
+          if constexpr (F32) {
+            tf32x3::mma3_m16n8k8(s[2 * np], sl[2 * np], qa, ql, bb[0], bb[1]);
+            tf32x3::mma3_m16n8k8(s[2 * np + 1], sl[2 * np + 1], qa, ql, bb[2], bb[3]);
+          } else {
+            Mma<T>::run(s[2 * np], qa, bb[0], bb[1]);
+            Mma<T>::run(s[2 * np + 1], qa, bb[2], bb[3]);
+          }
+        }
+      }
+    }
+    // to the S tile, scaled (log2 units) and masked
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = wh * 32 + 8 * n + 2 * tg + e, k = kb * BKV + key;
+        const bool past = k >= Tlen, real = !past && mp[k] > 0.0f;
+        const float v0 = F32 ? s[n][e] + sl[n][e] : s[n][e];
+        const float v1 = F32 ? s[n][2 + e] + sl[n][2 + e] : s[n][2 + e];
+        s_s[(wr * 16 + g) * W_SLD + key] = past ? -INFINITY : (real ? v0 * a.scale_log2 : NEG_INF);
+        s_s[(wr * 16 + g + 8) * W_SLD + key] =
+            past ? -INFINITY : (real ? v1 * a.scale_log2 : NEG_INF);
+      }
+    __syncthreads();
+    {  // online softmax: four threads a row, sixteen keys each; P in T
+      const float* sr = s_s + srow * W_SLD + part * 16;
+      T* pr = p_s + srow * LDP + part * 16;
       float mx = NEG_INF;
 #pragma unroll
-      for (int e = 0; e < 16; ++e) mx = fmaxf(mx, pr[e]);
+      for (int e = 0; e < 16; ++e) mx = fmaxf(mx, sr[e]);
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float mn = fmaxf(m_run, mx);
       const float al = exp2f(m_run - mn);
       float sum = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        const float p = exp2f(pr[e] - mn);
-        pr[e] = p;
-        sum += p;
+      for (int e = 0; e < 16; e += 2) {
+        const float p0 = exp2f(sr[e] - mn), p1 = exp2f(sr[e + 1] - mn);
+        sum += p0 + p1;
+        store_pair(pr + e, p0, p1);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -851,77 +968,102 @@ __global__ void __launch_bounds__(F32_THREADS) flash_wide_kernel(const Args a, i
       if (part == 0) al_s[srow] = al;
     }
     __syncthreads();
-
-    // O = O * alpha + P V on this CTA's columns
+    // P's A fragments of this warp's 16 rows, every key of the block
+    uint32_t pa[BKV / KS][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = al_s[ty + 16 * i];
+    for (int kk = 0; kk < BKV / KS; ++kk)
+      ldsm_x4(pa[kk], p_s + (wr * 16 + (lane & 15)) * LDP + kk * KS + (lane >> 4) * (KS / 2));
+    const float al0 = al_s[wr * 16 + g], al1 = al_s[wr * 16 + g + 8];
 #pragma unroll
-      for (int c = 0; c < WIDE_COLS / 16; ++c) o[i][c] *= al;
-    }
-#pragma unroll 2
-    for (int key = 0; key < BKV; key += 4) {
-      float4 pv[4];
+    for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * i) * F32_SLD + key);
+      for (int n = 0; n < 4; ++n) {
+        o[c][n][0] *= al0;
+        o[c][n][1] *= al0;
+        o[c][n][2] *= al1;
+        o[c][n][3] *= al1;
+      }
+    // O += P V, chunk by chunk: this warp's 32 columns of each
 #pragma unroll
-      for (int c = 0; c < WIDE_COLS / 16; ++c) {
-        const float v0 = kv_s[(key + 0) * WIDE_LD + tx + 16 * c];
-        const float v1 = kv_s[(key + 1) * WIDE_LD + tx + 16 * c];
-        const float v2 = kv_s[(key + 2) * WIDE_LD + tx + 16 * c];
-        const float v3 = kv_s[(key + 3) * WIDE_LD + tx + 16 * c];
+    for (int c = 0; c < NCH; ++c) {
+      if (c >= nchv) break;
+      const T* vs = next(i++) + wh * 32;
+      if constexpr (F32) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][c] = fmaf(pv[i].x, v0, o[i][c]);
-          o[i][c] = fmaf(pv[i].y, v1, o[i][c]);
-          o[i][c] = fmaf(pv[i].z, v2, o[i][c]);
-          o[i][c] = fmaf(pv[i].w, v3, o[i][c]);
+        for (int kk = 0; kk < BKV / 8; ++kk) {
+          uint32_t pl[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pl[e] = tf32x3::lo_of_raw(pa[kk][e]);
+          const float* v0 = vs + (8 * kk + tg) * W_LDC + g;  // (key t, column g), (t + 4, g)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            tf32x3::mma3_m16n8k8(o[c][n], o[c][n], pa[kk], pl, __float_as_uint(v0[8 * n]),
+                                 __float_as_uint(v0[4 * W_LDC + 8 * n]));
         }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+          for (int dp = 0; dp < 2; ++dp) {
+            uint32_t bb[4];
+            ldsm_x4_trans(bb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * W_LDC +
+                                  dp * 16 + (lane >> 4) * 8);
+            Mma<T>::run(o[c][2 * dp], pa[kk], bb[0], bb[1]);
+            Mma<T>::run(o[c][2 * dp + 1], pa[kk], bb[2], bb[3]);
+          }
       }
     }
-    __syncthreads();  // V, S, the mask and alpha are rewritten by the next block
   }
 
   if (part == 0) l_s[srow] = l_run;
   __syncthreads();
+  const float inv0 = 1.0f / fmaxf(l_s[wr * 16 + g], 1e-30f);
+  const float inv1 = 1.0f / fmaxf(l_s[wr * 16 + g + 8], 1e-30f);
+  const int r0 = row0 + wr * 16 + g;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (row_base + r >= Tlen) continue;
-    const float inv = 1.0f / fmaxf(l_s[r], 1e-30f);
-    T* dst = op + (long long)(row_base + r) * a.o_st;
+  for (int c = 0; c < NCH; ++c) {
+    if (c >= nchv) break;
 #pragma unroll
-    for (int c = 0; c < WIDE_COLS / 16; ++c) {
-      const int col = col0 + tx + 16 * c;
-      if (col < dh) store_f32(dst + col, o[i][c] * inv);
+    for (int n = 0; n < 4; ++n) {
+      const int col = col0 + c * WCH + wh * 32 + 8 * n + 2 * tg;
+      if (col >= dh) continue;  // dh is a multiple of 8: the pair is whole
+      if (r0 < Tlen) store_pair(op + (long long)r0 * a.o_st + col, o[c][n][0] * inv0,
+                                o[c][n][1] * inv0);
+      if (r0 + 8 < Tlen)
+        store_pair(op + (long long)(r0 + 8) * a.o_st + col, o[c][n][2] * inv1,
+                   o[c][n][3] * inv1);
     }
   }
 }
 
-template <typename T>
-int launch_wide(Args a, int B, int dh, cudaStream_t st) {
-  a.nqb = (a.Tlen + F32_BQ - 1) / F32_BQ;
+template <typename T, int NCH>
+int launch_wide_n(Args a, int B, int dh, cudaStream_t st) {
+  a.nqb = (a.Tlen + BKV - 1) / BKV;
   a.hg = 1;
-  const int ncg = (dh + WIDE_COLS - 1) / WIDE_COLS;
-  const size_t smem = wide_smem_bytes((a.Tlen + BKV - 1) / BKV);
+  const int ncg = (dh + NCH * WCH - 1) / (NCH * WCH);
+  const size_t smem = wide_smem_bytes<T>((a.Tlen + BKV - 1) / BKV);
   const long long grid = (long long)a.nqb * ncg * a.H * B;
   if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_wide_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_wide_kernel<T, NCH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_wide_kernel<T><<<(unsigned)grid, F32_THREADS, smem, st>>>(a, dh, ncg);
+  flash_wide_kernel<T, NCH><<<(unsigned)grid, W_THREADS, smem, st>>>(a, dh, ncg);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide(const Args& a, int B, int dh, cudaStream_t st) {
+  return dh <= 5 * WCH ? launch_wide_n<T, 5>(a, B, dh, st) : launch_wide_n<T, 9>(a, B, dh, st);
 }
 
 int dispatch_f32(const Args& a, int B, int Dh, cudaStream_t st) {
   if (Dh > 256) return launch_wide<float>(a, B, Dh, st);
   switch (Dh) {
-    case 16: return launch_f32<16>(a, B, st);
-    case 32: return launch_f32<32>(a, B, st);
-    case 64: return launch_f32<64>(a, B, st);
-    case 128: return launch_f32<128>(a, B, st);
-    case 256: return launch_f32<256>(a, B, st);
+    case 16: return dispatch_tf32<16>(a, B, st);
+    case 32: return dispatch_tf32<32>(a, B, st);
+    case 64: return dispatch_tf32<64>(a, B, st);
+    case 128: return dispatch_tf32<128>(a, B, st);
+    case 256: return dispatch_tf32<256>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

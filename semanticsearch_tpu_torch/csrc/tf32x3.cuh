@@ -1,7 +1,8 @@
 // Full-f32 products on the TF32 tensor cores, for Hopper (sm_90a): the
-// 3xTF32 split. Used by similarity.cu and by tf32_mainloop.cuh (the top-k
-// kernels' f32 schedules): every f32 product of the port that wants the
-// tensor cores' rate without their 10-bit mantissa.
+// 3xTF32 split. Used by similarity.cu, by tf32_mainloop.cuh (the top-k
+// kernels' f32 schedules) and by flash_attention.cu (its f32 products, on
+// mma.sync): every f32 product of the port that wants the tensor cores'
+// rate without their 10-bit mantissa.
 //
 // An f32 value x splits into two TF32 values (f32 bit patterns whose low 13
 // mantissa bits are zero), both rounded to nearest with cvt.rna:
@@ -31,6 +32,12 @@
 // descriptor, as in qc_mainloop.cuh's bf16 and int8 loops. A in registers
 // spares the shared memory a third of what the three products read, and an
 // operand split in registers need not be written back (load_a, split).
+//
+// The register form (mma_m16n8k8, mma3_m16n8k8) takes both operands from
+// registers, so a kernel that has no room for lo planes splits each
+// fragment as it loads it; there the raw f32 value is its own hi part and
+// lo_of_raw gives x - trunc(x), two integer-unit operations and no
+// conversion.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -98,6 +105,41 @@ __device__ __forceinline__ void split_stage_lo(uint32_t box, uint32_t lo, int fl
                  "f"(l[1]), "f"(l[2]), "f"(l[3])
                  : "memory");
   }
+}
+
+// The lo part of x for an operand passed raw as its own hi part (the
+// tensor cores truncate it to TF32): x - trunc(x), exact in f32, which the
+// tensor cores truncate in turn (within 2^-20 |x| of it). Two integer
+// operations' worth, no conversion; 0 for every value TF32 holds.
+__device__ __forceinline__ uint32_t lo_of_raw(uint32_t x) {
+  return __float_as_uint(__uint_as_float(x) - __uint_as_float(x & ~0x1FFFu));
+}
+
+// D (16 x 8, f32) += A (16 x 8) * B (8 x 8), TF32 operands, f32
+// accumulators: mma.sync's register form, one warp. a[0..3]: A's (l/4, l%4),
+// (l/4 + 8, l%4), (l/4, l%4 + 4), (l/4 + 8, l%4 + 4); b0, b1: B's (k l%4,
+// n l/4) and (k l%4 + 4, n l/4); d[0..3]: D's (l/4, 2(l%4) + {0, 1}) and
+// (l/4 + 8, 2(l%4) + {0, 1}), l the lane. An ldmatrix (b16, not transposed)
+// of 8 rows of 4 f32 gives lane l the f32 at row l/4, column l%4: A's and
+// B's layouts for row-major A and B^T.
+__device__ __forceinline__ void mma_m16n8k8(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 3xTF32 step of the register form on raw f32 operands (each its own
+// hi part, lo = lo_of_raw): small += a_lo b_hi + a_hi b_lo, big += a_hi b_hi.
+// small and big may be the same accumulator (the small terms folded in).
+__device__ __forceinline__ void mma3_m16n8k8(float (&big)[4], float (&small)[4],
+                                             const uint32_t (&a)[4], const uint32_t (&a_lo)[4],
+                                             uint32_t b0, uint32_t b1) {
+  mma_m16n8k8(small, a_lo, b0, b1);
+  mma_m16n8k8(small, a, lo_of_raw(b0), lo_of_raw(b1));
+  mma_m16n8k8(big, a, b0, b1);
 }
 
 // this thread's shared-memory writes before the async proxy's (wgmma, TMA)

@@ -11,12 +11,13 @@ with q's strides, so the encoder's transposed (B, T, H, Dh) views cost no
 copy either way.
 
 The kernel takes bf16, fp16 and f32 (an f32 encoder; the f32 path computes
-both products in f32 FMAs, within 2e-5 of the plain version), any T up to
-128 and every multiple of 64 above it (a superset of the JAX kernel's T <=
-128 or multiples of 128), and every head width, as the JAX kernel does:
-16, 32, 64, 128 and 256 as they are, any other up to 256 padded with zero
-columns to the next of those, and past 256 (the kernel's wide path, 128
-columns of V and O a CTA) padded to a multiple of 8 (:func:`_padded_heads`,
+both products on the TF32 tensor cores by the 3xTF32 split, within 2e-5 of
+the plain version), any T up to 128 and every multiple of 64 above it (a
+superset of the JAX kernel's T <= 128 or multiples of 128), and every head
+width, as the JAX kernel does: 16, 32, 64, 128 and 256 as they are, any
+other up to 256 padded with zero columns to the next of those, and past 256
+(the kernel's wide path, S once per 64 query rows over the whole width)
+padded to a multiple of 8 (:func:`_padded_heads`,
 one copy of q, k and v; the scale stays that of the real width), the output
 sliced back. The CPU path takes the same route, so the tests here reach
 it.
@@ -33,9 +34,11 @@ from . import _build
 
 NEG_INF = -1e30
 # launches of the flash kernel (csrc/flash_attention.cu) in this process:
-# bf16/fp16 and f32 q, k, v
+# bf16/fp16 and f32 q, k, v at head widths up to 256, and the wide path past
+# 256 (every dtype)
 FLASH_LAUNCHES = 0
 FLASH_F32_LAUNCHES = 0
+FLASH_WIDE_LAUNCHES = 0
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_WIDE_STEP = 8  # past 256: 16-byte rows in every dtype
@@ -116,7 +119,7 @@ def _flash_forward(q, k, v, mask):
 def _launch(q, k, v, mask, scale):
     """Launch csrc/flash_attention.cu on CUDA tensors of a head width it
     takes, or raise."""
-    global FLASH_LAUNCHES, FLASH_F32_LAUNCHES
+    global FLASH_LAUNCHES, FLASH_F32_LAUNCHES, FLASH_WIDE_LAUNCHES
     b, h, t, dh = q.shape
     if k.shape != q.shape or v.shape != q.shape or mask.shape != (b, t):
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
@@ -142,7 +145,9 @@ def _launch(q, k, v, mask, scale):
                 _KERNEL_DTYPES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention")
-    if q.dtype == torch.float32:
+    if dh > _KERNEL_HEAD_DIMS[-1]:
+        FLASH_WIDE_LAUNCHES += 1
+    elif q.dtype == torch.float32:
         FLASH_F32_LAUNCHES += 1
     else:
         FLASH_LAUNCHES += 1

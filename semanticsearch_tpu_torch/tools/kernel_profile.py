@@ -22,13 +22,15 @@ the default schedule and in the overlap schedule, and at the serve shape
 (64 queries x 20,000 rows, k_sel 41); the fused top-k at
 16,384 queries (k = 200) over the shard and at the live-search shape
 (10,000 queries x 22,000 rows, k = 200); flash attention on the
-encoder's transposed (B, T, H, Dh) views at the serve shape (B 256, H 12,
-T 256, Dh 32, 40-256 real keys), at T = 1024 (B 2, 600-1000 real) and at
-the chunking batch (B 2,048, T 64, 3-12 real), with ``chip_smoke``'s
-inputs, and for these also the host's time per call (``*_host_ms``: 50
-calls queued without a wait), which CUDA events include whenever it is the
-longer; the similarity kernel at ``chip_smoke.SIM_SHAPES`` on unit f32
-rows (the long document's 4096 bucket with 3,939 real rows, and 256
+encoder's transposed (B, T, H, Dh) views, in bf16 (``flash_*``) and f32
+(``flash_f32_*``), at the serve shape (B 256, H 12, T 256, Dh 32, 40-256
+real keys), at T = 1024 (B 2, 600-1000 real), at the chunking batch (B
+2,048, T 64, 3-12 real) and at head widths 256 and 320 (the wide path; B
+64, H 8, T 256, 40-256 real), and for these also the host's time per call
+(``*_host_ms``: 50 calls queued without a wait), which CUDA events include
+whenever it is the longer; the similarity kernel at
+``chip_smoke.SIM_SHAPES`` on unit f32 rows (the long document's 4096
+bucket with 3,939 real rows, and 256
 documents of 64 rows); and the two f32 schedules (the shapes of
 ``chip_smoke.py`` phase 7) on the f32 shard (1,250,000 x 384): pass A at
 32,768 queries (k_sel 11) and at the serve shape (64 x 20,000, k_sel 41),
@@ -46,6 +48,15 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+
+# flash attention's shapes (name, B, H, T, Dh, real keys a row), in bf16
+# (flash_<name>) and f32 (flash_f32_<name>)
+FLASH_SHAPES = [("serve", 256, 12, 256, 32, (40, 256)),
+                ("t1024", 2, 12, 1024, 32, (600, 1000)),
+                ("chunk", 2048, 12, 64, 32, (3, 12)),
+                ("dh256", 64, 8, 256, 256, (40, 256)),
+                ("dh320", 64, 8, 256, 320, (40, 256))]
 
 
 def main() -> int:
@@ -122,14 +133,18 @@ def main() -> int:
                 queries32[:10000], small32, 712),
         })
     gen = torch.Generator().manual_seed(3)
-    for name, b, t, (lo, hi) in [("flash_serve", 256, 256, (40, 256)),
-                                 ("flash_t1024", 2, 1024, (600, 1000)),
-                                 ("flash_chunk", 2048, 64, (3, 12))]:
-        qkv = [torch.randn((b, t, 12, 32), generator=gen)
-               .to("cuda", torch.bfloat16).transpose(1, 2) for _ in range(3)]
-        lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
-        mask = (torch.arange(t)[None, :] < lengths[:, None]).float().to("cuda")
-        runs[name] = lambda qkv=qkv, mask=mask: fa.flash_attention(*qkv, mask)
+    for prefix, dtype in (("flash_", torch.bfloat16),
+                          ("flash_f32_", torch.float32)):
+        for name, b, h, t, dh, (lo, hi) in FLASH_SHAPES:
+            if not wanted(prefix + name):
+                continue
+            qkv = [torch.randn((b, t, h, dh), generator=gen)
+                   .to("cuda", dtype).transpose(1, 2) for _ in range(3)]
+            lengths = torch.randint(lo, hi + 1, (b,), generator=gen)
+            mask = (torch.arange(t)[None, :]
+                    < lengths[:, None]).float().to("cuda")
+            runs[prefix + name] = (lambda qkv=qkv, mask=mask:
+                                   fa.flash_attention(*qkv, mask))
     for name, (b, n_rows, width) in zip(("sim_long", "sim_batched"),
                                         SIM_SHAPES):
         E = sim.l2_normalize(torch.randn((b, n_rows, width), generator=gen)
@@ -139,9 +154,9 @@ def main() -> int:
         runs[name] = lambda E=E: sim.similarity_matrix(E)
     runs = {name: fn for name, fn in runs.items() if wanted(name)}
     reps = {"pass_a_serve": 50, "fused_live": 5, "f32_pass_a_serve": 50,
-            "f32_fused_live": 5, "flash_serve": 20,
-            "flash_t1024": 20, "flash_chunk": 20, "sim_long": 20,
-            "sim_batched": 20}
+            "f32_fused_live": 5, "sim_long": 20, "sim_batched": 20,
+            **{prefix + name: 20 for prefix in ("flash_", "flash_f32_")
+               for name, *_ in FLASH_SHAPES}}
     for name, fn in runs.items():
         res[name + "_ms"] = time_ms(fn, reps=reps.get(name, 3))
         if name.startswith("flash"):

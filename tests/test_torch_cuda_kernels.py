@@ -12,8 +12,8 @@ unit-norm f32 rows the f32 schedules agree with the plain f32 product (TF32
 off) to D * 2^-24 (a D-long f32 chain's worst case), and in ids wherever
 the plain values are more than twice that apart.
 Flash attention runs in bf16/fp16 against the f32 plain math, to atol 1e-2
-(a few half-precision ulps at the outputs' scale), and in f32 to the JAX
-test's 2e-5.
+(a few half-precision ulps at the outputs' scale), and in f32 (3xTF32) to
+the JAX test's 2e-5.
 The similarity kernel accumulates in f32 (3xTF32 on f32 input, bf16
 products on bf16 input): bit-equal to its plain version on integer-valued
 rows (f32 or bf16 input), within 1e-5 of it on unit-norm f32 rows (the
@@ -690,25 +690,27 @@ def _nan_in_skipped_blocks(x, mask):
     (2, 12, 1024, 32, 600),    # T = 1024, where "auto" picks flash
     (2048, 12, 64, 32, 3),     # the chunking batch
     (813, 12, 64, 32, 3),
-    (4, 2, 512, 128, 10),      # the widest head
+    (4, 2, 512, 128, 10),
+    (3, 4, 512, 256, 10),      # the widest head: one Q tile, two stages
     (3, 2, 192, 64, 1),
     (5, 3, 128, 16, 60),
 ])
 def test_flash_f32_matches_plain(dev, b, h, t, dh, lo):
-    """f32 q, k, v on the encoder's transposed views: the f32 path, within
-    the JAX f32 test's 2e-5 of the plain version (TF32 off); NaN keys and
-    values in skipped blocks change no bit."""
+    """f32 q, k, v on the encoder's transposed views: the f32 path (3xTF32),
+    within the JAX f32 test's 2e-5 of the plain version (TF32 off); NaN keys
+    and values in skipped blocks change no bit."""
     g = torch.Generator(device=dev).manual_seed(60)
     q, k, v = _flash_inputs((b, h, t, dh), torch.float32, "transposed", g,
                             dev)
     mask = _flash_mask(b, t, g, dev, lo)
     if t >= 192:
         mask[2 % b, 40:t - 64] = 0.0  # dead blocks between live ones
-    launches = fa.FLASH_F32_LAUNCHES, fa.FLASH_LAUNCHES
+    launches = (fa.FLASH_F32_LAUNCHES, fa.FLASH_LAUNCHES,
+                fa.FLASH_WIDE_LAUNCHES)
     got = fa.flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert (fa.FLASH_F32_LAUNCHES, fa.FLASH_LAUNCHES) == (launches[0] + 1,
-                                                          launches[1])
+    assert (fa.FLASH_F32_LAUNCHES, fa.FLASH_LAUNCHES,
+            fa.FLASH_WIDE_LAUNCHES) == (launches[0] + 1, *launches[1:])
     assert got.dtype == torch.float32 and got.stride() == q.stride()
     want = fa.flash_attention_plain(q, k, v, mask)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -756,13 +758,15 @@ def test_flash_any_t_and_padded_head_widths(dev, dtype, t, dh):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 @pytest.mark.parametrize("t", [96, 128, 256])
-@pytest.mark.parametrize("dh", [136, 192, 256, 320, 520])
+@pytest.mark.parametrize("dh", [136, 192, 256, 320, 520, 584, 1000])
 def test_flash_wide_head_widths(dev, dtype, t, dh):
     """Head widths past 128: 256 wide (136 and 192 padded to it; 64-row
     tiles, two ring stages, Q's fragments from shared memory), and the wide
-    path past 256 (128 columns of V and O a CTA). Against the plain version
-    on the encoder's transposed views: f32 2e-5 + 2e-5 |o|, otherwise
-    2e-2 max(|o|, 0.5); dead key blocks carry NaN and change no bit."""
+    path past 256 (S once per 64 query rows, Q, K and V in 64-column
+    chunks; past 576 columns O in groups of 576, a CTA each; its own launch
+    counter). Against the plain version on the encoder's transposed views:
+    f32 2e-5 + 2e-5 |o|, otherwise 2e-2 max(|o|, 0.5); dead key blocks
+    carry NaN and change no bit."""
     g = torch.Generator(device=dev).manual_seed(68)
     b, h = 3, 2
     q, k, v = _flash_inputs((b, h, t, dh), dtype, "transposed", g, dev)
@@ -771,11 +775,14 @@ def test_flash_wide_head_widths(dev, dtype, t, dh):
         mask[0, :] = 0.0
         mask[0, :30] = 1.0
         mask[0, t - 64: t - 40] = 1.0  # live blocks around dead ones
-    counter = "FLASH_F32_LAUNCHES" if dtype == torch.float32 else "FLASH_LAUNCHES"
-    launches = getattr(fa, counter)
+    counters = ("FLASH_LAUNCHES", "FLASH_F32_LAUNCHES", "FLASH_WIDE_LAUNCHES")
+    counter = ("FLASH_WIDE_LAUNCHES" if dh > 256 else "FLASH_F32_LAUNCHES"
+               if dtype == torch.float32 else "FLASH_LAUNCHES")
+    launches = {c: getattr(fa, c) for c in counters}
     got = fa.flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert getattr(fa, counter) == launches + 1
+    assert {c: getattr(fa, c) for c in counters} == {
+        c: n + (c == counter) for c, n in launches.items()}
     assert got.shape == q.shape and got.dtype == dtype
     want = fa.flash_attention_plain(q, k, v, mask).float()
     diff = (got.float() - want).abs()
@@ -976,7 +983,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     launches = (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
                 topk.SEGTOPK_OVERLAP_LAUNCHES, topk.SEGTOPK_INT8_LAUNCHES,
                 topk.TOPK_FUSED_LAUNCHES, topk.TOPK_FUSED_F32_LAUNCHES,
-                fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES, sim.SIM_LAUNCHES,
+                fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES,
+                fa.FLASH_WIDE_LAUNCHES, sim.SIM_LAUNCHES,
                 sim.SIM_BF16_LAUNCHES)
     with pytest.raises(NotImplementedError):
         topk.segtopk_pass_a(x, x, 4, 1, 2)
@@ -1012,8 +1020,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                         topk.SEGTOPK_OVERLAP_LAUNCHES,
                         topk.SEGTOPK_INT8_LAUNCHES, topk.TOPK_FUSED_LAUNCHES,
                         topk.TOPK_FUSED_F32_LAUNCHES, fa.FLASH_LAUNCHES,
-                        fa.FLASH_F32_LAUNCHES, sim.SIM_LAUNCHES,
-                        sim.SIM_BF16_LAUNCHES)
+                        fa.FLASH_F32_LAUNCHES, fa.FLASH_WIDE_LAUNCHES,
+                        sim.SIM_LAUNCHES, sim.SIM_BF16_LAUNCHES)
 
 
 def test_wrappers_take_what_they_refused(dev):

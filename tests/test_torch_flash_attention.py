@@ -187,3 +187,42 @@ def test_flash_wide_heads_on_the_cpu_take_the_plain_version(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
 
+
+@pytest.mark.parametrize("b,h,t,dh,block,rows", [
+    # one key block; a row with every key masked
+    (2, 2, 64, 32, 64, [[(0, 40)], []]),
+    # a tail block (T = 96, two 64-key blocks, keys past T absent)
+    (3, 2, 96, 32, 32, [[(0, 70)], [(10, 20)], []]),
+    # dead blocks between live ones, leading, trailing; every key masked
+    (4, 2, 256, 32, 128, [[(0, 30), (192, 220)], [(200, 250)], [(0, 64)],
+                          []]),
+    (2, 2, 256, 256, 64, [[(0, 30), (192, 220)], []]),
+    # the wide path's widths
+    (3, 1, 96, 320, 32, [[(0, 96)], [(5, 6)], []]),
+    (2, 1, 256, 320, 64, [[(40, 60), (200, 256)], []]),
+])
+def test_tf32_flash_model_matches_jax(rng, b, h, t, dh, block, rows):
+    """The numerics of the f32 kernels (the f32 path and the wide path on
+    3xTF32: raw operands split into trunc(x) and trunc(x - trunc(x)), S's
+    small terms summed apart, O's folded in, online softmax over the live
+    64-key blocks) against JAX's flash kernel in interpret mode, within the
+    JAX f32 test's 2e-5; NaN keys and values in the skipped blocks change
+    no bit of the model, as of the kernel."""
+    from _tf32_model import flash_model
+
+    q, k, v = (rng.standard_normal((b, h, t, dh)).astype(np.float32)
+               for _ in range(3))
+    mask = np.stack([_block_mask(t, spans) for spans in rows])
+    want = jflash(*(jnp.asarray(x) for x in (q, k, v, mask)), block, block,
+                  True)
+    tq, tk, tv, tm = (torch.from_numpy(x) for x in (q, k, v, mask))
+    got = flash_model(tq, tk, tv, tm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    nb = -(-t // 64)
+    dead = np.pad(mask, ((0, 0), (0, nb * 64 - t))).reshape(b, nb, 64)
+    dead = (dead == 0).all(axis=2) & (mask > 0).any(axis=1, keepdims=True)
+    keys = np.repeat(dead, 64, axis=1)[:, None, :t, None]
+    nan_k, nan_v = (torch.from_numpy(np.where(keys, np.float32("nan"), x))
+                    for x in (k, v))
+    assert torch.equal(flash_model(tq, nan_k, nan_v, tm), got)
