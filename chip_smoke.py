@@ -22,7 +22,12 @@ encoder under flash attention over an f32 index) end to end, held against
 the same engine on the CPU, with one live round through the f32 fused
 top-k, and times the f32 schedules (3xTF32 wgmma) at the shard shape, pass
 A at the serve shape and the fused top-k at the live round's, and f32 flash
-(3xTF32 mma.sync) at phase 4's shapes (phase 7).
+(3xTF32 mma.sync) at phase 4's shapes (phase 7), and runs the device BM25
+leg (``index/bm25_tpu.py``) at 1,000,000 documents against the native host
+top-k (phase 8). Phase 3 also serves the ``serve_device`` profile (the
+device BM25 leg; hits equal the host leg's) and an index with a trained
+subword ``tokenizer.json``; phases 3, 5 and 6 check that the native host
+kernels ran and split their host time by part.
 Progress and measurements go to stdout; the line before the last is the card's name and power limit, the
 one before it the JSON ``kernels`` record, and the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
@@ -127,12 +132,15 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 def zero_counts() -> None:
-    """Every kernel wrapper's launch count to 0, just before a path is
-    driven; the path's launches are read just after it."""
+    """Every kernel wrapper's launch count and every native wrapper's call
+    count to 0, just before a path is driven; the path's launches are read
+    just after it."""
+    from semanticsearch_tpu_torch import native
     from semanticsearch_tpu_torch.ops import flash_attention as fa
     from semanticsearch_tpu_torch.ops import similarity as sim
     from semanticsearch_tpu_torch.ops import topk
 
+    native.reset_counts()
     topk.SEGTOPK_LAUNCHES = topk.SEGTOPK_OVERLAP_LAUNCHES = 0
     topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
     topk.SEGTOPK_F32_LAUNCHES = topk.SEGTOPK_OVERLAP_F32_LAUNCHES = 0
@@ -251,6 +259,26 @@ def phase_kernels(report):
     check(torch.equal(ki, pi) and torch.equal(kv, pv) and torch.equal(oi, pi)
           and torch.equal(ov, pv),
           "pass A default and overlap schedules == plain at D=72, bit for bit")
+    # bf16 widths that are not a multiple of 8: the wrappers pad them with
+    # zero columns (one copy each) to 32 and 104; integer rows with every
+    # score and segment maximum tied twice
+    for d in (30, 100):
+        Qm, C = _int_grid((17, d), gen), _int_grid((3000, d), gen)
+        C[1500:] = C[:1500].clone()
+        kv, ki = topk.segtopk_pass_a(Qm, C, 3000, 8, 20)
+        ov, oi = topk.segtopk_pass_a_overlap(Qm, C, 3000, 8, 20)
+        pv, pi = topk.segtopk_pass_a_plain(Qm, C, 3000, 8, 20)
+        fv, fi = topk.topk_scores_fused(Qm, C, 300)
+        gv, gi = topk.topk_scores_fused_plain(Qm, C, 300)
+        torch.cuda.synchronize()
+        seg_err = max(seg_err, float((kv - pv).abs().max()))
+        ov_err = max(ov_err, float((ov - pv).abs().max()))
+        check(torch.equal(ki, pi) and torch.equal(kv, pv)
+              and torch.equal(oi, pi) and torch.equal(ov, pv)
+              and torch.equal(fi, gi) and torch.equal(fv, gv),
+              f"bf16 at D={d} (padded to {-(-d // 8) * 8}): pass A default "
+              f"and overlap schedules and the fused top-k == plain, bit for "
+              f"bit")
     # the 128- and 64-row query tiles' edges, a corpus below and just past
     # one 128-row tile, every way a segment lies in the accumulator registers
     # (inside a column pair, a quad, a tile, across tiles), the narrowest
@@ -726,12 +754,17 @@ def _zipf_text(rng, words, n_words):
 def phase_serve(report, tmp):
     import torch
 
-    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch import native
+    from semanticsearch_tpu_torch.core.config import (EncoderConfig,
+                                                      get_named_config)
     from semanticsearch_tpu_torch.data.tsv import write_tsv
     from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
     from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.models.subword import (SubwordTokenizer,
+                                                         train_bpe)
     from semanticsearch_tpu_torch.ops import flash_attention as fa
     from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.tools.host_profile import HostSplit
 
     log("== phase 3: hybrid serving through HybridQueryEngine (main path)")
     rng = np.random.default_rng(7)
@@ -763,13 +796,21 @@ def phase_serve(report, tmp):
     torch.cuda.synchronize()
     log(f"  build: {time.perf_counter() - t0:.1f} s (host clock)")
     engine = HybridQueryEngine.load(os.path.join(tmp, "idx"), encoder)
+    native.reset_counts()
     t0 = time.perf_counter()
-    hybrid = [engine.search(b, k=10) for b in batches]
-    dense_only = [engine.search(b, k=10, hybrid=False) for b in batches]
-    piped = engine.search_pipelined(batches, k=10)
-    torch.cuda.synchronize()
+    with HostSplit(engine) as split:
+        hybrid = [engine.search(b, k=10) for b in batches]
+        dense_only = [engine.search(b, k=10, hybrid=False) for b in batches]
+        piped = engine.search_pipelined(batches, k=10)
+        torch.cuda.synchronize()
     log(f"  {3 * len(queries)} queries searched in "
         f"{time.perf_counter() - t0:.2f} s (host clock)")
+    log(f"  host split (s): {split.line()}")
+    report["host_split"] = {"serve": split.seconds}
+    log(f"  native calls: hash tokenizer {native.HASH_TOKENIZE_CALLS}, BM25 "
+        f"top-k {native.BM25_TOPK_CALLS}")
+    check(native.HASH_TOKENIZE_CALLS > 0 and native.BM25_TOPK_CALLS > 0,
+          "the served queries tokenized and ran the BM25 top-k natively")
     report["segtopk"]["launches"] = topk.SEGTOPK_LAUNCHES
     report["flash"]["launches"] = fa.FLASH_LAUNCHES
     report["flash_wide"]["launches"] = fa.FLASH_WIDE_LAUNCHES
@@ -793,6 +834,66 @@ def phase_serve(report, tmp):
           f"10 hits per query; {n_lex} hybrid hits carry a lexical rank")
     check(all(h.lexical_rank == 0 for b in dense_only for q in b for h in q),
           "dense-only hits carry no lexical rank")
+
+    # the serve_device profile over the same index: the device BM25 leg
+    # (index/bm25_tpu.py) must answer the host leg's hits, list for list
+    dev_cfg = get_named_config("serve_device").ranking
+    dev_engine = HybridQueryEngine.load(os.path.join(tmp, "idx"), encoder,
+                                        rank_cfg=dev_cfg)
+    dev_engine.search(batches[0], k=10)  # builds the leg (B, K' from cfg)
+    torch.cuda.synchronize()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    with HostSplit(dev_engine) as dsplit:
+        dev_hybrid = [dev_engine.search(b, k=10) for b in batches]
+        dev_piped = dev_engine.search_pipelined(batches, k=10)
+        torch.cuda.synchronize()
+    leg = dev_engine._device_bm25
+    log(f"  serve_device: {2 * len(queries)} hybrid queries in "
+        f"{time.perf_counter() - t0:.2f} s (host clock); device leg B="
+        f"{leg.B}, K'={leg.topk_device}, weights {leg.weights}, "
+        f"residual {leg.residual}: {leg.stats['queries']} queries, "
+        f"{leg.stats['fallbacks']} host fallbacks; native calls: rare touch "
+        f"{native.BM25_RARE_TOUCH_CALLS}, post "
+        f"{native.BM25_DEVICE_POST_CALLS}")
+    log(f"  serve_device host split (s): {dsplit.line()}")
+    report["host_split"]["serve_device"] = dsplit.seconds
+    check(all(key(d) == key(h) for d, h in zip(dev_hybrid, hybrid))
+          and all(key(d) == key(h) for d, h in zip(dev_piped, hybrid))
+          and native.BM25_DEVICE_POST_CALLS > 0,
+          "serve_device (the device BM25 leg) == the host leg: every hit "
+          "list, scores and ranks, searched and pipelined")
+    del dev_engine, leg
+
+    # a trained subword vocabulary (tokenizer.json) in the index: trained
+    # on this corpus, persisted by build, swapped in by load
+    t0 = time.perf_counter()
+    tok = train_bpe((r["chunk_text"] for r in rows), vocab_size=8192,
+                    max_len=cfg.max_len)
+    sub_rows = rows[:2000]
+    sub_tsv = os.path.join(tmp, "chunks_subword.tsv")
+    write_tsv(sub_tsv, sub_rows,
+              ["chunk_id", "query_id", "document_id", "chunk_text"])
+    sub_dir = os.path.join(tmp, "idx_subword")
+    check(tok.vocab_size <= cfg.vocab_size,
+          f"trained a {tok.vocab_size}-piece vocabulary on the "
+          f"{n_chunks} chunks in {time.perf_counter() - t0:.1f} s (the "
+          f"encoder's table holds {cfg.vocab_size})")
+    sub_built = HybridQueryEngine.build(
+        sub_tsv, SentenceEncoder(cfg, device="cuda", seed=0, tokenizer=tok),
+        sub_dir)
+    fresh = SentenceEncoder(cfg, device="cuda", seed=0)
+    native.reset_counts()
+    sub_engine = HybridQueryEngine.load(sub_dir, fresh)
+    sub_hits = sub_engine.search(batches[0], k=10)
+    check(isinstance(fresh.tokenizer, SubwordTokenizer)
+          and fresh.tokenizer.vocab == tok.vocab
+          and native.SUBWORD_TOKENIZE_CALLS > 0
+          and key(sub_hits) == key(sub_built.search(batches[0], k=10))
+          and all(len(q) == 10 for q in sub_hits),
+          "an index with tokenizer.json: load swapped the trained vocabulary "
+          "into a hashing-tokenizer encoder, encoded natively, and answers "
+          "as the engine that built it")
 
     q_emb = encoder.encode_device(queries)
     check(q_emb.shape == (256, 384) and bool(torch.isfinite(q_emb).all())
@@ -1128,8 +1229,10 @@ def phase_live(report, ctx):
     from semanticsearch_tpu_torch.index.builder import EMB_FILE, IDS_FILE
     from semanticsearch_tpu_torch.index.query_engine import (
         FUSION_FILE, HybridQueryEngine)
+    from semanticsearch_tpu_torch import native
     from semanticsearch_tpu_torch.ops import flash_attention as fa
     from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.tools.host_profile import HostSplit
 
     log("== phase 5: deep-candidate retrieval over a live index (main path)")
     rng = np.random.default_rng(17)
@@ -1154,8 +1257,9 @@ def phase_live(report, ctx):
 
     zero_counts()
     t0 = time.perf_counter()
-    hits = engine.search(queries, k=50)
-    torch.cuda.synchronize()
+    with HostSplit(engine) as split:
+        hits = engine.search(queries, k=50)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     report["topk_fused"]["launches"] = topk.TOPK_FUSED_LAUNCHES
     log(f"  {LIVE_QUERIES} hybrid queries at k=50 (dense fetch 200 + "
@@ -1163,6 +1267,15 @@ def phase_live(report, ctx):
         f"{dt:.2f} s (host clock); launches: topk_fused "
         f"{topk.TOPK_FUSED_LAUNCHES}, flash {fa.FLASH_LAUNCHES}, segtopk "
         f"{topk.SEGTOPK_LAUNCHES}")
+    log(f"  host split (s): {split.line()}")
+    report["host_split"]["live"] = split.seconds
+    log(f"  native calls: hash tokenizer {native.HASH_TOKENIZE_CALLS}, BM25 "
+        f"top-k {native.BM25_TOPK_CALLS}, delta score "
+        f"{native.BM25_SCORE_CALLS}")
+    check(native.HASH_TOKENIZE_CALLS > 0 and native.BM25_TOPK_CALLS > 0
+          and native.BM25_SCORE_CALLS > 0,
+          "the live search tokenized, ran the BM25 top-k and scored the "
+          "delta natively")
     check(topk.TOPK_FUSED_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
           "the fused top-k kernel and the flash kernel launched on the "
           "live-index search")
@@ -1415,6 +1528,7 @@ def time_similarity(report):
 def phase_chunk(report, ctx):
     import torch
 
+    from semanticsearch_tpu_torch import native
     from semanticsearch_tpu_torch.chunking import grouping, splitter
     from semanticsearch_tpu_torch.chunking import pipeline as chunk_pipeline
     from semanticsearch_tpu_torch.chunking.cleaning import (
@@ -1478,20 +1592,42 @@ def phase_chunk(report, ctx):
         return pipe.run(tsv, os.path.join(tmp, out), write_chunk_map=True)
 
     encoder.encode_device = timed(encoder.encode_device, "encode")
+    tokenizer = encoder.tokenizer
+    encode_batch = tokenizer.encode_batch
+
+    def timed_tokenize(*args, **kwargs):  # host only: no synchronize
+        t0 = time.perf_counter()
+        out = encode_batch(*args, **kwargs)
+        timers["tokenize"] = (timers.get("tokenize", 0.0)
+                              + time.perf_counter() - t0)
+        return out
+
+    tokenizer.encode_batch = timed_tokenize
     zero_counts()
     try:
         first = run("chunk_a", split_times=True)
     finally:
         del encoder.encode_device  # back to the class's method
+        del tokenizer.encode_batch
     torch.cuda.synchronize()
     report["similarity"]["launches"] = sim.SIM_LAUNCHES
     host = first["elapsed_s"] - timers["encode"] - timers["signals"]
     log(f"  semantic_splitter over {first['docs_chunked']} documents: "
         f"{first['chunks_out']} chunks in {first['elapsed_s']:.2f} s (host "
         f"clock) = {first['chunks_per_sec']} chunks/s; encode "
-        f"{timers['encode']:.2f} s, signals {timers['signals']:.2f} s, host "
-        f"logic and I/O {host:.2f} s; launches: similarity "
-        f"{sim.SIM_LAUNCHES}, flash {fa.FLASH_LAUNCHES}")
+        f"{timers['encode']:.2f} s (its tokenization "
+        f"{timers.get('tokenize', 0.0):.3f} s, "
+        f"{native.HASH_TOKENIZE_CALLS} native calls), signals "
+        f"{timers['signals']:.2f} s, host logic and I/O {host:.2f} s; "
+        f"launches: similarity {sim.SIM_LAUNCHES}, flash "
+        f"{fa.FLASH_LAUNCHES}")
+    report["host_split"]["chunk"] = {
+        "tokenize": timers.get("tokenize", 0.0),
+        "encode_rest": timers["encode"] - timers.get("tokenize", 0.0),
+        "signals": timers["signals"], "rest": host,
+        "total": first["elapsed_s"]}
+    check(native.HASH_TOKENIZE_CALLS > 0,
+          "the chunking run tokenized its sentences natively")
     check(sim.SIM_LAUNCHES == want_launches and fa.FLASH_LAUNCHES > 0,
           f"the similarity kernel launched once per (bucket, sub-batch): "
           f"{sim.SIM_LAUNCHES} == {want_launches} predicted by the bucket "
@@ -1973,6 +2109,182 @@ def time_f32_flash(report):
         f"alone {report['flash']['dh48_pad_ms']:.4f} ms")
 
 
+# phase 8: the device lexical leg at the size its design serves: documents
+# of 16-96 tokens drawn Zipf(1.1) from a 50,000-term vocabulary, queries of
+# 2-6 terms from the same law, in 1,024-query chunks at k = 40 (K' = 64)
+LEX_DOCS, LEX_VOCAB, LEX_QUERIES, LEX_CHUNK, LEX_K = 1_000_000, 50_000, 4096, 1024, 40
+LEX_DENSE_TERMS, LEX_KP = 4096, 64
+
+
+def _zipf_bm25(rng, n_docs, vocab, s=1.1, lengths=(16, 97)):
+    """BM25Okapi statistics of a synthetic corpus made in bulk: per-document
+    term counts from one numpy draw, the CSR by one sort (ascending term id
+    within each document), then ``BM25Okapi.from_csr``. Terms are named
+    ``t<rank>``; ids are ranks, compacted to the terms that occur."""
+    from semanticsearch_tpu_torch.index.bm25 import BM25Okapi
+
+    p = 1.0 / np.arange(1, vocab + 1) ** s
+    p /= p.sum()
+    n_tok = rng.integers(*lengths, size=n_docs)
+    terms = np.searchsorted(np.cumsum(p), rng.random(int(n_tok.sum())),
+                            side="right").clip(max=vocab - 1)
+    docs = np.repeat(np.arange(n_docs, dtype=np.int64), n_tok)
+    keys, tf = np.unique(docs * vocab + terms, return_counts=True)
+    doc_of, term_of = np.divmod(keys, vocab)
+    seen = np.zeros(vocab, bool)
+    seen[term_of] = True
+    new_id = np.cumsum(seen) - 1
+    vocab_map = {f"t{r}": int(new_id[r]) for r in np.flatnonzero(seen)}
+    indptr = np.zeros(n_docs + 1, np.int64)
+    np.cumsum(np.bincount(doc_of, minlength=n_docs), out=indptr[1:])
+    return BM25Okapi.from_csr(vocab_map, indptr,
+                              new_id[term_of].astype(np.int32),
+                              tf.astype(np.float32)), p
+
+
+def phase_lexical(report):
+    import torch
+
+    from semanticsearch_tpu_torch import native
+    from semanticsearch_tpu_torch.core.config import RankingConfig
+    from semanticsearch_tpu_torch.index.bm25 import BM25Okapi
+    from semanticsearch_tpu_torch.index.bm25_tpu import DeviceBM25
+
+    log(f"== phase 8: the device BM25 leg at {LEX_DOCS:,} documents "
+        f"(B={LEX_DENSE_TERMS} dense terms, residual, int8 weights)")
+    rng = np.random.default_rng(41)
+    # the bulk build against the constructor, on a small corpus: the same
+    # statistics give the same top-k lists and score bits
+    small, _ = _zipf_bm25(np.random.default_rng(5), 3000, 2000)
+    inv = {i: t for t, i in small.vocab.items()}
+    docs = [[inv[int(t)] for t, c in zip(
+        small._indices[small._indptr[d]:small._indptr[d + 1]],
+        small._data[small._indptr[d]:small._indptr[d + 1]])
+        for _ in range(int(c))] for d in range(small.n_docs)]
+    ref = BM25Okapi(docs)
+    qs = [docs[i][:4] for i in range(0, 3000, 100)]
+    a, b = small.get_topk_batch(qs, 20), ref.get_topk_batch(qs, 20)
+    check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+          and np.array_equal(np.sort(small.idf), np.sort(ref.idf)),
+          "BM25Okapi.from_csr (the bulk build) == the token-list "
+          "constructor: idf multiset, top-20 ids and score bits")
+
+    t0 = time.perf_counter()
+    bm, p = _zipf_bm25(rng, LEX_DOCS, LEX_VOCAB)
+    t_stats = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bm._ensure_inverted()
+    t_inv = time.perf_counter() - t0
+    n_post = int(bm._inv_indptr[-1])
+    log(f"  corpus: {bm.n_docs:,} documents, {len(bm.vocab):,} terms, "
+        f"{n_post:,} postings (mean length {bm.avgdl:.1f}); statistics "
+        f"{t_stats:.1f} s, inverted {t_inv:.1f} s (host clock)")
+    q_terms = np.searchsorted(np.cumsum(p), rng.random(LEX_QUERIES * 6),
+                              side="right").clip(max=LEX_VOCAB - 1)
+    n_q = rng.integers(2, 7, size=LEX_QUERIES)
+    queries = [[f"t{r}" for r in q_terms[6 * i: 6 * i + n]]
+               for i, n in enumerate(n_q)]
+
+    threads = RankingConfig().resolved_bm25_threads()
+    bm.get_topk_batch(queries[:64], LEX_K, n_threads=threads)  # warm
+    t0 = time.perf_counter()
+    host_i, host_s = bm.get_topk_batch(queries, LEX_K, n_threads=threads)
+    t_host = time.perf_counter() - t0
+    log(f"  native host top-k ({threads} threads): {LEX_QUERIES} queries in "
+        f"{t_host:.3f} s = {LEX_QUERIES / t_host:.1f} QPS")
+
+    t0 = time.perf_counter()
+    leg = DeviceBM25(bm, n_dense_terms=LEX_DENSE_TERMS, topk_device=LEX_KP,
+                     query_chunk=LEX_CHUNK, residual=True, weights="int8")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    CT = leg._CT
+    log(f"  device matrix: {tuple(CT.shape)} int8 ({CT.numel() / 1e9:.2f} "
+        f"GB) built and uploaded in {t_build:.1f} s (host clock)")
+    leg.get_topk_batch(queries[:LEX_CHUNK], LEX_K)  # warm: allocator, sort
+    native.reset_counts()
+    leg.stats.update(dict.fromkeys(leg.stats, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_i, dev_s = leg.get_topk_batch(queries, LEX_K)
+    t_leg = time.perf_counter() - t0
+    st = leg.stats
+    cert = 1.0 - st["fallbacks"] / st["queries"]
+    log(f"  device leg: {LEX_QUERIES} queries in {t_leg:.3f} s (host "
+        f"clock) = {LEX_QUERIES / t_leg:.1f} QPS; certified "
+        f"{100 * cert:.2f} % ({st['fallbacks']} host fallbacks); split (s) "
+        + ", ".join(f"{k[2:-2]} {v:.3f}" for k, v in st.items()
+                    if k.startswith("t_")))
+    check(np.array_equal(dev_i, host_i) and np.array_equal(dev_s, host_s)
+          and native.BM25_RARE_TOUCH_CALLS > 0
+          and native.BM25_DEVICE_POST_CALLS > 0,
+          f"all {LEX_QUERIES} device-leg id lists and score bits == the "
+          "native host top-k")
+
+    # the device phase of one chunk alone (densify, three int8 products a
+    # score chunk, the f32 combine, the selection and merge), by CUDA
+    # events; its bound: the three products at the int8 peak, or one read
+    # of the matrix
+    wq = torch.from_numpy(leg._split(queries[:LEX_CHUNK])[0]).cuda()
+    ms = time_ms(lambda: leg._select(wq, LEX_KP))
+    W8 = leg._densify(wq)[0]
+    Bp, d_pad = leg._Bp, CT.shape[0]
+    ops = 3 * 2.0 * leg._rows * Bp * d_pad
+    b_ms, b_by = bound_ms(ops, float(CT.numel()), PEAK_INT8_OPS)
+    sc = leg.score_chunk_cols
+    mm_one = time_ms(lambda: torch._int_mm(W8[0], CT[:sc, :Bp].t()))
+    # the same product on a row-major right operand (the JAX package's
+    # terms x documents layout): why the matrix lives transposed
+    row_major = CT[:sc, :Bp].t().contiguous()
+    mm_row = time_ms(lambda: torch._int_mm(W8[0], row_major))
+    del row_major
+    mm_all = time_ms(lambda: [torch._int_mm(W8[j], CT[c: c + sc, o: o + Bp]
+                                            .t())
+                              for c in range(0, d_pad, sc)
+                              for j, o in ((0, 0), (1, 0), (2, Bp))])
+    log(f"  device phase of one {LEX_CHUNK}-query chunk: {ms:.3f} ms "
+        f"(bound {b_ms:.3f} ms by {b_by}: {ops:.3e} int8 operations, "
+        f"{CT.numel() / 1e9:.2f} GB read); torch._int_mm alone: "
+        f"{mm_one:.3f} ms a product of one {sc}-column score chunk "
+        f"({mm_row:.3f} ms on a row-major right operand), {mm_all:.3f} ms "
+        f"for the chunk's {3 * -(-d_pad // sc)} products")
+    del W8, wq
+
+    # the bf16 weights on one chunk (products bf16 x bf16 -> f32)
+    del leg, CT
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    leg16 = DeviceBM25(bm, n_dense_terms=LEX_DENSE_TERMS, topk_device=LEX_KP,
+                       query_chunk=LEX_CHUNK, residual=True, weights="bf16")
+    b16_i, b16_s = leg16.get_topk_batch(queries[:LEX_CHUNK], LEX_K)
+    wq = torch.from_numpy(leg16._split(queries[:LEX_CHUNK])[0]).cuda()
+    ms16 = time_ms(lambda: leg16._select(wq, LEX_KP))
+    cert16 = 1.0 - leg16.stats["fallbacks"] / leg16.stats["queries"]
+    log(f"  bf16 weights, one chunk: built and served in "
+        f"{time.perf_counter() - t0:.1f} s; device phase {ms16:.3f} ms; "
+        f"certified {100 * cert16:.2f} % ({leg16.stats['fallbacks']} host "
+        f"fallbacks)")
+    check(np.array_equal(b16_i, host_i[:LEX_CHUNK])
+          and np.array_equal(b16_s, host_s[:LEX_CHUNK]),
+          f"bf16 weights: the {LEX_CHUNK} id lists and score bits == the "
+          "native host top-k")
+    del leg16, wq
+    torch.cuda.empty_cache()
+    lex = {"docs": bm.n_docs, "postings": n_post, "dense_terms": LEX_DENSE_TERMS,
+           "topk_device": LEX_KP, "k": LEX_K, "queries": LEX_QUERIES,
+           "chunk_ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+           "int_mm_one_ms": mm_one, "int_mm_rowmajor_ms": mm_row,
+           "int_mm_chunk_ms": mm_all,
+           "leg_s": t_leg, "leg_qps": LEX_QUERIES / t_leg,
+           "certified": cert, "fallbacks": int(st["fallbacks"]),
+           "host_topk_s": t_host, "host_qps": LEX_QUERIES / t_host,
+           "host_threads": threads, "bf16_chunk_ms": ms16,
+           "bf16_certified": cert16, "stats_s": t_stats,
+           "build_s": t_build}
+    report["device_bm25"] = lex
+    log(json.dumps({"device_bm25": lex}))
+
+
 def main() -> int:
     try:
         import torch
@@ -2040,6 +2352,7 @@ def main() -> int:
             phase_live(report, ctx)
             phase_chunk(report, ctx)
             phase_f32(report, ctx)
+        phase_lexical(report)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1

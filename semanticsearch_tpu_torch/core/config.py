@@ -3,8 +3,8 @@
 The port's own copy of ``semanticsearch_tpu/core/config.py``: same
 dataclasses, same fields, same defaults, so an index directory's
 ``meta.json`` and a config override written for one package read the same
-in the other. The registry holds the seven named chunking configurations
-and ``default``.
+in the other. The registry holds the seven named chunking configurations,
+``default`` and ``serve_device``.
 """
 from __future__ import annotations
 
@@ -118,12 +118,18 @@ class RankingConfig:
     bm25_epsilon: float = 0.25
     min_group_size: int = 2
     bm25_threads: int = 0   # host top-k threads; 0 = auto
-    # device-resident lexical leg: not ported yet (the engine raises)
+    # device-resident lexical leg (index/bm25_tpu.py): the frequent terms'
+    # dense int8 contribution matrix scored on the card, rare-term postings
+    # and the exact certification on the host; False = host kernels
     lexical_device: bool = False
-    lexical_dense_terms: int = 4096
-    lexical_topk_device: int = 64
+    lexical_dense_terms: int = 4096  # dense matrix budget B (B*D int8)
+    lexical_topk_device: int = 64    # candidates fetched per query (K')
+    # residual int8 pass: ~100x tighter certification bound, 2x the matrix
     lexical_residual: bool = True
+    # query weights in residual mode: "int8" (three exact int8 products)
+    # or "bf16" (an f32 -> bf16 x2 split, f32 accumulation)
     lexical_weights: str = "int8"
+    # persist the built int8 matrix in the index directory
     lexical_cache: bool = False
 
     def resolved_bm25_threads(self) -> int:
@@ -239,5 +245,9 @@ register_config(
     _base.override(chunking={"method": "splitter", "use_dp_refine": True}),
 )
 register_config("default", _base)
-# "serve_device" (the device-resident lexical leg) is registered once device
-# BM25 is ported
+# the serving profile with every query-path leg on the card: the device
+# BM25 leg (index/bm25_tpu.py) beside the dense top-k
+register_config(
+    "serve_device",
+    _base.override(ranking={"lexical_device": True}),
+)

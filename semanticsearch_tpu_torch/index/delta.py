@@ -164,9 +164,36 @@ class DeltaBM25:
         return self._inv
 
     def score(self, queries_tokens: Sequence[Sequence[str]]) -> np.ndarray:
-        """(Q, n_delta) f32 BM25 scores under the main corpus statistics.
-        Each document sums its terms' contributions in term-id order, in
-        f32, as the JAX package's scorer does."""
+        """(Q, n_delta) f32 BM25 scores under the main corpus statistics,
+        from the native CSR scorer (``bm25_score_batch``): each document
+        sums its terms' contributions in term-id order, in f32, as the JAX
+        package's scorer does. :meth:`score_plain` is its plain version."""
+        from ..native import bm25_score_batch
+
+        nq, nd = len(queries_tokens), self.n_docs
+        if nq == 0 or nd == 0:
+            return np.zeros((nq, nd), np.float32)
+        q_ids: List[int] = []
+        q_wts: List[float] = []
+        q_indptr = [0]
+        for toks in queries_tokens:
+            cnt = Counter(tid for tid in map(self._lookup, toks)
+                          if tid is not None)
+            for tid in sorted(cnt):
+                q_ids.append(tid)
+                q_wts.append(float(cnt[tid]))
+            q_indptr.append(len(q_ids))
+        return bm25_score_batch(
+            np.asarray(self._indptr, np.int64),
+            np.asarray(self._termids, np.int32),
+            np.asarray(self._quot, np.float32), self._full_idf(),
+            np.asarray(q_indptr, np.int64), np.asarray(q_ids, np.int64),
+            np.asarray(q_wts, np.float32), self.bm.k1)
+
+    def score_plain(self, queries_tokens: Sequence[Sequence[str]]
+                    ) -> np.ndarray:
+        """:meth:`score` in numpy, query by query over the delta's own
+        postings."""
         bm = self.bm
         nq, nd = len(queries_tokens), self.n_docs
         out = np.zeros((nq, nd), np.float32)

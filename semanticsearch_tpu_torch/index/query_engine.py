@@ -1,10 +1,13 @@
 """Serve-time hybrid query engine: dense top-k + BM25 + RRF over one corpus.
 
 Counterpart of ``semanticsearch_tpu/index/query_engine.py`` on one device.
-Each search launches its card work first (query encode, dense top-k), runs
-the host BM25 leg while the card computes (CUDA launches are asynchronous
-and nothing synchronizes before the host leg), fetches the dense results
-last, and fuses both legs by reciprocal rank with k=60.
+Each search launches its card work first (query encode, dense top-k, and
+under ``RankingConfig.lexical_device`` the device BM25 leg,
+``index/bm25_tpu.py``), runs the host lexical work while the card computes
+(CUDA launches are asynchronous and nothing synchronizes before it): the
+native BM25 top-k, or the device leg's rare-term traversal with its exact
+post on a background thread. It fetches the results last and fuses both
+legs by reciprocal rank with k=60.
 
 The index is live: :meth:`HybridQueryEngine.add_documents` lands new
 documents in a delta buffer searched next to the main index,
@@ -15,9 +18,10 @@ folds both into the persisted layout through a journaled commit that
 :meth:`~HybridQueryEngine.tune_fusion` grid-searches the fusion weight on a
 labeled split against the live legs.
 
-Not ported yet, each listed in ROADMAP: the device BM25 leg, the neural
-rerank stage (and ``tune_rerank_blend``), the subword tokenizer and the HTTP
-server.
+An index directory holding a trained subword vocabulary
+(``tokenizer.json``) encodes its queries with it. Not ported yet, each
+listed in ROADMAP: the neural rerank stage (and ``tune_rerank_blend``) and
+the HTTP server.
 """
 from __future__ import annotations
 
@@ -117,6 +121,18 @@ def _unpack_scores_indices(packed: np.ndarray) -> SearchResult:
     )
 
 
+class _SyncLexHandle:
+    """The device lexical leg's finish run on the calling thread when
+    ``result()`` joins it (``lexical_async_finish = False``)."""
+
+    def __init__(self, device_bm25, handle) -> None:
+        self._device_bm25 = device_bm25
+        self._handle = handle
+
+    def result(self):
+        return self._device_bm25.finish_topk_batch(self._handle)
+
+
 @dataclass
 class Hit:
     chunk_id: str
@@ -137,10 +153,6 @@ class HybridQueryEngine:
         cfg: RankingConfig = RankingConfig(),
         texts: Optional[List[str]] = None,
     ) -> None:
-        if cfg.lexical_device:
-            raise NotImplementedError(
-                "the device BM25 leg (lexical_device=True) is not ported "
-                "yet: ROADMAP Queue 1")
         self.index = index
         self.chunk_ids = chunk_ids
         self.encoder = encoder
@@ -157,6 +169,15 @@ class HybridQueryEngine:
         self._dead: set = set()
         # chunk_id -> rows, built lazily for remove_documents
         self._row_index: Optional[Dict[str, List[int]]] = None
+        # the device lexical leg, built on the first hybrid search under
+        # cfg.lexical_device for the depth it asked (deeper asks rebuild)
+        self._device_bm25 = None
+        self._device_bm25_depth = 0
+        # one worker runs the device leg's finish (the wait for the card,
+        # the native post, host fallbacks) while this thread fetches and
+        # fuses; one worker keeps finishes ordered and its stats unraced
+        self._lex_executor = None
+        self.lexical_async_finish = True
 
     # ------------------------------------------------------------- build/load
     @classmethod
@@ -211,6 +232,10 @@ class HybridQueryEngine:
         if not (resume and os.path.exists(texts_path)):
             write_tsv(texts_path, ({"chunk_text": t} for t in texts),
                       ["chunk_text"])
+        # a trained subword vocabulary is part of the index: queries must
+        # encode with the vocabulary the corpus was embedded under
+        if hasattr(getattr(encoder, "tokenizer", None), "save"):
+            encoder.tokenizer.save(os.path.join(output_dir, TOKENIZER_FILE))
         index, chunk_ids = load_index(output_dir, mesh=mesh, cfg=index_cfg,
                                       device=device)
         engine = cls(index, chunk_ids, encoder, bm25=bm25, cfg=rank_cfg,
@@ -230,16 +255,18 @@ class HybridQueryEngine:
         device="cuda",
     ) -> "HybridQueryEngine":
         """Serve an index directory written by either package, first
-        recovering an interrupted :meth:`compact` there."""
+        recovering an interrupted :meth:`compact` there. A trained subword
+        vocabulary in the directory (``tokenizer.json``) replaces the
+        encoder's tokenizer: queries must encode as the corpus did."""
         if reranker_dir:
             raise NotImplementedError(
                 "the neural rerank stage is not ported yet: ROADMAP Queue 1")
         recover_staged_commit(index_dir)
-        if os.path.exists(os.path.join(index_dir, TOKENIZER_FILE)):
-            raise NotImplementedError(
-                f"{index_dir} holds a trained subword tokenizer "
-                f"({TOKENIZER_FILE}), which this package does not read yet: "
-                "ROADMAP Queue 1")
+        tok_path = os.path.join(index_dir, TOKENIZER_FILE)
+        if os.path.exists(tok_path):
+            from ..models.subword import SubwordTokenizer
+
+            encoder.tokenizer = SubwordTokenizer.load(tok_path)
         index, chunk_ids = load_index(index_dir, mesh=mesh, cfg=index_cfg,
                                       device=device)
         bm25_path = os.path.join(index_dir, BM25_FILE)
@@ -427,6 +454,7 @@ class HybridQueryEngine:
         self._delta = None
         self._delta_bm25 = None
         self._dead = set()
+        self._device_bm25 = None  # statistics changed: rebuilt on demand
         self._row_index = None
         self._index_dir = out
 
@@ -508,11 +536,15 @@ class HybridQueryEngine:
         n_delta = self._delta.n if self._delta is not None else 0
         delta = self._delta.search(q_emb, min(fetch, n_delta)) if n_delta \
             else None
-        bm_host = delta_lex = None
+        bm_host = delta_lex = lex_handle = None
         if use_bm25:
-            bm_host = self.bm25.get_topk_batch(
-                q_tokens, min(fetch, self.index.size),
-                n_threads=self.cfg.resolved_bm25_threads())
+            bm_depth = min(fetch, self.index.size)
+            if self.cfg.lexical_device:
+                lex_handle = self._start_device_lexical(q_tokens, bm_depth)
+            else:
+                bm_host = self.bm25.get_topk_batch(
+                    q_tokens, bm_depth,
+                    n_threads=self.cfg.resolved_bm25_threads())
             if n_delta and self._delta_bm25 is not None:
                 delta_lex = self._delta_bm25.score(q_tokens)
         return {
@@ -523,8 +555,45 @@ class HybridQueryEngine:
             "dense_packed": dense_packed,
             "delta": delta,
             "bm_host": bm_host,
+            "lex_handle": lex_handle,
             "delta_lex": delta_lex,
         }
+
+    def _start_device_lexical(self, q_tokens, depth: int):
+        """Launch the device BM25 leg and hand its finish to the background
+        worker; ``_leg_lists`` joins it. The leg is built on first use, and
+        rebuilt for a request deeper than the K' it was built for (a
+        shallow candidate pool would send every query to the host
+        fallback)."""
+        if self._device_bm25 is not None and depth > self._device_bm25_depth:
+            logger.info("device BM25 rebuilt for depth %d (was %d)", depth,
+                        self._device_bm25_depth)
+            self._device_bm25 = None
+        if self._device_bm25 is None:
+            from .bm25_tpu import DeviceBM25
+
+            self._device_bm25_depth = max(self.cfg.lexical_topk_device,
+                                          depth)
+            self._device_bm25 = DeviceBM25(
+                self.bm25,
+                n_dense_terms=self.cfg.lexical_dense_terms,
+                topk_device=self._device_bm25_depth,
+                residual=self.cfg.lexical_residual,
+                weights=self.cfg.lexical_weights,
+                cache_dir=(self._index_dir if self.cfg.lexical_cache
+                           else None),
+                device=self.index.device,
+            )
+        leg = self._device_bm25
+        handle = leg.start_topk_batch(q_tokens, depth)
+        if not self.lexical_async_finish:
+            return _SyncLexHandle(leg, handle)
+        if self._lex_executor is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._lex_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="lex-finish")
+        return self._lex_executor.submit(leg.finish_topk_batch, handle)
 
     def _leg_lists(
         self, state: Dict
@@ -538,6 +607,10 @@ class HybridQueryEngine:
         depth = state["depth"]
         base = state["base"]
         dense = _unpack_scores_indices(state["dense_packed"].cpu().numpy())
+        if state["lex_handle"] is not None:
+            # the device leg's finish ran on the worker since dispatch
+            state["bm_host"] = state["lex_handle"].result()
+            state["lex_handle"] = None
         dense_lists: List[List[Tuple[float, int]]] = []
         lex_lists: Optional[List[List[Tuple[float, int]]]] = (
             [] if state["use_bm25"] else None)

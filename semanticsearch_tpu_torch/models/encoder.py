@@ -191,30 +191,51 @@ class SentenceEncoder:
                 return b
         return self.cfg.max_len
 
+    def _buckets(self, texts: Sequence[str]):
+        """Token ids and masks of every text, and the text positions in
+        each length bucket."""
+        ids_full, mask_full = self.tokenizer.encode_batch(
+            texts, max_len=self.cfg.max_len)
+        buckets: dict = {}
+        for i, ln in enumerate(mask_full.sum(axis=1)):
+            buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
+        return ids_full, mask_full, buckets
+
+    def _forward(self, ids_full: np.ndarray, mask_full: np.ndarray,
+                 sel: Sequence[int], L: int) -> torch.Tensor:
+        """Launch the model on one batch of texts (asynchronous)."""
+        packed = self._upload(np.stack(
+            [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64))
+        return self.model(packed[0], packed[1])
+
     @torch.no_grad()
     def encode_device(self, texts: Sequence[str], batch_size: int = 256
                       ) -> torch.Tensor:
         """Encode to a DEVICE-RESIDENT (N, hidden_dim) float32 tensor, in
         input order, with no host fetch: the serve path feeds it straight
         into the dense top-k. Launches are asynchronous; uploads go through
-        pinned memory so they do not wait for earlier batches."""
+        pinned memory so they do not wait for earlier batches. A batch
+        whose launch runs out of device memory is retried at half the size
+        (down to one text); any other error propagates."""
         if not len(texts):
             return torch.zeros((0, self.cfg.hidden_dim), dtype=torch.float32,
                                device=self.device)
-        ids_full, mask_full = self.tokenizer.encode_batch(
-            texts, max_len=self.cfg.max_len)
-        lengths = mask_full.sum(axis=1)
-        buckets: dict = {}
-        for i, ln in enumerate(lengths):
-            buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
+        ids_full, mask_full, buckets = self._buckets(texts)
         order_parts, emb_parts = [], []
         for L, idxs in buckets.items():
-            for s in range(0, len(idxs), batch_size):
-                sel = idxs[s: s + batch_size]
-                packed = self._upload(np.stack(
-                    [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64))
-                emb_parts.append(self.model(packed[0], packed[1]))
+            eff, s = batch_size, 0
+            while s < len(idxs):
+                sel = idxs[s: s + eff]
+                try:
+                    emb = self._forward(ids_full, mask_full, sel, L)
+                except Exception as exc:
+                    if not _is_oom(exc) or eff == 1:
+                        raise
+                    eff = max(1, eff // 2)
+                    continue
+                emb_parts.append(emb)
                 order_parts.append(np.asarray(sel, np.int64))
+                s += len(sel)
         order = np.concatenate(order_parts)
         embs = emb_parts[0] if len(emb_parts) == 1 else torch.cat(emb_parts)
         if np.array_equal(order, np.arange(order.size)):
@@ -231,11 +252,57 @@ class SentenceEncoder:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    @staticmethod
+    def _fetch(emb: torch.Tensor) -> np.ndarray:
+        """A batch's embeddings on the host (waits for its launch)."""
+        return emb.cpu().numpy()
+
+    @torch.no_grad()
     def encode(self, texts: Sequence[str], batch_size: int = 256
                ) -> np.ndarray:
         """Encode texts to (N, hidden_dim) float32 unit vectors on the host,
-        in input order."""
-        return self.encode_device(texts, batch_size).cpu().numpy()
+        in input order.
+
+        Double-buffered: batch i is launched before batch i-1 is fetched,
+        so the card computes while the host copies. Out of device memory,
+        whether raised at a launch or only at the fetch of an earlier
+        launch (an asynchronous failure surfaces at the next synchronize),
+        the bucket restarts at the earliest batch not yet fetched with half
+        the batch size (down to one text); any other error propagates."""
+        out = np.zeros((len(texts), self.cfg.hidden_dim), np.float32)
+        if not len(texts):
+            return out
+        ids_full, mask_full, buckets = self._buckets(texts)
+        for L, idxs in buckets.items():
+            eff, s = batch_size, 0
+            pending = None  # (embeddings, texts, start) launched, unfetched
+            while s < len(idxs) or pending is not None:
+                try:
+                    launched = None
+                    if s < len(idxs):
+                        sel = idxs[s: s + eff]
+                        launched = (self._forward(ids_full, mask_full, sel,
+                                                  L), sel, s)
+                    if pending is not None:
+                        out[pending[1]] = self._fetch(pending[0])
+                    pending = launched
+                    if launched is not None:
+                        s += len(launched[1])
+                except Exception as exc:
+                    if not _is_oom(exc) or eff == 1:
+                        raise
+                    if pending is not None:  # it may be the batch that failed
+                        s = pending[2]
+                        pending = None
+                    eff = max(1, eff // 2)
+        return out
+
+
+def _is_oom(exc: BaseException) -> bool:
+    """An out-of-device-memory error: the allocator's, or any error whose
+    message says so (a failure surfacing at a later synchronize)."""
+    return (isinstance(exc, torch.cuda.OutOfMemoryError)
+            or "out of memory" in str(exc).lower())
 
 
 _ENCODER_CACHE: dict = {}

@@ -589,19 +589,34 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _pad_f32_width(queries: torch.Tensor, corpus: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 operands of a width that is not a multiple of 4 (the f32
-    schedules' tensor maps need 16-byte rows) widened with zero columns,
-    one copy each; a zero column splits into hi = lo = 0 and adds exactly
-    0 to every product. Other widths and types are returned as they are."""
+def _pad_width(queries: torch.Tensor, corpus: torch.Tensor,
+               dtype: torch.dtype, multiple: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Operands of ``dtype`` whose width is not a multiple of ``multiple``
+    (the tensor maps need 16-byte rows) widened with zero columns, one copy
+    each; a zero column adds exactly 0 to every product (and splits into hi
+    = lo = 0 on the 3xTF32 path). Other widths and types are returned as
+    they are."""
     d = queries.shape[1]
-    if (queries.dtype != torch.float32 or corpus.dtype != torch.float32
-            or corpus.shape[1] != d or d % 4 == 0):
+    if (queries.dtype != dtype or corpus.dtype != dtype
+            or corpus.shape[1] != d or d % multiple == 0):
         return queries, corpus
-    pad = _round_up(d, 4) - d
+    pad = _round_up(d, multiple) - d
     return (torch.nn.functional.pad(queries, (0, pad)),
             torch.nn.functional.pad(corpus, (0, pad)))
+
+
+def _pad_f32_width(queries: torch.Tensor, corpus: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 operands padded to a multiple of 4 columns (the f32 schedules)."""
+    return _pad_width(queries, corpus, torch.float32, 4)
+
+
+def _pad_bf16_width(queries: torch.Tensor, corpus: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bf16 operands padded to a multiple of 8 columns (the bf16 schedules
+    of pass A and the fused top-k)."""
+    return _pad_width(queries, corpus, torch.bfloat16, 8)
 
 
 # schedules of csrc/segtopk.cu: (mode, operand dtype, plan)
@@ -660,9 +675,9 @@ def segtopk_pass_a(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass A of the two-pass top-k; same contract as
     :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
-    tensors it launches ``csrc/segtopk.cu`` (bf16 operands, or the f32
-    schedule for f32 operands, at a width not a multiple of 4 padded with
-    zero columns) or raises."""
+    tensors it launches ``csrc/segtopk.cu`` (bf16 operands at a width not a
+    multiple of 8, or the f32 schedule for f32 operands at a width not a
+    multiple of 4, padded with zero columns) or raises."""
     global SEGTOPK_LAUNCHES, SEGTOPK_F32_LAUNCHES
     if not _on_card("segtopk_pass_a", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
@@ -671,7 +686,8 @@ def segtopk_pass_a(
                              seg_rows, k_sel)
         SEGTOPK_F32_LAUNCHES += 1
     else:
-        out = _launch_pass_a("bf16", queries, corpus, n, seg_rows, k_sel)
+        out = _launch_pass_a("bf16", *_pad_bf16_width(queries, corpus), n,
+                             seg_rows, k_sel)
         SEGTOPK_LAUNCHES += 1
     return out
 
@@ -683,8 +699,8 @@ def segtopk_pass_a_overlap(
     """Pass A in the overlap schedule (``_segtopk_kernel_overlap``):
     bit-identical to :func:`segtopk_pass_a`. For CPU tensors it runs
     :func:`segtopk_pass_a_plain`; for CUDA tensors it launches the overlap
-    schedule of ``csrc/segtopk.cu`` (bf16 operands; tiles from
-    :func:`overlap_plan`), or for f32 operands the f32 schedule (the
+    schedule of ``csrc/segtopk.cu`` (bf16 operands, a width not a multiple
+    of 8 padded with zero columns; tiles from :func:`overlap_plan`), or for f32 operands the f32 schedule (the
     3xTF32 main loop, whose two consumer warpgroups move in step, so there
     is no phase to overlap: the default's launch), or raises."""
     global SEGTOPK_OVERLAP_LAUNCHES, SEGTOPK_OVERLAP_F32_LAUNCHES
@@ -695,7 +711,8 @@ def segtopk_pass_a_overlap(
                              seg_rows, k_sel)
         SEGTOPK_OVERLAP_F32_LAUNCHES += 1
     else:
-        out = _launch_pass_a("overlap", queries, corpus, n, seg_rows, k_sel)
+        out = _launch_pass_a("overlap", *_pad_bf16_width(queries, corpus),
+                             n, seg_rows, k_sel)
         SEGTOPK_OVERLAP_LAUNCHES += 1
     return out
 
@@ -741,9 +758,9 @@ def topk_scores_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k for any k up to :data:`FUSED_MAX_K`; the contract of
     :func:`topk_scores_fused_plain`, which it runs for CPU tensors. For
-    CUDA tensors it launches ``csrc/topk_fused.cu`` (bf16 operands, or the
-    f32 schedule for f32 operands, at a width not a multiple of 4 padded
-    with zero columns) or raises."""
+    CUDA tensors it launches ``csrc/topk_fused.cu`` (bf16 operands at a
+    width not a multiple of 8, or the f32 schedule for f32 operands at a
+    width not a multiple of 4, padded with zero columns) or raises."""
     global TOPK_FUSED_LAUNCHES, TOPK_FUSED_F32_LAUNCHES
     if not 0 < k <= FUSED_MAX_K:
         raise ValueError(f"the fused top-k supports 1 <= k <= {FUSED_MAX_K} "
@@ -756,10 +773,11 @@ def topk_scores_fused(
         return topk_scores_fused_plain(queries, corpus, k, vn)
     f32 = _f32_operands("the fused top-k kernel", queries, corpus)
     q, d = queries.shape
-    if corpus.shape[1] != d or (d % 8 and not f32):
-        raise ValueError(f"the fused top-k needs matching widths (multiples "
-                         f"of 8 in bf16), got {d} and {corpus.shape[1]}")
-    queries, corpus = _pad_f32_width(queries, corpus)
+    if corpus.shape[1] != d:
+        raise ValueError(f"the fused top-k needs matching widths, got {d} "
+                         f"and {corpus.shape[1]}")
+    queries, corpus = (_pad_f32_width if f32 else _pad_bf16_width)(
+        queries, corpus)
     d = queries.shape[1]
     queries = _aligned(queries)
     corpus = _aligned(corpus)

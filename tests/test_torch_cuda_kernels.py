@@ -1068,3 +1068,55 @@ def test_wrappers_take_what_they_refused(dev):
     kv, ki = topk.segtopk_pass_a_int8(Q8, C8, 700, 8, 20)
     pv, pi = topk.segtopk_pass_a_int8_plain(Q8, C8, 700, 8, 20)
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("d", [30, 100])
+def test_bf16_pads_width_not_multiple_of_8(dev, d):
+    """bf16 operands of width 30 and 100: the wrappers pad them with zero
+    columns to 32 and 104 (one copy each), and pass A in both schedules and
+    the fused top-k equal their plain versions bit for bit, each on its own
+    counter."""
+    Q, C = _grid((17, d), 60, dev), _grid((3000, d), 61, dev)
+    C[1500:] = C[:1500].clone()  # ties in scores and segment maxima
+    launches = (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_OVERLAP_LAUNCHES,
+                topk.TOPK_FUSED_LAUNCHES)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, 3000, 8, 20)
+    for fn in (topk.segtopk_pass_a, topk.segtopk_pass_a_overlap):
+        kv, ki = fn(Q, C, 3000, 8, 20)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    fv, fi = topk.topk_scores_fused(Q, C, 300)
+    gv, gi = topk.topk_scores_fused_plain(Q, C, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(fi, gi) and torch.equal(fv, gv)
+    assert (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_OVERLAP_LAUNCHES,
+            topk.TOPK_FUSED_LAUNCHES) == tuple(n + 1 for n in launches)
+
+
+@pytest.mark.parametrize("residual,weights", [(True, "int8"),
+                                              (True, "bf16"),
+                                              (False, "bf16")])
+def test_device_bm25_on_the_card_matches_host(dev, residual, weights):
+    """The device BM25 leg on the card (``torch._int_mm`` on the
+    column-major matrix, or bf16 products with f32 results) gives the
+    native host top-k's ids and score bits, over several score chunks."""
+    from semanticsearch_tpu_torch.index.bm25 import BM25Okapi
+    from semanticsearch_tpu_torch.index.bm25_tpu import DeviceBM25
+
+    rng = np.random.default_rng(5)
+    vocab = [f"w{i}" for i in range(3000)]
+    p = 1.0 / np.arange(1, 3001) ** 1.1
+    p /= p.sum()
+    docs = [list(rng.choice(vocab, size=int(rng.integers(5, 40)), p=p))
+            for _ in range(20000)]
+    bm = BM25Okapi(docs)
+    queries = [list(rng.choice(vocab, size=int(rng.integers(2, 7)), p=p))
+               for _ in range(300)] + [[], ["nothing"], [vocab[2999]]]
+    leg = DeviceBM25(bm, n_dense_terms=512, topk_device=64, query_chunk=128,
+                     residual=residual, weights=weights,
+                     score_chunk_cols=8192, device=dev)
+    assert leg._CT.device.type == "cuda"
+    got_i, got_s = leg.get_topk_batch(queries, 40)
+    want_i, want_s = bm.get_topk_batch(queries, 40)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_s, want_s)
+    assert leg.stats["fallbacks"] < len(queries) // 2, leg.stats

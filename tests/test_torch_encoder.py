@@ -127,3 +127,69 @@ def test_cuda_default_without_card_is_an_error():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TEncoder(TCfg(**SMALL))
+
+
+class _Failing(torch.nn.Module):
+    """The encoder's model, raising ``error`` on batches of more than
+    ``limit`` texts; counts the batch sizes it ran."""
+
+    def __init__(self, model, limit, error):
+        super().__init__()
+        self.model, self.limit, self.error = model, limit, error
+        self.sizes = []
+
+    def forward(self, ids, mask):
+        if ids.shape[0] > self.limit:
+            raise self.error
+        self.sizes.append(ids.shape[0])
+        return self.model(ids, mask)
+
+
+def _oom_texts():
+    words = [f"w{i}" for i in range(300)]
+    return [" ".join(words[(7 * i + j) % 300] for j in range(n))
+            for i, n in enumerate([5, 70, 9, 3, 100, 40, 2, 80, 11, 6, 90,
+                                   30, 4, 65, 8, 50, 7, 1, 33, 12])]
+
+
+@pytest.mark.parametrize("entry,where", [("encode", "launch"),
+                                         ("encode", "fetch"),
+                                         ("encode_device", "launch")])
+def test_out_of_memory_halves_the_batch(entry, where, monkeypatch):
+    """A forward pass out of device memory above 2 texts, raised at the
+    launch or (``encode``, asynchronous launches) only at the fetch of an
+    earlier batch: the bucket restarts from the failed batch at half the
+    size, down to 2, and the embeddings equal an unfailing run at 2."""
+    enc = TEncoder(TCfg(**SMALL), device="cpu", seed=4)
+    texts = _oom_texts()
+    want = enc.encode(texts, batch_size=2)
+    oom = torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to "
+                                      "allocate 2.00 GiB")
+    if where == "launch":
+        enc.model = _Failing(enc.model, 2, oom)
+    else:
+        fetch = enc._fetch
+
+        def late_oom(emb):  # the failure of a launch, surfacing at its sync
+            if emb.shape[0] > 2:
+                raise RuntimeError("CUDA error: out of memory")
+            return fetch(emb)
+        monkeypatch.setattr(enc, "_fetch", late_oom)
+    got = getattr(enc, entry)(texts, batch_size=8)
+    got = got if isinstance(got, np.ndarray) else got.numpy()
+    np.testing.assert_array_equal(got, want)
+    if where == "launch":
+        assert max(enc.model.sizes) == 2
+
+
+@pytest.mark.parametrize("entry", ["encode", "encode_device"])
+def test_other_errors_propagate(entry):
+    enc = TEncoder(TCfg(**SMALL), device="cpu", seed=4)
+    enc.model = _Failing(enc.model, 2, ValueError("bad shapes"))
+    with pytest.raises(ValueError, match="bad shapes"):
+        getattr(enc, entry)(_oom_texts(), batch_size=8)
+    # out of memory at a batch of one text cannot halve: it propagates
+    enc.model = _Failing(enc.model.model, 0, torch.cuda.OutOfMemoryError(
+        "out of memory"))
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        getattr(enc, entry)(_oom_texts(), batch_size=8)

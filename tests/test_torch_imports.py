@@ -1,8 +1,9 @@
 """semanticsearch_tpu_torch imports neither JAX nor the JAX package.
 
 Every module of the port is imported in a fresh interpreter in which
-``import jax`` and ``import semanticsearch_tpu`` fail, so a stray import
-anywhere in the port is an error here."""
+``import jax``, ``import semanticsearch_tpu`` and ``import ml_dtypes`` (the
+card's machine has none of them) fail, so a stray import anywhere in the
+port is an error here. The native library is built and called there too."""
 import pkgutil
 import subprocess
 import sys
@@ -30,20 +31,31 @@ def test_port_has_the_slice_modules():
                  "train.fusion", "ops.similarity", "chunking.cleaning",
                  "chunking.segmenter", "chunking.naive", "chunking.dp_segment",
                  "chunking.splitter", "chunking.grouping",
-                 "chunking.pipeline"):
+                 "chunking.pipeline", "native", "models.subword",
+                 "index.bm25_tpu"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 
 @pytest.mark.parametrize("blocked", [("jax",), ("semanticsearch_tpu",),
-                                     ("jax", "semanticsearch_tpu")])
+                                     ("ml_dtypes",),
+                                     ("jax", "semanticsearch_tpu",
+                                      "ml_dtypes")])
 def test_port_imports_without(blocked):
     code = "\n".join([
         "import sys",
         *(f"sys.modules[{b!r}] = None" for b in blocked),
         "import importlib",
         *(f"importlib.import_module({m!r})" for m in _port_modules()),
+        # the native library and the device BM25 leg run without them too
+        "from semanticsearch_tpu_torch.index.bm25 import BM25Okapi",
+        "from semanticsearch_tpu_torch.index.bm25_tpu import DeviceBM25",
+        "bm = BM25Okapi([['a', 'b'], ['b', 'c'], ['c']])",
+        "for w in ('bf16', 'int8'):",
+        "    DeviceBM25(bm, weights=w, device='cpu').get_topk_batch("
+        "[['b', 'c']], 2)",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
-        "'semanticsearch_tpu.')) for m in sys.modules if sys.modules[m])",
+        "'semanticsearch_tpu.', 'ml_dtypes')) for m in sys.modules "
+        "if sys.modules[m])",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,

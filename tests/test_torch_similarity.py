@@ -290,9 +290,10 @@ def test_named_config_matches_jax(name):
 
 
 def test_config_registry_and_override():
-    assert set(tcfg.NAMED_CONFIGS) == set(jcfg.NAMED_CONFIGS) - {"serve_device"}
+    assert set(tcfg.NAMED_CONFIGS) == set(jcfg.NAMED_CONFIGS)
+    assert tcfg.get_named_config("serve_device").ranking.lexical_device
     with pytest.raises(KeyError, match="Unknown config"):
-        tcfg.get_named_config("serve_device")
+        tcfg.get_named_config("no_such_config")
     cfg = tcfg.get_named_config("semantic_splitter").override(
         chunking={"collect_metadata": True}, seed=7)
     assert cfg.chunking.collect_metadata and cfg.seed == 7

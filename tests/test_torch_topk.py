@@ -687,6 +687,35 @@ def test_f32_width_pad_keeps_the_plain_result(rng, d):
 
 
 @pytest.mark.parametrize("d", [30, 100])
+def test_bf16_width_pad_keeps_the_plain_result(rng, d):
+    """The bf16 schedules' tensor maps need widths that are multiples of 8:
+    the wrappers pad other widths with zero columns, one copy each. On the
+    padded operands the plain pass A and the plain fused top-k give the
+    unpadded results bit for bit (integer rows: every sum is exact)."""
+    w = -(-d // 8) * 8
+    Q = torch.from_numpy(rng.integers(-127, 128, size=(9, d))).to(
+        torch.bfloat16)
+    C = torch.from_numpy(rng.integers(-127, 128, size=(700, d))).to(
+        torch.bfloat16)
+    C[350:] = C[:350].clone()  # ties in scores and segment maxima
+    Qp, Cp = ttopk._pad_bf16_width(Q, C)
+    assert Qp.shape == (9, w) and Cp.shape == (700, w)
+    assert torch.equal(Qp[:, :d], Q) and torch.equal(Cp[:, :d], C)
+    assert not Qp[:, d:].any() and not Cp[:, d:].any()
+    for (pv, pi), (v, i) in [
+            (ttopk.segtopk_pass_a_plain(Qp, Cp, 700, 8, 21),
+             ttopk.segtopk_pass_a_plain(Q, C, 700, 8, 21)),
+            (ttopk.topk_scores_fused_plain(Qp, Cp, 150),
+             ttopk.topk_scores_fused_plain(Q, C, 150))]:
+        assert torch.equal(pi, i) and torch.equal(pv, v)
+    # f32 operands and widths that are multiples of 8 pass untouched
+    f = Q.float()
+    assert ttopk._pad_bf16_width(f, f)[0] is f
+    q8 = Qp[:, :8].contiguous()
+    assert ttopk._pad_bf16_width(q8, q8)[0] is q8
+
+
+@pytest.mark.parametrize("d", [30, 100])
 @pytest.mark.parametrize("integer", [True, False])
 def test_tf32x3_pass_a_model_matches_jax_kernel(rng, monkeypatch, d, integer):
     """Pass A on 3xTF32 scores (the f32 schedule's numerics, modelled in
