@@ -24,7 +24,10 @@ top-k, and times the f32 schedules (3xTF32 wgmma) at the shard shape, pass
 A at the serve shape and the fused top-k at the live round's, and f32 flash
 (3xTF32 mma.sync) at phase 4's shapes (phase 7), and runs the device BM25
 leg (``index/bm25_tpu.py``) at 1,000,000 documents against the native host
-top-k (phase 8). Phase 3 also serves the ``serve_device`` profile (the
+top-k (phase 8), and serves the neural rerank stage over phase 3's index
+with one npz-layout checkpoint per reranker at its preset width and the
+encoder's full-width cross-encoder twin, each held against the same
+service on the CPU (phase 9). Phase 3 also serves the ``serve_device`` profile (the
 device BM25 leg; hits equal the host leg's) and an index with a trained
 subword ``tokenizer.json``; phases 3, 5 and 6 check that the native host
 kernels ran and split their host time by part.
@@ -2109,6 +2112,362 @@ def time_f32_flash(report):
         f"alone {report['flash']['dh48_pad_ms']:.4f} ms")
 
 
+# phase 9: the rerank stage over phase 3's index, one npz-layout checkpoint
+# per reranker at its preset width plus the encoder's full-width twin
+RERANK_QUERIES = 768      # 768 x rerank_top 20 = 15,360 pairs: two 8,192 blocks
+RERANK_TOP = 20
+RERANK_DEPTH = 40         # the per-leg depth of a k = 10 search
+RERANK_TOL = 1e-4         # rtol = atol, card vs CPU, f32 with TF32 off
+TUNE_QUERIES = 256        # the labeled sample of tune_rerank_blend
+TUNE_TOP = 4              # 1,024 pairs, also scored on the CPU
+# the full-width twin's CPU scoring takes ~28 ms a pair: half the sample
+FULL_WIDTH_TUNE_QUERIES = 128
+BLOCK_CHECK_PAIRS = 2048  # rows held against 256-row blocks
+FULL_WIDTH_CE = {"num_layers": 6, "num_heads": 12, "mlp_dim": 1536,
+                 "dropout_rate": 0.1}
+
+
+def _treedef(tree) -> str:
+    """``str(jax.tree.structure(tree))`` of a nested dict: keys sorted,
+    ``*`` at the leaves."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    return "*"
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def write_npz_checkpoint(path, params, metadata, pp) -> None:
+    """The layout the JAX package's ``save_checkpoint`` writes without
+    orbax (``semanticsearch_tpu/core/checkpoint.py:68-84``): the leaves of
+    ``{"params": params}`` in ``jax.tree.flatten`` order in ``state.npz``,
+    the tree's structure string in ``treedef.txt``, ``format.json``, and
+    the trainer's ``metadata.json`` and ``preprocessor.json`` beside them."""
+    os.makedirs(path, exist_ok=True)
+    state = {"params": params}
+    np.savez(os.path.join(path, "state.npz"), *_leaves(state))
+    with open(os.path.join(path, "treedef.txt"), "w") as f:
+        f.write(f"PyTreeDef({_treedef(state)})")
+    with open(os.path.join(path, "format.json"), "w") as f:
+        json.dump({"format": "npz"}, f)
+    with open(os.path.join(path, "metadata.json"), "w") as f:
+        json.dump(metadata, f)
+    pp.save(os.path.join(path, "preprocessor.json"))
+
+
+class _StageTimer:
+    """The rerank stage's parts in one engine: host seconds in the stage
+    (``_rerank_heads``), in ``transform_pair`` and in ``score_pairs``
+    (which ends in its one copy back), and the device span from the first
+    block's launch to the last block's end (CUDA events around the
+    model's calls)."""
+
+    def __init__(self, engine) -> None:
+        import torch
+
+        self.torch, svc = torch, engine.reranker
+        self.seconds = {"stage": 0.0, "transform": 0.0, "score": 0.0}
+        self.first = self.last = None
+        self._wrapped = [(engine, "_rerank_heads", "stage"),
+                         (svc.pp, "transform_pair", "transform"),
+                         (svc, "score_pairs", "score")]
+        self._model = svc.model
+
+    def _timed(self, fn, part):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[part] += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        for obj, name, part in self._wrapped:
+            setattr(obj, name, self._timed(getattr(obj, name), part))
+        forward = self._model.forward
+
+        def timed_forward(*a, **kw):
+            if self.first is None:
+                self.first = self.torch.cuda.Event(enable_timing=True)
+                self.first.record()
+            out = forward(*a, **kw)
+            self.last = self.torch.cuda.Event(enable_timing=True)
+            self.last.record()
+            return out
+
+        self._model.forward = timed_forward
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, _ in self._wrapped:
+            delattr(obj, name)
+        del self._model.forward
+
+    def device_ms(self) -> float:
+        self.last.synchronize()
+        return self.first.elapsed_time(self.last)
+
+
+def _pooling_bound_ms(name, cfg, kw, rows):
+    """bound_ms of one block of KNRM or Conv-KNRM (None for the others):
+    the ids, the table and the scores moved once; the operations the
+    convolutions (Conv-KNRM), the cosine products and the kernel pooling
+    (7 per (left, right, kernel) cell: subtract, square, scale, divide,
+    exp, mask, sum) need, at the f32 rate (TF32 is off)."""
+    if name not in ("knrm", "conv_knrm"):
+        return None
+    lq, rq, d = cfg.fixed_length_left, cfg.fixed_length_right, \
+        cfg.embedding_dim
+    if name == "knrm":
+        maps, width, conv = 1, d, 0.0
+        kernels = kw["kernel_num"]
+    else:
+        n = kw["max_ngram"]
+        maps, width, kernels = n * n, kw["filters"], kw["kernel_num"]
+        conv = 2.0 * (lq + rq) * kw["filters"] * d * n * (n + 1) / 2
+    ops = rows * (conv + maps * (2.0 * lq * rq * width
+                                 + 7.0 * lq * rq * kernels))
+    nbytes = rows * ((lq + rq) * 8 + 4) + cfg.vocab_size * d * 4
+    return bound_ms(ops, nbytes, PEAK_F32_FLOPS)
+
+
+def _rerank_configs():
+    """(label, model name, TrainConfig, model_kwargs): the eight presets
+    and the encoder's full-width twin (embed 384, 6 layers, 12 heads,
+    MLP 1,536; packed length 1 + 16 + 128 = 145)."""
+    from semanticsearch_tpu_torch.train.presets import (MODEL_TRAIN_PRESETS,
+                                                        get_preset)
+
+    out = [(name, name, *get_preset(name)) for name in MODEL_TRAIN_PRESETS]
+    cfg, _ = get_preset("cross_encoder")
+    out.append(("cross_encoder_full", "cross_encoder",
+                dataclasses.replace(cfg, embedding_dim=384),
+                dict(FULL_WIDTH_CE)))
+    return out
+
+
+def phase_rerank(report, ctx):
+    import torch
+
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+    from semanticsearch_tpu_torch.index.rerank_service import (
+        SCORE_BATCH, SCORE_BATCH_LARGE, RerankService)
+    from semanticsearch_tpu_torch.models.convert import reranker_flax_tree
+    from semanticsearch_tpu_torch.models.rerankers import make_model
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.train.vocab import Preprocessor
+
+    log("== phase 9: the neural rerank stage over phase 3's index (main "
+        f"path): {RERANK_QUERIES} queries at k = 10, rerank_top = "
+        f"{RERANK_TOP}, every reranker at its preset width")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    words, tmp, encoder = ctx["words"], ctx["tmp"], ctx["encoder"]
+    queries = [_zipf_text(rng, words, int(rng.integers(3, 9)))
+               for _ in range(RERANK_QUERIES)]
+    base = HybridQueryEngine.load(ctx["idx"], encoder)
+    texts, id_to_row = base.texts, {c: i for i, c in
+                                    enumerate(base.chunk_ids)}
+    vocab = Preprocessor(filter_low_freq=5).fit(texts).vocab
+    # labels of the tuning sample: two of each query's fused top 10 and
+    # one chunk drawn from the corpus
+    fused = base.search(queries[:TUNE_QUERIES], k=10)
+    labels = [[hits[int(i)].chunk_id for i in rng.choice(10, 2, False)]
+              + [f"c{int(rng.integers(len(texts)))}"] for hits in fused]
+    del base
+    log(f"  word vocabulary of the corpus (filter_low_freq 5): {len(vocab)}")
+
+    results = {}
+    for seed, (label, name, cfg, kw) in enumerate(_rerank_configs()):
+        pp = Preprocessor(fixed_length_left=cfg.fixed_length_left,
+                          fixed_length_right=cfg.fixed_length_right,
+                          filter_low_freq=cfg.filter_low_freq, vocab=vocab)
+        torch.manual_seed(100 + seed)
+        model = make_model(name, vocab_size=pp.vocab_size,
+                           embed_dim=cfg.embedding_dim, **kw)
+        with torch.no_grad():  # materializes ArcII's width-dependent head
+            model(torch.ones((1, cfg.fixed_length_left), dtype=torch.long),
+                  torch.ones((1, cfg.fixed_length_right), dtype=torch.long))
+        ckpt = os.path.join(tmp, f"rerank_{label}")
+        write_npz_checkpoint(
+            ckpt, reranker_flax_tree(model),
+            {"model": type(model).__name__,
+             "config": {**dataclasses.asdict(cfg),
+                        "eval_metrics": list(cfg.eval_metrics)},
+             "model_kwargs": kw}, pp)
+        del model
+        t0 = time.perf_counter()
+        engine = HybridQueryEngine.load(ctx["idx"], encoder,
+                                        reranker_dir=ckpt)
+        svc = engine.reranker
+        load_s = time.perf_counter() - t0
+        check(svc.model_name == name and next(
+            svc.model.parameters()).device.type == "cuda",
+            f"{label}: load(reranker_dir=...) read the npz checkpoint onto "
+            f"the card in {load_s:.2f} s")
+        engine.search(queries[:64], k=10, rerank_top=RERANK_TOP)  # warm-up
+
+        # the timed pair: the same 768 queries with the stage and without
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        plain10 = engine.search(queries, k=10)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        plain_launches = (topk.SEGTOPK_LAUNCHES, fa.FLASH_LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with _StageTimer(engine) as st:
+            t0 = time.perf_counter()
+            rr10 = engine.search(queries, k=10, rerank_top=RERANK_TOP)
+            torch.cuda.synchronize()
+            t_rr = time.perf_counter() - t0
+        rr_launches = (topk.SEGTOPK_LAUNCHES, fa.FLASH_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        check(rr_launches == plain_launches and min(rr_launches) > 0,
+              f"{label}: pass A and flash launched on the reranked path as "
+              f"without the stage (segtopk, flash) {rr_launches}")
+
+        # the head's candidate set, the tail's order, the order by score
+        plain30 = engine.search(queries, k=30, candidates=RERANK_DEPTH)
+        rr30 = engine.search(queries, k=30, candidates=RERANK_DEPTH,
+                             rerank_top=RERANK_TOP)
+        ok_head = ok_tail = ok_order = True
+        for p, r in zip(plain30, rr30):
+            ok_head &= ({h.chunk_id for h in r[:RERANK_TOP]}
+                        == {h.chunk_id for h in p[:RERANK_TOP]})
+            ok_tail &= ([h.chunk_id for h in r[RERANK_TOP:]]
+                        == [h.chunk_id for h in p[RERANK_TOP:]]
+                        and all(h.rerank_score is None
+                                for h in r[RERANK_TOP:]))
+            scores = [h.rerank_score for h in r[:RERANK_TOP]]
+            ok_order &= (None not in scores
+                         and scores == sorted(scores, reverse=True))
+        check(ok_head and ok_order and all(len(r) == 30 for r in rr30),
+              f"{label}: each reranked head is its fused head's "
+              f"{RERANK_TOP} candidates, ordered by rerank score")
+        check(ok_tail, f"{label}: the tail past rerank_top keeps the fused "
+              "order and has no rerank_score")
+        check(all([(h.chunk_id, h.rerank_score) for h in a]
+                  == [(h.chunk_id, h.rerank_score) for h in b[:10]]
+                  for a, b in zip(rr10, rr30))
+              and plain10[0][0].rerank_score is None,
+              f"{label}: k = 10 is the first 10 of k = 30 at the same depth")
+
+        # one 8,192-row block against 256-row blocks, row for row
+        pairs = [(q, texts[id_to_row[h.chunk_id]], h.rerank_score)
+                 for q, hits in zip(queries, rr30)
+                 for h in hits[:RERANK_TOP]][:BLOCK_CHECK_PAIRS]
+        small = np.concatenate([
+            svc.score_pairs([p[0] for p in pairs[s: s + SCORE_BATCH]],
+                            [p[1] for p in pairs[s: s + SCORE_BATCH]])
+            for s in range(0, len(pairs), SCORE_BATCH)])
+        whole = np.array([p[2] for p in pairs], np.float32)
+        err_blocks = float(np.abs(small - whole).max())
+        check(bool(np.allclose(small, whole, rtol=RERANK_TOL,
+                               atol=RERANK_TOL)),
+              f"{label}: {len(pairs)} rows scored in the 8,192-row blocks "
+              f"equal them in 256-row blocks (max abs diff "
+              f"{err_blocks:.2e})")
+
+        # the device time of one full block at the served ids
+        enc = svc.pp.transform_pair([p[0] for p in pairs] * 4,
+                                    [p[1] for p in pairs] * 4)
+        lb = torch.from_numpy(enc["left"][:SCORE_BATCH_LARGE]).cuda().long()
+        rb = torch.from_numpy(enc["right"][:SCORE_BATCH_LARGE]).cuda().long()
+        with torch.inference_mode():
+            block_ms = time_ms(lambda: svc.model(lb, rb), reps=3)
+        bound = _pooling_bound_ms(name, dataclasses.replace(
+            cfg, vocab_size=svc.pp.vocab_size), kw, SCORE_BATCH_LARGE)
+
+        # the card against the CPU: tune_rerank_blend on the labeled
+        # sample with each service, the same legs, every scored pair held
+        cpu_svc = RerankService.load(ckpt, device="cpu")
+        n_tune = (FULL_WIDTH_TUNE_QUERIES if label == "cross_encoder_full"
+                  else TUNE_QUERIES)
+        seen = {}
+        tuned = {}
+        for where, service in (("card", svc), ("cpu", cpu_svc)):
+            score = service.score_pairs
+
+            def recording(q, c, score=score, where=where):
+                seen[where] = score(q, c)
+                return seen[where]
+
+            service.score_pairs = recording
+            engine.reranker = service
+            t0 = time.perf_counter()
+            tuned[where] = engine.tune_rerank_blend(
+                queries[:n_tune], labels[:n_tune], rerank_top=TUNE_TOP)
+            tuned[where + "_s"] = time.perf_counter() - t0
+            del service.score_pairs
+        engine.reranker = svc
+        err_cpu = float(np.abs(seen["card"] - seen["cpu"]).max())
+        check(seen["card"].shape == (n_tune * TUNE_TOP,)
+              and bool(np.isfinite(seen["card"]).all())
+              and bool(np.allclose(seen["card"], seen["cpu"],
+                                   rtol=RERANK_TOL, atol=RERANK_TOL)),
+              f"{label}: score_pairs on the card == on the CPU over "
+              f"{seen['card'].size} pairs (max abs diff {err_cpu:.2e}, "
+              f"scores up to {float(np.abs(seen['cpu']).max()):.3g})")
+        (b_card, m_card, t_card), (b_cpu, m_cpu, t_cpu) = (tuned["card"],
+                                                           tuned["cpu"])
+        check(b_card == b_cpu and list(t_card) == list(t_cpu)
+              and max(abs(t_card[b] - t_cpu[b]) for b in t_card) <= 1e-12,
+              f"{label}: tune_rerank_blend on {n_tune} labeled "
+              f"queries: best beta {b_card} (MAP {m_card:.4f}) and the MAP "
+              "table equal on the card and the CPU")
+
+        n_pairs = RERANK_QUERIES * RERANK_TOP
+        part = st.seconds
+        res = {
+            "model": name, "model_kwargs": kw,
+            "embed_dim": cfg.embedding_dim,
+            "lengths": [cfg.fixed_length_left, cfg.fixed_length_right],
+            "params": int(sum(v.numel() for v in svc.model.state_dict(
+            ).values())),
+            "load_s": load_s, "search_s": t_plain, "search_rerank_s": t_rr,
+            "stage_s": part["stage"], "transform_s": part["transform"],
+            "score_pairs_s": part["score"],
+            "device_span_ms": st.device_ms(),
+            "reorder_s": part["stage"] - part["score"],
+            "host_share": 1.0 - st.device_ms() / 1e3 / part["stage"],
+            "pairs": n_pairs, "pairs_per_s": n_pairs / part["score"],
+            "block_8192_ms": block_ms, "peak_gib": peak / 2**30,
+            "block_bound_ms": bound and bound[0],
+            "block_bound_by": bound and bound[1],
+            "card_vs_cpu_max_abs": err_cpu, "blocks_max_abs": err_blocks,
+            "tune_best": b_card, "tune_map": m_card,
+            "tune_card_s": tuned["card_s"], "tune_cpu_s": tuned["cpu_s"],
+        }
+        results[label] = res
+        log(f"  {label}: {RERANK_QUERIES} queries {t_plain:.3f} s without "
+            f"the stage, {t_rr:.3f} s with (the stage {part['stage']:.3f} s: "
+            f"transform_pair {part['transform']:.3f} s, score_pairs "
+            f"{part['score']:.3f} s with a device span of "
+            f"{res['device_span_ms']:.1f} ms, pair lists and reorder "
+            f"{res['reorder_s']:.3f} s; host share "
+            f"{res['host_share']:.3f}); "
+            f"{res['pairs_per_s']:.0f} pairs/s; one 8,192-pair block "
+            f"{block_ms:.2f} ms"
+            + (f" (bound {bound[0]:.3f} ms, {bound[1]})" if bound else "")
+            + f"; peak {res['peak_gib']:.2f} GiB")
+        del engine, svc, cpu_svc, lb, rb
+        torch.cuda.empty_cache()
+    report["segtopk"]["rerank_launches"] = rr_launches[0]
+    report["flash"]["rerank_launches"] = rr_launches[1]
+    report["rerank"] = results
+    print(json.dumps({"rerank": results}), flush=True)
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+
 # phase 8: the device lexical leg at the size its design serves: documents
 # of 16-96 tokens drawn Zipf(1.1) from a 50,000-term vocabulary, queries of
 # 2-6 terms from the same law, in 1,024-query chunks at k = 40 (K' = 64)
@@ -2352,6 +2711,7 @@ def main() -> int:
             phase_live(report, ctx)
             phase_chunk(report, ctx)
             phase_f32(report, ctx)
+            phase_rerank(report, ctx)
         phase_lexical(report)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
@@ -2363,6 +2723,7 @@ def main() -> int:
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
+             "rerank_launches",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32")

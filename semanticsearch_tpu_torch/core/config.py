@@ -111,7 +111,9 @@ class RankingConfig:
     # weighted-RRF mixing weight: dense leg gets 2*alpha, lexical
     # 2*(1-alpha); None = unweighted fusion
     fusion_alpha: Optional[float] = None
-    # serve-time neural rerank blend (the rerank stage is not ported yet)
+    # serve-time neural rerank blend: 1.0 reorders the fused head by the
+    # reranker's scores alone, beta < 1 fuses its ranks with the fusion's
+    # (HybridQueryEngine.tune_rerank_blend picks it)
     rerank_blend: float = 1.0
     bm25_k1: float = 1.5
     bm25_b: float = 0.75
@@ -153,8 +155,10 @@ class IndexConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Reranker training config. Training is not ported yet: the fields are
-    here so that ``Config`` matches the JAX package's field for field."""
+    """Reranker config, field for field the JAX package's. Serving reads
+    ``model``, ``embedding_dim`` and the fixed lengths from a checkpoint's
+    metadata (``index/rerank_service.py``); the training fields have no
+    reader until training is ported."""
 
     model: str = "knrm"
     epochs: int = 10

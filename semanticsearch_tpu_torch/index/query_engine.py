@@ -18,10 +18,12 @@ folds both into the persisted layout through a journaled commit that
 :meth:`~HybridQueryEngine.tune_fusion` grid-searches the fusion weight on a
 labeled split against the live legs.
 
-An index directory holding a trained subword vocabulary
-(``tokenizer.json``) encodes its queries with it. Not ported yet, each
-listed in ROADMAP: the neural rerank stage (and ``tune_rerank_blend``) and
-the HTTP server.
+An engine loaded with ``reranker_dir`` rescores each query's fused head
+with a trained neural reranker (``index/rerank_service.py``) when a search
+asks for ``rerank_top > 0``, and :meth:`~HybridQueryEngine.tune_rerank_blend`
+grid-searches how its ranks blend with the fusion's. An index directory
+holding a trained subword vocabulary (``tokenizer.json``) encodes its
+queries with it. Not ported yet, listed in ROADMAP: the HTTP server.
 """
 from __future__ import annotations
 
@@ -139,6 +141,7 @@ class Hit:
     score: float
     dense_rank: int = 0
     lexical_rank: int = 0
+    rerank_score: Optional[float] = None
 
 
 class HybridQueryEngine:
@@ -152,6 +155,7 @@ class HybridQueryEngine:
         bm25: Optional[BM25Okapi] = None,
         cfg: RankingConfig = RankingConfig(),
         texts: Optional[List[str]] = None,
+        reranker=None,
     ) -> None:
         self.index = index
         self.chunk_ids = chunk_ids
@@ -159,6 +163,7 @@ class HybridQueryEngine:
         self.bm25 = bm25
         self.cfg = cfg
         self.texts = texts
+        self.reranker = reranker
         self._warned_no_bm25 = False
         # serve-time adds: delta rows take global ids from the main index
         # size on; compact() folds them into the persisted layout
@@ -257,10 +262,9 @@ class HybridQueryEngine:
         """Serve an index directory written by either package, first
         recovering an interrupted :meth:`compact` there. A trained subword
         vocabulary in the directory (``tokenizer.json``) replaces the
-        encoder's tokenizer: queries must encode as the corpus did."""
-        if reranker_dir:
-            raise NotImplementedError(
-                "the neural rerank stage is not ported yet: ROADMAP Queue 1")
+        encoder's tokenizer: queries must encode as the corpus did.
+        ``reranker_dir``, a trained reranker checkpoint directory, enables
+        the rerank stage of :meth:`search` on ``device``."""
         recover_staged_commit(index_dir)
         tok_path = os.path.join(index_dir, TOKENIZER_FILE)
         if os.path.exists(tok_path):
@@ -274,17 +278,30 @@ class HybridQueryEngine:
         texts_path = os.path.join(index_dir, TEXTS_FILE)
         texts = ([r.get("chunk_text", "") for r in read_tsv(texts_path)]
                  if os.path.exists(texts_path) else None)
-        # a persisted tuned fusion alpha applies unless the caller set one
+        reranker = None
+        if reranker_dir:
+            from .rerank_service import RerankService
+
+            reranker = RerankService.load(reranker_dir, device=device)
+        # a persisted tuned fusion alpha and rerank blend apply unless the
+        # caller set them; rerank_blend's "unset" is its default 1.0
         fusion_path = os.path.join(index_dir, FUSION_FILE)
-        if os.path.exists(fusion_path) and rank_cfg.fusion_alpha is None:
+        if os.path.exists(fusion_path):
             with open(fusion_path) as f:
                 persisted = json.load(f)
-            rank_cfg = dataclasses.replace(
-                rank_cfg, fusion_alpha=float(persisted["fusion_alpha"]))
-            logger.info("using persisted fusion_alpha=%s from %s",
-                        rank_cfg.fusion_alpha, fusion_path)
+            if rank_cfg.fusion_alpha is None:
+                rank_cfg = dataclasses.replace(
+                    rank_cfg, fusion_alpha=float(persisted["fusion_alpha"]))
+                logger.info("using persisted fusion_alpha=%s from %s",
+                            rank_cfg.fusion_alpha, fusion_path)
+            if (rank_cfg.rerank_blend == 1.0
+                    and persisted.get("rerank_blend") is not None):
+                rank_cfg = dataclasses.replace(
+                    rank_cfg, rerank_blend=float(persisted["rerank_blend"]))
+                logger.info("using persisted rerank_blend=%s from %s",
+                            rank_cfg.rerank_blend, fusion_path)
         engine = cls(index, chunk_ids, encoder, bm25=bm25, cfg=rank_cfg,
-                     texts=texts)
+                     texts=texts, reranker=reranker)
         engine._index_dir = index_dir
         return engine
 
@@ -468,7 +485,13 @@ class HybridQueryEngine:
         rerank_top: int = 0,
     ) -> List[List[Hit]]:
         """Top-k hits per query. ``candidates`` is the per-leg depth before
-        fusion (default max(4k, 20))."""
+        fusion (default max(4k, 20)).
+
+        ``rerank_top`` > 0 rescores each query's top-``rerank_top`` fused
+        candidates with the loaded reranker (one packed scoring of the
+        whole batch) and reorders that head; the tail keeps its fusion
+        order after it. Requires ``reranker_dir`` at :meth:`load` and the
+        index's ``texts.tsv``."""
         if not len(queries):
             return []
         state = self._dispatch_legs(queries, k, candidates, hybrid)
@@ -646,15 +669,23 @@ class HybridQueryEngine:
 
     def _finish_legs(self, state: Dict, k: int, rerank_top: int
                      ) -> List[List[Hit]]:
-        """Phase 2 of ``search``: fetch, then RRF-fuse both legs."""
+        """Phase 2 of ``search``: fetch, RRF-fuse both legs, and rerank
+        the fused head when asked."""
+        queries = state["queries"]
         if rerank_top > 0:
-            raise NotImplementedError(
-                "rerank_top > 0: the neural rerank stage is not ported yet: "
-                "ROADMAP Queue 1")
+            if self.reranker is None:
+                raise ValueError(
+                    "rerank_top > 0 but no reranker loaded "
+                    "(pass reranker_dir to HybridQueryEngine.load)")
+            if self.texts is None:
+                raise ValueError(
+                    "rerank_top > 0 but the index has no texts.tsv "
+                    "(rebuild the index with HybridQueryEngine.build)")
         dense_lists, lex_lists = self._leg_lists(state)
         w_dense, w_lex = rrf_weights(self.cfg.fusion_alpha)
         per_query: List[List[Hit]] = []
-        for qi in range(len(state["queries"])):
+        rows_per_query: List[List[int]] = []
+        for qi in range(len(queries)):
             rrf: Dict[int, float] = {}
             dense_rank: Dict[int, int] = {}
             lex_rank: Dict[int, int] = {}
@@ -665,14 +696,52 @@ class HybridQueryEngine:
                 for rank, (_, row) in enumerate(lex_lists[qi], start=1):
                     rrf[row] = rrf.get(row, 0.0) + w_lex / (self.cfg.rrf_k + rank)
                     lex_rank[row] = rank
-            ranked = sorted(rrf.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+            ranked = sorted(rrf.items(), key=lambda kv: (-kv[1], kv[0]))[
+                :max(k, rerank_top)]
             per_query.append([
                 Hit(chunk_id=self.chunk_ids[row], score=score,
                     dense_rank=dense_rank.get(row, 0),
                     lexical_rank=lex_rank.get(row, 0))
                 for row, score in ranked
             ])
-        return per_query
+            rows_per_query.append([row for row, _ in ranked])
+        if rerank_top > 0:
+            self._rerank_heads(queries, per_query, rows_per_query, rerank_top)
+        return [hits[:k] for hits in per_query]
+
+    def _rerank_heads(self, queries, per_query: List[List[Hit]],
+                      rows_per_query: List[List[int]], rerank_top: int
+                      ) -> None:
+        """Score every query's top-``rerank_top`` hits in one packed call
+        and reorder each head in place: by the reranker's scores alone at
+        ``rerank_blend`` 1 (a stable sort, so ties keep the fusion order),
+        else by a rank-RRF blend of its order with the fusion order."""
+        heads = [rows[:rerank_top] for rows in rows_per_query]
+        flat_scores = self.reranker.score_pairs(
+            [q for q, head in zip(queries, heads) for _ in head],
+            [self.texts[row] for head in heads for row in head])
+        blend = min(1.0, max(0.0, self.cfg.rerank_blend))
+        kk = self.cfg.rrf_k
+        off = 0
+        for qi, hits in enumerate(per_query):
+            n_head = len(heads[qi])
+            head = hits[:n_head]
+            for j, h in enumerate(head):
+                h.rerank_score = float(flat_scores[off + j])
+            off += n_head
+            if blend >= 1.0:
+                order = sorted(range(n_head),
+                               key=lambda j: -head[j].rerank_score)
+            else:
+                # head j's fusion rank is j + 1 by construction
+                rr_rank = np.empty(n_head, np.int32)
+                rr_rank[np.argsort([-h.rerank_score for h in head],
+                                   kind="stable")] = np.arange(1, n_head + 1)
+                combined = [blend / (kk + rr_rank[j])
+                            + (1.0 - blend) / (kk + j + 1)
+                            for j in range(n_head)]
+                order = sorted(range(n_head), key=lambda j: (-combined[j], j))
+            per_query[qi] = [head[j] for j in order] + hits[n_head:]
 
     def tune_fusion(
         self,
@@ -729,4 +798,86 @@ class HybridQueryEngine:
                 aps.append(ap / max(1, len(rel_rows[qi])))
             table[float(alpha)] = float(np.mean(aps)) if aps else 0.0
         best = max(table, key=lambda a: (table[a], -abs(a - 0.5)))
+        return best, table[best], table
+
+    def tune_rerank_blend(
+        self,
+        queries: Sequence[str],
+        relevant_ids: Sequence[Sequence[str]],
+        rerank_top: int = 20,
+        grid: Optional[Sequence[float]] = None,
+    ) -> Tuple[float, float, Dict[float, float]]:
+        """Grid-search ``RankingConfig.rerank_blend`` on a labeled
+        validation split: one dispatch of the split and one packed
+        reranker scoring of every query's fused top-``rerank_top``; every
+        beta reorders the fetched heads on the host and is scored as MAP,
+        relevant chunks outside the fused lists counting as unretrieved
+        (as in :meth:`tune_fusion`). Fusion uses the engine's current
+        ``cfg.fusion_alpha``: tune the fusion first. Ties break toward
+        beta = 1.0, pure rescoring. Returns ``(best_beta, best_map,
+        {beta: map})``; persist ``{"rerank_blend": best}`` in the index's
+        ``fusion.json`` and :meth:`load` applies it."""
+        if self.reranker is None:
+            raise ValueError("tune_rerank_blend needs a loaded reranker "
+                             "(pass reranker_dir to HybridQueryEngine.load)")
+        if self.texts is None:
+            raise ValueError("tune_rerank_blend needs the index texts.tsv")
+        if len(queries) != len(relevant_ids):
+            raise ValueError(
+                f"{len(queries)} queries vs {len(relevant_ids)} label rows")
+        state = self._dispatch_legs(list(queries), k=rerank_top,
+                                    candidates=None,
+                                    hybrid=self.bm25 is not None)
+        dense_lists, lex_lists = self._leg_lists(state)
+        w_dense, w_lex = rrf_weights(self.cfg.fusion_alpha)
+        kk = self.cfg.rrf_k
+        heads: List[List[int]] = []  # per query: fused rows, fusion order
+        tails: List[List[int]] = []
+        for qi in range(len(queries)):
+            rrf: Dict[int, float] = {}
+            for rank, (_, row) in enumerate(dense_lists[qi], start=1):
+                rrf[row] = rrf.get(row, 0.0) + w_dense / (kk + rank)
+            if lex_lists is not None:
+                for rank, (_, row) in enumerate(lex_lists[qi], start=1):
+                    rrf[row] = rrf.get(row, 0.0) + w_lex / (kk + rank)
+            ranked = [row for row, _ in
+                      sorted(rrf.items(), key=lambda kv: (-kv[1], kv[0]))]
+            heads.append(ranked[:rerank_top])
+            tails.append(ranked[rerank_top:])
+        flat_scores = self.reranker.score_pairs(
+            [q for q, head in zip(queries, heads) for _ in head],
+            [self.texts[row] for head in heads for row in head])
+        id_to_row = {cid: row for row, cid in enumerate(self.chunk_ids)}
+        rel_rows = [
+            {id_to_row[str(c)] for c in rel if str(c) in id_to_row}
+            for rel in relevant_ids
+        ]
+        table: Dict[float, float] = {}
+        # a fine 1/16 grid: every beta reorders the same predictions
+        default_grid = tuple(round(i / 16, 4) for i in range(17))
+        for beta in (grid if grid is not None else default_grid):
+            beta = float(beta)
+            aps, off = [], 0
+            for qi in range(len(queries)):
+                head = heads[qi]
+                pred = np.asarray(flat_scores[off: off + len(head)],
+                                  np.float64)
+                off += len(head)
+                rr_rank = np.empty(len(head), np.int64)
+                rr_rank[np.argsort(-pred, kind="stable")] = \
+                    np.arange(1, len(head) + 1)
+                combined = [beta / (kk + rr_rank[j]) + (1 - beta) / (kk + j + 1)
+                            for j in range(len(head))]
+                order = sorted(range(len(head)),
+                               key=lambda j: (-combined[j], j))
+                full = [head[j] for j in order] + tails[qi]
+                hits = 0
+                ap = 0.0
+                for pos, row in enumerate(full, start=1):
+                    if row in rel_rows[qi]:
+                        hits += 1
+                        ap += hits / pos
+                aps.append(ap / max(1, len(rel_rows[qi])))
+            table[beta] = float(np.mean(aps)) if aps else 0.0
+        best = max(table, key=lambda b: (table[b], -abs(b - 1.0)))
         return best, table[best], table

@@ -1120,3 +1120,37 @@ def test_device_bm25_on_the_card_matches_host(dev, residual, weights):
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_array_equal(got_s, want_s)
     assert leg.stats["fallbacks"] < len(queries) // 2, leg.stats
+
+
+@pytest.mark.parametrize("name,kw", [("knrm", {}),
+                                     ("esim", {"hidden_size": 200})])
+def test_rerank_service_on_the_card_matches_cpu(dev, name, kw):
+    """RerankService on the card (cuDNN LSTMs for ESIM, TF32 off) scores
+    as the same service on the CPU, across the block ladder's rungs, to
+    rtol = atol = 1e-4: f32 on both sides, the card's libraries summing in
+    another order over up to 128 recurrent steps."""
+    from semanticsearch_tpu_torch.core.config import TrainConfig
+    from semanticsearch_tpu_torch.index.rerank_service import RerankService
+    from semanticsearch_tpu_torch.models.rerankers import make_model
+    from semanticsearch_tpu_torch.train.vocab import Preprocessor
+
+    rng = np.random.default_rng(8)
+    words = [f"w{i}" for i in range(500)]
+    texts = [" ".join(rng.choice(words, size=int(rng.integers(1, 160))))
+             for _ in range(400)]
+    pp = Preprocessor(fixed_length_left=16, fixed_length_right=128,
+                      filter_low_freq=1).fit(texts)
+    torch.manual_seed(0)
+    sd = make_model(name, vocab_size=pp.vocab_size, **kw).state_dict()
+    cfg = TrainConfig(model=name)
+    cpu = RerankService(name, sd, pp, cfg=cfg, model_kwargs=kw, device="cpu")
+    card = RerankService(name, sd, pp, cfg=cfg, model_kwargs=kw, device=dev)
+    n = 2048 + 300  # a mid block and a small one
+    qs = [texts[int(i)] for i in rng.integers(0, 400, n)]
+    cs = [texts[int(i)] for i in rng.integers(0, 400, n)]
+    qs[0], cs[1] = "", ""  # an empty query; an all-padding chunk
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = card.score_pairs(qs, cs)
+    want = cpu.score_pairs(qs, cs)
+    assert np.isfinite(got).all() and got.shape == (n,)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)

@@ -1,9 +1,10 @@
 """semanticsearch_tpu_torch imports neither JAX nor the JAX package.
 
 Every module of the port is imported in a fresh interpreter in which
-``import jax``, ``import semanticsearch_tpu`` and ``import ml_dtypes`` (the
-card's machine has none of them) fail, so a stray import anywhere in the
-port is an error here. The native library is built and called there too."""
+``import jax``, ``import semanticsearch_tpu``, ``import ml_dtypes`` or
+``import orbax`` (the card's machine has none of them) fail, so a stray
+import anywhere in the port is an error here. The native library is built
+and called there too, and a reranker is built, converted and run."""
 import pkgutil
 import subprocess
 import sys
@@ -32,14 +33,20 @@ def test_port_has_the_slice_modules():
                  "chunking.segmenter", "chunking.naive", "chunking.dp_segment",
                  "chunking.splitter", "chunking.grouping",
                  "chunking.pipeline", "native", "models.subword",
-                 "index.bm25_tpu"):
+                 "index.bm25_tpu", "core.checkpoint", "train.vocab",
+                 "train.presets", "ops.matching", "models.rerankers",
+                 "models.rerankers.base", "models.rerankers.knrm",
+                 "models.rerankers.conv2d_models",
+                 "models.rerankers.recurrent",
+                 "models.rerankers.cross_encoder",
+                 "index.rerank_service"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 
 @pytest.mark.parametrize("blocked", [("jax",), ("semanticsearch_tpu",),
-                                     ("ml_dtypes",),
+                                     ("ml_dtypes",), ("orbax",),
                                      ("jax", "semanticsearch_tpu",
-                                      "ml_dtypes")])
+                                      "ml_dtypes", "orbax")])
 def test_port_imports_without(blocked):
     code = "\n".join([
         "import sys",
@@ -53,8 +60,23 @@ def test_port_imports_without(blocked):
         "for w in ('bf16', 'int8'):",
         "    DeviceBM25(bm, weights=w, device='cpu').get_topk_batch("
         "[['b', 'c']], 2)",
+        # a reranker through the converter both ways and the service
+        "from semanticsearch_tpu_torch.models.convert import ("
+        "reranker_flax_tree, reranker_state_dict)",
+        "from semanticsearch_tpu_torch.models.rerankers import make_model",
+        "from semanticsearch_tpu_torch.index.rerank_service import "
+        "RerankService",
+        "from semanticsearch_tpu_torch.train.vocab import Preprocessor",
+        "pp = Preprocessor(filter_low_freq=1).fit(['a b', 'b c'])",
+        "tree = reranker_flax_tree(make_model('esim', pp.vocab_size, 8, "
+        "hidden_size=4))",
+        "from semanticsearch_tpu_torch.core.config import TrainConfig",
+        "svc = RerankService('esim', reranker_state_dict('esim', tree, "
+        "hidden_size=4), pp, cfg=TrainConfig(model='esim', embedding_dim=8),"
+        " model_kwargs={'hidden_size': 4}, device='cpu')",
+        "assert svc.score_pairs(['a'], ['b c']).shape == (1,)",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
-        "'semanticsearch_tpu.', 'ml_dtypes')) for m in sys.modules "
+        "'semanticsearch_tpu.', 'ml_dtypes', 'orbax')) for m in sys.modules "
         "if sys.modules[m])",
         "print('ok')",
     ])

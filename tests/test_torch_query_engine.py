@@ -137,7 +137,43 @@ def test_port_build_round_trips(engines, tmp_path):
     _assert_same_hits(teng.search(QUERIES, k=5), loaded.search(QUERIES, k=5))
 
 
-def test_unported_features_raise(engines):
-    _, teng, _ = engines
-    with pytest.raises(NotImplementedError):
+def test_rerank_stage_serves(engines):
+    """The rerank stage: without a reranker ``rerank_top`` raises; with the
+    same KNRM weights attached to both engines, the reranked hits and
+    scores are the JAX engine's (f32, rtol = atol = 1e-5)."""
+    import jax
+
+    from semanticsearch_tpu.core.config import TrainConfig as JTrainCfg
+    from semanticsearch_tpu.index.rerank_service import \
+        RerankService as JService
+    from semanticsearch_tpu.models.rerankers import make_model
+    from semanticsearch_tpu.train.vocab import Preprocessor as JPre
+    from semanticsearch_tpu_torch.core.config import TrainConfig
+    from semanticsearch_tpu_torch.index.rerank_service import RerankService
+    from semanticsearch_tpu_torch.models.convert import reranker_state_dict
+    from semanticsearch_tpu_torch.train.vocab import Preprocessor as TPre
+
+    jeng, teng, _ = engines
+    with pytest.raises(ValueError, match="no reranker"):
         teng.search(QUERIES[:1], rerank_top=3)
+    kw = dict(fixed_length_left=6, fixed_length_right=32, filter_low_freq=2)
+    jpp, tpp = JPre(**kw).fit(teng.texts), TPre(**kw).fit(teng.texts)
+    params = jax.tree.map(np.asarray, make_model(
+        "knrm", vocab_size=jpp.vocab_size, embed_dim=8).init(
+        jax.random.PRNGKey(4), np.ones((1, 6), np.int32),
+        np.ones((1, 32), np.int32))["params"])
+    jeng.reranker = JService("knrm", params, jpp,
+                             cfg=JTrainCfg(model="knrm", embedding_dim=8))
+    teng.reranker = RerankService(
+        "knrm", reranker_state_dict("knrm", params), tpp,
+        cfg=TrainConfig(model="knrm", embedding_dim=8), device="cpu")
+    try:
+        want = jeng.search(QUERIES, k=5, rerank_top=8)
+        got = teng.search(QUERIES, k=5, rerank_top=8)
+    finally:
+        jeng.reranker = teng.reranker = None
+    for jq, tq in zip(want, got):
+        assert [h.chunk_id for h in tq] == [h.chunk_id for h in jq]
+        np.testing.assert_allclose([h.rerank_score for h in tq],
+                                   [h.rerank_score for h in jq],
+                                   rtol=1e-5, atol=1e-5)
