@@ -27,7 +27,13 @@ leg (``index/bm25_tpu.py``) at 1,000,000 documents against the native host
 top-k (phase 8), and serves the neural rerank stage over phase 3's index
 with one npz-layout checkpoint per reranker at its preset width and the
 encoder's full-width cross-encoder twin, each held against the same
-service on the CPU (phase 9). Phase 3 also serves the ``serve_device`` profile (the
+service on the CPU (phase 9), and trains at the default encoder's full
+width on labels ``rank_and_filter_groups`` makes over phase 3's corpus:
+MLM pretraining, contrastive steps under flash (12 launches a step) and
+stock from the same masters, f32 steps held against the CPU, hard-negative
+re-mining, ``save_encoder`` -> ``load_encoder`` -> a served index, every
+reranker preset, 5-fold KNRM cross-validation with
+``evaluate_saved_model`` and a resumed run (phase 10). Phase 3 also serves the ``serve_device`` profile (the
 device BM25 leg; hits equal the host leg's) and an index with a trained
 subword ``tokenizer.json``; phases 3, 5 and 6 check that the native host
 kernels ran and split their host time by part.
@@ -2468,6 +2474,536 @@ def phase_rerank(report, ctx):
     log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 10: the training path at the default encoder's full width, on
+# labels that rank_and_filter_groups makes over phase 3's corpus and encoder
+TRAIN_QUERIES = 160        # x 20 candidates: ~4 positives and ~4 negatives
+TRAIN_CANDIDATES = 20
+MLM_STEPS = 16             # MLMConfig's batch 64 at max_len 128
+CONTRASTIVE_STEPS = 8      # ContrastiveConfig's batch 64, 64 + 256 tokens
+FLASH_STOCK_RTOL = 2e-2    # bf16: see the check
+F32_PAIRS = 16             # the f32 card-against-CPU steps' batch
+MINING_CORPUS = 2048
+RERANK_STEPS = 20
+PROFILED_STEPS = 3         # steps under torch.profiler, for the host share
+RESUME_ATOL = 1e-5         # the CUDA embedding backward sums by atomics
+ADAMW_BYTES = 28           # read p, g, mu, nu; write p, mu, nu (f32)
+
+
+# A training step's bound: its matrix products at the peak rate, plus the
+# optimizer's pass over the f32 parameters at the memory rate (the update
+# reads every gradient, so it follows the backward)
+
+
+def _encoder_fwd_flops(cfg, b, t):
+    """Products of one encoder forward over b padded sequences of t
+    tokens: q, k, v, o and the two MLP matrices per token and layer, and
+    the two attention products over t keys."""
+    h, m = cfg.hidden_dim, cfg.mlp_dim
+    return b * t * cfg.num_layers * (2.0 * (4 * h * h + 2 * h * m)
+                                     + 4.0 * t * h)
+
+
+class _StepTimer:
+    """CUDA events and host clock after each ``Optimizer.step`` (the last
+    launch of a training step), while the context is open: ms per step
+    from the first recorded step to the last (the first is the warm-up)."""
+
+    def __init__(self) -> None:
+        from semanticsearch_tpu_torch.train import optim
+
+        self.optim, self.events, self.host = optim, [], []
+
+    def __enter__(self):
+        import torch
+
+        step = self.optim.Optimizer.step
+
+        def timed(opt):
+            step(opt)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            self.host.append(time.perf_counter())
+
+        self._step = step
+        self.optim.Optimizer.step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.optim.Optimizer.step = self._step
+
+    def ms(self) -> float:
+        self.events[-1].synchronize()
+        return (self.events[0].elapsed_time(self.events[-1])
+                / (len(self.events) - 1))
+
+    def host_ms(self) -> float:
+        return 1e3 * (self.host[-1] - self.host[0]) / (len(self.host) - 1)
+
+
+def _device_busy_ms(fn, top: int = 8):
+    """fn()'s device busy time (the union of its kernels' intervals under
+    torch.profiler), its host wall time, and its ``top`` kernels by device
+    time; None for the first where the profiler shows no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    spans, by_name = [], {}
+    for evt in prof.events():
+        # kernels and copies; not the user ranges the optimizer annotates
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)
+                and "#" not in evt.name):
+            a, b = evt.time_range.start, evt.time_range.end
+            spans.append((a, b))
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + (b - a) / 1e3
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (busy / 1e3 if spans else None), wall, kernels
+
+
+def _host_share(busy, step_ms, kernels):
+    """The device's busy ms a step over PROFILED_STEPS profiled steps, the
+    share of a step (ms by events) the device is idle, i.e. waits on the
+    host, and the top kernels a step."""
+    if busy is None:
+        return {"busy_ms": None, "host_share": None, "top_kernels_ms": []}
+    per = busy / PROFILED_STEPS
+    return {"busy_ms": per, "host_share": max(0.0, 1.0 - per / step_ms),
+            "top_kernels_ms": [(n, ms / PROFILED_STEPS) for n, ms in kernels]}
+
+
+def _share_line(r) -> str:
+    if r["busy_ms"] is None:
+        return "device busy not measured"
+    return (f"device busy {r['busy_ms']:.2f} ms a step, host share "
+            f"{r['host_share']:.3f}; kernels, device ms a step: "
+            + "; ".join(f"{ms:.2f} {name[:60]}"
+                        for name, ms in r["top_kernels_ms"]))
+
+
+def _step_flops(model, fn):
+    """Products of one training step fn(): torch's FlopCounterMode (matrix
+    products and convolutions, forward and backward) plus the LSTMs' gate
+    products, which the cuDNN call hides from it (x3 for the backward)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    lstm = [0.0]
+
+    def hook(mod, args, out):
+        b, t, d_in = args[0].shape
+        h, dirs = mod.hidden_size, 2 if mod.bidirectional else 1
+        lstm[0] += 3 * 2.0 * b * t * dirs * 4 * h * (d_in + h)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.LSTM)]
+    try:
+        with FlopCounterMode(display=False) as fc:
+            fn()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return float(fc.get_total_flops()) + lstm[0]
+
+
+def _training_rows(ctx):
+    """Labeled rows (query_id, query_text, chunk_text, label) for phase 3's
+    corpus: each query's hybrid top-20 candidates, labeled by
+    rank_and_filter_groups over the phase 3 encoder; and the corpus texts."""
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+    from semanticsearch_tpu_torch.index.ranker import (QueryGroup,
+                                                       rank_and_filter_groups)
+
+    rng = np.random.default_rng(53)
+    engine = HybridQueryEngine.load(ctx["idx"], ctx["encoder"])
+    texts, row = engine.texts, {c: i for i, c in enumerate(engine.chunk_ids)}
+    queries = [_zipf_text(rng, ctx["words"], int(rng.integers(3, 9)))
+               for _ in range(TRAIN_QUERIES)]
+    hits = engine.search(queries, k=TRAIN_CANDIDATES)
+    groups = [QueryGroup(f"q{i}", q, [h.chunk_id for h in hs],
+                         [texts[row[h.chunk_id]] for h in hs])
+              for i, (q, hs) in enumerate(zip(queries, hits))]
+    t0 = time.perf_counter()
+    ranked = rank_and_filter_groups(groups, ctx["encoder"].encode)
+    label_s = time.perf_counter() - t0
+    qtext = {g.query_id: g.query_text for g in groups}
+    rows = [{"query_id": r.query_id, "query_text": qtext[r.query_id],
+             "chunk_text": r.chunk_text, "label": str(r.label)}
+            for r in ranked]
+    return rows, list(texts), label_s
+
+
+def phase_train(report, ctx):
+    import torch
+
+    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch.data.folds import create_cv_folds
+    from semanticsearch_tpu_torch.data.tsv import write_tsv
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.train.encoder_train import (
+        ContrastiveConfig, ContrastiveEncoderTrainer, fit_with_mining,
+        load_encoder, mining_inputs_from_labeled_rows,
+        pairs_from_labeled_rows, save_encoder)
+    from semanticsearch_tpu_torch.train.evaluate import (
+        CVEvaluator, dataset_from_fold, evaluate_saved_model)
+    from semanticsearch_tpu_torch.train.mlm_pretrain import (MLMConfig,
+                                                             MLMPretrainer)
+    from semanticsearch_tpu_torch.train.pairs import PairDataset
+    from semanticsearch_tpu_torch.train.presets import (MODEL_TRAIN_PRESETS,
+                                                        get_preset)
+    from semanticsearch_tpu_torch.train.trainer import RerankTrainer
+    from semanticsearch_tpu_torch.train.vocab import Preprocessor
+
+    log("== phase 10: the training path at the default encoder's full width "
+        "(MLM, contrastive under flash and stock, f32 against the CPU, "
+        "re-mining, save and load, the eight rerankers, 5-fold CV, resume)")
+    t_phase = time.perf_counter()
+    tmp = ctx["tmp"]
+    rows, corpus, label_s = _training_rows(ctx)
+    pairs, negs = pairs_from_labeled_rows(rows)
+    n_pos = sum(r["label"] == "1" for r in rows)
+    check(len(pairs) >= CONTRASTIVE_STEPS * 64
+          and len(rows) - n_pos >= TRAIN_QUERIES,
+          f"rank_and_filter_groups labeled {len(rows)} of "
+          f"{TRAIN_QUERIES * TRAIN_CANDIDATES} candidates ({n_pos} "
+          f"positive) in {label_s:.2f} s: {len(pairs)} training pairs")
+    cfg = EncoderConfig(attention="flash")
+    res = {"label_s": label_s, "pairs": len(pairs)}
+
+    # 1. MLM pretraining: one warm-up step, then MLM_STEPS timed ones
+    enc = SentenceEncoder(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in enc.master.parameters())
+    mcfg = MLMConfig(epochs=1)
+    texts = corpus[:mcfg.batch_size * (MLM_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with _StepTimer() as st:
+        hist = MLMPretrainer(enc, mcfg).fit(texts)
+    mlm_ms, mlm_host_ms = st.ms(), st.host_ms()
+    mlm_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(len(st.events) == MLM_STEPS + 1
+          and fa.FLASH_LAUNCHES == cfg.num_layers * (MLM_STEPS + 1)
+          and np.isfinite(hist[0]["loss"]),
+          f"MLM: {MLM_STEPS + 1} steps, flash launched "
+          f"{fa.FLASH_LAUNCHES} times ({cfg.num_layers} a step), loss "
+          f"{hist[0]['loss']:.4f}")
+    n_mask = max(1, int(round(mcfg.mask_prob * mcfg.max_len)))
+    mlm_ops = 3 * (_encoder_fwd_flops(cfg, mcfg.batch_size, mcfg.max_len)
+                   + 2.0 * mcfg.batch_size * n_mask * cfg.vocab_size
+                   * cfg.hidden_dim)
+    mlm_bound = (bound_ms(mlm_ops, 0)[0]
+                 + bound_ms(0, ADAMW_BYTES * n_params)[0])
+    mlm_tokens = mcfg.batch_size * mcfg.max_len
+    res["mlm"] = {"ms": mlm_ms, "host_issue_ms": mlm_host_ms,
+                  "tokens_per_s": mlm_tokens / mlm_ms * 1e3,
+                  "bound_ms": mlm_bound, "tflop": mlm_ops / 1e12,
+                  "peak_gib": mlm_peak, "loss": hist[0]["loss"]}
+    log(f"  MLM step: {mlm_ms:.2f} ms by events ({mlm_host_ms:.2f} ms of "
+        f"host issue), {mlm_tokens / mlm_ms * 1e3:,.0f} tokens/s, bound "
+        f"{mlm_bound:.3f} ms ({mlm_ops / 1e12:.3f} TFLOP bf16 + AdamW over "
+        f"{n_params:,} f32 parameters), peak {mlm_peak:.2f} GiB")
+    busy, wall, kernels = _device_busy_ms(lambda: MLMPretrainer(
+        enc, dataclasses.replace(mcfg, seed=1)).fit(
+            texts[:mcfg.batch_size * PROFILED_STEPS]))
+    res["mlm"].update(_host_share(busy, mlm_ms, kernels))
+    log(f"    profiled {PROFILED_STEPS} steps: {_share_line(res['mlm'])}")
+    masters = {k: v.clone() for k, v in enc.master.state_dict().items()}
+
+    # 2. contrastive: the same masters and batches under flash and stock
+    ccfg = ContrastiveConfig(epochs=1)
+    c_pairs = pairs[:ccfg.batch_size * CONTRASTIVE_STEPS]
+    c_negs = negs[:len(c_pairs)]
+    runs = {}
+    for attention in ("flash", "stock"):
+        e = SentenceEncoder(dataclasses.replace(cfg, attention=attention),
+                            device="cuda", state_dict=masters)
+        trainer = ContrastiveEncoderTrainer(e, ccfg)
+        losses = []
+        loss_fn = trainer._loss
+
+        def recording(*a, _f=loss_fn, _l=losses):
+            _l.append(_f(*a))
+            return _l[-1]
+
+        trainer._loss = recording
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        with _StepTimer() as st:
+            trainer.fit(c_pairs, c_negs)
+        runs[attention] = {
+            "losses": [float(x.detach()) for x in losses], "ms": st.ms(),
+            "host_issue_ms": st.host_ms(), "launches": fa.FLASH_LAUNCHES,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        n = ccfg.batch_size * PROFILED_STEPS
+        busy, _, kernels = _device_busy_ms(
+            lambda: ContrastiveEncoderTrainer(
+                e, dataclasses.replace(ccfg, seed=1)).fit(c_pairs[:n],
+                                                          c_negs[:n]))
+        runs[attention].update(_host_share(busy, runs[attention]["ms"],
+                                           kernels))
+        del e, trainer
+        torch.cuda.empty_cache()
+    fl, sk = runs["flash"], runs["stock"]
+    check(fl["launches"] == 2 * cfg.num_layers * CONTRASTIVE_STEPS
+          and sk["launches"] == 0,
+          f"contrastive: flash launched {fl['launches']} times in "
+          f"{CONTRASTIVE_STEPS} steps under attention='flash' (12 a step: 6 "
+          f"layers x 2 forwards; none in the backward), {sk['launches']} "
+          "under 'stock'")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fl["losses"],
+                                                   sk["losses"]))
+    # bf16 rounds at 2^-8: flash keeps scores and P in f32, stock rounds
+    # q / sqrt(Dh), the scores and P to bf16; through 6 layers and the 1 /
+    # 0.05 temperature a few such ulps of the cosines move the loss by ~1e-2
+    check(rel <= FLASH_STOCK_RTOL,
+          f"contrastive per-step losses, flash against stock: max relative "
+          f"difference {rel:.2e} <= {FLASH_STOCK_RTOL} (flash "
+          f"{[round(x, 4) for x in fl['losses']]})")
+    c_tokens = ccfg.batch_size * (ccfg.max_len_query + 2 * ccfg.max_len_chunk)
+    c_ops = 3 * (_encoder_fwd_flops(cfg, ccfg.batch_size, ccfg.max_len_query)
+                 + _encoder_fwd_flops(cfg, 2 * ccfg.batch_size,
+                                      ccfg.max_len_chunk))
+    c_bound = (bound_ms(c_ops, 0)[0]
+               + bound_ms(0, ADAMW_BYTES * n_params)[0])
+    for name, r in runs.items():
+        r["tokens_per_s"] = c_tokens / r["ms"] * 1e3
+        log(f"  contrastive step ({name}): {r['ms']:.2f} ms by events "
+            f"({r['host_issue_ms']:.2f} ms of host issue), "
+            f"{r['tokens_per_s']:,.0f} tokens/s, bound {c_bound:.3f} ms "
+            f"({c_ops / 1e12:.3f} TFLOP bf16 + AdamW), peak "
+            f"{r['peak_gib']:.2f} GiB")
+        log(f"    profiled {PROFILED_STEPS} steps: {_share_line(r)}")
+    res["contrastive"] = {**runs, "bound_ms": c_bound,
+                          "tflop": c_ops / 1e12, "tokens": c_tokens,
+                          "flash_vs_stock_rel": rel}
+    report["flash"]["train_launches"] = fl["launches"] // CONTRASTIVE_STEPS
+
+    # 3. the f32 encoder: 2 steps on the card against the same on the CPU
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    fcfg = ContrastiveConfig(epochs=2, batch_size=F32_PAIRS)
+    out = {}
+    zero_counts()
+    for where in ("cuda", "cpu"):
+        e = SentenceEncoder(f32, device=where, state_dict=masters)
+        t0 = time.perf_counter()
+        h = ContrastiveEncoderTrainer(e, fcfg).fit(pairs[:F32_PAIRS],
+                                                   negs[:F32_PAIRS])
+        out[where] = (h, {k: v.cpu() for k, v in
+                          e.master.state_dict().items()},
+                      time.perf_counter() - t0)
+    f32_launches = fa.FLASH_F32_LAUNCHES
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    p_card, p_cpu = out["cuda"][1], out["cpu"][1]
+    worst = max(float((p_card[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    step_diff = sum(float(((p_card[k] - p_cpu[k]) ** 2).sum())
+                    for k in p_cpu) ** 0.5
+    step_norm = sum(float(((p_cpu[k] - masters[k].cpu()) ** 2).sum())
+                    for k in p_cpu) ** 0.5
+    report["flash_f32"]["train_launches"] = f32_launches // 2
+    check(f32_launches == 2 * 2 * cfg.num_layers and loss_rel <= 1e-4,
+          f"f32 encoder (flash on flash_tf32_kernel, {f32_launches} "
+          f"launches): 2 contrastive steps of {F32_PAIRS} pairs on the card "
+          f"and on the CPU, losses within {loss_rel:.2e} relative <= 1e-4 "
+          f"({out['cuda'][2]:.1f} s and {out['cpu'][2]:.1f} s)")
+    # the first update has learning rate 0, the second the peak. Adam
+    # moves each coordinate by about lr whatever its gradient's size, so a
+    # coordinate whose gradient is rounding noise (the key biases' true
+    # gradient is 0) can differ by up to 2 lr; the update as a whole must
+    # agree to 1e-3 of its norm
+    lr = fcfg.learning_rate
+    check(worst <= 2 * lr and step_diff <= 1e-3 * step_norm,
+          f"f32 masters after the 2 steps, card against CPU: the update "
+          f"differs by {step_diff:.2e}, {step_diff / step_norm:.1e} of its "
+          f"norm {step_norm:.3f} (<= 1e-3); max abs difference "
+          f"{worst:.2e} <= 2 lr = {2 * lr:g}")
+    res["f32"] = {"loss_rel": loss_rel, "param_max_abs": worst,
+                  "update_rel_diff": step_diff / step_norm,
+                  "launches": f32_launches,
+                  "card_s": out["cuda"][2], "cpu_s": out["cpu"][2]}
+    del out
+
+    # 4. re-mining over a 2,048-chunk corpus, save, load, serve
+    m_corpus, relevant = mining_inputs_from_labeled_rows(rows, c_pairs)
+    seen = set(m_corpus)
+    m_corpus += [t for t in corpus if t not in seen][
+        :MINING_CORPUS - len(m_corpus)]
+    e = SentenceEncoder(cfg, device="cuda", state_dict=masters)
+    t0 = time.perf_counter()
+    hist = fit_with_mining(e, ccfg, c_pairs, m_corpus, relevant, c_negs,
+                           rounds=2)
+    torch.cuda.synchronize()
+    mine_s = time.perf_counter() - t0
+    check(len(m_corpus) == MINING_CORPUS and [r["round"] for r in hist]
+          == [0, 1] and all(np.isfinite(r["loss"]) for r in hist),
+          f"fit_with_mining, 2 rounds over {len(m_corpus)} chunks: losses "
+          f"{[round(r['loss'], 4) for r in hist]} in {mine_s:.1f} s")
+    enc_dir = os.path.join(tmp, "trained_encoder")
+    save_encoder(e, enc_dir)
+    loaded = load_encoder(enc_dir)
+    probe = m_corpus[:512]
+    check(loaded.model.token_embed.weight.device.type == "cuda"
+          and all(torch.equal(a, b) for a, b in zip(
+              loaded.master.parameters(), e.master.parameters()))
+          and np.array_equal(loaded.encode(probe), e.encode(probe)),
+          "save_encoder -> load_encoder on the card: f32 masters and the "
+          "encodings of 512 chunks bit for bit")
+    tsv = os.path.join(tmp, "trained_chunks.tsv")
+    write_tsv(tsv, [{"chunk_id": f"m{i}", "query_id": "",
+                     "document_id": f"m{i}", "chunk_text": t}
+                    for i, t in enumerate(m_corpus)],
+              ["chunk_id", "query_id", "document_id", "chunk_text"])
+    served = HybridQueryEngine.build(tsv, loaded,
+                                     os.path.join(tmp, "trained_idx"))
+    zero_counts()
+    hits = served.search([r["query_text"] for r in rows[:64]], k=10)
+    check(all(len(q) == 10 for q in hits) and fa.FLASH_LAUNCHES > 0,
+          f"the trained encoder serves 64 queries through HybridQueryEngine "
+          f"(10 hits each; flash {fa.FLASH_LAUNCHES} launches)")
+    res["mining_s"] = mine_s
+    del e, loaded, served
+    torch.cuda.empty_cache()
+
+    # 5. the rerankers: each preset 20 steps at its batch and widths
+    qtexts = [r["query_text"] for r in rows]
+    ctexts = [r["chunk_text"] for r in rows]
+    labels = np.array([float(r["label"]) for r in rows], np.float32)
+    qids = np.array([r["query_id"] for r in rows])
+    presets = {}
+    for name in MODEL_TRAIN_PRESETS:
+        pcfg, kw = get_preset(name)
+        pp = Preprocessor(fixed_length_left=pcfg.fixed_length_left,
+                          fixed_length_right=pcfg.fixed_length_right,
+                          filter_low_freq=pcfg.filter_low_freq
+                          ).fit(qtexts + ctexts)
+        tp = pp.transform_pair(qtexts, ctexts)
+        ds = PairDataset(left=tp["left"], right=tp["right"], labels=labels,
+                         query_ids=qids)
+        per_epoch = sum(1 for _ in ds.iter_pair_batches(
+            pcfg.batch_size, pcfg.num_dup, pcfg.num_neg, seed=pcfg.seed))
+        pcfg = dataclasses.replace(pcfg, epochs=-(-RERANK_STEPS // per_epoch))
+        trainer = RerankTrainer(name, pp.vocab_size, pcfg, model_kwargs=kw)
+        torch.cuda.reset_peak_memory_stats()
+        with _StepTimer() as st:
+            result = trainer.fit(ds)
+        ms = st.ms()
+        batch = next(ds.iter_pair_batches(pcfg.batch_size, pcfg.num_dup,
+                                          pcfg.num_neg, seed=1))
+        opt_bytes = ADAMW_BYTES * sum(p.numel() for p in
+                                      trainer.model.parameters())
+
+        def one_step(trainer=trainer, batch=batch):
+            from semanticsearch_tpu_torch.train.trainer import make_optimizer
+
+            opt = make_optimizer(trainer.cfg, {
+                k: p for k, p in trainer.model.named_parameters()
+                if p.requires_grad})
+            trainer._step(opt, batch, torch.Generator(device="cuda"))
+
+        flops = _step_flops(trainer.model, one_step)
+
+        def profiled(trainer=trainer, batch=batch):
+            from semanticsearch_tpu_torch.train.trainer import make_optimizer
+
+            opt = make_optimizer(trainer.cfg, {
+                k: p for k, p in trainer.model.named_parameters()
+                if p.requires_grad})
+            for _ in range(PROFILED_STEPS):
+                trainer._step(opt, batch, torch.Generator(device="cuda"))
+
+        busy, _, kernels = _device_busy_ms(profiled, top=3)
+        # as for the encoder steps: the products at the f32 rate (TF32 is
+        # off), then the optimizer's pass over the parameters
+        t_ops = bound_ms(flops, 0, PEAK_F32_FLOPS)[0]
+        t_opt = bound_ms(0, opt_bytes)[0]
+        bound = t_ops + t_opt
+        by = "operations" if t_ops >= t_opt else "bytes"
+        rows_per_step = pcfg.batch_size * (1 + pcfg.num_neg)
+        tokens = rows_per_step * (pcfg.fixed_length_left
+                                  + pcfg.fixed_length_right)
+        presets[name] = {
+            "steps": len(st.events), "ms": ms, "host_issue_ms": st.host_ms(),
+            "tokens_per_s": tokens / ms * 1e3, "rows_per_step": rows_per_step,
+            "bound_ms": bound, "bound_by": by, "gflop": flops / 1e9,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "loss": [h["loss"] for h in result.history],
+            **_host_share(busy, ms, kernels)}
+        check(len(st.events) >= RERANK_STEPS
+              and all(np.isfinite(h["loss"]) for h in result.history),
+              f"{name}: {len(st.events)} steps of {rows_per_step} rows, "
+              f"{ms:.2f} ms a step by events, {tokens / ms * 1e3:,.0f} "
+              f"tokens/s, bound {bound:.4f} ms ({by}; {flops / 1e9:.2f} "
+              f"GFLOP f32 with TF32 off), peak "
+              f"{presets[name]['peak_gib']:.2f} GiB; losses "
+              f"{[round(h['loss'], 4) for h in result.history]}; "
+              f"{_share_line(presets[name])}")
+        del trainer, result
+        torch.cuda.empty_cache()
+    res["rerankers"] = presets
+
+    # KNRM over 5 folds with checkpoints; evaluate_saved_model per fold
+    lab_tsv = os.path.join(tmp, "labeled.tsv")
+    write_tsv(lab_tsv, rows, ["query_id", "query_text", "chunk_text",
+                              "label"])
+    folds = create_cv_folds(lab_tsv, os.path.join(tmp, "folds"), 5)
+    kcfg, kkw = get_preset("knrm")
+    kcfg = dataclasses.replace(kcfg, epochs=2)
+    cv_dir = os.path.join(tmp, "cv")
+    t0 = time.perf_counter()
+    cv = CVEvaluator(folds).run_model("knrm", kcfg, kkw, output_dir=cv_dir)
+    cv_s = time.perf_counter() - t0
+    saved = [evaluate_saved_model(os.path.join(cv_dir, "knrm", f"fold_{k}"),
+                                  f.test) for k, f in enumerate(folds, 1)]
+    worst = max(abs(s[m] - f[m]) for s, f in zip(saved, cv.per_fold)
+                for m in f)
+    check(len(cv.per_fold) == 5 and worst <= 1e-6,
+          f"KNRM 5-fold CV, 2 epochs each, in {cv_s:.1f} s: MAP "
+          f"{cv.mean_std()['map']['mean']:.4f} +- "
+          f"{cv.mean_std()['map']['std']:.4f}; evaluate_saved_model on "
+          f"each fold's checkpoint equals the run's metrics (max abs "
+          f"difference {worst:.1e})")
+
+    # a run resumed from a mid-epoch step checkpoint
+    pp = Preprocessor.load(os.path.join(cv_dir, "knrm", "fold_1",
+                                        "preprocessor.json"))
+    train_ds = dataset_from_fold(folds[0].train, pp)
+    test_ds = dataset_from_fold(folds[0].test, pp)
+    rdir = os.path.join(tmp, "resume")
+    full = RerankTrainer("knrm", pp.vocab_size, kcfg, model_kwargs=kkw)
+    full_res = full.fit(train_ds, checkpoint_dir=rdir,
+                        checkpoint_every_steps=3)
+    again = RerankTrainer("knrm", pp.vocab_size, kcfg, model_kwargs=kkw)
+    again_res = again.fit(train_ds, resume_from=os.path.join(rdir, "step_3"))
+    diff = float(np.abs(again.predict(again_res.params, test_ds)
+                        - full.predict(full_res.params, test_ds)).max())
+    check(diff <= RESUME_ATOL,
+          f"KNRM resumed from step 3 (mid-epoch 0) equals the "
+          f"uninterrupted run: test scores within {diff:.2e} <= "
+          f"{RESUME_ATOL} (the embedding backward sums by atomics)")
+    res.update({"cv_s": cv_s, "cv_map": cv.mean_std()["map"],
+                "cv_saved_max_abs": worst, "resume_max_abs": diff,
+                "phase_s": time.perf_counter() - t_phase})
+    report["train"] = res
+    print(json.dumps({"train": res}), flush=True)
+    log(f"  phase 10: {res['phase_s']:.1f} s")
+
+
 # phase 8: the device lexical leg at the size its design serves: documents
 # of 16-96 tokens drawn Zipf(1.1) from a 50,000-term vocabulary, queries of
 # 2-6 terms from the same law, in 1,024-query chunks at k = 40 (K' = 64)
@@ -2712,6 +3248,7 @@ def main() -> int:
             phase_chunk(report, ctx)
             phase_f32(report, ctx)
             phase_rerank(report, ctx)
+            phase_train(report, ctx)
         phase_lexical(report)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
@@ -2723,7 +3260,7 @@ def main() -> int:
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
-             "rerank_launches",
+             "rerank_launches", "train_launches",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32")

@@ -1,8 +1,8 @@
-"""Checkpoint reader for the trees the JAX package saves.
+"""Checkpoint reader and writer for the trees the JAX package saves.
 
-Counterpart of ``semanticsearch_tpu/core/checkpoint.py`` (the reader only;
-the writer comes with training). A checkpoint directory holds one of two
-layouts, and ``format.json`` names the one its latest save completed with:
+Counterpart of ``semanticsearch_tpu/core/checkpoint.py``. A checkpoint
+directory holds one of two layouts, and ``format.json`` names the one its
+latest save completed with:
 
 - ``orbax``: a ``state/`` directory in orbax's OCDBT + zarr layout. It is
   read here through ``tensorstore`` alone (orbax's own reader imports JAX):
@@ -12,7 +12,14 @@ layouts, and ``format.json`` names the one its latest save completed with:
 - ``npz``: ``state.npz`` holds the leaves as ``arr_0..arr_{n-1}`` in
   ``jax.tree.flatten`` order (dict keys sorted) and ``treedef.txt`` the
   tree's ``str(treedef)``, e.g. ``PyTreeDef({'params': {'out': {'bias': *,
-  'kernel': *}}})``, from which the nested dict is rebuilt.
+  'kernel': *}}})``, from which the nested dict is rebuilt. Optimizer
+  states appear there as optax writes them,
+  ``CustomNode(namedtuple[ScaleByAdamState], [*, {...}, {...}])``, and
+  come back as the namedtuples of :data:`OPTAX_STATES`.
+
+:func:`save_checkpoint` writes the npz layout only (the card's machine has
+no orbax), leaves in ``jax.tree.flatten`` order, so the JAX package's
+``restore_checkpoint`` reads what the port writes and the reverse.
 
 The rule follows the JAX reader: an orbax ``state/`` directory is read
 unless ``format.json`` says the latest save was ``npz`` (a stale orbax
@@ -26,11 +33,22 @@ import io
 import json
 import os
 import tokenize
+from collections import namedtuple
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 _LEAF = "_LEAF_"
+
+# the optax states the trainers' optimizers hold, with optax's field order
+# (``jax.tree.flatten`` takes a namedtuple's fields in this order)
+OPTAX_STATES = {
+    name: namedtuple(name, fields) for name, fields in (
+        ("EmptyState", ()),
+        ("ScaleByAdamState", ("count", "mu", "nu")),
+        ("ScaleByAdaDeltaState", ("e_g", "e_x")),
+        ("ScaleByScheduleState", ("count",)),
+    )}
 
 
 class _Leaf:
@@ -39,10 +57,10 @@ class _Leaf:
 
 def parse_treedef(text: str) -> Any:
     """The structure of ``str(jax.tree.structure(tree))`` as nested dicts,
-    tuples and lists with :class:`_Leaf` at the leaves and ``None`` where
-    the tree held None. Raises ValueError on any node kind other than
-    dict, tuple, list and None (a custom pytree node cannot be rebuilt
-    without its class)."""
+    tuples, lists and :data:`OPTAX_STATES` namedtuples with :class:`_Leaf`
+    at the leaves and ``None`` where the tree held None. Raises ValueError
+    on any other node kind (a custom pytree node cannot be rebuilt without
+    its class)."""
     text = text.strip()
     if not (text.startswith("PyTreeDef(") and text.endswith(")")):
         raise ValueError(f"not a PyTreeDef string: {text[:80]!r}")
@@ -75,6 +93,21 @@ def parse_treedef(text: str) -> Any:
             return tuple(build(e) for e in n.elts)
         if isinstance(n, ast.List):
             return [build(e) for e in n.elts]
+        if (isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                and n.func.id == "CustomNode" and len(n.args) == 2
+                and isinstance(n.args[0], ast.Subscript)
+                and isinstance(n.args[0].value, ast.Name)
+                and n.args[0].value.id == "namedtuple"
+                and isinstance(n.args[0].slice, ast.Name)
+                and isinstance(n.args[1], ast.List)):
+            name = n.args[0].slice.id
+            if name not in OPTAX_STATES:
+                raise ValueError(f"unsupported treedef namedtuple: {name}")
+            cls = OPTAX_STATES[name]
+            if len(n.args[1].elts) != len(cls._fields):
+                raise ValueError(f"{name} has fields {cls._fields}, the "
+                                 f"treedef {len(n.args[1].elts)} children")
+            return cls(*(build(e) for e in n.args[1].elts))
         raise ValueError(f"unsupported treedef node: {ast.dump(n)[:80]}")
 
     return build(node)
@@ -87,6 +120,8 @@ def _fill(struct: Any, leaves: List[np.ndarray]) -> Any:
         return leaves.pop(0)
     if isinstance(struct, dict):
         return {k: _fill(struct[k], leaves) for k in sorted(struct)}
+    if hasattr(struct, "_fields"):
+        return type(struct)(*(_fill(s, leaves) for s in struct))
     if isinstance(struct, (tuple, list)):
         return type(struct)(_fill(s, leaves) for s in struct)
     return struct  # None
@@ -155,6 +190,67 @@ def _format(path: str) -> str:
             fmt = None
     state_dir = os.path.join(path, "state")
     return "orbax" if fmt != "npz" and os.path.isdir(state_dir) else "npz"
+
+
+def _treedef(tree: Any) -> str:
+    """``str(jax.tree.structure(tree))`` without JAX, for the node kinds
+    :func:`parse_treedef` reads."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if hasattr(tree, "_fields"):
+        return (f"CustomNode(namedtuple[{type(tree).__name__}], ["
+                + ", ".join(_treedef(v) for v in tree) + "])")
+    if isinstance(tree, tuple):
+        inner = ", ".join(_treedef(v) for v in tree)
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_treedef(v) for v in tree) + "]"
+    return "None" if tree is None else "*"
+
+
+def _leaves(tree: Any) -> List[np.ndarray]:
+    """The leaves in ``jax.tree.flatten`` order, as numpy arrays (torch
+    tensors copied to the host)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    if tree is None:
+        return []
+    if hasattr(tree, "detach"):
+        return [tree.detach().cpu().numpy()]
+    return [np.asarray(tree)]
+
+
+def save_checkpoint(path: str, state: Any, metadata: Optional[Dict] = None,
+                    async_save: bool = False) -> str:
+    """Save a tree (nested dicts, tuples, lists, :data:`OPTAX_STATES`
+    namedtuples; numpy arrays, torch tensors or numbers at the leaves) in
+    the npz layout the JAX writer falls back to
+    (``semanticsearch_tpu/core/checkpoint.py:68-84``): ``state.npz``,
+    ``treedef.txt``, then ``format.json`` by a temporary file and
+    ``os.replace``, then ``metadata.json``. The write is synchronous
+    whatever ``async_save`` says (it is accepted for the JAX signature), so
+    :func:`wait_for_checkpoints` has nothing to wait for."""
+    del async_save
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "state.npz"), *_leaves(state))
+    with open(os.path.join(path, "treedef.txt"), "w") as f:
+        f.write(f"PyTreeDef({_treedef(state)})")
+    fmt_tmp = os.path.join(path, "format.json.tmp")
+    with open(fmt_tmp, "w") as f:
+        json.dump({"format": "npz"}, f)
+    os.replace(fmt_tmp, os.path.join(path, "format.json"))
+    if metadata is not None:
+        with open(os.path.join(path, "metadata.json"), "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+    return path
+
+
+def wait_for_checkpoints() -> None:
+    """A no-op: :func:`save_checkpoint` returns once its files are
+    written."""
 
 
 def restore_checkpoint(path: str) -> Any:

@@ -229,12 +229,34 @@ def _convert(links: List[Link], params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _links_to_flax(links: List[Link], sd: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, Any]:
+    """Apply the links torch -> flax: nested dicts of float32 arrays."""
+    tree: Dict[str, Any] = {}
+    for path, prefix, kind, arg in links:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_flax(kind, sd, prefix, arg)
+    return tree
+
+
 def flax_to_state_dict(params: Mapping, num_layers: int
                        ) -> Dict[str, torch.Tensor]:
     """Map the encoder's flax parameter tree onto
     ``SentenceTransformerModel``'s ``state_dict`` keys (float32 tensors on
     the CPU)."""
     return _convert(_stack_links("token_embed", num_layers, None), params)
+
+
+def encoder_flax_tree(state_dict: Mapping[str, torch.Tensor],
+                      num_layers: int, num_heads: int) -> Dict[str, Any]:
+    """The inverse of :func:`flax_to_state_dict`: the encoder's flax
+    parameter tree (nested dicts of float32 numpy arrays) from a
+    ``SentenceTransformerModel`` ``state_dict`` or any mapping with its
+    keys (an optimizer's moments)."""
+    return _links_to_flax(_stack_links("token_embed", num_layers, num_heads),
+                          state_dict)
 
 
 def reranker_state_dict(name: str, params: Mapping, **model_kwargs
@@ -265,14 +287,19 @@ def reranker_state_dict(name: str, params: Mapping, **model_kwargs
     return sd
 
 
-def reranker_flax_tree(model: torch.nn.Module) -> Dict[str, Any]:
+def reranker_flax_tree(model: torch.nn.Module,
+                       tensors: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> Dict[str, Any]:
     """The inverse of :func:`reranker_state_dict`: the flax parameter tree
-    (nested dicts of float32 numpy arrays) of a reranker instance."""
-    sd = model.state_dict()
-    tree: Dict[str, Any] = {}
-    for path, prefix, kind, arg in _links(model):
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = _to_flax(kind, sd, prefix, arg)
-    return tree
+    (nested dicts of float32 numpy arrays) of a reranker instance, or of
+    ``tensors`` keyed like its ``state_dict`` (an optimizer's moments)."""
+    return _links_to_flax(_links(model),
+                          model.state_dict() if tensors is None else tensors)
+
+
+def reranker_tensors(model: torch.nn.Module, tree: Mapping
+                     ) -> Dict[str, torch.Tensor]:
+    """A flax tree laid out like ``model``'s (its parameters, or an
+    optimizer's moments of them) as tensors keyed like its
+    ``state_dict``; LSTM ``bias_ih`` come back zero."""
+    return _convert(_links(model), tree)

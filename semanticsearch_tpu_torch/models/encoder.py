@@ -12,9 +12,19 @@ Attention: "stock" is plain torch math, "flash" the hand-written kernel
 (``ops/flash_attention.py``), and "auto" picks flash on a CUDA device when
 dropout is 0 and ``max_len >= 1024``, where the (T, T) score matrix starts
 to dominate.
+
+Parameters: as flax keeps float32 parameters and computes in ``dtype``,
+``SentenceEncoder`` keeps float32 master parameters (``master``) beside the
+serving module (``model``, in ``cfg.dtype``; the same module when that is
+float32). Training (``train/encoder_train.py``, ``train/mlm_pretrain.py``)
+runs the serving module's forward on the masters cast to ``cfg.dtype``
+(:meth:`SentenceEncoder.train_forward`), so the gradient reaches the
+float32 masters, and :meth:`SentenceEncoder.sync` copies them into the
+serving module after a step.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional, Sequence
 
@@ -44,17 +54,54 @@ def use_flash(cfg: EncoderConfig, device: torch.device) -> bool:
     )
 
 
+class Dropout(nn.Dropout):
+    """flax ``nn.Dropout``: in training, each element kept with probability
+    1 - p and scaled by 1 / (1 - p). The mask is drawn from ``generator``
+    when a training step sets one (a seeded step replays exactly), else
+    from the default generator."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def dropout_generator(device, *seeds: int) -> torch.Generator:
+    """The dropout generator of one training step on ``device``, seeded
+    from the run's seed and the step's place (epoch, step in epoch), so a
+    rerun or a resumed run draws the same masks."""
+    seed = int(np.random.SeedSequence(list(seeds)).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Draw every :class:`Dropout` mask in ``module`` from ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (self-attention, key-padding
-    mask): query/key/value/out projections over (H, Dh) heads."""
+    mask): query/key/value/out projections over (H, Dh) heads. In training
+    the stock path drops attention weights at ``dropout_rate``, as flax's
+    does; the flash path has no attention dropout, as the JAX kernel's
+    adapter takes none."""
 
-    def __init__(self, hidden_dim: int, num_heads: int) -> None:
+    def __init__(self, hidden_dim: int, num_heads: int,
+                 dropout_rate: float = 0.0) -> None:
         super().__init__()
         self.num_heads = num_heads
         self.query = nn.Linear(hidden_dim, hidden_dim)
         self.key = nn.Linear(hidden_dim, hidden_dim)
         self.value = nn.Linear(hidden_dim, hidden_dim)
         self.out = nn.Linear(hidden_dim, hidden_dim)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, flash: bool
                 ) -> torch.Tensor:
@@ -72,7 +119,7 @@ class MultiHeadAttention(nn.Module):
             s = torch.einsum("bqhd,bkhd->bhqk", q, k)
             s = s.masked_fill(~mask.bool()[:, None, None, :],
                               torch.finfo(s.dtype).min)
-            w = torch.softmax(s.float(), dim=-1).to(v.dtype)
+            w = self.dropout(torch.softmax(s.float(), dim=-1).to(v.dtype))
             o = torch.einsum("bhqk,bkhd->bqhd", w, v)
         return self.out(o.reshape(b, t, d))
 
@@ -81,11 +128,12 @@ class TransformerBlock(nn.Module):
     def __init__(self, cfg: EncoderConfig) -> None:
         super().__init__()
         self.ln_attn = nn.LayerNorm(cfg.hidden_dim, eps=_LN_EPS)
-        self.attn = MultiHeadAttention(cfg.hidden_dim, cfg.num_heads)
+        self.attn = MultiHeadAttention(cfg.hidden_dim, cfg.num_heads,
+                                       cfg.dropout_rate)
         self.ln_mlp = nn.LayerNorm(cfg.hidden_dim, eps=_LN_EPS)
         self.mlp_in = nn.Linear(cfg.hidden_dim, cfg.mlp_dim)
         self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden_dim)
-        self.dropout = nn.Dropout(cfg.dropout_rate)
+        self.dropout = Dropout(cfg.dropout_rate)
 
     def forward(self, x, mask, flash: bool):
         x = x + self.attn(self.ln_attn(x), mask, flash)
@@ -162,7 +210,9 @@ class SentenceEncoder:
 
     Texts are tokenized on the host, padded into the smallest length bucket
     (64/128/256, capped at ``max_len``), run through the model per bucket
-    and batch, and reassembled in input order.
+    and batch, and reassembled in input order. ``master`` holds the float32
+    parameters (what training updates and ``save_encoder`` writes),
+    ``model`` serves in ``cfg.dtype``.
     """
 
     def __init__(
@@ -177,13 +227,46 @@ class SentenceEncoder:
         self.device = _resolve_device(device)
         self.tokenizer = tokenizer or HashingTokenizer(
             vocab_size=cfg.vocab_size, max_len=cfg.max_len)
-        model = SentenceTransformerModel(cfg)
+        master = SentenceTransformerModel(cfg)
         if state_dict is None:
-            model.reset_parameters(torch.Generator().manual_seed(seed))
+            master.reset_parameters(torch.Generator().manual_seed(seed))
         else:
-            model.load_state_dict(state_dict)
-        self.model = model.to(device=self.device,
-                              dtype=getattr(torch, cfg.dtype)).eval()
+            master.load_state_dict(state_dict)
+        self.master = master.to(device=self.device,
+                                dtype=torch.float32).eval()
+        dtype = getattr(torch, cfg.dtype)
+        self.model = (self.master if dtype == torch.float32 else
+                      copy.deepcopy(self.master).to(dtype=dtype))
+
+    def sync(self) -> None:
+        """Copy the float32 masters into the serving module (cast to
+        ``cfg.dtype``)."""
+        if self.model is self.master:
+            return
+        with torch.no_grad():
+            for p, m in zip(self.model.parameters(),
+                            self.master.parameters()):
+                p.copy_(m)
+
+    def train_forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                      params: dict, return_tokens: bool = False,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """The serving module's forward in training mode on ``params`` (the
+        float32 masters by name) cast to ``cfg.dtype``: the casts carry the
+        gradient back to float32, as flax's ``dtype`` does. Dropout masks
+        come from ``generator``."""
+        dtype = getattr(torch, self.cfg.dtype)
+        cast = {k: v.to(dtype) for k, v in params.items()}
+        set_dropout_generator(self.model, generator)
+        self.model.train()
+        try:
+            return torch.func.functional_call(
+                self.model, cast, (ids, mask),
+                {"return_tokens": return_tokens})
+        finally:
+            self.model.eval()
+            set_dropout_generator(self.model, None)
 
     def _bucket_for(self, n_tokens: int) -> int:
         for b in _BUCKETS:

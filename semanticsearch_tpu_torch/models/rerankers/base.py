@@ -14,6 +14,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..encoder import Dropout
+
 MODEL_REGISTRY: Dict[str, Callable] = {}
 
 
@@ -57,7 +59,7 @@ class MLPHead(nn.Module):
         for i in range(len(hidden)):
             setattr(self, f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
         setattr(self, f"Dense_{len(hidden)}", nn.Linear(dims[-1], 1))
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_hidden):

@@ -16,6 +16,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops.matching import cosine_match_matrix
+from ..encoder import Dropout
 from .base import pad_mask, register_model, same_pad
 
 
@@ -62,7 +63,7 @@ class MatchPyramid(nn.Module):
         for i, (cnt, ks) in enumerate(zip(kernel_count, kernel_size)):
             setattr(self, f"conv_{i}", nn.Conv2d(in_ch, cnt, tuple(ks)))
             in_ch = cnt
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.out = nn.Linear(in_ch * self.dpool_size[0] * self.dpool_size[1], 1)
 
     def forward(self, left_ids, right_ids):
@@ -101,7 +102,7 @@ class ArcII(nn.Module):
         for i, (cnt, ks) in enumerate(zip(kernel_2d_count, kernel_2d_size)):
             setattr(self, f"conv2d_{i}", nn.Conv2d(in_ch, cnt, tuple(ks)))
             in_ch = cnt
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.out = nn.LazyLinear(1)
 
     def _conv1d(self, conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops.matching import topk_flat
+from ..encoder import Dropout
 from .base import pad_mask, register_model
 
 NEG_BIG = -1e9
@@ -50,7 +51,7 @@ class ESIM(nn.Module):
         super().__init__()
         h = hidden_size
         self.embedding = nn.Embedding(vocab_size, embed_dim)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.encode = _bilstm(embed_dim, h)
         self.projection = nn.Linear(8 * h, h)
         self.compose = _bilstm(h, h)
@@ -93,7 +94,7 @@ class MatchLSTM(nn.Module):
         self.encode = _bilstm(embed_dim, h)
         self.projection = nn.Linear(8 * h, h)
         self.compose = nn.LSTM(h, h, batch_first=True)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.out = nn.Linear(h, 1)
 
     def forward(self, left_ids, right_ids):
@@ -121,7 +122,7 @@ class MVLSTM(nn.Module):
         self.embedding = nn.Embedding(vocab_size, embed_dim)
         self.encode = _bilstm(embed_dim, hidden_size)
         self.mlp = nn.Linear(top_k, mlp_hidden)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.out = nn.Linear(mlp_hidden, 1)
 
     def forward(self, left_ids, right_ids):

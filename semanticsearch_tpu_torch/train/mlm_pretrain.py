@@ -1,0 +1,136 @@
+"""Masked-language-model pretraining for the sentence encoder.
+
+The port's counterpart of ``semanticsearch_tpu/train/mlm_pretrain.py``: an
+unsupervised denoising pass over the user's own corpus before the
+contrastive stage. 15% of each sequence's real-token positions (a static
+count per batch) are replaced by uniformly random vocabulary ids, and the
+model predicts the original ids there through a decoder tied to the
+float32 master token table, so the parameter tree stays the encoder's.
+The corruption draws from the same ``np.random.Generator`` calls as the
+JAX package's, so the same seed corrupts the same positions to the same ids.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from ..core.logging import get_logger
+from ..models.encoder import SentenceEncoder, dropout_generator
+from .encoder_train import adamw_for
+
+logger = get_logger("mlm_pretrain")
+
+
+@dataclass(frozen=True)
+class MLMConfig:
+    """Hyperparameters for corpus MLM pretraining."""
+
+    epochs: int = 3
+    batch_size: int = 64
+    learning_rate: float = 3e-4
+    warmup_frac: float = 0.05
+    weight_decay: float = 0.01
+    mask_prob: float = 0.15
+    max_len: int = 128
+    seed: int = 0
+
+
+class MLMPretrainer:
+    """Pretrain a SentenceEncoder's float32 masters on raw corpus text::
+
+        MLMPretrainer(enc, MLMConfig(epochs=3)).fit(corpus_texts)
+        ContrastiveEncoderTrainer(enc, ...).fit(pairs)   # then fine-tune
+    """
+
+    def __init__(self, encoder: SentenceEncoder,
+                 cfg: MLMConfig = MLMConfig()) -> None:
+        self.encoder = encoder
+        self.cfg = cfg
+
+    def _corrupt(self, rng: np.random.Generator, ids: np.ndarray,
+                 mask: np.ndarray, n_mask: int):
+        """Host-side corruption of one batch: (corrupt_ids, pos, targets,
+        weights) with a static ``n_mask`` positions per row (rows with
+        fewer real tokens get zero-weight padding slots)."""
+        b, t = ids.shape
+        vocab = self.encoder.cfg.vocab_size
+        corrupt = ids.copy()
+        pos = np.zeros((b, n_mask), np.int32)
+        tgt = np.zeros((b, n_mask), np.int32)
+        w = np.zeros((b, n_mask), np.float32)
+        for r in range(b):
+            real = np.nonzero(mask[r])[0]
+            if real.size == 0:
+                continue
+            k = min(n_mask, real.size)
+            sel = rng.choice(real, size=k, replace=False)
+            pos[r, :k] = sel
+            tgt[r, :k] = ids[r, sel]
+            w[r, :k] = 1.0
+            corrupt[r, sel] = rng.integers(0, vocab, size=k)
+        return corrupt, pos, tgt, w
+
+    def _loss(self, params, ids, mask, pos, tgt, w, gen):
+        h = self.encoder.train_forward(ids, mask, params,
+                                       return_tokens=True,
+                                       generator=gen)  # (B, T, H) f32
+        hs = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))
+        emb = params["token_embed.weight"]  # the tied decoder, f32 master
+        logits = torch.einsum("bmh,vh->bmv", hs, emb)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              tgt.reshape(-1), reduction="none")
+        return (nll * w.reshape(-1)).sum() / torch.clamp(w.sum(), min=1.0)
+
+    def fit(self, texts: Sequence[str]) -> List[Dict[str, float]]:
+        """Pretrain on raw texts; updates the encoder's masters and, after
+        each epoch, its serving module."""
+        cfg, enc = self.cfg, self.encoder
+        texts = [t for t in texts if t]
+        if not texts:
+            raise ValueError("no pretraining texts")
+        max_len = min(cfg.max_len, enc.cfg.max_len)
+        ids_full, mask_full = enc.tokenizer.encode_batch(texts,
+                                                         max_len=max_len)
+        n = len(texts)
+        bsz = min(cfg.batch_size, n)
+        steps_per_epoch = -(-n // bsz)
+        opt = adamw_for(enc, steps_per_epoch * cfg.epochs, cfg.learning_rate,
+                        cfg.warmup_frac, cfg.weight_decay)
+        n_mask = max(1, int(round(cfg.mask_prob * max_len)))
+        params = opt.params
+        history: List[Dict[str, float]] = []
+        for epoch in range(cfg.epochs):
+            t0 = time.perf_counter()
+            rng_np = np.random.default_rng(cfg.seed + 7919 * (epoch + 1))
+            order = rng_np.permutation(n)
+            losses = []
+            for si, s in enumerate(range(0, n, bsz)):
+                sel = order[s: s + bsz]
+                if len(sel) < bsz:  # wrap-around flush, as in pairs.py
+                    sel = np.concatenate(
+                        [sel, np.resize(order, bsz - len(sel))])
+                corrupt, pos, tgt, w = self._corrupt(
+                    rng_np, ids_full[sel], mask_full[sel], n_mask)
+                up = [torch.from_numpy(x.astype(dt)).to(enc.device)
+                      for x, dt in ((corrupt, np.int64),
+                                    (mask_full[sel], np.int64),
+                                    (pos, np.int64), (tgt, np.int64),
+                                    (w, np.float32))]
+                gen = dropout_generator(enc.device, cfg.seed, epoch, si)
+                opt.zero_grad()
+                loss = self._loss(params, *up, gen)
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())  # fetched once per epoch
+            enc.sync()
+            row = {"epoch": epoch,
+                   "loss": float(torch.stack(losses).mean()),
+                   "time_s": time.perf_counter() - t0}
+            history.append(row)
+            logger.info("mlm epoch %d: %s", epoch, row)
+        return history

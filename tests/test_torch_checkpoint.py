@@ -129,3 +129,54 @@ def test_parse_treedef_structures():
         parse_treedef("PyTreeDef(CustomNode(Foo[()], [*]))")
     with pytest.raises(ValueError):
         parse_treedef("not a treedef")
+
+
+@pytest.mark.parametrize("optimizer,clip", [("adam", None),
+                                            ("adadelta", None),
+                                            ("adam", 1.0)])
+def test_reads_jax_trainer_resume_checkpoint(tmp_path, monkeypatch,
+                                             optimizer, clip):
+    """The JAX trainer's step and epoch checkpoints (params, optax state,
+    the cursor) in the npz layout: every leaf bit for bit, the optax
+    states as namedtuples with their fields named."""
+    from semanticsearch_tpu.core.config import TrainConfig
+    from semanticsearch_tpu.train.pairs import PairDataset
+    from semanticsearch_tpu.train.trainer import RerankTrainer
+
+    rng = np.random.default_rng(0)
+    ds = PairDataset(left=rng.integers(1, 30, (12, 4)).astype(np.int32),
+                     right=rng.integers(1, 30, (12, 6)).astype(np.int32),
+                     labels=np.tile([1.0, 0.0, 0.0], 4).astype(np.float32),
+                     query_ids=np.repeat(np.arange(4), 3))
+    cfg = TrainConfig(model="knrm", epochs=2, batch_size=2, embedding_dim=8,
+                      optimizer=optimizer, clip_norm=clip)
+    trainer = RerankTrainer("knrm", vocab_size=30, cfg=cfg)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    trainer.fit(ds, checkpoint_dir=str(tmp_path), checkpoint_every=1,
+                checkpoint_every_steps=3)
+    params = trainer.init_params(ds)
+    target = {"params": params, "opt_state": trainer.tx.init(params),
+              "epoch": 0}
+    for sub, cursor in (("step_3", True), ("epoch_1", False)):
+        path = str(tmp_path / sub)
+        want = j_restore(path, {**target, "step_in_epoch": 0} if cursor
+                         else target)
+        got = restore_checkpoint(path)
+        # the port's namedtuple classes print as optax's
+        assert str(jax.tree.structure(got)) == str(jax.tree.structure(want))
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        assert ("step_in_epoch" in got) == cursor
+        opt = got["opt_state"][1] if clip else got["opt_state"]
+        if clip:
+            assert type(got["opt_state"][0]).__name__ == "EmptyState"
+        names = [type(s).__name__ for s in opt]
+        if optimizer == "adam":
+            assert names == ["ScaleByAdamState", "EmptyState"]
+            assert opt[0]._fields == ("count", "mu", "nu")
+            assert opt[0].count.dtype == np.int32
+            assert set(opt[0].mu) == set(got["params"])
+        else:
+            assert names == ["EmptyState", "ScaleByAdaDeltaState",
+                             "EmptyState"]
+            assert opt[1]._fields == ("e_g", "e_x")

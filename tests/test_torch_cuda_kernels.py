@@ -1154,3 +1154,41 @@ def test_rerank_service_on_the_card_matches_cpu(dev, name, kw):
     want = cpu.score_pairs(qs, cs)
     assert np.isfinite(got).all() and got.shape == (n,)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_contrastive_steps_on_the_card_match_cpu(dev):
+    """Two contrastive steps of a small f32 encoder under flash (the 3xTF32
+    kernel forward, the plain recompute backward) against the same steps
+    on the CPU: each epoch's loss to 1e-4 relative, the float32 masters to
+    1e-5 absolute but for the attention key biases, whose true gradient is
+    zero, so Adam turns each device's rounding noise into a step of up to
+    the learning rate (2e-3 here: two learning rates)."""
+    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.train.encoder_train import (
+        ContrastiveConfig, ContrastiveEncoderTrainer)
+
+    cfg = EncoderConfig(vocab_size=500, hidden_dim=64, num_layers=2,
+                        num_heads=4, mlp_dim=128, max_len=64,
+                        dtype="float32", attention="flash")
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(300)]
+    pairs = [(" ".join(rng.choice(words, 5)), " ".join(rng.choice(words, 40)))
+             for _ in range(16)]
+    negs = [" ".join(rng.choice(words, 30)) for _ in range(16)]
+    tcfg = ContrastiveConfig(epochs=2, batch_size=16, learning_rate=1e-3,
+                             max_len_query=16, max_len_chunk=64)
+    fa.FLASH_F32_LAUNCHES = 0
+    out = {}
+    for where in ("cuda", "cpu"):
+        enc = SentenceEncoder(cfg, device=where, seed=4)
+        out[where] = (ContrastiveEncoderTrainer(enc, tcfg).fit(pairs, negs),
+                      {k: v.cpu() for k, v in enc.master.state_dict().items()})
+    # 2 layers x 2 forwards x 2 steps, none in the backward
+    assert fa.FLASH_F32_LAUNCHES == 8
+    (h_card, p_card), (h_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for a, b in zip(h_card, h_cpu):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+    for k in p_cpu:
+        tol = 2e-3 if k.endswith("attn.key.bias") else 1e-5
+        assert float((p_card[k] - p_cpu[k]).abs().max()) <= tol, k

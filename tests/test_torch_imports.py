@@ -1,10 +1,12 @@
 """semanticsearch_tpu_torch imports neither JAX nor the JAX package.
 
 Every module of the port is imported in a fresh interpreter in which
-``import jax``, ``import semanticsearch_tpu``, ``import ml_dtypes`` or
-``import orbax`` (the card's machine has none of them) fail, so a stray
+``import jax``, ``import semanticsearch_tpu``, ``import ml_dtypes``,
+``import orbax``, ``import optax`` or ``import flax`` (the card's machine
+has none of them) fail, so a stray
 import anywhere in the port is an error here. The native library is built
-and called there too, and a reranker is built, converted and run."""
+and called there too, a reranker is built, converted and run, and one is
+trained, checkpointed and resumed, and an encoder saved and loaded."""
 import pkgutil
 import subprocess
 import sys
@@ -39,14 +41,19 @@ def test_port_has_the_slice_modules():
                  "models.rerankers.conv2d_models",
                  "models.rerankers.recurrent",
                  "models.rerankers.cross_encoder",
-                 "index.rerank_service"):
+                 "index.rerank_service", "train.optim", "train.pairs",
+                 "train.embeddings", "train.encoder_train",
+                 "train.mlm_pretrain", "train.trainer", "train.evaluate",
+                 "data.validate", "data.folds", "index.ranker"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 
 @pytest.mark.parametrize("blocked", [("jax",), ("semanticsearch_tpu",),
-                                     ("ml_dtypes",), ("orbax",),
+                                     ("ml_dtypes",), ("orbax",), ("optax",),
+                                     ("flax",),
                                      ("jax", "semanticsearch_tpu",
-                                      "ml_dtypes", "orbax")])
+                                      "ml_dtypes", "orbax", "optax",
+                                      "flax")])
 def test_port_imports_without(blocked):
     code = "\n".join([
         "import sys",
@@ -75,9 +82,35 @@ def test_port_imports_without(blocked):
         "hidden_size=4), pp, cfg=TrainConfig(model='esim', embedding_dim=8),"
         " model_kwargs={'hidden_size': 4}, device='cpu')",
         "assert svc.score_pairs(['a'], ['b c']).shape == (1,)",
+        # a reranker trained, checkpointed and resumed, an encoder saved
+        "import numpy as np, tempfile",
+        "from semanticsearch_tpu_torch.train.pairs import PairDataset",
+        "from semanticsearch_tpu_torch.train.trainer import RerankTrainer",
+        "ds = PairDataset(left=np.array([[1, 2]] * 4, np.int32), "
+        "right=np.array([[2, 3, 4]] * 4, np.int32), labels=np.array("
+        "[1, 0, 1, 0], np.float32), query_ids=np.array([0, 0, 1, 1]))",
+        "d = tempfile.mkdtemp()",
+        "cfg = TrainConfig(model='knrm', epochs=2, batch_size=2, "
+        "embedding_dim=4)",
+        "RerankTrainer('knrm', 8, cfg, device='cpu').fit(ds, "
+        "checkpoint_dir=d, checkpoint_every=1)",
+        "RerankTrainer('knrm', 8, cfg, device='cpu').fit(ds, "
+        "resume_from=d + '/epoch_0')",
+        "from semanticsearch_tpu_torch.core.config import EncoderConfig",
+        "from semanticsearch_tpu_torch.models.encoder import "
+        "SentenceEncoder",
+        "from semanticsearch_tpu_torch.train.encoder_train import ("
+        "load_encoder, save_encoder)",
+        "enc = SentenceEncoder(EncoderConfig(vocab_size=32, hidden_dim=8, "
+        "num_layers=1, num_heads=2, mlp_dim=8, max_len=16), device='cpu')",
+        "save_encoder(enc, d + '/enc')",
+        "assert load_encoder(d + '/enc', device='cpu').encode(['a']).shape "
+        "== (1, 8)",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
         "'semanticsearch_tpu.', 'ml_dtypes', 'orbax')) for m in sys.modules "
         "if sys.modules[m])",
+        "assert not any(m.split('.')[0] in ('optax', 'flax') "
+        "for m in sys.modules if sys.modules[m])",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
