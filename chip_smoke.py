@@ -33,7 +33,13 @@ MLM pretraining, contrastive steps under flash (12 launches a step) and
 stock from the same masters, f32 steps held against the CPU, hard-negative
 re-mining, ``save_encoder`` -> ``load_encoder`` -> a served index, every
 reranker preset, 5-fold KNRM cross-validation with
-``evaluate_saved_model`` and a resumed run (phase 10). Phase 3 also serves the ``serve_device`` profile (the
+``evaluate_saved_model`` and a resumed run (phase 10), and drives the
+entry points a user calls: ``semsearch-torch index --bm25`` and ``search``
+over phase 3's corpus, the coalescing HTTP server under 64 concurrent
+clients with a freshness round, a ``python -m
+semanticsearch_tpu_torch.cli.main serve --port 0`` subprocess, ``chunk``
+under ``semantic_grouping`` over phase 6's documents, and ``oie-train`` ->
+``oie --extractor neural`` (phase 11). Phase 3 also serves the ``serve_device`` profile (the
 device BM25 leg; hits equal the host leg's) and an index with a trained
 subword ``tokenizer.json``; phases 3, 5 and 6 check that the native host
 kernels ran and split their host time by part.
@@ -3004,6 +3010,393 @@ def phase_train(report, ctx):
     log(f"  phase 10: {res['phase_s']:.1f} s")
 
 
+# phase 11: the entry points a user calls (the CLI, in process and as a
+# subprocess, and the coalescing HTTP server), over phase 3's corpus and
+# phase 6's documents
+HTTP_CLIENTS = 64          # concurrent clients of the coalescing server
+HTTP_REQUESTS = 8          # requests a client sends, one after another
+OIE_TAG_SAMPLE = 512       # sentences tagged on the card and on the CPU
+OIE_MARGIN = 1e-3          # tags compared where the top-two logits differ more
+
+
+def _cli(argv):
+    """Run ``semsearch-torch argv`` in this process; (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from semanticsearch_tpu_torch.cli.main import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    return rc, buf.getvalue()
+
+
+def _http(base, path, body=None, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _hit_rows(hits):
+    return [[(h["chunk_id"], h["score"], h["dense_rank"], h["lexical_rank"])
+             for h in q] for q in hits]
+
+
+def _engine_rows(hits):
+    return [[(h.chunk_id, h.score, h.dense_rank, h.lexical_rank) for h in q]
+            for q in hits]
+
+
+def phase_entry(report, ctx):
+    import torch
+
+    from semanticsearch_tpu_torch.chunking.pipeline import ChunkPipeline
+    from semanticsearch_tpu_torch.core.config import get_named_config
+    from semanticsearch_tpu_torch.data.tsv import read_tsv
+    from semanticsearch_tpu_torch.oie.heuristic import _tokens
+    from semanticsearch_tpu_torch.oie.neural import NeuralOIE
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import similarity as sim
+
+    log("== phase 11: the entry points (semsearch-torch index/search/serve/"
+        "chunk/oie-train/oie, the coalescing HTTP server)")
+    t_phase = time.perf_counter()
+    tmp = ctx["tmp"]
+    idx = os.path.join(tmp, "idx_cli")
+    flash = ["--set", "encoder.attention=flash"]
+    res, launches = {}, {}
+
+    # 1. index --bm25 over phase 3's 20,000 chunks, then search
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = _cli(["index", "-i", ctx["tsv"], "-o", idx, "--bm25"] + flash)
+    torch.cuda.synchronize()
+    res["index_s"] = time.perf_counter() - t0
+    check(rc == 0 and json.loads(out.splitlines()[-1]) == {
+        "rows": 20000, "bm25": True},
+          f"index --bm25: 20,000 chunks in {res['index_s']:.2f} s (host "
+          f"clock), {fa.FLASH_LAUNCHES} flash launches")
+    check(fa.FLASH_LAUNCHES > 0, "the index build launched flash")
+    launches["index_flash"] = fa.FLASH_LAUNCHES
+
+    # the subprocess server loads while this process works on
+    err_path = os.path.join(tmp, "serve_stderr.txt")
+    err_f = open(err_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "semanticsearch_tpu_torch.cli.main", "serve",
+         "--index-dir", idx, "--port", "0", "--coalesce"] + flash,
+        stdout=subprocess.PIPE, stderr=err_f, text=True)
+    t_spawn = time.perf_counter()
+    try:
+        res.update(_entry_serve(report, ctx, idx, flash, proc, t_spawn,
+                                launches))
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        proc.stdout.close()
+        err_f.close()
+
+    # 4. chunk under semantic_grouping over phase 6's 600 documents
+    corpus = os.path.join(tmp, "chunk_corpus.tsv")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = _cli(["chunk", "-i", corpus, "-o", os.path.join(tmp, "cc"),
+                    "--config", "semantic_grouping"])
+    torch.cuda.synchronize()
+    res["chunk_cli_s"] = time.perf_counter() - t0
+    launches["chunk_similarity"] = sim.SIM_LAUNCHES
+    summary = json.loads(out.splitlines()[-1])
+    t0 = time.perf_counter()
+    ref = ChunkPipeline(get_named_config("semantic_grouping"),
+                        device="cuda").run(corpus, os.path.join(tmp, "cr"))
+    res["chunk_pipeline_s"] = time.perf_counter() - t0
+    with open(summary["output_path"], "rb") as a, \
+            open(ref["output_path"], "rb") as b:
+        same = a.read() == b.read()
+    check(sim.SIM_LAUNCHES > 0, "chunk launched the similarity kernel")
+    check(rc == 0 and same
+          and summary["docs_chunked"] == 600 and summary["fallbacks"] == 0,
+          f"chunk --config semantic_grouping: {summary['chunks_out']} chunks "
+          f"of 600 documents in {res['chunk_cli_s']:.2f} s (host clock), "
+          f"{sim.SIM_LAUNCHES} similarity launches; the TSV is byte-equal "
+          f"to ChunkPipeline.run's ({res['chunk_pipeline_s']:.2f} s)")
+
+    # 5. oie-train at NeuralOIEConfig's defaults, then oie --extractor neural
+    model_dir = os.path.join(tmp, "oie_model")
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = _cli(["oie-train", "-i", ctx["tsv"], "-o", model_dir])
+    torch.cuda.synchronize()
+    res["oie_train_s"] = time.perf_counter() - t0
+    trained = json.loads(out.splitlines()[-1])
+    check(rc == 0 and trained["texts"] == 20000,
+          f"oie-train (NeuralOIEConfig's defaults: 8 epochs, hidden 128, 2 "
+          f"layers) over the 20,000 chunk texts, BPE vocabulary "
+          f"{trained['vocab']}, in {res['oie_train_s']:.2f} s (host clock)")
+    t0 = time.perf_counter()
+    rc, out = _cli(["oie", "-i", ctx["tsv"], "-o",
+                    os.path.join(tmp, "oie.tsv"), "--extractor", "neural",
+                    "--model-dir", model_dir])
+    torch.cuda.synchronize()
+    res["oie_s"] = time.perf_counter() - t0
+    res["oie_rows_per_s"] = 20000 / res["oie_s"]
+    enriched = json.loads(out.splitlines()[-1])
+    check(rc == 0 and enriched["enriched_rows"] == 20000
+          and fa.FLASH_LAUNCHES == 0,
+          f"oie --extractor neural: 20,000 rows in {res['oie_s']:.2f} s = "
+          f"{res['oie_rows_per_s']:.1f} rows/s (host clock, self-check "
+          f"included); the tagger (max_len 96, attention auto) launched no "
+          f"flash kernel")
+    card = NeuralOIE.load(model_dir, device="cuda")
+    texts = [r["chunk_text"] for r in read_tsv(ctx["tsv"])]
+    agreement = card.teacher_agreement(texts[:256])
+    res["teacher_agreement"] = agreement
+    cpu = NeuralOIE.load(model_dir, device="cpu")
+    sents = [w for w in (_tokens(t)[:card.cfg.max_words]
+                         for t in texts[:OIE_TAG_SAMPLE]) if len(w) >= 3]
+    ids, mask, starts, nwords = card._batch_arrays(sents)
+    with torch.no_grad():
+        lc = card._logits(dict(card.model.named_parameters()),
+                          card._upload(ids), card._upload(mask)).cpu().numpy()
+        lh = cpu._logits(dict(cpu.model.named_parameters()),
+                         cpu._upload(ids), cpu._upload(mask)).numpy()
+    word = np.concatenate([lc[i, starts[i, :nwords[i]]]
+                           for i in range(len(sents))])
+    word_cpu = np.concatenate([lh[i, starts[i, :nwords[i]]]
+                               for i in range(len(sents))])
+    top2 = np.sort(word, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > OIE_MARGIN
+    tags_card = np.concatenate(card.tag_sentences(sents))
+    tags_cpu = np.concatenate(cpu.tag_sentences(sents))
+    same_tags = (np.array_equal(tags_card[clear], tags_cpu[clear])
+                 and np.array_equal(tags_card[clear],
+                                    word.argmax(-1)[clear])
+                 and np.array_equal(tags_cpu[clear],
+                                    word_cpu.argmax(-1)[clear]))
+    res["oie_logit_max_abs"] = float(np.abs(lc - lh).max())
+    check(same_tags and clear.sum() > 0.5 * clear.size,
+          f"the card's tags equal a CPU copy's at {int(clear.sum())} of "
+          f"{clear.size} words of {len(sents)} sentences (margin > "
+          f"{OIE_MARGIN}; logits within {res['oie_logit_max_abs']:.2e}); "
+          f"teacher agreement {agreement['agreement']:.3f} on "
+          f"{agreement['n_teacher_sentences']} sentences")
+
+    for key, k2 in (("segtopk", "search_segtopk"), ("flash", "search_flash"),
+                    ("similarity", "chunk_similarity")):
+        report[key]["entry_launches"] = launches.get(k2, 0)
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    report["entry"] = res
+    print(json.dumps({"entry_points": res}), flush=True)
+    log(f"  phase 11: {res['phase_s']:.1f} s")
+
+
+def _entry_serve(report, ctx, idx, flash, proc, t_spawn, launches):
+    """Phase 11's serving part: CLI search, the coalescing server under
+    concurrent clients, the subprocess server, and a mutation round."""
+    import threading
+
+    import torch
+
+    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch.index import server as srv_mod
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.tools.host_profile import HostSplit
+
+    res = {}
+    rng = np.random.default_rng(111)
+    # the CLI's encoder: the default config under flash, seed 0
+    engine = HybridQueryEngine.load(
+        idx, SentenceEncoder(EncoderConfig(attention="flash"), device="cuda",
+                             seed=0))
+    queries = ctx["batches"][0]
+    zero_counts()
+    t0 = time.perf_counter()
+    rc, out = _cli(["search", "--index-dir", idx, "-k", "10"] + queries
+                   + flash)
+    torch.cuda.synchronize()
+    res["search_cli_s"] = time.perf_counter() - t0
+    launches["search_segtopk"] = topk.SEGTOPK_LAUNCHES
+    launches["search_flash"] = fa.FLASH_LAUNCHES
+    check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
+          f"search launched segtopk {topk.SEGTOPK_LAUNCHES}, flash "
+          f"{fa.FLASH_LAUNCHES} times")
+    got = json.loads(out.splitlines()[-1])
+    cli_rows = [[(h["chunk_id"], h["rrf_score"], h["dense_rank"],
+                  h["lexical_rank"]) for h in q["hits"]] for q in got]
+    want = engine.search(queries, k=10)
+    check(rc == 0 and cli_rows == _engine_rows(want)
+          and [q["query"] for q in got] == queries,
+          f"search: {len(queries)} queries in {res['search_cli_s']:.2f} s "
+          f"(host clock, index load included); hits equal "
+          f"HybridQueryEngine.load(...).search's")
+
+    # 2. the coalescing server in a thread, under concurrent clients
+    pool = sorted({_zipf_text(rng, ctx["words"], int(rng.integers(3, 9)))
+                   for _ in range(HTTP_CLIENTS * HTTP_REQUESTS * 4)})
+    rng.shuffle(pool)
+    plan, used = [], 0
+    for c in range(HTTP_CLIENTS):
+        reqs = []
+        for _ in range(HTTP_REQUESTS):
+            n = int(rng.integers(1, 5))
+            reqs.append(pool[used: used + n])
+            used += n
+        plan.append(reqs)
+    check(used <= len(pool), f"{used} distinct queries for "
+          f"{HTTP_CLIENTS * HTTP_REQUESTS} requests")
+    batches = []
+    dispatch = engine._dispatch_legs
+
+    def recorded(qs, k, candidates, hybrid):
+        batches.append((list(qs), k))
+        return dispatch(qs, k, candidates, hybrid)
+
+    engine._dispatch_legs = recorded
+    srv = srv_mod.make_server(engine, port=0, coalesce=True)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    base = f"http://{srv.server_address[0]}:{srv.server_address[1]}"
+    answers, lat, errors = {}, [], []
+    barrier = threading.Barrier(HTTP_CLIENTS)
+
+    def client(c):
+        barrier.wait()
+        try:
+            for r, qs in enumerate(plan[c]):
+                t = time.perf_counter()
+                answers[(c, r)] = _http(base, "/search",
+                                        {"queries": qs, "k": 10})["results"]
+                lat.append(time.perf_counter() - t)
+        except Exception as exc:  # collected, checked below
+            errors.append(repr(exc))
+
+    try:
+        _http(base, "/search", {"queries": pool[-1:], "k": 10})  # warm-up
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(HTTP_CLIENTS)]
+        zero_counts()
+        with HostSplit(engine) as split:
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=300)
+            wall = time.perf_counter() - t0
+        launches["http_segtopk"] = topk.SEGTOPK_LAUNCHES
+        launches["http_flash"] = fa.FLASH_LAUNCHES
+        stats = _http(base, "/statz")
+        alive = any(c.is_alive() for c in clients)
+        check(not errors and not alive, f"{HTTP_CLIENTS} clients x "
+              f"{HTTP_REQUESTS} requests answered ({errors[:2]})")
+        n_req = HTTP_CLIENTS * HTTP_REQUESTS
+        res["http"] = {
+            "clients": HTTP_CLIENTS, "requests": n_req,
+            "queries": used, "wall_s": wall, "requests_per_s": n_req / wall,
+            "queries_per_s": used / wall,
+            "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+            "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+            "batches": stats["coalesce"]["batches"],
+            "merged_requests": stats["coalesce"]["merged_requests"],
+            "segtopk_launches": topk.SEGTOPK_LAUNCHES,
+            "flash_launches": fa.FLASH_LAUNCHES,
+            "host_split": split.seconds}
+        h = res["http"]
+        log(f"  HTTP, coalescing: {n_req} requests ({used} queries) from "
+            f"{HTTP_CLIENTS} clients in {wall:.2f} s = "
+            f"{h['requests_per_s']:.1f} requests/s, {h['queries_per_s']:.1f} "
+            f"queries/s; latency p50 {h['p50_ms']:.1f} ms, p99 "
+            f"{h['p99_ms']:.1f} ms (host clock); {h['batches']} merged "
+            f"batches, {h['merged_requests']} requests rode a shared one; "
+            f"launches segtopk {topk.SEGTOPK_LAUNCHES}, flash "
+            f"{fa.FLASH_LAUNCHES}")
+        log(f"  the dispatcher's engine parts (s; rest = the wall less "
+            f"them: HTTP, JSON, waiting): {split.line()}")
+        check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
+              "the dispatcher thread launched segtopk and flash")
+        engine._dispatch_legs = dispatch
+        # the engine's answer for every batch the dispatcher ran
+        by_query = {}
+        for qs, k in batches[1:]:
+            for q, hits in zip(qs, _engine_rows(engine.search(qs, k=k))):
+                by_query[q] = hits
+        served = all(_hit_rows(answers[(c, r)])
+                     == [by_query[q] for q in plan[c][r]]
+                     for c in range(HTTP_CLIENTS)
+                     for r in range(HTTP_REQUESTS))
+        lone = sum(_hit_rows(answers[(c, 0)])
+                   == _engine_rows(engine.search(plan[c][0], k=10))
+                   for c in range(HTTP_CLIENTS))
+        res["http"]["lone_equal"] = lone
+        check(served and h["batches"] < n_req,
+              f"every HTTP answer equals HybridQueryEngine.search over the "
+              f"merged batch that carried it ({len(batches) - 1} batches of "
+              f"{min(len(b[0]) for b in batches[1:])}-"
+              f"{max(len(b[0]) for b in batches[1:])} queries, padded to "
+              f"powers of two); {lone} of {HTTP_CLIENTS} first requests "
+              f"also equal a lone search of their queries")
+
+        # 3. the subprocess server: its bound port, /healthz, one /search
+        line = proc.stdout.readline()
+        res["serve_start_s"] = time.perf_counter() - t_spawn
+        check(line.startswith("serving http://127.0.0.1:"),
+              f"python -m semanticsearch_tpu_torch.cli.main serve --port 0 "
+              f"printed {line.strip()!r}")
+        sub = line.split()[1]
+        health = _http(sub, "/healthz")
+        sub_hits = _http(sub, "/search", {"queries": queries, "k": 10})
+        check(health == {"ok": True, "docs": 20000}
+              and _hit_rows(sub_hits["results"]) == _engine_rows(want),
+              f"the subprocess server (up {res['serve_start_s']:.1f} s after "
+              f"its start, host clock) answers /healthz and a "
+              f"{len(queries)}-query /search as the in-process engine")
+        proc.terminate()
+        proc.wait(timeout=30)
+
+        # the freshness round through the same server
+        new = [f"zq{i}xv wplk{i} " + _zipf_text(rng, ctx["words"], 6)
+               for i in range(2)]
+        t0 = time.perf_counter()
+        added = _http(base, "/add", {"chunk_ids": ["n0", "n1"],
+                                     "texts": new})
+        found = _http(base, "/search", {"queries": new, "k": 10})["results"]
+        removed = _http(base, "/remove", {"chunk_ids": ["n0"]})
+        after = _http(base, "/search", {"queries": new, "k": 10})["results"]
+        compact = _http(base, "/compact", {}, timeout=600)
+        final = _http(base, "/search", {"queries": new[1:], "k": 10})
+        res["mutation_round_s"] = time.perf_counter() - t0
+        check(added == {"added": 2, "docs": 20002}
+              and [q[0]["chunk_id"] for q in found] == ["n0", "n1"]
+              and removed == {"removed": 1, "docs": 20001}
+              and all(h["chunk_id"] != "n0" for h in after[0])
+              and compact == {"ok": True, "docs": 20001}
+              and final["results"][0][0]["chunk_id"] == "n1"
+              and engine.index.size == 20001,
+              f"/add -> /search -> /remove -> /compact -> /search in "
+              f"{res['mutation_round_s']:.2f} s (host clock): the added "
+              f"chunks rank first for their own text, the removed one is "
+              f"gone, and the compacted index holds 20,001 rows")
+    finally:
+        engine._dispatch_legs = dispatch
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    return res
+
+
 # phase 8: the device lexical leg at the size its design serves: documents
 # of 16-96 tokens drawn Zipf(1.1) from a 50,000-term vocabulary, queries of
 # 2-6 terms from the same law, in 1,024-query chunks at k = 40 (K' = 64)
@@ -3249,6 +3642,7 @@ def main() -> int:
             phase_f32(report, ctx)
             phase_rerank(report, ctx)
             phase_train(report, ctx)
+            phase_entry(report, ctx)
         phase_lexical(report)
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
@@ -3260,7 +3654,7 @@ def main() -> int:
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
-             "rerank_launches", "train_launches",
+             "rerank_launches", "train_launches", "entry_launches",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32")

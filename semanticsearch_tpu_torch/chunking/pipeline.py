@@ -78,9 +78,10 @@ class ChunkPipeline:
     """Chunk a 5-column corpus TSV with the configured method.
 
     The similarity signals run on ``device`` (the encoder's device when an
-    encoder is given). Sharding over a mesh and the per-document debug
-    visuals are not ported yet and raise ``NotImplementedError``; the two
-    directories of the debug visuals are accepted and unused until then."""
+    encoder is given). ``debug_visuals_docs`` > 0 exports heatmap, signal
+    and strip PNGs for the first that many documents into
+    ``debug_visuals_dir`` (``chunking/visualize.py``). Sharding over a mesh
+    is not ported yet and raises ``NotImplementedError``."""
 
     def __init__(
         self,
@@ -95,14 +96,16 @@ class ChunkPipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "ChunkPipeline(mesh=...): sharding is not ported yet")
-        if debug_visuals_docs > 0:
-            raise NotImplementedError(
-                "ChunkPipeline(debug_visuals_docs=...): chunking/visualize.py "
-                "is not ported yet")
         self.cfg = cfg
         self.encoder = encoder  # lazily built; char method needs none
         self.device = torch.device(device if encoder is None
                                    else encoder.device)
+        # Export heatmap/signal/strip PNGs for the first N documents
+        # (reference debug visuals, simple_chunk_controller.py:670-1050).
+        self.debug_visuals_docs = debug_visuals_docs
+        self.debug_visuals_dir = debug_visuals_dir
+        self.ideal_bounds_dir = ideal_bounds_dir
+        self._visuals_done = 0
 
     def _get_encoder(self) -> SentenceEncoder:
         if self.encoder is None:
@@ -245,6 +248,11 @@ class ChunkPipeline:
             if len(chunks) == 1 and chunks[0][0].endswith("_fallback"):
                 stats.fallbacks += 1
             stats.docs_chunked += 1
+            if (
+                self._visuals_done < self.debug_visuals_docs
+                and embs is not None and len(sentences) > 2
+            ):
+                self._export_visuals(doc_id, embs, chunks)
             for cid, ctext, meta in chunks:
                 ctext = ctext[:MAX_CHUNK_CHARS]
                 stats.chunks_out += 1
@@ -257,6 +265,31 @@ class ChunkPipeline:
                     "label": row.get("label", ""),
                     "meta": meta or "",
                 }
+
+    def _export_visuals(self, doc_id: str, embs: np.ndarray,
+                        chunks) -> None:
+        """The debug PNGs of one chunked document, its groups read from the
+        chunks' metadata. A failed plot is logged and skipped; a kernel
+        fault is raised."""
+        try:
+            from .visualize import export_document_debug
+
+            groups = []
+            for _, _, meta in chunks:
+                if meta:
+                    m = json.loads(meta)
+                    if m.get("sent_indices"):
+                        groups.append(
+                            [int(x) for x in m["sent_indices"].split(",")])
+            if groups:
+                export_document_debug(
+                    doc_id, embs, groups, self.debug_visuals_dir or ".",
+                    bounds_dir=self.ideal_bounds_dir, device=self.device)
+                self._visuals_done += 1
+        except (KernelError, NotImplementedError):
+            raise
+        except Exception as exc:
+            logger.debug("debug visuals failed for %s: %s", doc_id, exc)
 
     def run(
         self,

@@ -23,7 +23,9 @@ with a trained neural reranker (``index/rerank_service.py``) when a search
 asks for ``rerank_top > 0``, and :meth:`~HybridQueryEngine.tune_rerank_blend`
 grid-searches how its ranks blend with the fusion's. An index directory
 holding a trained subword vocabulary (``tokenizer.json``) encodes its
-queries with it. Not ported yet, listed in ROADMAP: the HTTP server.
+queries with it. ``index/server.py`` serves an engine over HTTP, its
+coalescing dispatcher driving :meth:`~HybridQueryEngine._dispatch_legs`
+and :meth:`~HybridQueryEngine._finish_legs` directly.
 """
 from __future__ import annotations
 

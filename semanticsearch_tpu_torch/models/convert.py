@@ -19,10 +19,11 @@ back:
                                                    bias_hh, bias_ih = 0
     param     a bare array                      -> the same array
 
-The encoder (``SentenceTransformerModel``) and the cross-encoder share the
-transformer block's links. Flax names its LSTM cells by the parent module
-in build order (``OptimizedLSTMCell_0`` and ``_1`` are the first
-bidirectional LSTM, forward then backward), not under ``encode``.
+The encoder (``SentenceTransformerModel``), the cross-encoder and the
+neural OIE tagger's backbone share the transformer block's links. Flax
+names its LSTM cells by the parent module in build order
+(``OptimizedLSTMCell_0`` and ``_1`` are the first bidirectional LSTM,
+forward then backward), not under ``encode``.
 """
 from __future__ import annotations
 
@@ -257,6 +258,33 @@ def encoder_flax_tree(state_dict: Mapping[str, torch.Tensor],
     keys (an optimizer's moments)."""
     return _links_to_flax(_stack_links("token_embed", num_layers, num_heads),
                           state_dict)
+
+
+def _tagger_links(num_layers: int, heads: Optional[int]) -> List[Link]:
+    """The neural OIE tagger (``oie/neural.py``): the encoder's stack under
+    ``backbone`` and a dense ``tag_head``."""
+    return [(("backbone",) + path, f"backbone.{prefix}", kind, arg)
+            for path, prefix, kind, arg in
+            _stack_links("token_embed", num_layers, heads)
+            ] + _single("tag_head")
+
+
+def oie_tagger_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Map the tagger's flax tree ``{"backbone": <encoder tree>,
+    "tag_head": {kernel, bias}}`` onto ``OIETagModel``'s ``state_dict``
+    (float32 tensors on the CPU); the depth is read from the tree."""
+    try:
+        n_layers = sum(k.startswith("layer_") for k in params["backbone"])
+    except (KeyError, TypeError) as exc:
+        raise ValueError("flax tree has no backbone") from exc
+    return _convert(_tagger_links(n_layers, None), params)
+
+
+def oie_tagger_flax_tree(state_dict: Mapping[str, torch.Tensor],
+                         num_layers: int, num_heads: int) -> Dict[str, Any]:
+    """The inverse of :func:`oie_tagger_state_dict`: the tagger's flax tree
+    (nested dicts of float32 numpy arrays)."""
+    return _links_to_flax(_tagger_links(num_layers, num_heads), state_dict)
 
 
 def reranker_state_dict(name: str, params: Mapping, **model_kwargs

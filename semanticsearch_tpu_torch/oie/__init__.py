@@ -1,0 +1,1 @@
+"""oie layer of semanticsearch_tpu_torch."""

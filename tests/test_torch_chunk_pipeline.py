@@ -243,8 +243,9 @@ def test_unported_options_raise(encoders):
     _, tenc = encoders
     with pytest.raises(NotImplementedError, match="mesh"):
         TPipeline(encoder=tenc, mesh=object())
-    with pytest.raises(NotImplementedError, match="visualize"):
-        TPipeline(encoder=tenc, debug_visuals_docs=1)
+    # the debug visuals are ported (tests/test_torch_data_tools.py)
+    assert TPipeline(encoder=tenc, debug_visuals_docs=1).debug_visuals_docs \
+        == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TPipeline(t_named("semantic_splitter"))._get_encoder()

@@ -6,7 +6,8 @@ Every module of the port is imported in a fresh interpreter in which
 has none of them) fail, so a stray
 import anywhere in the port is an error here. The native library is built
 and called there too, a reranker is built, converted and run, and one is
-trained, checkpointed and resumed, and an encoder saved and loaded."""
+trained, checkpointed and resumed, an encoder saved and loaded, a neural
+OIE tagger trained, saved and loaded, and the CLI run."""
 import pkgutil
 import subprocess
 import sys
@@ -44,7 +45,10 @@ def test_port_has_the_slice_modules():
                  "index.rerank_service", "train.optim", "train.pairs",
                  "train.embeddings", "train.encoder_train",
                  "train.mlm_pretrain", "train.trainer", "train.evaluate",
-                 "data.validate", "data.folds", "index.ranker"):
+                 "data.validate", "data.folds", "index.ranker",
+                 "oie.heuristic", "oie.client", "oie.neural", "cli.main",
+                 "index.server", "data.integrate", "data.mapping",
+                 "data.analyze", "core.profiling", "chunking.visualize"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 
@@ -83,7 +87,7 @@ def test_port_imports_without(blocked):
         " model_kwargs={'hidden_size': 4}, device='cpu')",
         "assert svc.score_pairs(['a'], ['b c']).shape == (1,)",
         # a reranker trained, checkpointed and resumed, an encoder saved
-        "import numpy as np, tempfile",
+        "import json, numpy as np, tempfile",
         "from semanticsearch_tpu_torch.train.pairs import PairDataset",
         "from semanticsearch_tpu_torch.train.trainer import RerankTrainer",
         "ds = PairDataset(left=np.array([[1, 2]] * 4, np.int32), "
@@ -106,6 +110,24 @@ def test_port_imports_without(blocked):
         "save_encoder(enc, d + '/enc')",
         "assert load_encoder(d + '/enc', device='cpu').encode(['a']).shape "
         "== (1, 8)",
+        # a neural OIE tagger trained, saved and loaded; the CLI's parser
+        "from semanticsearch_tpu_torch.oie.neural import NeuralOIE, "
+        "NeuralOIEConfig",
+        "oie = NeuralOIE(NeuralOIEConfig(hidden_dim=8, num_layers=1, "
+        "num_heads=2, mlp_dim=8, max_len=16, epochs=1), device='cpu')",
+        "oie.fit_silver(['The old engineer carried the bridge.'])",
+        "oie.save(d + '/oie')",
+        "assert NeuralOIE.load(d + '/oie', device='cpu').extract(['The "
+        "mayor signed the letter.'])[0] == oie.extract(['The mayor signed "
+        "the letter.'])[0]",
+        "from semanticsearch_tpu_torch.cli.main import main",
+        "open(d + '/v.tsv', 'w').write('query_id\\tchunk_text\\tlabel\\n"
+        "q\\tt\\t1\\n')",
+        "import contextlib, io",
+        "with contextlib.redirect_stdout(io.StringIO()) as buf:",
+        "    assert main(['--device', 'cpu', 'validate', '-i', d + '/v.tsv'])"
+        " == 0",
+        "assert json.loads(buf.getvalue())['rows_kept'] == 1",
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
         "'semanticsearch_tpu.', 'ml_dtypes', 'orbax')) for m in sys.modules "
         "if sys.modules[m])",
