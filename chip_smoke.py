@@ -1688,6 +1688,7 @@ def phase_chunk(report, ctx):
         rows[few[0]]["document"])))
     E = encoder.encode_device(sents, batch_size=2048)
     S = sim.similarity_matrix(E)
+    ctx["long_sents"] = sents  # phase 12's ring runs on this document
     err = float((S - sim.similarity_matrix_plain(E)).abs().max())
     padded = torch.nn.functional.pad(E, (0, 0, 0, 4096 - E.shape[0]))[None]
     in_bucket = sim.similarity_matrix(padded)[0, :E.shape[0], :E.shape[0]]
@@ -1771,6 +1772,8 @@ def phase_chunk(report, ctx):
         f"{large_eigh}")
     g_cov, g_ids = _coverage(os.path.join(tmp, "group",
                                           f"{g_cfg.name}_chunk_map.tsv"))
+    ctx["group"] = (g_tsv, g_cfg, os.path.join(
+        tmp, "group", f"{g_cfg.name}_chunk_map.tsv"))  # phase 12 reruns it
     check(sim.SIM_LAUNCHES == g_launches and fa.FLASH_LAUNCHES > 0
           and g["docs_chunked"] == len(g_rows) and g["fallbacks"] == 0
           and not any(i.endswith("_fallback") for i in g_ids)
@@ -3225,10 +3228,15 @@ def _entry_serve(report, ctx, idx, flash, proc, t_spawn, launches):
     queries = ctx["batches"][0]
     zero_counts()
     t0 = time.perf_counter()
-    rc, out = _cli(["search", "--index-dir", idx, "-k", "10"] + queries
-                   + flash)
+    search_argv = ["search", "--index-dir", idx, "-k", "10"] + queries + flash
+    rc, out = _cli(search_argv)
     torch.cuda.synchronize()
     res["search_cli_s"] = time.perf_counter() - t0
+    # phase 12 searches a copy again (the server below compacts this one)
+    import shutil
+    shutil.copytree(idx, idx + "_copy")
+    ctx["cli_search"] = ([idx + "_copy" if a == idx else a
+                          for a in search_argv], out)
     launches["search_segtopk"] = topk.SEGTOPK_LAUNCHES
     launches["search_flash"] = fa.FLASH_LAUNCHES
     check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
@@ -3571,6 +3579,448 @@ def phase_lexical(report):
            "build_s": t_build}
     report["device_bm25"] = lex
     log(json.dumps({"device_bm25": lex}))
+    return bm, queries, dev_i, dev_s
+
+
+# phase 12: the sharded paths on SHARDS virtual shards of the one card (a
+# mesh may repeat a device): the dense shard of 1,250,003 rows (n_pad = 1),
+# the fused top-k's shape, the ring, the data- and tensor-parallel encoder,
+# the pipeline's SP route and the CLI; phase 12b (after phase 8) shards the
+# device BM25 leg's columns
+SHARDS = 4
+SHARD_ROWS, SHARD_QUERIES, SHARD_K = 1_250_003, 32768, 10
+SHARD_FUSED = (10000, 22000, 200)  # queries, rows, k
+SHARD_ENCODE_TEXTS = 1024
+SHARD_TRAIN_PAIRS = 64
+SHARD_TRAIN_EPOCHS = 4  # one step each
+# TP against the unsharded step, bf16: the loss after an update, and the
+# cosine of the two master updates of every parameter. A correct step on
+# an H100 gives a least cosine of 0.983 (a LayerNorm bias: Adam turns bf16
+# rounding into whole steps where a gradient is near zero); a shard's
+# dropped gradient slice takes its parameter's to about sqrt(3/4)
+TP_LOSS_RTOL = 1e-3
+TP_UPDATE_COS = 0.97
+
+
+def _virtual_mesh(**spec):
+    import torch
+
+    from semanticsearch_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    n = spec.get("data", 1) * spec.get("model", 1)
+    return make_mesh(MeshSpec(**spec), [torch.device("cuda", 0)] * n)
+
+
+def phase_shard(report, ctx):
+    import torch
+
+    log(f"== phase 12: sharding on {SHARDS} virtual shards of the one card "
+        "(mesh devices [cuda:0] x 4; main path)")
+    t_phase = time.perf_counter()
+    res = {"launches": {}}
+    _shard_dense(report, res)
+    _shard_fused(report, res)
+    _shard_chunk(report, ctx, res)
+    _shard_encoder(report, ctx, res)
+    _shard_cli(report, ctx, res)
+    torch.cuda.synchronize()
+    res["phase_s"] = time.perf_counter() - t_phase
+    for key, names in (("segtopk", ("dense_segtopk", "cli_segtopk")),
+                       ("topk_fused", ("fused",)),
+                       ("flash", ("encode_flash", "pipeline_flash",
+                                  "train_flash", "cli_flash")),
+                       ("similarity", ("pipeline_similarity",))):
+        report[key]["shard_launches"] = sum(res["launches"][n] for n in names)
+    report["shard"] = res
+    log(json.dumps({"shard": res}))
+
+
+def _shard_dense(report, res):
+    import torch
+
+    from semanticsearch_tpu_torch.core.config import IndexConfig
+    from semanticsearch_tpu_torch.data import synth
+    from semanticsearch_tpu_torch.index.engine import EmbeddingIndex
+    from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.parallel.sharding import merge_candidates
+
+    n, d, q, k = SHARD_ROWS, 384, SHARD_QUERIES, SHARD_K
+    mesh = _virtual_mesh(data=SHARDS)
+    cfg = IndexConfig(block_rows=32768, seg_split=8)
+    corpus = synth.corpus(n, d, torch.bfloat16, "cuda")
+    queries = synth.corpus(q, d, torch.bfloat16, "cuda", start=20_000_000)
+    index = EmbeddingIndex.build(corpus, mesh=mesh, cfg=cfg, normalize=False)
+    shards = index._shards
+    rows = shards[0].shape[0]
+    n_pad = rows * SHARDS - n
+    check(len(shards) == SHARDS and n_pad == 1 and index.size == n,
+          f"EmbeddingIndex.build on the mesh: {SHARDS} shards of {rows:,} "
+          f"rows, {n_pad} pad row")
+    index.search_device(queries, k=k)  # warm-up
+    zero_counts()
+    vals, idx = index.search_device(queries, k=k)
+    torch.cuda.synchronize()
+    res["launches"]["dense_segtopk"] = topk.SEGTOPK_LAUNCHES
+    check(topk.SEGTOPK_LAUNCHES == SHARDS,
+          f"one pass-A launch a shard: {topk.SEGTOPK_LAUNCHES}")
+    sample = torch.arange(0, q, q // 128, device="cuda")[:128]
+    rv, ri = topk.topk_scores_ref(queries[sample], corpus, k=k, block_n=65536)
+    hits = sum(len(set(a) & set(b)) for a, b in
+               zip(idx[sample].tolist(), ri.tolist()))
+    recall = hits / (128 * k)
+    check(recall == 1.0, f"recall@10 = {recall} on 128 sampled queries "
+          "against the plain exact top-k")
+    single = EmbeddingIndex(corpus, n, cfg)  # the unsharded engine
+    uv, ui = single.search_device(queries, k=k + 1)
+    err, bad, tied = topk_agree(vals, idx, uv, ui, tol=1e-5, gap=1e-6)
+    check(err <= 1e-5 and bad == 0,
+          f"ids and order == the unsharded engine's wherever adjacent scores "
+          f"differ by more than 1e-6 ({tied} positions inside such ties); "
+          f"scores max abs err {err:.2e}")
+    res["dense_ms"] = time_ms(lambda: index.search_device(queries, k=k),
+                              reps=3)
+    res["dense_unsharded_ms"] = time_ms(
+        lambda: single.search_device(queries, k=k), reps=3)
+    # the split: each shard's pass A (k_local = k + n_pad, k_sel one more),
+    # each shard's pass B, the merge of the four lists
+    L2 = cfg.block_rows // 128 // cfg.seg_split
+    k_local = k + n_pad
+    k_sel = k_local + 1
+    res["pass_a_ms"] = time_ms(lambda: [topk.segtopk_pass_a(
+        queries, c, rows, L2, k_sel) for c in shards], reps=3)
+    segs = [topk.segtopk_pass_a(queries, c, rows, L2, k_sel)[1]
+            for c in shards]
+    res["pass_b_ms"] = time_ms(lambda: [topk._pass_b(
+        queries, c, s_, rows, L2, k_local, 256)
+        for c, s_ in zip(shards, segs)], reps=3)
+    lists = [topk._pass_b(queries, c, s_, rows, L2, k_local, 256)
+             for c, s_ in zip(shards, segs)]
+    sv = torch.stack([v for v, _ in lists])
+    si = torch.stack([i.long() + j * rows for j, (_, i) in enumerate(lists)])
+    sv = torch.where(si < n, sv, torch.full_like(sv, -float("inf")))
+    res["merge_ms"] = time_ms(lambda: merge_candidates(mesh, sv, si, k),
+                              reps=5)
+    mv, mi = merge_candidates(mesh, sv, si, k)
+    check(torch.equal(mv, vals) and torch.equal(mi.int(), idx),
+          "the split's parts give the engine's lists bit for bit")
+    ops = 2.0 * q * n * d + 2.0 * q * SHARDS * k_sel * L2 * d
+    res["dense_bound_ms"], res["dense_bound_by"] = bound_ms(
+        ops, 2.0 * (n * d + q * d) + 8.0 * q * k)
+    log(f"  dense shard {n:,} x {d} bf16 over {SHARDS} shards, {q} queries "
+        f"at k = {k}: {res['dense_ms']:.2f} ms (unsharded engine "
+        f"{res['dense_unsharded_ms']:.2f} ms); split: pass A "
+        f"{res['pass_a_ms']:.2f} ms ({SHARDS} launches, k_sel {k_sel}), pass "
+        f"B {res['pass_b_ms']:.2f} ms, merge {res['merge_ms']:.3f} ms; bound "
+        f"{res['dense_bound_ms']:.2f} ms ({res['dense_bound_by']}); recall@10 "
+        f"{recall}")
+    del index, single, shards, corpus, queries, lists, segs, sv, si
+    torch.cuda.empty_cache()
+
+
+def _shard_fused(report, res):
+    import torch
+
+    from semanticsearch_tpu_torch.core.mesh import hybrid_mesh
+    from semanticsearch_tpu_torch.data import synth
+    from semanticsearch_tpu_torch.ops import topk
+    from semanticsearch_tpu_torch.parallel.sharding import (
+        shard_corpus, sharded_topk, sharded_topk_2level)
+
+    q, n, k = SHARD_FUSED
+    mesh = _virtual_mesh(data=SHARDS)
+    queries = synth.corpus(q, 384, torch.bfloat16, "cuda", start=30_000_000)
+    corpus = synth.corpus(n, 384, torch.bfloat16, "cuda")
+    shards = shard_corpus(corpus, mesh)
+    kw = dict(k=k)
+    sharded_topk(queries, shards, mesh, **kw)  # warm-up
+    zero_counts()
+    vals, idx = sharded_topk(queries, shards, mesh, **kw)
+    torch.cuda.synchronize()
+    res["launches"]["fused"] = topk.TOPK_FUSED_LAUNCHES
+    check(topk.TOPK_FUSED_LAUNCHES == SHARDS,
+          f"k = {k} at {q:,} queries: one fused top-k launch a shard "
+          f"({topk.TOPK_FUSED_LAUNCHES})")
+    uv, ui = topk.topk_scores_fused(queries, corpus, k + 1)
+    err, bad, tied = topk_agree(vals, idx, uv, ui, tol=1e-5, gap=1e-6)
+    check(err <= 1e-5 and bad == 0,
+          f"== the unsharded fused top-{k} outside near-ties ({tied} inside); "
+          f"max abs err {err:.2e}")
+    two = _virtual_mesh(data=SHARDS)  # the same shards on (dcn 2, data 2)
+    two = hybrid_mesh(2, list(two.devices.flat))
+    v2, i2 = sharded_topk_2level(queries, shards, two, **kw)
+    check(torch.equal(v2, vals) and torch.equal(i2, idx),
+          "sharded_topk_2level on (dcn 2, data 2) == the flat merge, bit for "
+          "bit")
+    res["fused_ms"] = time_ms(lambda: sharded_topk(queries, shards, mesh,
+                                                   **kw), reps=5)
+    res["fused_unsharded_ms"] = time_ms(
+        lambda: topk.topk_scores_fused(queries, corpus, k), reps=5)
+    log(f"  fused top-{k}, {q:,} x {n:,} over {SHARDS} shards: "
+        f"{res['fused_ms']:.3f} ms (unsharded {res['fused_unsharded_ms']:.3f} "
+        "ms)")
+    del shards, corpus, queries
+
+
+def _shard_chunk(report, ctx, res):
+    import torch
+
+    from semanticsearch_tpu_torch.chunking import pipeline as chunk_pipeline
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import similarity as sim
+    from semanticsearch_tpu_torch.parallel import ring_similarity
+    from semanticsearch_tpu_torch.parallel.sharding import shard_corpus
+
+    mesh = _virtual_mesh(data=SHARDS)
+    encoder = ctx["encoder"]
+    E = encoder.encode_device(ctx["long_sents"], batch_size=2048)
+    zero_counts()
+    ring = ring_similarity.sharded_doc_similarity(E, mesh)
+    check(sim.SIM_LAUNCHES == 0 and ring.shape == (E.shape[0],) * 2,
+          "the ring's tiles are plain f32 products (no Gram kernel launch)")
+    S = sim.similarity_matrix(E)
+    err = float((torch.from_numpy(ring).cuda() - S).abs().max())
+    check(err <= 1e-5, f"sharded_doc_similarity of the {E.shape[0]:,}-"
+          f"sentence document == similarity_matrix (the kernel): max abs "
+          f"err {err:.2e} <= 1e-5")
+    res["ring_max_abs_err"] = err
+    res["ring_ms"] = time_ms(
+        lambda: ring_similarity.sharded_doc_similarity(E, mesh), reps=3)
+    # the ring's device part alone (no pad, no copy of S to the host)
+    blocks = shard_corpus(torch.nn.functional.pad(
+        E, (0, 0, 0, (-E.shape[0]) % SHARDS)), mesh)
+    res["ring_device_ms"] = time_ms(
+        lambda: ring_similarity.ring_similarity_matrix(blocks, mesh), reps=3)
+    res["ring_kernel_ms"] = time_ms(lambda: sim.similarity_matrix(E), reps=3)
+
+    # the grouping run of phase 6 on the mesh: the encoder data parallel,
+    # the 640-sentence document through the ring
+    g_tsv, g_cfg, g_map = ctx["group"]
+    cfg = g_cfg.override(chunking={"sp_min_sentences": GROUP_LONG_SENTENCES})
+    dp = SentenceEncoder(encoder.cfg, mesh=mesh,
+                         state_dict=encoder.master.state_dict(),
+                         tokenizer=encoder.tokenizer)
+    calls = []
+    doc_sim = ring_similarity.sharded_doc_similarity
+
+    def counting(emb, m):
+        calls.append(int(emb.shape[0]))
+        return doc_sim(emb, m)
+
+    ring_similarity.sharded_doc_similarity = counting
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        out = chunk_pipeline.ChunkPipeline(cfg, encoder=dp, mesh=mesh).run(
+            g_tsv, os.path.join(ctx["tmp"], "group_mesh"),
+            write_chunk_map=True)
+    finally:
+        ring_similarity.sharded_doc_similarity = doc_sim
+    torch.cuda.synchronize()
+    res["pipeline_s"] = time.perf_counter() - t0
+    res["launches"]["pipeline_flash"] = fa.FLASH_LAUNCHES
+    res["launches"]["pipeline_similarity"] = sim.SIM_LAUNCHES
+    mine = _boundaries(os.path.join(ctx["tmp"], "group_mesh",
+                                    f"{cfg.name}_chunk_map.tsv"))
+    theirs = _boundaries(g_map)
+    _, ids = _coverage(os.path.join(ctx["tmp"], "group_mesh",
+                                    f"{cfg.name}_chunk_map.tsv"))
+    _, ref_ids = _coverage(g_map)
+    res["pipeline_docs_differing"] = sum(mine[d_] != theirs.get(d_)
+                                         for d_ in mine)
+    check(calls == [GROUP_LONG_SENTENCES] and out["fallbacks"] == 0
+          and sim.SIM_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0
+          and ids == ref_ids,
+          f"ChunkPipeline(mesh=...) under semantic_grouping: the "
+          f"{GROUP_LONG_SENTENCES}-sentence document through the ring "
+          f"({calls}), {sim.SIM_LAUNCHES} Gram launches for the rest, "
+          f"{fa.FLASH_LAUNCHES} flash launches; chunk ids == phase 6's "
+          f"unsharded run ({res['pipeline_docs_differing']} documents' "
+          "sentence groups differ)")
+    log(f"  ring over {SHARDS} shards of the {E.shape[0]:,}-sentence "
+        f"document: {res['ring_ms']:.2f} ms with S on the host, its device "
+        f"part {res['ring_device_ms']:.2f} ms (the Gram kernel alone "
+        f"{res['ring_kernel_ms']:.2f} ms); the grouping pipeline on the mesh "
+        f"{res['pipeline_s']:.2f} s (host clock)")
+    del dp, E, S, blocks
+
+
+def _shard_encoder(report, ctx, res):
+    import torch
+
+    from semanticsearch_tpu_torch.data.tsv import read_tsv
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.train.encoder_train import (
+        ContrastiveConfig, ContrastiveEncoderTrainer)
+
+    encoder = ctx["encoder"]
+    texts = [r["chunk_text"] for _, r in zip(range(SHARD_ENCODE_TEXTS),
+                                             read_tsv(ctx["tsv"]))]
+    state = encoder.master.state_dict()
+    dp = SentenceEncoder(encoder.cfg, mesh=_virtual_mesh(data=SHARDS),
+                         state_dict=state, tokenizer=encoder.tokenizer)
+    one = encoder.encode(texts)
+    dp.encode(texts[:8])  # warm-up
+    zero_counts()
+    got = dp.encode(texts)
+    torch.cuda.synchronize()
+    _, _, buckets = dp._buckets(texts)
+    batches = sum(-(-len(v) // 256) for v in buckets.values())
+    want = batches * SHARDS * encoder.cfg.num_layers
+    res["launches"]["encode_flash"] = fa.FLASH_LAUNCHES
+    cos = float((torch.from_numpy(got) * torch.from_numpy(one)).sum(1).min())
+    err = float(np.abs(got - one).max())
+    check(fa.FLASH_LAUNCHES == want and cos >= 0.999,
+          f"data-parallel encode over {SHARDS} shards, {len(texts)} texts: "
+          f"{fa.FLASH_LAUNCHES} flash launches == {batches} batches x "
+          f"{SHARDS} shards x {encoder.cfg.num_layers} layers; least cosine "
+          f"to the single-device encode {cos:.5f} >= 0.999 (max abs "
+          f"{err:.2e}, bf16)")
+    res["dp_encode_ms"] = time_ms(lambda: dp.encode_device(texts), reps=3)
+    res["encode_ms"] = time_ms(lambda: encoder.encode_device(texts), reps=3)
+    del dp
+
+    # TP on (data 1, model 4): stock attention, as in the JAX package
+    stock_cfg = dataclasses.replace(encoder.cfg, attention="stock")
+    tp = SentenceEncoder(stock_cfg, mesh=_virtual_mesh(data=1, model=SHARDS),
+                         state_dict=state, tokenizer=encoder.tokenizer)
+    ref = SentenceEncoder(stock_cfg, device="cuda", state_dict=state,
+                          tokenizer=encoder.tokenizer)
+    check(tp._tp == SHARDS, f"tensor parallel over {SHARDS} model shards")
+    e_tp, e_ref = tp.encode(texts[:256]), ref.encode(texts[:256])
+    cos_tp = float((torch.from_numpy(e_tp) * torch.from_numpy(e_ref))
+                   .sum(1).min())
+    check(cos_tp >= 0.999, f"TP encode == the unsharded stock encode: least "
+          f"cosine {cos_tp:.5f} >= 0.999 (max abs "
+          f"{float(np.abs(e_tp - e_ref).max()):.2e}, bf16)")
+    res["tp_encode_ms"] = time_ms(lambda: tp.encode_device(texts[:256]),
+                                  reps=3)
+    pairs = [(f"query {t[:40]}", t) for t in texts[:SHARD_TRAIN_PAIRS]]
+    # one step an epoch; the schedule's first step warms up from 0.0, so
+    # the losses of epochs 2 and 3 are the ones after an update
+    ccfg = ContrastiveConfig(epochs=SHARD_TRAIN_EPOCHS,
+                             batch_size=SHARD_TRAIN_PAIRS,
+                             use_hard_negatives=False, seed=0)
+    before = {n_: p.detach().clone() for n_, p in tp.master.named_parameters()}
+    zero_counts()
+    t0 = time.perf_counter()
+    h_tp = ContrastiveEncoderTrainer(tp, ccfg).fit(pairs)
+    torch.cuda.synchronize()
+    res["tp_train_s"] = time.perf_counter() - t0
+    res["launches"]["train_flash"] = fa.FLASH_LAUNCHES
+    h_ref = ContrastiveEncoderTrainer(ref, ccfg).fit(pairs)
+    ref_p = dict(ref.master.named_parameters())
+    leaf_cos = {}
+    for n_, p in tp.master.named_parameters():
+        if n_.endswith("attn.key.bias"):
+            continue  # its true gradient is zero: Adam scales up noise
+        d_tp = (p.detach() - before[n_]).flatten()
+        d_ref = (ref_p[n_].detach() - before[n_]).flatten()
+        norms = float(d_tp.norm() * d_ref.norm())
+        leaf_cos[n_] = (float(d_tp @ d_ref) / norms if norms
+                        else float(torch.equal(d_tp, d_ref)))
+    worst = min(leaf_cos, key=leaf_cos.get)
+    rel = [abs(a["loss"] - b["loss"]) / b["loss"]
+           for a, b in zip(h_tp[2:], h_ref[2:])]
+    check(max(rel) <= TP_LOSS_RTOL and leaf_cos[worst] >= TP_UPDATE_COS
+          and fa.FLASH_LAUNCHES == 0,
+          f"TP contrastive steps (batch {SHARD_TRAIN_PAIRS}): losses after "
+          f"an update {[round(h['loss'], 5) for h in h_tp[2:]]} vs unsharded "
+          f"{[round(h['loss'], 5) for h in h_ref[2:]]} (rel {max(rel):.1e} <= "
+          f"{TP_LOSS_RTOL}); cosine of the two master updates, parameter by "
+          f"parameter, least {leaf_cos[worst]:.4f} ({worst}) >= "
+          f"{TP_UPDATE_COS}; no flash launch under TP")
+    res["tp_loss_rel"] = max(rel)
+    res["tp_update_cosine_min"] = leaf_cos[worst]
+    log(f"  encode of {len(texts)} texts: data parallel "
+        f"{res['dp_encode_ms']:.2f} ms, one device {res['encode_ms']:.2f} "
+        f"ms; TP encode of 256 texts {res['tp_encode_ms']:.2f} ms; TP "
+        f"training {res['tp_train_s']:.2f} s for {SHARD_TRAIN_EPOCHS} steps "
+        "(host clock)")
+    del tp, ref
+
+
+def _shard_cli(report, ctx, res):
+    import torch
+
+    from semanticsearch_tpu_torch.cli import main as cli_main
+    from semanticsearch_tpu_torch.core.mesh import local_mesh
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+
+    argv, want = ctx["cli_search"]
+    meshes = []
+    load = vars(HybridQueryEngine)["load"]  # the classmethod itself
+
+    def recording(*args, **kw):
+        meshes.append(kw.get("mesh"))
+        return load.__get__(None, HybridQueryEngine)(*args, **kw)
+
+    HybridQueryEngine.load = recording
+    local = cli_main._local_mesh
+    try:
+        rc, out = _cli(argv)
+        cli_main._local_mesh = lambda args: _virtual_mesh(data=SHARDS)
+        zero_counts()
+        rc4, out4 = _cli(argv)
+        torch.cuda.synchronize()
+    finally:
+        HybridQueryEngine.load = load
+        cli_main._local_mesh = local
+    res["launches"]["cli_segtopk"] = topk.SEGTOPK_LAUNCHES
+    res["launches"]["cli_flash"] = fa.FLASH_LAUNCHES
+    check(rc == 0 and out == want and meshes[0] == local_mesh("cuda")
+          and meshes[0].shape == {"data": 1, "model": 1},
+          "semsearch-torch search --device cuda through local_mesh() (one "
+          "card, the unsharded path): stdout == phase 11's")
+    check(rc4 == 0 and out4 == want and meshes[1].shape["data"] == SHARDS
+          and topk.SEGTOPK_LAUNCHES == SHARDS,
+          f"the same search with the CLI's mesh swapped for {SHARDS} virtual "
+          f"shards: stdout == phase 11's, {topk.SEGTOPK_LAUNCHES} pass-A "
+          "launches (one a shard)")
+
+
+def phase_shard_lexical(report, lex):
+    """Phase 12b: the phase-8 leg's matrix column-sharded over SHARDS
+    virtual shards; every list and score against the unsharded leg's."""
+    import torch
+
+    from semanticsearch_tpu_torch.index.bm25_tpu import DeviceBM25
+
+    log(f"== phase 12b: the device BM25 leg column-sharded over {SHARDS} "
+        f"virtual shards ({LEX_DOCS:,} documents)")
+    bm, queries, dev_i, dev_s = lex
+    t0 = time.perf_counter()
+    leg = DeviceBM25(bm, n_dense_terms=LEX_DENSE_TERMS, topk_device=LEX_KP,
+                     query_chunk=LEX_CHUNK, residual=True, weights="int8",
+                     mesh=_virtual_mesh(data=SHARDS))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    leg.get_topk_batch(queries[:LEX_CHUNK], LEX_K)  # warm
+    leg.stats.update(dict.fromkeys(leg.stats, 0))
+    t0 = time.perf_counter()
+    got_i, got_s = leg.get_topk_batch(queries, LEX_K)
+    t_leg = time.perf_counter() - t0
+    check(len(leg._CTs) == SHARDS and np.array_equal(got_i, dev_i)
+          and np.array_equal(got_s, dev_s),
+          f"all {len(queries)} id lists and score bits of the {SHARDS}-way "
+          f"column-sharded leg == the unsharded leg's (certified "
+          f"{100 * (1 - leg.stats['fallbacks'] / leg.stats['queries']):.2f} "
+          "%)")
+    wq = torch.from_numpy(leg._split(queries[:LEX_CHUNK])[0]).cuda()
+    ms = time_ms(lambda: leg._select(wq, LEX_KP))
+    out = {"build_s": t_build, "leg_s": t_leg, "chunk_ms": ms,
+           "fallbacks": int(leg.stats["fallbacks"]),
+           "unsharded_chunk_ms": report["device_bm25"]["chunk_ms"]}
+    report["shard"]["device_bm25"] = out
+    log(f"  built in {t_build:.1f} s (host clock); {len(queries)} queries in "
+        f"{t_leg:.3f} s; device phase of one chunk {ms:.3f} ms (unsharded "
+        f"{out['unsharded_chunk_ms']:.3f} ms)")
+    log(json.dumps({"shard_device_bm25": out}))
+    del leg, wq
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3643,7 +4093,8 @@ def main() -> int:
             phase_rerank(report, ctx)
             phase_train(report, ctx)
             phase_entry(report, ctx)
-        phase_lexical(report)
+            phase_shard(report, ctx)
+        phase_shard_lexical(report, phase_lexical(report))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
         return 1
@@ -3655,6 +4106,7 @@ def main() -> int:
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
              "rerank_launches", "train_launches", "entry_launches",
+             "shard_launches",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32")

@@ -80,8 +80,12 @@ class ChunkPipeline:
     The similarity signals run on ``device`` (the encoder's device when an
     encoder is given). ``debug_visuals_docs`` > 0 exports heatmap, signal
     and strip PNGs for the first that many documents into
-    ``debug_visuals_dir`` (``chunking/visualize.py``). Sharding over a mesh
-    is not ported yet and raises ``NotImplementedError``."""
+    ``debug_visuals_dir`` (``chunking/visualize.py``). With a ``mesh`` the
+    encoder it builds is data parallel over the mesh (``device`` is the
+    mesh's first device), and grouping documents of at least
+    ``sp_min_sentences`` sentences take their similarity matrix through the
+    ring (``parallel/ring_similarity.py``) when the mesh has more than one
+    data shard."""
 
     def __init__(
         self,
@@ -93,10 +97,12 @@ class ChunkPipeline:
         mesh=None,
         device="cuda",
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "ChunkPipeline(mesh=...): sharding is not ported yet")
         self.cfg = cfg
+        self.mesh = mesh  # multi-device: shard encode + SP long-doc sims
+        if mesh is not None:
+            from ..core.mesh import local_row_devices
+
+            device = local_row_devices(mesh)[0]
         self.encoder = encoder  # lazily built; char method needs none
         self.device = torch.device(device if encoder is None
                                    else encoder.device)
@@ -110,7 +116,7 @@ class ChunkPipeline:
     def _get_encoder(self) -> SentenceEncoder:
         if self.encoder is None:
             self.encoder = SentenceEncoder(self.cfg.encoder,
-                                           device=self.device)
+                                           device=self.device, mesh=self.mesh)
         return self.encoder
 
     # -- per-document chunking given precomputed embeddings ------------------
@@ -167,8 +173,25 @@ class ChunkPipeline:
             bucket = 1 << max(3, (n - 1).bit_length())  # 8,16,...,4096
             buckets.setdefault(bucket, []).append(i)
 
+        n_dev = self.mesh.shape["data"] if self.mesh is not None else 1
         budget_elems = 1 << 26  # ~64M f32 per (B, L, L) intermediate
         for bucket, idxs in buckets.items():
+            # SP route: grouping + multi-device mesh + doc ACTUALLY at or
+            # beyond the threshold (the bucket is a power-of-two ceiling, so
+            # testing it would also catch docs up to 2x shorter)
+            if use_sims and n_dev > 1:
+                sp_min = ccfg.sp_min_sentences
+                long_idxs = [i for i in idxs
+                             if embeddings_by_doc[i].shape[0] >= sp_min]
+                if long_idxs:
+                    from ..parallel import ring_similarity
+
+                    for i in long_idxs:
+                        sims_by_doc[i] = ring_similarity.sharded_doc_similarity(
+                            embeddings_by_doc[i], self.mesh)
+                    idxs = [i for i in idxs if i not in set(long_idxs)]
+                    if not idxs:
+                        continue
             b_max = max(1, budget_elems // (bucket * bucket))
             for s in range(0, len(idxs), b_max):
                 part = idxs[s: s + b_max]

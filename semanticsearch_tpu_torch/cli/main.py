@@ -8,8 +8,11 @@ semanticsearch_tpu_torch.cli.main``: the same subcommands, flags, JSON
 lines on stdout and exit codes. The JAX CLI's ``--platform {cpu,tpu}`` is
 the top-level ``--device {cuda,cpu}`` here (default ``cuda``, which
 raises without a card), handed to every encoder, engine, pipeline, trainer,
-evaluator and tagger a subcommand builds. A multi-device mesh (sharding) is
-not ported yet, so every engine runs on the one device.
+evaluator and tagger a subcommand builds. ``index-add``, ``serve``,
+``search`` and ``tune-fusion`` load their engine on ``local_mesh(device)``,
+every local device of that kind, as the JAX CLI passes ``local_mesh()``: the
+corpus row-shards over several cards, and one card (or the CPU) is the
+unsharded path.
 
 Replaces the reference's per-script argparse CLIs and ``input()`` wizards
 with a single entry point plus the named-config registry (``--config``
@@ -261,8 +264,8 @@ def cmd_index_add(args) -> int:
             return 1
 
     engine = HybridQueryEngine.load(
-        args.index_dir, enc, index_cfg=cfg.index, rank_cfg=cfg.ranking,
-        device=args.device,
+        args.index_dir, enc, mesh=_local_mesh(args),
+        index_cfg=cfg.index, rank_cfg=cfg.ranking, device=args.device,
     )
     if engine.texts is None:
         print(json.dumps({
@@ -286,6 +289,14 @@ def cmd_index_add(args) -> int:
     return 0
 
 
+def _local_mesh(args):
+    """Every local device of ``--device``'s kind (the JAX CLI's
+    ``local_mesh()``)."""
+    from ..core.mesh import local_mesh
+
+    return local_mesh(args.device)
+
+
 def _lexical_rank_cfg(rank_cfg, args):
     """Apply the serve-time lexical-leg flags shared by search/serve."""
     if getattr(args, "device_bm25", False):
@@ -305,7 +316,8 @@ def cmd_serve(args) -> int:
     enc = _make_encoder(cfg, args)
     rank_cfg = _lexical_rank_cfg(cfg.ranking, args)
     engine = HybridQueryEngine.load(
-        args.index_dir, enc, index_cfg=cfg.index, rank_cfg=rank_cfg,
+        args.index_dir, enc, mesh=_local_mesh(args),
+        index_cfg=cfg.index, rank_cfg=rank_cfg,
         reranker_dir=getattr(args, "rerank", None), device=args.device,
     )
     srv = make_server(engine, host=args.host, port=args.port,
@@ -329,7 +341,8 @@ def cmd_search(args) -> int:
     enc = _make_encoder(cfg, args)
     rank_cfg = _lexical_rank_cfg(cfg.ranking, args)
     engine = HybridQueryEngine.load(
-        args.index_dir, enc, index_cfg=cfg.index, rank_cfg=rank_cfg,
+        args.index_dir, enc, mesh=_local_mesh(args),
+        index_cfg=cfg.index, rank_cfg=rank_cfg,
         reranker_dir=getattr(args, "rerank", None), device=args.device,
     )
     results = engine.search(
@@ -367,7 +380,8 @@ def cmd_tune_fusion(args) -> int:
     enc = _make_encoder(cfg, args)
     rank_cfg = _lexical_rank_cfg(cfg.ranking, args)
     engine = HybridQueryEngine.load(
-        args.index_dir, enc, index_cfg=cfg.index, rank_cfg=rank_cfg,
+        args.index_dir, enc, mesh=_local_mesh(args),
+        index_cfg=cfg.index, rank_cfg=rank_cfg,
         reranker_dir=args.reranker, device=args.device,
     )
     # group the labeled rows into per-query relevant chunk_id sets

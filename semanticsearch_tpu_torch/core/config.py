@@ -97,7 +97,7 @@ class ChunkingConfig:
     # corpus's longest document, 3,939 sentences)
     max_sentences: int = 4096
     # grouping documents of at least this many sentences go through the
-    # ring-exchange similarity path on a multi-device mesh (not ported yet)
+    # ring-exchange similarity path on a multi-device mesh
     sp_min_sentences: int = 2048
 
 

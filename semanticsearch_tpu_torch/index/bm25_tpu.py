@@ -1,7 +1,8 @@
 """Device-resident BM25 top-k: the lexical serve leg on the CUDA device.
 
 Counterpart of ``semanticsearch_tpu/index/bm25_tpu.py`` (same path and class
-name), on one CUDA device (or the CPU, for tests). The host BM25 kernels
+name), on one CUDA device (or the CPU, for tests) or column-sharded over a
+mesh. The host BM25 kernels
 (``native/semsearch_native.cpp``) traverse postings one query at a time; a
 serve host has few cores while every other leg of the query rides the card.
 This module moves the dominant share of lexical scoring onto it.
@@ -61,8 +62,14 @@ candidate set, so the corpus-wide score matrix never exists.
 
 The int8 matrix can persist beside the index (``cache_dir``), fingerprinted
 against the BM25 statistics, in the JAX package's file format: a restart
-memmaps it instead of re-quantizing. ``mesh=`` (column sharding over
-several cards) is not ported.
+memmaps it instead of re-quantizing.
+
+Mesh (``mesh=``, more than one row shard): the matrix's document columns
+shard over the mesh, padded to ``SEL_BLOCK`` times the shard count; each
+shard scores and selects its own columns (K' at most its column count) and
+the candidate lists merge as the dense leg's do
+(``parallel/sharding.py::merge_candidates``: concatenated in shard order, a
+stable top-K', across processes through the mesh's group).
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ import numpy as np
 import torch
 
 from ..core.logging import get_logger
+from ..core.mesh import local_row_devices, local_rows, n_row_shards
 from ..ops.topk import SEL_BLOCK, _top_sorted, block_topk
 from .bm25 import BM25Okapi
 
@@ -126,10 +134,6 @@ class DeviceBM25:
         cache_dir: str | None = None,
         device="cuda",
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "DeviceBM25 over a mesh (column-sharded matrix) is not "
-                "ported yet: ROADMAP Queue 1")
         if weights not in ("bf16", "int8"):
             raise ValueError(f"weights must be bf16|int8, got {weights!r}")
         if weights == "int8" and not residual:
@@ -139,6 +143,16 @@ class DeviceBM25:
                 "weights='int8' requires residual=True (the int8 split "
                 "replaces the residual mode's three bf16 passes; "
                 "non-residual scoring is a single bf16 pass already)")
+        self.mesh = mesh
+        n_shards = n_row_shards(mesh) if mesh is not None else 1
+        self._n_shards = n_shards
+        if n_shards > 1:
+            self._shards = local_rows(mesh)
+            self._shard_devices = local_row_devices(mesh)
+            device = self._shard_devices[0]
+        else:
+            self._shards = [0]
+            self._shard_devices = [torch.device(device)]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -147,6 +161,10 @@ class DeviceBM25:
         self.weights = weights
         self.score_chunk_cols = int(score_chunk_cols or _SCORE_CHUNK)
         self.topk_device = max(1, min(int(topk_device), bm25.n_docs))
+        if n_shards > 1:
+            # per-shard K' cannot exceed the shard's column count
+            self.topk_device = min(self.topk_device,
+                                   -(-bm25.n_docs // n_shards))
         self.query_chunk = int(query_chunk)
         bm25._ensure_inverted()
         n_vocab = len(bm25.vocab)
@@ -166,9 +184,10 @@ class DeviceBM25:
         self.scale = np.zeros(B, np.float32)
         self.scale_lo = np.zeros(B, np.float32)
         # built straight into the cache's layout, [C; C_lo] rows with the
-        # columns padded to the selection block; a cache_dir build streams
-        # into a disk-backed memmap, one term row at a time
-        d_pad = _round_up(max(self.n_docs, 1), SEL_BLOCK)
+        # columns padded to the selection block times the shard count; a
+        # cache_dir build streams into a disk-backed memmap, one term row at
+        # a time
+        d_pad = _round_up(max(self.n_docs, 1), SEL_BLOCK * n_shards)
         cc_shape = (2 * B if self.residual else B, d_pad)
 
         CC = self._load_cache(cache_dir, cc_shape) if cache_dir else None
@@ -345,26 +364,31 @@ class DeviceBM25:
 
     # --------------------------------------------------------------- device
     def _upload(self, CC: np.ndarray) -> None:
-        """The matrix on the card, one row per document: ``self._CT`` is
-        (d_pad, n_mats * Bp) int8 with C in columns [0, B) and C_lo in
-        [Bp, Bp + B), Bp = B rounded up to 8 (``_int_mm`` takes inner
-        widths in multiples of 8; the pad columns are zero). Uploaded and
-        transposed ``_UPLOAD_COLS`` documents at a time, so the host never
-        holds a second copy."""
+        """The matrix on the card, one row per document: each shard's
+        ``self._CTs`` entry is (shard columns, n_mats * Bp) int8 with C in
+        columns [0, B) and C_lo in [Bp, Bp + B), Bp = B rounded up to 8
+        (``_int_mm`` takes inner widths in multiples of 8; the pad columns
+        are zero); ``self._CT`` is the one matrix when unsharded. Uploaded
+        and transposed ``_UPLOAD_COLS`` documents at a time, so the host
+        never holds a second copy."""
         B = self.B
         self._Bp = Bp = _round_up(B, 8)
         n_mats = 2 if self.residual else 1
-        d_pad = CC.shape[1]
-        CT = torch.zeros((d_pad, n_mats * Bp), dtype=torch.int8,
-                         device=self.device)
-        for c0 in range(0, d_pad, _UPLOAD_COLS):
-            blk = torch.from_numpy(np.array(
-                CC[:, c0: c0 + _UPLOAD_COLS])).to(self.device)
-            c1 = c0 + blk.shape[1]
-            CT[c0:c1, :B] = blk[:B].t()
-            if self.residual:
-                CT[c0:c1, Bp: Bp + B] = blk[B:].t()
-        self._CT = CT
+        cols = CC.shape[1] // self._n_shards
+        self._CTs = []
+        for shard, dev in zip(self._shards, self._shard_devices):
+            base = shard * cols
+            CT = torch.zeros((cols, n_mats * Bp), dtype=torch.int8,
+                             device=dev)
+            for c0 in range(0, cols, _UPLOAD_COLS):
+                c1 = min(c0 + _UPLOAD_COLS, cols)
+                blk = torch.from_numpy(np.array(
+                    CC[:, base + c0: base + c1])).to(dev)
+                CT[c0:c1, :B] = blk[:B].t()
+                if self.residual:
+                    CT[c0:c1, Bp: Bp + B] = blk[B:].t()
+            self._CTs.append(CT)
+        self._CT = self._CTs[0] if self._n_shards == 1 else None
         # query rows a device step: _int_mm takes more than 16
         self._rows = _round_up(max(self.query_chunk, 17), 8)
 
@@ -376,7 +400,7 @@ class DeviceBM25:
         trailing ``rows`` columns); bf16 mode: the bf16 weights against C
         and, with the residual, against [C | C_lo]."""
         rows, B, Bp = self._rows, self.B, self._Bp
-        dev = self.device
+        dev = wq.device
         if self.weights == "int8":
             n_coo = wq.shape[1] - rows
             qi = wq[0, :n_coo].long()
@@ -416,7 +440,7 @@ class DeviceBM25:
             S.add_(torch._int_mm(W8[2], C_lo).float()
                    .mul_(scales[2][:, None]))
             return S
-        if self.device.type == "cuda":
+        if Cc.device.type == "cuda":
             Cb = Cc.to(torch.bfloat16)
 
             def mm(a, b):  # bf16 x bf16, f32 accumulation and result
@@ -438,9 +462,31 @@ class DeviceBM25:
         masked after the selection, as in the JAX package): each column
         chunk's tile is selected at once and merged into the running set in
         ascending column order, and a stable merge keeps the earlier
-        (lower) column among equal values."""
+        (lower) column among equal values. Sharded, each shard's pad
+        columns are masked before the shards' lists merge."""
+        if self._n_shards == 1:
+            vals, idx = self._select_shard(wq, self._CT, kp)
+            return torch.where(idx < self.n_docs, vals,
+                               torch.full_like(vals, -float("inf"))), idx
+        from ..parallel.sharding import merge_candidates
+
+        parts_v, parts_i = [], []
+        for shard, CT in zip(self._shards, self._CTs):
+            v, i = self._select_shard(wq.to(CT.device, non_blocking=True),
+                                      CT, kp)
+            gi = i + shard * CT.shape[0]
+            v = torch.where(gi < self.n_docs, v,
+                            torch.full_like(v, -float("inf")))
+            parts_v.append(v.to(self.device, non_blocking=True))
+            parts_i.append(gi.to(self.device, non_blocking=True))
+        return merge_candidates(self.mesh, torch.stack(parts_v),
+                                torch.stack(parts_i), kp)
+
+    def _select_shard(self, wq: torch.Tensor, CT: torch.Tensor, kp: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One matrix's (rows, kp) best approximate scores and their local
+        columns, pad columns unmasked."""
         W = self._densify(wq)
-        CT = self._CT
         lc = CT.shape[0]
         chunk = max(SEL_BLOCK, self.score_chunk_cols
                     - self.score_chunk_cols % SEL_BLOCK)
@@ -461,8 +507,6 @@ class DeviceBM25:
                                                   -float("inf"))], dim=1)
             idx = torch.cat([idx, idx.new_full((idx.shape[0], pad), lc)],
                             dim=1)
-        vals = torch.where(idx < self.n_docs, vals,
-                           torch.full_like(vals, -float("inf")))
         return vals, idx
 
     # --------------------------------------------------------------- helpers

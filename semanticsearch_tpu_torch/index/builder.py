@@ -1,8 +1,7 @@
 """Corpus index builder: chunk TSV -> embeddings -> persisted layout.
 
-Counterpart of ``semanticsearch_tpu/index/builder.py`` on one device. The
-on-disk layout is the same, so either package serves an index the other
-built:
+Counterpart of ``semanticsearch_tpu/index/builder.py``. The on-disk layout
+is the same, so either package serves an index the other built:
 
     {dir}/embeddings.f16.npy   (N, D) float16
     {dir}/ids.tsv              chunk_id + query_id/document_id per row
@@ -25,7 +24,7 @@ import torch
 from ..core.config import IndexConfig
 from ..core.logging import get_logger
 from ..data.tsv import batched, read_tsv, write_tsv
-from .engine import EmbeddingIndex, _check_mesh
+from .engine import EmbeddingIndex
 
 logger = get_logger("index")
 
@@ -143,15 +142,20 @@ def load_index(
     device="cuda",
     row_block: int = 1 << 18,
 ) -> Tuple[EmbeddingIndex, List[str]]:
-    """Restore the device-resident index and the chunk-id table.
+    """Restore the device-resident index and the chunk-id table, over every
+    local device of ``device``'s kind when ``mesh`` is None.
 
-    The float16 file streams to the device in blocks of ``row_block`` rows;
-    each block is normalized in float32 there and stored in ``cfg.dtype``,
-    so neither host nor device ever holds a float32 copy of the corpus."""
-    _check_mesh(mesh)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu'")
+    The float16 file streams to the devices in blocks of ``row_block``
+    rows, each shard's rows straight from the memmap to its own device
+    (the counterpart of ``jax.make_array_from_callback``); each block is
+    normalized in float32 there and stored in ``cfg.dtype``, so no device
+    holds the whole corpus and neither host nor device a float32 copy. On
+    a sharded mesh the rows pad only to the shard count."""
+    from ..core.mesh import (local_mesh, local_row_devices, local_rows,
+                             n_row_shards)
+
+    if mesh is None:
+        mesh = local_mesh(device)
     with open(os.path.join(index_dir, META_FILE)) as f:
         meta = json.load(f)
     n, dim = meta["rows"], meta["dim"]
@@ -161,10 +165,18 @@ def load_index(
     chunk_ids = [row["chunk_id"]
                  for row in read_tsv(os.path.join(index_dir, IDS_FILE))]
     dtype = getattr(torch, cfg.dtype)
-    corpus = torch.empty((n, dim), dtype=dtype, device=device)
-    for s in range(0, n, row_block):
-        x = torch.from_numpy(np.array(emb[s: s + row_block]))
-        x = x.to(device).float()
-        x = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True), min=1e-9)
-        corpus[s: s + x.shape[0]] = x.to(dtype)
-    return EmbeddingIndex(corpus, valid_n=n, cfg=cfg), chunk_ids
+    n_shards = n_row_shards(mesh)
+    shard_rows = -(-n // n_shards)
+    shards = []
+    for shard, dev in zip(local_rows(mesh), local_row_devices(mesh)):
+        base = shard * shard_rows
+        part = torch.zeros((shard_rows, dim), dtype=dtype, device=dev)
+        for s in range(base, min(base + shard_rows, n), row_block):
+            e = min(s + row_block, base + shard_rows, n)
+            x = torch.from_numpy(np.array(emb[s:e])).to(dev).float()
+            x = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
+                                min=1e-9)
+            part[s - base: e - base] = x.to(dtype)
+        shards.append(part)
+    corpus = shards if n_shards > 1 else shards[0]
+    return EmbeddingIndex(corpus, valid_n=n, cfg=cfg, mesh=mesh), chunk_ids

@@ -1,7 +1,8 @@
 """Serve-time hybrid query engine: dense top-k + BM25 + RRF over one corpus.
 
-Counterpart of ``semanticsearch_tpu/index/query_engine.py`` on one device.
-Each search launches its card work first (query encode, dense top-k, and
+Counterpart of ``semanticsearch_tpu/index/query_engine.py``, on one device
+or on the dense index's mesh, which the device BM25 leg shares and
+:meth:`HybridQueryEngine.compact` keeps. Each search launches its card work first (query encode, dense top-k, and
 under ``RankingConfig.lexical_device`` the device BM25 leg,
 ``index/bm25_tpu.py``), runs the host lexical work while the card computes
 (CUDA launches are asynchronous and nothing synchronizes before it): the
@@ -465,10 +466,11 @@ class HybridQueryEngine:
         os.unlink(journal_path)
         _fsync_path(out)
         self.texts = live_texts
-        idx_cfg, device = self.index.cfg, self.index.device
+        mesh, idx_cfg = self.index._mesh, self.index.cfg
+        device = self.index.device
         # release the old device corpus before loading the compacted one
         self.index = None
-        self.index, self.chunk_ids = load_index(out, cfg=idx_cfg,
+        self.index, self.chunk_ids = load_index(out, mesh=mesh, cfg=idx_cfg,
                                                 device=device)
         self._delta = None
         self._delta_bm25 = None
@@ -607,6 +609,9 @@ class HybridQueryEngine:
                 weights=self.cfg.lexical_weights,
                 cache_dir=(self._index_dir if self.cfg.lexical_cache
                            else None),
+                # the dense index's mesh: the int8 matrix shards by
+                # document columns over the same devices
+                mesh=self.index._mesh,
                 device=self.index.device,
             )
         leg = self._device_bm25

@@ -13,6 +13,16 @@ Attention: "stock" is plain torch math, "flash" the hand-written kernel
 dropout is 0 and ``max_len >= 1024``, where the (T, T) score matrix starts
 to dominate.
 
+Meshes (``core/mesh.py``): with ``mesh=`` the encoder is data parallel,
+as the JAX encoder is under a batch sharded over ``data``. A batch is
+padded to a multiple of the data shards, each row slice runs its forward
+on its shard's device (a replica of the serving module there; the flash
+kernel launches once per slice on a card), and the outputs are
+concatenated in order on the first device. On a mesh with a ``model`` axis
+that divides the heads and the MLP width, each slice runs the
+tensor-parallel forward of ``parallel/tensor.py`` instead. A mesh of one
+device is the single-device path.
+
 Parameters: as flax keeps float32 parameters and computes in ``dtype``,
 ``SentenceEncoder`` keeps float32 master parameters (``master``) beside the
 serving module (``model``, in ``cfg.dtype``; the same module when that is
@@ -25,8 +35,9 @@ serving module after a step.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,11 +73,22 @@ class Dropout(nn.Dropout):
 
     generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def keep_mask(self, shape, device) -> torch.Tensor:
+        """A mask of elements kept, drawn on the generator's device (a
+        data-parallel slice may run on another) and placed on ``device``."""
+        g = self.generator
+        return (torch.rand(shape, generator=g,
+                           device=device if g is None else g.device)
+                >= self.p).to(device)
+
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep``: a mask the caller drew (:meth:`keep_mask`), else one
+        is drawn here."""
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        if keep is None:
+            keep = self.keep_mask(x.shape, x.device)
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
@@ -91,37 +113,46 @@ class MultiHeadAttention(nn.Module):
     mask): query/key/value/out projections over (H, Dh) heads. In training
     the stock path drops attention weights at ``dropout_rate``, as flax's
     does; the flash path has no attention dropout, as the JAX kernel's
-    adapter takes none."""
+    adapter takes none.
+
+    The module also runs on one tensor-parallel position's parameter
+    slices (``parallel/tensor.py``): its heads are then the query weight's
+    rows over the head width, its output a partial product of the out
+    projection, and ``keep`` that position's heads of the attention-weight
+    dropout mask."""
 
     def __init__(self, hidden_dim: int, num_heads: int,
                  dropout_rate: float = 0.0) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden_dim // num_heads
         self.query = nn.Linear(hidden_dim, hidden_dim)
         self.key = nn.Linear(hidden_dim, hidden_dim)
         self.value = nn.Linear(hidden_dim, hidden_dim)
         self.out = nn.Linear(hidden_dim, hidden_dim)
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, flash: bool
-                ) -> torch.Tensor:
-        b, t, d = x.shape
-        h = self.num_heads
-        q = self.query(x).view(b, t, h, d // h)
-        k = self.key(x).view(b, t, h, d // h)
-        v = self.value(x).view(b, t, h, d // h)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, flash: bool,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, _ = x.shape
+        dh = self.head_dim
+        h = self.query.weight.shape[0] // dh
+        q = self.query(x).view(b, t, h, dh)
+        k = self.key(x).view(b, t, h, dh)
+        v = self.value(x).view(b, t, h, dh)
         if flash:
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), mask.to(torch.float32))
             o = o.transpose(1, 2)
         else:
-            q = q / torch.tensor(math.sqrt(d // h), dtype=q.dtype)
+            q = q / torch.tensor(math.sqrt(dh), dtype=q.dtype)
             s = torch.einsum("bqhd,bkhd->bhqk", q, k)
             s = s.masked_fill(~mask.bool()[:, None, None, :],
                               torch.finfo(s.dtype).min)
-            w = self.dropout(torch.softmax(s.float(), dim=-1).to(v.dtype))
+            w = self.dropout(torch.softmax(s.float(), dim=-1).to(v.dtype),
+                             keep)
             o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        return self.out(o.reshape(b, t, d))
+        return self.out(o.reshape(b, t, h * dh))
 
 
 class TransformerBlock(nn.Module):
@@ -135,10 +166,18 @@ class TransformerBlock(nn.Module):
         self.mlp_out = nn.Linear(cfg.mlp_dim, cfg.hidden_dim)
         self.dropout = Dropout(cfg.dropout_rate)
 
-    def forward(self, x, mask, flash: bool):
-        x = x + self.attn(self.ln_attn(x), mask, flash)
-        h = F.gelu(self.mlp_in(self.ln_mlp(x)), approximate="tanh")
-        return x + self.dropout(self.mlp_out(h))
+    def forward(self, x, mask, flash: bool, branch: Optional[str] = None,
+                keep: Optional[torch.Tensor] = None):
+        """The pre-LN block. ``branch`` ("attn" or "mlp") returns that
+        residual branch alone, the MLP's before its dropout: the
+        tensor-parallel forward sums each branch over the model axis."""
+        if branch == "attn":
+            return self.attn(self.ln_attn(x), mask, flash, keep)
+        if branch == "mlp":
+            return self.mlp_out(F.gelu(self.mlp_in(self.ln_mlp(x)),
+                                       approximate="tanh"))
+        x = x + self.forward(x, mask, flash, "attn")
+        return x + self.dropout(self.forward(x, mask, flash, "mlp"))
 
 
 class SentenceTransformerModel(nn.Module):
@@ -174,27 +213,38 @@ class SentenceTransformerModel(nn.Module):
                             / math.sqrt(fan_in))
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
-                return_tokens: bool = False) -> torch.Tensor:
+                return_tokens: bool = False,
+                run_block: Optional[Callable] = None) -> torch.Tensor:
+        """``run_block(i, x, flash)`` takes the place of block i's call
+        (the tensor-parallel forward, ``parallel/tensor.py``)."""
         c = self.cfg
         flash = use_flash(c, ids.device)
         pos = torch.arange(ids.shape[1], device=ids.device)
         x = self.token_embed(ids) + self.pos_embed(pos)[None]
         x = self.ln_embed(x)
-        for layer in self.layers:
-            x = layer(x, mask, flash)
-        x = self.ln_final(x)
-        if return_tokens:
-            return x.float()
-        if c.pooling == "cls":
-            pooled = x[:, 0, :]
-        else:
-            m = mask[..., None].to(x.dtype)
-            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
-        pooled = pooled.float()
-        if c.normalize:
-            sq = (pooled * pooled).sum(dim=-1, keepdim=True)
-            pooled = pooled * torch.rsqrt(torch.clamp(sq, min=1e-18))
-        return pooled
+        for i, layer in enumerate(self.layers):
+            x = (layer(x, mask, flash) if run_block is None
+                 else run_block(i, x, flash))
+        return pool_tokens(c, self.ln_final(x), mask, return_tokens)
+
+
+def pool_tokens(cfg: EncoderConfig, x: torch.Tensor, mask: torch.Tensor,
+                return_tokens: bool = False) -> torch.Tensor:
+    """The model's head on the final token states ``x``: the tokens in
+    float32, or the masked mean (or first token) pooled and L2-normalized
+    by the rsqrt of the clamped squared norm."""
+    if return_tokens:
+        return x.float()
+    if cfg.pooling == "cls":
+        pooled = x[:, 0, :]
+    else:
+        m = mask[..., None].to(x.dtype)
+        pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+    pooled = pooled.float()
+    if cfg.normalize:
+        sq = (pooled * pooled).sum(dim=-1, keepdim=True)
+        pooled = pooled * torch.rsqrt(torch.clamp(sq, min=1e-18))
+    return pooled
 
 
 def _resolve_device(device) -> torch.device:
@@ -206,13 +256,14 @@ def _resolve_device(device) -> torch.device:
 
 
 class SentenceEncoder:
-    """Batched sentence encoding on one device.
+    """Batched sentence encoding on one device or a mesh.
 
     Texts are tokenized on the host, padded into the smallest length bucket
     (64/128/256, capped at ``max_len``), run through the model per bucket
     and batch, and reassembled in input order. ``master`` holds the float32
     parameters (what training updates and ``save_encoder`` writes),
-    ``model`` serves in ``cfg.dtype``.
+    ``model`` serves in ``cfg.dtype``. With ``mesh`` (see the module
+    docstring) ``device`` is the mesh's first device.
     """
 
     def __init__(
@@ -222,11 +273,28 @@ class SentenceEncoder:
         seed: int = 0,
         tokenizer=None,
         state_dict: Optional[dict] = None,
+        mesh=None,
     ) -> None:
+        from ..parallel.tensor import mesh_tp_size, tp_compatible
+
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            from ..core.mesh import local_row_devices, local_rows
+
+            # one row slice a data shard, on its shard's device
+            self._data_devices = local_row_devices(mesh)
+            self._data_rows = local_rows(mesh)
+            device = self._data_devices[0]
         self.device = _resolve_device(device)
+        self._tp = (mesh_tp_size(mesh)
+                    if tp_compatible(cfg, mesh_tp_size(mesh)) else 1)
+        self._n_data = len(self._data_devices) if mesh is not None else 1
         self.tokenizer = tokenizer or HashingTokenizer(
             vocab_size=cfg.vocab_size, max_len=cfg.max_len)
+        if self._tp > 1:
+            # stock attention under TP, as in the JAX package
+            cfg = dataclasses.replace(cfg, attention="stock")
         master = SentenceTransformerModel(cfg)
         if state_dict is None:
             master.reset_parameters(torch.Generator().manual_seed(seed))
@@ -237,16 +305,86 @@ class SentenceEncoder:
         dtype = getattr(torch, cfg.dtype)
         self.model = (self.master if dtype == torch.float32 else
                       copy.deepcopy(self.master).to(dtype=dtype))
+        self._place()
+
+    @property
+    def sharded(self) -> bool:
+        """True when forwards split over several data shards or run
+        tensor parallel."""
+        return self._n_data > 1 or self._tp > 1
+
+    def _place(self) -> None:
+        """The serving module's copies on the mesh: a replica on every
+        other device of the data shards, or each TP position's parameter
+        slices."""
+        if not self.sharded:
+            return
+        if self._tp > 1:
+            from ..parallel.tensor import shard_encoder_params
+
+            self._tp_shards = shard_encoder_params(
+                dict(self.model.named_parameters()), self.mesh, self.cfg)
+            return
+        self._replicas = {self.device: self.model}
+        for dev in self._data_devices:
+            if dev not in self._replicas:
+                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
 
     def sync(self) -> None:
         """Copy the float32 masters into the serving module (cast to
-        ``cfg.dtype``)."""
-        if self.model is self.master:
-            return
-        with torch.no_grad():
-            for p, m in zip(self.model.parameters(),
-                            self.master.parameters()):
-                p.copy_(m)
+        ``cfg.dtype``) and its copies on the mesh."""
+        if self.model is not self.master:
+            with torch.no_grad():
+                for p, m in zip(self.model.parameters(),
+                                self.master.parameters()):
+                    p.copy_(m)
+        self._place()
+
+    def _tp_row(self, i: int, params: Optional[dict], dtype):
+        """Data shard i's model row: (parameter slices per device,
+        devices)."""
+        from ..parallel.tensor import encoder_param_specs, shard_row
+
+        row = list(self.mesh.devices[i])
+        if params is None:
+            return [self._tp_shards[(i, j)] for j in range(len(row))], row
+        cast = {k: v.to(dtype) for k, v in params.items()}
+        return shard_row(cast, encoder_param_specs(cast), row), row
+
+    def _mesh_apply(self, ids: Sequence[torch.Tensor],
+                    masks: Sequence[torch.Tensor],
+                    params: Optional[dict] = None,
+                    return_tokens: bool = False) -> torch.Tensor:
+        """One forward per data shard on its row slice (``ids[i]`` and
+        ``masks[i]`` already on shard i's device): the serving copies, or
+        in training (``params``, the float32 masters) the serving module
+        on their casts. Each shard's launches are issued before its output
+        is copied to the first device; outputs concatenate in order."""
+        dtype = getattr(torch, self.cfg.dtype)
+        training = params is not None
+        outs = []
+        casts: dict = {}
+        for i, (dev, ids_i, mask_i) in enumerate(
+                zip(self._data_devices, ids, masks)):
+            if self._tp > 1:
+                from ..parallel.tensor import tp_forward
+
+                shards, row = self._tp_row(self._data_rows[i], params,
+                                           dtype)
+                out = tp_forward(self.model, shards, row, ids_i, mask_i,
+                                 return_tokens=return_tokens)
+            elif not training:
+                out = self._replicas[dev](ids_i, mask_i,
+                                          return_tokens=return_tokens)
+            else:
+                if dev not in casts:
+                    casts[dev] = {k: v.to(dtype).to(dev, non_blocking=True)
+                                  for k, v in params.items()}
+                out = torch.func.functional_call(
+                    self.model, casts[dev], (ids_i, mask_i),
+                    {"return_tokens": return_tokens})
+            outs.append(out.to(self.device, non_blocking=True))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def train_forward(self, ids: torch.Tensor, mask: torch.Tensor,
                       params: dict, return_tokens: bool = False,
@@ -255,12 +393,22 @@ class SentenceEncoder:
         """The serving module's forward in training mode on ``params`` (the
         float32 masters by name) cast to ``cfg.dtype``: the casts carry the
         gradient back to float32, as flax's ``dtype`` does. Dropout masks
-        come from ``generator``."""
+        come from ``generator``. On a mesh the global batch's rows split
+        over the data shards and the output is the whole batch's on the
+        first device, so a loss over it sees every shard's rows."""
         dtype = getattr(torch, self.cfg.dtype)
-        cast = {k: v.to(dtype) for k, v in params.items()}
         set_dropout_generator(self.model, generator)
         self.model.train()
         try:
+            if self.sharded:
+                n = self._n_data
+                return self._mesh_apply(
+                    [x.to(d, non_blocking=True) for x, d in
+                     zip(ids.tensor_split(n), self._data_devices)],
+                    [x.to(d, non_blocking=True) for x, d in
+                     zip(mask.tensor_split(n), self._data_devices)],
+                    params, return_tokens)
+            cast = {k: v.to(dtype) for k, v in params.items()}
             return torch.func.functional_call(
                 self.model, cast, (ids, mask),
                 {"return_tokens": return_tokens})
@@ -286,10 +434,24 @@ class SentenceEncoder:
 
     def _forward(self, ids_full: np.ndarray, mask_full: np.ndarray,
                  sel: Sequence[int], L: int) -> torch.Tensor:
-        """Launch the model on one batch of texts (asynchronous)."""
-        packed = self._upload(np.stack(
-            [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64))
-        return self.model(packed[0], packed[1])
+        """Launch the model on one batch of texts (asynchronous); on a mesh
+        the batch is padded to a multiple of the data shards and each
+        shard's slice uploads to its own device."""
+        packed = np.stack(
+            [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64)
+        if not self.sharded:
+            packed = self._upload(packed)
+            return self.model(packed[0], packed[1])
+        b, n = packed.shape[1], self._n_data
+        b_pad = -(-b // n) * n
+        if b_pad != b:
+            packed = np.concatenate(
+                [packed, np.zeros((2, b_pad - b, L), np.int64)], axis=1)
+        step = b_pad // n
+        parts = [self._upload(packed[:, i * step: (i + 1) * step], dev)
+                 for i, dev in enumerate(self._data_devices)]
+        out = self._mesh_apply([p[0] for p in parts], [p[1] for p in parts])
+        return out[:b]
 
     @torch.no_grad()
     def encode_device(self, texts: Sequence[str], batch_size: int = 256
@@ -327,13 +489,15 @@ class SentenceEncoder:
         inv[order] = np.arange(order.size)
         return embs[self._upload(inv)]
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without waiting for queued work: a
-        pageable copy would synchronize the stream, a pinned one does not."""
-        t = torch.from_numpy(host)
-        if self.device.type == "cuda":
+    def _upload(self, host: np.ndarray, device=None) -> torch.Tensor:
+        """Host array -> device tensor (``device``, default the encoder's)
+        without waiting for queued work: a pageable copy would synchronize
+        the stream, a pinned one does not."""
+        device = self.device if device is None else device
+        t = torch.from_numpy(np.ascontiguousarray(host))
+        if device.type == "cuda":
             t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
     @staticmethod
     def _fetch(emb: torch.Tensor) -> np.ndarray:
@@ -392,9 +556,11 @@ _ENCODER_CACHE: dict = {}
 
 
 def get_encoder(cfg: EncoderConfig = EncoderConfig(), device="cuda",
-                seed: int = 0) -> SentenceEncoder:
-    """Cached encoder lookup, one instance per (config, device, seed)."""
-    key = (cfg, str(torch.device(device)), seed)
+                seed: int = 0, mesh=None) -> SentenceEncoder:
+    """Cached encoder lookup, one instance per (config, device, seed,
+    mesh); the key holds the mesh itself, which equal meshes share."""
+    key = (cfg, str(torch.device(device)), seed, mesh)
     if key not in _ENCODER_CACHE:
-        _ENCODER_CACHE[key] = SentenceEncoder(cfg, device=device, seed=seed)
+        _ENCODER_CACHE[key] = SentenceEncoder(cfg, device=device, seed=seed,
+                                              mesh=mesh)
     return _ENCODER_CACHE[key]

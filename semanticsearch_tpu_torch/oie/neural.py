@@ -9,7 +9,10 @@ produces over any corpus, and because its input is subword pieces it
 generalizes the decision to unseen verbs with familiar morphology,
 position, and context. Inference is a fixed-shape batched forward on
 ``device``: thousands of sentences per batch instead of one HTTP round trip
-per paragraph.
+per paragraph. With a ``mesh`` tagging is data parallel: each batch's rows
+split over the data shards, each slice's forward runs on its shard's
+device with a copy of the parameters there; training stays on the first
+device, as in the JAX package.
 
 It gives the JAX package's tags and training steps: the same piece cache
 and first-piece tagging, the same ``np.random.default_rng(cfg.seed)`` draws
@@ -154,13 +157,17 @@ class NeuralOIE:
                  mesh=None, device="cuda") -> None:
         """``state_dict``: the tagger's parameters (``OIETagModel``'s keys,
         e.g. :func:`models.convert.oie_tagger_state_dict` of a flax tree);
-        None draws them from ``cfg.seed``. A ``mesh`` (sharding) is not
-        ported yet and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "NeuralOIE(mesh=...): a multi-device mesh (sharding over "
-                "NCCL) is not ported yet: ROADMAP Queue 1")
+        None draws them from ``cfg.seed``. ``mesh``: tag batches row-shard
+        over its data shards (``device`` is its first device)."""
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            from ..core.mesh import local_row_devices
+
+            self._data_devices = local_row_devices(mesh)
+            device = self._data_devices[0]
+        else:
+            self._data_devices = [torch.device(device)]
         self.tokenizer = tokenizer
         self.device = _resolve_device(device)
         self._piece_cache: Dict[str, List[int]] = {}
@@ -194,8 +201,9 @@ class NeuralOIE:
                 for k, v in params.items()}
         return torch.func.functional_call(self.model, cast, (ids, mask))
 
-    def _upload(self, host: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(host.astype(np.int64)).to(self.device)
+    def _upload(self, host: np.ndarray, device=None) -> torch.Tensor:
+        return torch.from_numpy(host.astype(np.int64)).to(
+            self.device if device is None else device)
 
     # ------------------------------------------------------------ encoding
 
@@ -341,8 +349,16 @@ class NeuralOIE:
         padded rows are dropped."""
         if not sentences:
             return []
+        n_data = len(self._data_devices)
+        batch_size = -(-batch_size // n_data) * n_data  # shardable
         ids, mask, starts, nwords = self._batch_arrays(sentences)
         params = dict(self.model.named_parameters())
+        # the parameters on every other device of the data shards
+        replicas = {self.device: params}
+        for dev in self._data_devices:
+            if dev not in replicas:
+                replicas[dev] = {k: v.to(dev) for k, v in params.items()}
+        step = batch_size // n_data
         out: List[np.ndarray] = []
         n = len(sentences)
         for s in range(0, n, batch_size):
@@ -352,8 +368,15 @@ class NeuralOIE:
                 pad = np.zeros((batch_size - (e - s), bi.shape[1]), np.int32)
                 bi = np.concatenate([bi, pad])
                 bm = np.concatenate([bm, pad])
-            logits = self._logits(params, self._upload(bi), self._upload(bm))
-            piece_tags = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            tags = []
+            for j, dev in enumerate(self._data_devices):
+                rows = slice(j * step, (j + 1) * step)
+                logits = self._logits(replicas[dev],
+                                      self._upload(bi[rows], dev),
+                                      self._upload(bm[rows], dev))
+                tags.append(logits.argmax(dim=-1).to(torch.int32)
+                            .to(self.device, non_blocking=True))
+            piece_tags = torch.cat(tags).cpu().numpy()
             for i in range(e - s):
                 nw = int(nwords[s + i])
                 out.append(piece_tags[i, starts[s + i, :nw]])

@@ -15,6 +15,13 @@ the encoder on its float32 masters cast to ``cfg.dtype``
 temperature, and the symmetric softmax cross entropy over
 ``logits[:, :b]``. Trailing partial batches wrap around the epoch's
 permutation. The losses stay on the device and are fetched once per epoch.
+
+On a meshed encoder (``SentenceEncoder(mesh=...)``) the global batch's rows
+split over the data shards (tensor parallel within each on a ``model``
+axis) and the logits and loss are taken over the whole batch on the first
+device, so every other row of the global batch, on any shard, is an
+in-batch negative; the gradient flows back through the copies into the
+one set of float32 masters.
 """
 from __future__ import annotations
 
@@ -305,11 +312,11 @@ def save_encoder(encoder: SentenceEncoder, path: str) -> str:
     return out
 
 
-def load_encoder(path: str, device="cuda") -> SentenceEncoder:
+def load_encoder(path: str, device="cuda", mesh=None) -> SentenceEncoder:
     """A SentenceEncoder from a checkpoint :func:`save_encoder` or the JAX
     package's ``save_encoder`` wrote (npz layout everywhere, orbax where
     ``tensorstore`` is installed), with its ``tokenizer.json`` when one was
-    saved."""
+    saved; on ``mesh`` when given."""
     meta = load_metadata(path) or {}
     cfg_dict = meta.get("encoder_config")
     if not cfg_dict:
@@ -324,4 +331,5 @@ def load_encoder(path: str, device="cuda") -> SentenceEncoder:
     params = restore_checkpoint(path)["params"]
     return SentenceEncoder(cfg, device=device, tokenizer=tokenizer,
                            state_dict=flax_to_state_dict(params,
-                                                         cfg.num_layers))
+                                                         cfg.num_layers),
+                           mesh=mesh)

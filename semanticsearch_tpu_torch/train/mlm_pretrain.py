@@ -8,6 +8,9 @@ model predicts the original ids there through a decoder tied to the
 float32 master token table, so the parameter tree stays the encoder's.
 The corruption draws from the same ``np.random.Generator`` calls as the
 JAX package's, so the same seed corrupts the same positions to the same ids.
+On a meshed encoder the batch's rows split over the data shards and the
+loss is taken over the whole batch on the first device
+(``SentenceEncoder.train_forward``).
 """
 from __future__ import annotations
 

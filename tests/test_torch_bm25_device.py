@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from semanticsearch_tpu.index.bm25 import BM25Okapi as JBM25
 from semanticsearch_tpu_torch import native
@@ -268,8 +269,12 @@ def test_cache_sweeps_dead_builder_tmps(tmp_path):
 
 def test_refusals():
     bm = BM25Okapi([["a", "b"], ["b"]])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DeviceBM25(bm, mesh=object(), device="cpu")
+    # a mesh is taken (column sharding, tests/test_torch_sharding.py): the
+    # per-shard K' is capped at a shard's columns
+    from semanticsearch_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(data=2), [torch.device("cpu")] * 2)
+    assert DeviceBM25(bm, mesh=mesh, device="cpu").topk_device == 1
     with pytest.raises(ValueError, match="residual"):
         DeviceBM25(bm, residual=False, weights="int8", device="cpu")
     with pytest.raises(ValueError, match="bf16|int8"):

@@ -241,8 +241,11 @@ def test_bucket_ladder_and_element_budget(monkeypatch, encoders):
 
 def test_unported_options_raise(encoders):
     _, tenc = encoders
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TPipeline(encoder=tenc, mesh=object())
+    # a mesh is taken (the SP route, tests/test_torch_ring_similarity.py)
+    from semanticsearch_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(data=2), [torch.device("cpu")] * 2)
+    assert TPipeline(encoder=tenc, mesh=mesh).mesh is mesh
     # the debug visuals are ported (tests/test_torch_data_tools.py)
     assert TPipeline(encoder=tenc, debug_visuals_docs=1).debug_visuals_docs \
         == 1

@@ -315,6 +315,45 @@ def test_index_add_search_equal(chunks, ckpt, tmp_path, capsys):
     assert rj == rt == 0 and ot == oj
 
 
+def test_search_through_local_mesh(chunks, ckpt, tmp_path, capsys,
+                                   monkeypatch):
+    """``search`` loads its engine on ``local_mesh("cpu")`` (the JAX CLI
+    passes ``local_mesh()``, 8 CPU devices here); with the CLI's mesh
+    swapped for a 4-shard one, dense and device-BM25 legs sharded, the hits
+    stay the JAX CLI's."""
+    from semanticsearch_tpu_torch.cli import main as tcli
+    from semanticsearch_tpu_torch.core.mesh import (MeshSpec, local_mesh,
+                                                     make_mesh)
+    from semanticsearch_tpu_torch.index.query_engine import HybridQueryEngine
+
+    enc = ["--encoder-ckpt", ckpt]
+    idx = str(tmp_path / "idx")
+    assert _run(jmain, ["index", "-i", chunks, "-o", idx, "--bm25"] + enc,
+                capsys)[0] == 0
+    queries = ["glacier meltwater mountain", "fishing quota trawlers",
+               "honey bees"]
+    meshes = []
+    load = HybridQueryEngine.load.__func__
+
+    def spy(cls, *args, **kw):
+        meshes.append(kw.get("mesh"))
+        return load(cls, *args, **kw)
+
+    monkeypatch.setattr(HybridQueryEngine, "load", classmethod(spy))
+    for extra in ([], ["--device-bm25"]):
+        argv = ["search", "--index-dir", idx, "-k", "3"] + queries + extra \
+            + enc
+        want = _run(jmain, argv, capsys)
+        assert _run(tmain, argv, capsys) == want
+        assert meshes[-1] == local_mesh("cpu")
+        with monkeypatch.context() as m:
+            m.setattr(tcli, "_local_mesh", lambda args: make_mesh(
+                MeshSpec(data=4), [torch.device("cpu")] * 4))
+            assert _run(tmain, argv, capsys) == want
+        assert meshes[-1].shape["data"] == 4
+    assert len(meshes) == 4
+
+
 def test_index_add_refusals_equal(chunks, ckpt, tmp_path, capsys):
     enc = ["--encoder-ckpt", ckpt]
     for name, main in (("j", jmain), ("t", tmain)):

@@ -48,7 +48,10 @@ def test_port_has_the_slice_modules():
                  "data.validate", "data.folds", "index.ranker",
                  "oie.heuristic", "oie.client", "oie.neural", "cli.main",
                  "index.server", "data.integrate", "data.mapping",
-                 "data.analyze", "core.profiling", "chunking.visualize"):
+                 "data.analyze", "core.profiling", "chunking.visualize",
+                 "core.mesh", "core.distributed", "parallel",
+                 "parallel.sharding", "parallel.tensor",
+                 "parallel.ring_similarity"):
         assert f"semanticsearch_tpu_torch.{name}" in mods
 
 
@@ -110,6 +113,21 @@ def test_port_imports_without(blocked):
         "save_encoder(enc, d + '/enc')",
         "assert load_encoder(d + '/enc', device='cpu').encode(['a']).shape "
         "== (1, 8)",
+        # the sharding layer: a 2-shard search, the ring, a TP encoder
+        "import torch",
+        "from semanticsearch_tpu_torch.core.mesh import MeshSpec, make_mesh",
+        "from semanticsearch_tpu_torch.parallel.sharding import ("
+        "shard_corpus, sharded_topk)",
+        "from semanticsearch_tpu_torch.parallel.ring_similarity import "
+        "sharded_doc_similarity",
+        "m2 = make_mesh(MeshSpec(data=2), ['cpu'] * 2)",
+        "e = torch.eye(4)",
+        "assert sharded_topk(e, shard_corpus(e, m2), m2, k=1)[1][:, 0]"
+        ".tolist() == [0, 1, 2, 3]",
+        "assert sharded_doc_similarity(e.numpy(), m2).shape == (4, 4)",
+        "tp = load_encoder(d + '/enc', device='cpu', mesh=make_mesh("
+        "MeshSpec(data=1, model=2), ['cpu'] * 2))",
+        "assert tp._tp == 2 and tp.encode(['a']).shape == (1, 8)",
         # a neural OIE tagger trained, saved and loaded; the CLI's parser
         "from semanticsearch_tpu_torch.oie.neural import NeuralOIE, "
         "NeuralOIEConfig",

@@ -325,8 +325,11 @@ def test_enrich_self_check_gate(trained, tmp_path, monkeypatch, caplog):
 
 def test_unported_and_missing_device_raise(tmp_path):
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tn.NeuralOIE(tcfg, mesh=object(), device="cpu")
+    # a mesh is taken (tests/test_torch_tensor_parallel.py tags on one)
+    from semanticsearch_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(data=2), [torch.device("cpu")] * 2)
+    assert len(tn.NeuralOIE(tcfg, mesh=mesh)._data_devices) == 2
     with pytest.raises(FileNotFoundError, match="neural-oie metadata"):
         tn.NeuralOIE.load(str(tmp_path), device="cpu")
     if not torch.cuda.is_available():
