@@ -5,7 +5,8 @@
 
 Builds the Hopper kernels from ``semanticsearch_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, every schedule (bf16,
-overlap, int8 and f32 pass A, bf16 and f32 fused top-k, bf16/fp16 and f32
+overlap, int8 and f32 pass A, bf16 and f32 pass B, bf16 and f32 fused
+top-k, bf16/fp16 and f32
 flash at any T and every head width, f32 and bf16 similarity, stacked
 short documents and padded widths included) (phase 2),
 serves hybrid queries end to end through ``HybridQueryEngine`` at the
@@ -159,7 +160,7 @@ def zero_counts() -> None:
     topk.SEGTOPK_LAUNCHES = topk.SEGTOPK_OVERLAP_LAUNCHES = 0
     topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
     topk.SEGTOPK_F32_LAUNCHES = topk.SEGTOPK_OVERLAP_F32_LAUNCHES = 0
-    topk.TOPK_FUSED_F32_LAUNCHES = 0
+    topk.TOPK_FUSED_F32_LAUNCHES = topk.PASS_B_LAUNCHES = 0
     fa.FLASH_LAUNCHES = fa.FLASH_F32_LAUNCHES = fa.FLASH_WIDE_LAUNCHES = 0
     sim.SIM_LAUNCHES = sim.SIM_BF16_LAUNCHES = 0
 
@@ -182,6 +183,48 @@ def topk_agree(v, i, ref_v, ref_i, tol: float, gap: float = None):
     tied[:, :-1] |= close
     mism = i != ri[:, :k]
     return err, int((mism & ~tied[:, :k]).sum()), int((mism & tied[:, :k]).sum())
+
+
+def pass_b_bound(seg_ids, n: int, L2: int, d: int, k: int, itemsize: int):
+    """Pass B's bounds on these segments: (bound_ms, bound_by,
+    gathered_bound_ms). Both read the queries and the segment ids and write
+    the outputs once, and multiply-add every valid candidate's row with its
+    query (at the bf16 peak for bf16 rows, the f32 FMA peak for f32 ones).
+    bound_ms reads each corpus row that some query selected once, as the
+    contract's least time does; gathered_bound_ms reads a query's rows for
+    each query (the design's floor with no reuse between queries)."""
+    import torch
+
+    q, k_sel = seg_ids.shape
+    rows = (seg_ids.long().clamp(min=0)[:, :, None] * L2
+            + torch.arange(L2, device=seg_ids.device))
+    valid = (seg_ids[:, :, None] >= 0) & (rows < n)
+    gathered = float(valid.sum())
+    unique = float(torch.unique(rows[valid]).numel())
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    rest = itemsize * d * q + 4.0 * q * k_sel + 8.0 * q * k
+    ms, by = bound_ms(2.0 * gathered * d, itemsize * d * unique + rest, peak)
+    return ms, by, bound_ms(2.0 * gathered * d,
+                            itemsize * d * gathered + rest, peak)[0]
+
+
+def check_pass_b(queries, corpus, seg_ids, n: int, L2: int, k: int,
+                 what: str) -> float:
+    """The pass-B kernel against its plain version on the same segments:
+    values within D * 2^-24 (a D-long f32 sum in another order), ids and
+    tie order equal wherever the plain scores are more than that apart.
+    Returns the largest value difference."""
+    from semanticsearch_tpu_torch.ops import topk
+
+    tol = queries.shape[1] * 2.0 ** -24
+    kv, ki = topk.pass_b_rescore(queries, corpus, seg_ids, n, L2, k)
+    pv, pi = topk.pass_b_rescore_plain(queries, corpus, seg_ids, n, L2, k + 1)
+    err, bad, tied = topk_agree(kv, ki, pv, pi, tol)
+    check(err <= tol and bad == 0,
+          f"pass B kernel == plain {what}: max abs err {err:.2e} <= D * "
+          f"2^-24 = {tol:.2e}; ids and tie order equal outside score gaps of "
+          f"that ({tied} positions inside)")
+    return err
 
 
 # ----------------------------------------------------------------- phases
@@ -223,7 +266,7 @@ def phase_kernels(report):
     log("== phase 2: kernels against their plain versions on the card")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    seg_err = ov_err = i8_err = 0.0
+    seg_err = ov_err = i8_err = pb_err = 0.0
     # (Q, N, k, block_rows, seg_split): serve leg, bench leg, edge layouts
     cases = [(256, 20011, 40, 16384, 4), (1024, 1_250_000, 10, 32768, 8),
              (70, 5000, 40, 32768, 1), (33, 1000, 10, 128, 1)]
@@ -244,6 +287,15 @@ def phase_kernels(report):
         check(torch.equal(oi, ki) and torch.equal(ov, kv)
               and torch.equal(oi, pi) and torch.equal(ov, pv),
               "overlap schedule == default schedule == plain, bit for bit")
+        # pass B on pass A's segments (the last one past n where n % L2):
+        # integer rows, so values, ids and tie order exact
+        bv, bi = topk.pass_b_rescore(Qm, C, ki, n, L2, k)
+        qv_, qi_ = topk.pass_b_rescore_plain(Qm, C, ki, n, L2, k)
+        torch.cuda.synchronize()
+        pb_err = max(pb_err, float((bv - qv_).abs().max()))
+        check(torch.equal(bi, qi_) and torch.equal(bv, qv_),
+              f"pass B kernel == plain (ids, tie order and values exact): "
+              f"Q={q} N={n} L2={L2} k_sel={k_sel} k={k}")
         tv, ti = topk.topk_scores_twopass(Qm, C, k=k, block_n=block_rows,
                                           seg_split=seg_split)
         rv, ri = topk.topk_scores_ref(Qm, C, k=k + 1, block_n=65536)
@@ -363,6 +415,7 @@ def phase_kernels(report):
     report["segtopk"]["max_abs_err"] = seg_err
     report["segtopk_overlap"]["max_abs_err"] = ov_err
     report["segtopk_int8"]["max_abs_err"] = i8_err
+    report["pass_b"]["max_abs_err"] = pb_err
 
     fu_err = 0.0
     for q, n, k, what in [(256, 20011, 200, "a serve-sized batch"),
@@ -448,6 +501,14 @@ def phase_kernels(report):
                   f"f32 pass A ({fn.__name__}) == plain on integer rows with "
                   f"ties (ids, tie order, values exact): Q={q} N={n} D={d} "
                   f"L2={L2} k_sel={k_sel}")
+        k = min(k_sel - 1, 40) or 1
+        bv, bi = topk.pass_b_rescore(Qm, C, pi, n, L2, k)
+        qv_, qi_ = topk.pass_b_rescore_plain(Qm, C, pi, n, L2, k)
+        torch.cuda.synchronize()
+        check(torch.equal(bi, qi_) and torch.equal(bv, qv_),
+              f"f32 pass B == plain on pass A's segments of integer rows with "
+              f"ties (ids, tie order, values exact): Q={q} N={n} D={d} "
+              f"L2={L2} k_sel={k_sel} k={k}")
     for q, n, d, k in [(300, 40000, 384, 1), (300, 40000, 384, 10),
                        (256, 20011, 384, 200), (129, 60000, 384, 2048),
                        (3, 250000, 128, 200), (9, 3000, 72, 300),
@@ -827,13 +888,16 @@ def phase_serve(report, tmp):
     check(native.HASH_TOKENIZE_CALLS > 0 and native.BM25_TOPK_CALLS > 0,
           "the served queries tokenized and ran the BM25 top-k natively")
     report["segtopk"]["launches"] = topk.SEGTOPK_LAUNCHES
+    report["pass_b"]["launches"] = topk.PASS_B_LAUNCHES
     report["flash"]["launches"] = fa.FLASH_LAUNCHES
     report["flash_wide"]["launches"] = fa.FLASH_WIDE_LAUNCHES
     log(f"  launches on the serve path: segtopk {topk.SEGTOPK_LAUNCHES}, "
-        f"flash {fa.FLASH_LAUNCHES}, flash past Dh 256 "
-        f"{fa.FLASH_WIDE_LAUNCHES}")
-    check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
-          "both kernels launched on the serve path")
+        f"pass B {topk.PASS_B_LAUNCHES}, flash {fa.FLASH_LAUNCHES}, flash "
+        f"past Dh 256 {fa.FLASH_WIDE_LAUNCHES}")
+    check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0
+          and topk.PASS_B_LAUNCHES == topk.SEGTOPK_LAUNCHES,
+          "pass A, pass B and flash launched on the serve path (one pass B "
+          "a pass A)")
 
     def key(hits):
         return [[(h.chunk_id, h.score, h.dense_rank, h.lexical_rank)
@@ -967,8 +1031,12 @@ def phase_dense(report):
     dt = (time.perf_counter() - t0) / iters
     report["dense_qps"] = q / dt
     log(f"  EmbeddingIndex.search_device: {dt * 1e3:.1f} ms per {q} queries "
-        f"= {q / dt:,.0f} QPS ({topk.SEGTOPK_LAUNCHES} pass-A "
-        "launches)")
+        f"= {q / dt:,.0f} QPS ({topk.SEGTOPK_LAUNCHES} pass-A, "
+        f"{topk.PASS_B_LAUNCHES} pass-B launches)")
+    report["pass_b"]["dense_launches"] = topk.PASS_B_LAUNCHES
+    check(topk.PASS_B_LAUNCHES == topk.SEGTOPK_LAUNCHES == iters + 1,
+          "the dense search rescored through the pass-B kernel, one launch "
+          "a search")
     sample = torch.arange(0, q, q // 128, device="cuda")[:128]
     rv, ri = topk.topk_scores_ref(queries[sample], corpus, k=k, block_n=65536)
     hits = sum(len(set(a) & set(b)) for a, b in
@@ -1024,12 +1092,41 @@ def phase_dense(report):
         f"{seg['library_ms']:.2f} ms, bound {seg['bound_ms']:.2f} ms "
         f"({seg['bound_by']})")
 
-    # pass B alone on pass A's segments, and pass A at the serve shape: one
-    # 64-query batch over 20,000 rows, the serve engine's own segments
-    # (block_rows 16384 / 128 / seg_split 4 = 32 rows, k_sel 41)
+    # pass B alone on pass A's segments: the kernel in turns with its plain
+    # version (the torch gather and bmm it replaced), held against it
+    pb = report["pass_b"]
     _, seg_ids = topk.segtopk_pass_a(queries, corpus, n, L2, k_sel)
-    seg["pass_b_ms"] = time_ms(lambda: topk._pass_b(
-        queries, corpus, seg_ids, n, L2, k, 256), reps=3)
+    pb["max_abs_err"] = max(pb["max_abs_err"], check_pass_b(
+        queries, corpus, seg_ids, n, L2, k, f"at the shard (Q={q}, k_sel "
+        f"{k_sel}, L2 {L2})"))
+
+    def pass_b():
+        topk.pass_b_rescore(queries, corpus, seg_ids, n, L2, k)
+
+    def pass_b_plain():
+        topk.pass_b_rescore_plain(queries, corpus, seg_ids, n, L2, k)
+
+    turns = [time_ms(pass_b, reps=5), time_ms(pass_b_plain, reps=2),
+             time_ms(pass_b, reps=5)]
+    pb["ms"], pb["plain_ms"] = (turns[0] + turns[2]) / 2, turns[1]
+    pb["library_ms"] = None
+    pb["bound_ms"], pb["bound_by"], pb["gathered_bound_ms"] = pass_b_bound(
+        seg_ids, n, L2, d, k, 2)
+    pb["bound_note"] = (
+        "bound_ms reads each corpus row some query selected once, the "
+        "queries, segment ids and outputs once, and multiply-adds every "
+        "valid candidate with its query at the bf16 peak (f32_*: the f32 "
+        "FMA peak); gathered_bound_ms reads a query's rows for each query "
+        "(no reuse between queries); the kernel reads them so, the rest "
+        "from L2")
+    log(f"  pass B alone (Q={q}, k_sel {k_sel}, L2 {L2}): kernel "
+        f"{pb['ms']:.3f} ms (turns {turns[0]:.3f}, {turns[2]:.3f}), plain "
+        f"{pb['plain_ms']:.2f} ms, bound {pb['bound_ms']:.3f} ms "
+        f"({pb['bound_by']}: each selected row once), "
+        f"{pb['gathered_bound_ms']:.3f} ms with a query's rows once a query")
+    # pass A and pass B at the serve shape: one 64-query batch over 20,000
+    # rows, the serve engine's own segments (block_rows 16384 / 128 /
+    # seg_split 4 = 32 rows, k_sel 41, k 40)
     qs, cs = queries[:64], corpus[:20000]
     serve = [time_ms(f, reps=50, warmup=3) for f in (
         lambda: topk.segtopk_pass_a(qs, cs, 20000, 32, 41),
@@ -1042,8 +1139,16 @@ def phase_dense(report):
     seg["serve_bound_ms"], seg["serve_bound_by"] = bound_ms(
         2.0 * 64 * 20000 * d, 2.0 * (64 + 20000) * d + 8.0 * 64 * 41)
     ov["serve_bound_ms"] = seg["serve_bound_ms"]
-    log(f"  pass B alone: {seg['pass_b_ms']:.2f} ms per {q} queries; pass A at "
-        f"the serve shape (64 x 20,000, k_sel 41): kernel "
+    _, s_seg = topk.segtopk_pass_a(qs, cs, 20000, 32, 41)
+    pb["serve_ms"] = time_ms(lambda: topk.pass_b_rescore(
+        qs, cs, s_seg, 20000, 32, 40), reps=50, warmup=3)
+    (pb["serve_bound_ms"], pb["serve_bound_by"],
+     pb["serve_gathered_bound_ms"]) = pass_b_bound(s_seg, 20000, 32, d, 40, 2)
+    log(f"  pass B at the serve shape (64 x 20,000, k_sel 41, k 40): kernel "
+        f"{pb['serve_ms']:.4f} ms, bound {pb['serve_bound_ms']:.4f} ms "
+        f"({pb['serve_bound_by']}; a query's rows once a query "
+        f"{pb['serve_gathered_bound_ms']:.4f} ms)")
+    log(f"  pass A at the serve shape (64 x 20,000, k_sel 41): kernel "
         f"{seg['serve_ms']:.4f} ms, overlap schedule (one warpgroup) "
         f"{ov['serve_ms']:.4f} ms (turns "
         f"{', '.join(f'{t:.4f}' for t in serve)}), bf16 torch.matmul "
@@ -1824,15 +1929,19 @@ def phase_f32(report, ctx):
     torch.cuda.synchronize()
     log(f"  {sum(map(len, ctx['batches']))} hybrid queries in batches of 64: "
         f"{time.perf_counter() - t0:.2f} s (host clock); launches: segtopk "
-        f"f32 {topk.SEGTOPK_F32_LAUNCHES}, flash f32 {fa.FLASH_F32_LAUNCHES}")
+        f"f32 {topk.SEGTOPK_F32_LAUNCHES}, pass B {topk.PASS_B_LAUNCHES}, "
+        f"flash f32 {fa.FLASH_F32_LAUNCHES}")
     report["segtopk_f32"]["launches"] = topk.SEGTOPK_F32_LAUNCHES
+    report["pass_b"]["f32_launches"] = topk.PASS_B_LAUNCHES
     report["flash_f32"]["launches"] = fa.FLASH_F32_LAUNCHES
     report["flash_wide"]["launches"] += fa.FLASH_WIDE_LAUNCHES
     check(engine.index._corpus.dtype == torch.float32
           and topk.SEGTOPK_F32_LAUNCHES > 0 and fa.FLASH_F32_LAUNCHES > 0
+          and topk.PASS_B_LAUNCHES == topk.SEGTOPK_F32_LAUNCHES
           and topk.SEGTOPK_LAUNCHES == 0 and fa.FLASH_LAUNCHES == 0,
           "an f32 index and an f32 encoder: the f32 pass-A and f32 flash "
-          "schedules launched on the serve path, and no bf16 one")
+          "schedules and pass B (on f32 rows, one a pass A) launched on the "
+          "serve path, and no bf16 one")
     check(all(len(q) == 10 for b in hybrid for q in b),
           "10 hits per query")
 
@@ -2010,6 +2119,24 @@ def time_f32_topk(report, n_main, live_k):
 
     for entry in (pa, po):
         f32_bounds(entry, "", q, n, 8.0 * q * k_sel)
+    # pass B on f32 rows at the shard, on pass A's segments
+    pb = report["pass_b"]
+    _, seg_ids = topk.segtopk_pass_a(queries, corpus, n, L2, k_sel)
+    pb["f32_max_abs_err"] = check_pass_b(
+        queries, corpus, seg_ids, n, L2, k, f"on f32 rows at the shard "
+        f"(Q={q}, k_sel {k_sel}, L2 {L2})")
+    pb["f32_ms"] = time_ms(lambda: topk.pass_b_rescore(
+        queries, corpus, seg_ids, n, L2, k), reps=5)
+    pb["f32_plain_ms"] = time_ms(lambda: topk.pass_b_rescore_plain(
+        queries, corpus, seg_ids, n, L2, k), reps=2)
+    pb["f32_library_ms"] = None
+    (pb["f32_bound_ms"], pb["f32_bound_by"],
+     pb["f32_gathered_bound_ms"]) = pass_b_bound(seg_ids, n, L2, d, k, 4)
+    log(f"  f32 pass B (Q={q}, k_sel {k_sel}, L2 {L2}): kernel "
+        f"{pb['f32_ms']:.3f} ms, plain {pb['f32_plain_ms']:.2f} ms, bound "
+        f"{pb['f32_bound_ms']:.3f} ms ({pb['f32_bound_by']}; a query's rows "
+        f"once a query {pb['f32_gathered_bound_ms']:.3f} ms)")
+    del seg_ids
     log(f"  f32 pass A (Q={q}, k_sel {k_sel}): kernel {pa['ms']:.2f} ms, "
         f"through the overlap wrapper {po['ms']:.2f} ms, plain "
         f"{pa['plain_ms']:.2f} ms, f32 GEMM floor {pa['library_ms']:.2f} ms, "
@@ -3626,6 +3753,7 @@ def phase_shard(report, ctx):
     torch.cuda.synchronize()
     res["phase_s"] = time.perf_counter() - t_phase
     for key, names in (("segtopk", ("dense_segtopk", "cli_segtopk")),
+                       ("pass_b", ("dense_pass_b", "cli_pass_b")),
                        ("topk_fused", ("fused",)),
                        ("flash", ("encode_flash", "pipeline_flash",
                                   "train_flash", "cli_flash")),
@@ -3661,8 +3789,10 @@ def _shard_dense(report, res):
     vals, idx = index.search_device(queries, k=k)
     torch.cuda.synchronize()
     res["launches"]["dense_segtopk"] = topk.SEGTOPK_LAUNCHES
-    check(topk.SEGTOPK_LAUNCHES == SHARDS,
-          f"one pass-A launch a shard: {topk.SEGTOPK_LAUNCHES}")
+    res["launches"]["dense_pass_b"] = topk.PASS_B_LAUNCHES
+    check(topk.SEGTOPK_LAUNCHES == SHARDS and topk.PASS_B_LAUNCHES == SHARDS,
+          f"one pass-A and one pass-B launch a shard: "
+          f"{topk.SEGTOPK_LAUNCHES}, {topk.PASS_B_LAUNCHES}")
     sample = torch.arange(0, q, q // 128, device="cuda")[:128]
     rv, ri = topk.topk_scores_ref(queries[sample], corpus, k=k, block_n=65536)
     hits = sum(len(set(a) & set(b)) for a, b in
@@ -3690,10 +3820,17 @@ def _shard_dense(report, res):
         queries, c, rows, L2, k_sel) for c in shards], reps=3)
     segs = [topk.segtopk_pass_a(queries, c, rows, L2, k_sel)[1]
             for c in shards]
-    res["pass_b_ms"] = time_ms(lambda: [topk._pass_b(
-        queries, c, s_, rows, L2, k_local, 256)
-        for c, s_ in zip(shards, segs)], reps=3)
-    lists = [topk._pass_b(queries, c, s_, rows, L2, k_local, 256)
+    res["pass_b_max_abs_err"] = max(
+        check_pass_b(queries, c, s_, rows, L2, k_local,
+                     f"on shard {j} (Q={q}, k_sel {k_sel}, L2 {L2})")
+        for j, (c, s_) in enumerate(zip(shards, segs)))
+    res["pass_b_ms"] = time_ms(lambda: [topk.pass_b_rescore(
+        queries, c, s_, rows, L2, k_local)
+        for c, s_ in zip(shards, segs)], reps=5)
+    res["pass_b_plain_ms"] = time_ms(lambda: [topk.pass_b_rescore_plain(
+        queries, c, s_, rows, L2, k_local)
+        for c, s_ in zip(shards, segs)], reps=2)
+    lists = [topk.pass_b_rescore(queries, c, s_, rows, L2, k_local)
              for c, s_ in zip(shards, segs)]
     sv = torch.stack([v for v, _ in lists])
     si = torch.stack([i.long() + j * rows for j, (_, i) in enumerate(lists)])
@@ -3703,16 +3840,29 @@ def _shard_dense(report, res):
     mv, mi = merge_candidates(mesh, sv, si, k)
     check(torch.equal(mv, vals) and torch.equal(mi.int(), idx),
           "the split's parts give the engine's lists bit for bit")
-    ops = 2.0 * q * n * d + 2.0 * q * SHARDS * k_sel * L2 * d
-    res["dense_bound_ms"], res["dense_bound_by"] = bound_ms(
-        ops, 2.0 * (n * d + q * d) + 8.0 * q * k)
+    # the two passes' bounds: pass A by its products (the corpus and every
+    # shard's copy of the queries read once), pass B by its gathered bytes
+    res["pass_a_bound_ms"], res["pass_a_bound_by"] = bound_ms(
+        2.0 * q * n * d, 2.0 * (n * d + SHARDS * q * d)
+        + 8.0 * SHARDS * q * k_sel)
+    pb_bounds = [pass_b_bound(s_, rows, L2, d, k_local, 2) for s_ in segs]
+    res["pass_b_bound_ms"] = sum(b[0] for b in pb_bounds)
+    res["pass_b_bound_by"] = pb_bounds[0][1]
+    res["pass_b_gathered_bound_ms"] = sum(b[2] for b in pb_bounds)
+    res["dense_bound_ms"] = res["pass_a_bound_ms"] + res["pass_b_bound_ms"]
+    res["dense_bound_by"] = (f"pass A {res['pass_a_bound_by']} + pass B "
+                             f"{res['pass_b_bound_by']}")
     log(f"  dense shard {n:,} x {d} bf16 over {SHARDS} shards, {q} queries "
         f"at k = {k}: {res['dense_ms']:.2f} ms (unsharded engine "
         f"{res['dense_unsharded_ms']:.2f} ms); split: pass A "
-        f"{res['pass_a_ms']:.2f} ms ({SHARDS} launches, k_sel {k_sel}), pass "
-        f"B {res['pass_b_ms']:.2f} ms, merge {res['merge_ms']:.3f} ms; bound "
-        f"{res['dense_bound_ms']:.2f} ms ({res['dense_bound_by']}); recall@10 "
-        f"{recall}")
+        f"{res['pass_a_ms']:.2f} ms ({SHARDS} launches, k_sel {k_sel}; bound "
+        f"{res['pass_a_bound_ms']:.2f} ms, {res['pass_a_bound_by']}), pass B "
+        f"{res['pass_b_ms']:.2f} ms (plain {res['pass_b_plain_ms']:.2f} ms; "
+        f"bound {res['pass_b_bound_ms']:.2f} ms, {res['pass_b_bound_by']}; "
+        f"{res['pass_b_gathered_bound_ms']:.2f} ms with a query's rows once "
+        f"a query), "
+        f"merge {res['merge_ms']:.3f} ms; bound {res['dense_bound_ms']:.2f} "
+        f"ms ({res['dense_bound_by']}); recall@10 {recall}")
     del index, single, shards, corpus, queries, lists, segs, sv, si
     torch.cuda.empty_cache()
 
@@ -3765,6 +3915,7 @@ def _shard_chunk(report, ctx, res):
     import torch
 
     from semanticsearch_tpu_torch.chunking import pipeline as chunk_pipeline
+    from semanticsearch_tpu_torch.core.mesh import hybrid_mesh
     from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
     from semanticsearch_tpu_torch.ops import flash_attention as fa
     from semanticsearch_tpu_torch.ops import similarity as sim
@@ -3837,6 +3988,31 @@ def _shard_chunk(report, ctx, res):
           f"{fa.FLASH_LAUNCHES} flash launches; chunk ids == phase 6's "
           f"unsharded run ({res['pipeline_docs_differing']} documents' "
           "sentence groups differ)")
+
+    # the same four shards as a hybrid (dcn 2, data 2) mesh: the ring runs
+    # over data inside slice 0, dcn replicated; the matrix and the grouping
+    # run against the single-slice (data 4) results above
+    hmesh = hybrid_mesh(2, list(mesh.devices.flat))
+    hring = ring_similarity.sharded_doc_similarity(E, hmesh)
+    res["ring_hybrid_max_abs_err"] = float(np.abs(hring - ring).max())
+    check(hring.shape == ring.shape and res["ring_hybrid_max_abs_err"] <= 1e-5,
+          f"sharded_doc_similarity on (dcn 2, data 2) == on (data 4): max abs "
+          f"err {res['ring_hybrid_max_abs_err']:.2e} <= 1e-5")
+    calls.clear()
+    ring_similarity.sharded_doc_similarity = counting
+    try:
+        hout = chunk_pipeline.ChunkPipeline(cfg, encoder=dp, mesh=hmesh).run(
+            g_tsv, os.path.join(ctx["tmp"], "group_hybrid"),
+            write_chunk_map=True)
+    finally:
+        ring_similarity.sharded_doc_similarity = doc_sim
+    h_map = os.path.join(ctx["tmp"], "group_hybrid",
+                         f"{cfg.name}_chunk_map.tsv")
+    check(calls == [GROUP_LONG_SENTENCES] and hout["fallbacks"] == 0
+          and _coverage(h_map)[1] == ids and _boundaries(h_map) == mine,
+          f"ChunkPipeline on (dcn 2, data 2): the {GROUP_LONG_SENTENCES}-"
+          f"sentence document through the ring ({calls}); chunk map == the "
+          "(data 4) mesh's")
     log(f"  ring over {SHARDS} shards of the {E.shape[0]:,}-sentence "
         f"document: {res['ring_ms']:.2f} ms with S on the host, its device "
         f"part {res['ring_device_ms']:.2f} ms (the Gram kernel alone "
@@ -3970,16 +4146,17 @@ def _shard_cli(report, ctx, res):
         HybridQueryEngine.load = load
         cli_main._local_mesh = local
     res["launches"]["cli_segtopk"] = topk.SEGTOPK_LAUNCHES
+    res["launches"]["cli_pass_b"] = topk.PASS_B_LAUNCHES
     res["launches"]["cli_flash"] = fa.FLASH_LAUNCHES
     check(rc == 0 and out == want and meshes[0] == local_mesh("cuda")
           and meshes[0].shape == {"data": 1, "model": 1},
           "semsearch-torch search --device cuda through local_mesh() (one "
           "card, the unsharded path): stdout == phase 11's")
     check(rc4 == 0 and out4 == want and meshes[1].shape["data"] == SHARDS
-          and topk.SEGTOPK_LAUNCHES == SHARDS,
+          and topk.SEGTOPK_LAUNCHES == topk.PASS_B_LAUNCHES == SHARDS,
           f"the same search with the CLI's mesh swapped for {SHARDS} virtual "
-          f"shards: stdout == phase 11's, {topk.SEGTOPK_LAUNCHES} pass-A "
-          "launches (one a shard)")
+          f"shards: stdout == phase 11's, {topk.SEGTOPK_LAUNCHES} pass-A and "
+          f"{topk.PASS_B_LAUNCHES} pass-B launches (one each a shard)")
 
 
 def phase_shard_lexical(report, lex):
@@ -4062,6 +4239,10 @@ def main() -> int:
         "similarity": {"name": "similarity_matrix", "route": "cuda",
                        "source": "semanticsearch_tpu_torch/csrc/similarity.cu",
                        "replaces": "semanticsearch_tpu/ops/similarity.py:49"},
+        # no Pallas kernel: the XLA gather, einsum and top_k after pass A
+        "pass_b": {"name": "pass_b_rescore", "route": "cuda",
+                   "source": "semanticsearch_tpu_torch/csrc/pass_b.cu",
+                   "replaces": "semanticsearch_tpu/ops/topk.py:707"},
     }
     report["flash_wide"] = {
         **{k: report["flash"][k] for k in ("route", "source", "replaces")},
@@ -4101,12 +4282,14 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     notes = ("plain_note", "library_note", "shape_note", "bound_note",
-             "pass_b_ms", "serve_ms", "serve_library_ms", "serve_bound_ms",
+             "serve_ms", "serve_library_ms", "serve_bound_ms",
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
              "rerank_launches", "train_launches", "entry_launches",
-             "shard_launches",
+             "shard_launches", "dense_launches", "f32_launches",
+             "gathered_bound_ms", "serve_gathered_bound_ms",
+             "f32_gathered_bound_ms",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32")
@@ -4116,7 +4299,8 @@ def main() -> int:
     kernels = [{**{key: report[k][key] for key in keys},
                 **{key: report[k][key] for key in notes if key in report[k]}}
                for k in ("segtopk", "segtopk_int8", "segtopk_overlap",
-                         "segtopk_f32", "segtopk_overlap_f32", "topk_fused",
+                         "segtopk_f32", "segtopk_overlap_f32", "pass_b",
+                         "topk_fused",
                          "topk_fused_f32", "flash", "flash_f32", "flash_wide",
                          "similarity", "similarity_bf16")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "

@@ -18,7 +18,7 @@ Start a multi-process run with ``torchrun`` (it sets ``MASTER_ADDR``,
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,13 +158,56 @@ def ring_shift(mesh: Mesh, blocks: List[torch.Tensor],
     dev = _comm_device(mesh, devices[0])
     send = blocks[-1].to(dev).contiguous()
     recv = torch.empty_like(send)
-    ops = [dist.P2POp(dist.isend, send, (rank + 1) % world, mesh.group),
-           dist.P2POp(dist.irecv, recv, (rank - 1) % world, mesh.group)]
+    # P2P peers are global ranks; the group may be a slice's subgroup
+    nxt = dist.get_global_rank(mesh.group, (rank + 1) % world)
+    prv = dist.get_global_rank(mesh.group, (rank - 1) % world)
+    ops = [dist.P2POp(dist.isend, send, nxt, mesh.group),
+           dist.P2POp(dist.irecv, recv, prv, mesh.group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return ([recv.to(devices[0])]
             + [blocks[j - 1].to(devices[j], non_blocking=True)
                for j in range(1, len(blocks))])
+
+
+# the subgroups of a hybrid mesh's multi-process dcn slices, by mesh
+_SLICE_GROUPS: Dict[Mesh, object] = {}
+
+
+def slice_group(mesh: Mesh, s: int) -> Tuple[object, np.ndarray, int]:
+    """(group, process ids, this process's rank) for collectives that stay
+    inside ``dcn`` slice ``s`` of a hybrid mesh: no group when one process
+    drives the whole slice; else the slice's own subgroup, with the slice's
+    process ids renumbered to ranks in it. The subgroups of every
+    multi-process slice are made once per mesh, by all of its processes
+    together (``new_subgroups_by_enumeration``): call this collectively.
+
+    Raises ``NotImplementedError`` when a process drives devices of a
+    multi-process slice and of another slice: it would have to ring in
+    both."""
+    pids = mesh.process_ids[s]
+    if mesh.group is None:
+        return None, np.zeros_like(pids), 0
+    slices = [sorted({int(p) for p in mesh.process_ids[i].flat})
+              for i in range(mesh.shape["dcn"])]
+    shared = [ps for ps in slices if len(ps) > 1]
+    for ps in shared:
+        if sum(p in other for other in slices for p in ps) != len(ps):
+            raise NotImplementedError(
+                f"a process drives devices of a multi-process dcn slice "
+                f"{ps} and of another slice")
+    if shared and mesh not in _SLICE_GROUPS:
+        ranks = dist.get_process_group_ranks(mesh.group)
+        unique = sorted({tuple(ps) for ps in shared})
+        _SLICE_GROUPS[mesh], _ = dist.new_subgroups_by_enumeration(
+            [[ranks[p] for p in ps] for ps in unique])
+    mine = slices[s]
+    if len(mine) == 1:
+        return None, np.zeros_like(pids), 0
+    renum = {p: i for i, p in enumerate(mine)}
+    return (_SLICE_GROUPS[mesh],
+            np.vectorize(renum.__getitem__, otypes=[np.int64])(pids),
+            renum[mesh.rank])
 
 
 def check_process_major(mesh: Mesh) -> None:

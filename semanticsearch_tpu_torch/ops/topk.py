@@ -9,9 +9,9 @@ for CPU tensors:
   keeps, per query, the ``k_sel`` best SEGMENTS by their maximum score, a
   segment being ``L2`` consecutive rows (``csrc/segtopk.cu``, with an int8
   variant, :func:`segtopk_pass_a_int8`, and an overlap schedule,
-  :func:`segtopk_pass_a_overlap`). Pass B gathers the candidate segments'
-  rows and rescores them exactly (plain torch, as it was plain XLA in the
-  JAX package).
+  :func:`segtopk_pass_a_overlap`). Pass B, :func:`pass_b_rescore`,
+  rescores the candidate segments' rows exactly and keeps each query's top
+  k (``csrc/pass_b.cu``; plain XLA in the JAX package).
 * the fused top-k of :func:`topk_scores_fused` (any k up to
   :data:`FUSED_MAX_K`): one pass that keeps an exact running top-k per query
   (``csrc/topk_fused.cu``), the counterpart of ``topk_scores_pallas``.
@@ -77,6 +77,8 @@ SEGTOPK_F32_LAUNCHES = 0
 SEGTOPK_OVERLAP_F32_LAUNCHES = 0
 TOPK_FUSED_LAUNCHES = 0
 TOPK_FUSED_F32_LAUNCHES = 0
+# launches of pass B (csrc/pass_b.cu), bf16 and f32 alike
+PASS_B_LAUNCHES = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -953,8 +955,8 @@ def topk_scores_twopass(
         else:
             pass_a = segtopk_pass_a_overlap if mxu_overlap else segtopk_pass_a
             _, seg_ids = pass_a(qs.to(corpus.dtype), corpus, n, L2, k_sel)
-        v, i = _pass_b(qs.to(corpus.dtype), corpus, seg_ids, n, L2, k,
-                       q_chunk)
+        v, i = pass_b_rescore(qs.to(corpus.dtype), corpus, seg_ids, n, L2,
+                              k, q_chunk)
         out_v.append(v)
         out_i.append(i)
     if len(out_v) == 1:
@@ -962,11 +964,23 @@ def topk_scores_twopass(
     return torch.cat(out_v), torch.cat(out_i)
 
 
-def _pass_b(queries: torch.Tensor, corpus: torch.Tensor,
-            seg_ids: torch.Tensor, n: int, L2: int, k: int, q_chunk: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather every candidate segment's rows and rescore them exactly;
-    ids < 0 are pass A's "fewer than k_sel real segments" placeholders."""
+# -------------------------------------------------------------------- pass B
+
+def pass_b_smem_bytes(d: int, k_sel: int, L2: int) -> int:
+    """Shared memory of the pass-B kernel: two 64-bit slots a warp for the
+    block maximum, the query widened to f32 (``d`` rounded up to 4 values),
+    the k_sel * L2 scores and the k_sel segment ids."""
+    return 2 * 8 * 8 + 4 * _round_up(d, 4) + 4 * k_sel * L2 + 4 * k_sel
+
+
+def pass_b_rescore_plain(queries: torch.Tensor, corpus: torch.Tensor,
+                         seg_ids: torch.Tensor, n: int, L2: int, k: int,
+                         q_chunk: int = 256
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain pass B: gather every candidate segment's rows and rescore them
+    exactly, ``q_chunk`` queries at a time; ids < 0 are pass A's "fewer
+    than k_sel real segments" placeholders. The contract is
+    :func:`pass_b_rescore`'s."""
     q, k_sel = seg_ids.shape
     seg_ids = seg_ids.long()
     j_off = torch.arange(L2, device=queries.device)
@@ -985,3 +999,62 @@ def _pass_b(queries: torch.Tensor, corpus: torch.Tensor,
         out_v.append(v)
         out_i.append(torch.gather(cand_rows[s: s + q_chunk], 1, sel))
     return torch.cat(out_v), torch.cat(out_i).to(torch.int32)
+
+
+def pass_b_rescore(queries: torch.Tensor, corpus: torch.Tensor,
+                   seg_ids: torch.Tensor, n: int, L2: int, k: int,
+                   q_chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass B of the two-pass top-k: (values f32, row ids int32), each
+    (Q, k). Candidate ``s * L2 + j`` of query ``q`` is row
+    ``max(seg_ids[q, s], 0) * L2 + j``, valid iff ``seg_ids[q, s] >= 0``
+    and the row is below ``n``; it scores its dot product with the query in
+    f32 (NEG_INF when invalid, and then it is not read). The top k come by
+    value descending, ties to the earlier candidate; NEG_INF slots carry
+    their candidates' rows.
+
+    For CPU tensors it runs :func:`pass_b_rescore_plain` (``q_chunk``
+    bounds its buffer). For CUDA tensors it launches ``csrc/pass_b.cu`` on
+    bf16 or f32 operands, every query in one launch, or raises: another
+    dtype (``NotImplementedError``), k outside 1..k_sel * L2 or a query,
+    score and segment buffer past the shared memory
+    (:func:`pass_b_smem_bytes`, ``ValueError``)."""
+    global PASS_B_LAUNCHES
+    q, k_sel = seg_ids.shape
+    d = queries.shape[1]
+    if queries.shape[0] != q or corpus.shape[1] != d or corpus.shape[0] < n:
+        raise ValueError(f"pass B: queries {tuple(queries.shape)}, corpus "
+                         f"{tuple(corpus.shape)}, seg_ids {(q, k_sel)}, "
+                         f"n={n}")
+    if not 0 < k <= k_sel * L2:
+        raise ValueError(f"pass B keeps 1 <= k <= k_sel * L2 = {k_sel * L2} "
+                         f"candidates, got k={k}")
+    if not _on_card("pass_b_rescore", queries, corpus, seg_ids):
+        return pass_b_rescore_plain(queries, corpus, seg_ids, n, L2, k,
+                                    q_chunk)
+    f32 = _f32_operands("the pass-B kernel", queries, corpus)
+    if pass_b_smem_bytes(d, k_sel, L2) > SMEM_LIMIT:
+        raise ValueError(f"pass B: a width of {d} with k_sel * L2 = "
+                         f"{k_sel * L2} candidates needs "
+                         f"{pass_b_smem_bytes(d, k_sel, L2)} bytes of shared "
+                         f"memory, past {SMEM_LIMIT}")
+    dev = queries.device
+    out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_v, out_i
+    queries = queries.contiguous()
+    corpus = corpus.contiguous()
+    seg_ids = seg_ids.to(torch.int32).contiguous()
+    elem = corpus.element_size()
+    vec = (16 // elem if corpus.data_ptr() % 16 == 0 and (d * elem) % 16 == 0
+           else 1)
+    fn = _build.load("pass_b").pass_b_rescore
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    status = fn(queries.data_ptr(), corpus.data_ptr(), seg_ids.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), q, n, d, L2, k_sel, k,
+                int(f32), vec, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "pass_b_rescore (f32)" if f32 else "pass_b_rescore")
+    PASS_B_LAUNCHES += 1
+    return out_v, out_i

@@ -98,7 +98,14 @@ def main() -> int:
     S = sharded_doc_similarity(data["ring"], mesh4)
     rows = ring_similarity_matrix(
         shard_corpus(torch.from_numpy(data["ring"][:16].copy()), mesh), mesh)
-    save("ring", S=S, rows=torch.cat(rows).numpy())
+    # hybrid meshes: each process rings inside its own slice (dcn 2, data
+    # 2), or both ring over their subgroup in one slice (dcn 1, data 2)
+    S_slices = sharded_doc_similarity(data["ring"], mesh2d)
+    mesh1 = distributed.global_mesh(n_slices=1)
+    assert mesh1.shape == {"dcn": 1, "data": 2}
+    S_group = sharded_doc_similarity(data["ring"], mesh1)
+    save("ring", S=S, rows=torch.cat(rows).numpy(), S_slices=S_slices,
+         S_group=S_group)
 
     from semanticsearch_tpu_torch.index.bm25 import BM25Okapi
     from semanticsearch_tpu_torch.index.bm25_tpu import DeviceBM25

@@ -661,6 +661,147 @@ def test_twopass_f32_index_matches_cpu(dev):
         assert torch.equal(ki.cpu(), pi) and torch.equal(kv.cpu(), pv), kw
 
 
+# ------------------------------------------------------------------ pass B
+
+def _segs(q, k_sel, n_segs, seed, dev, placeholders=0):
+    """Pass A's output shape: k_sel distinct segment ids a query in random
+    order, the last ``placeholders`` slots -1-j."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    real = k_sel - placeholders
+    ids = torch.rand((q, n_segs), generator=g, device=dev).argsort(dim=1)
+    ids = ids[:, :real].int()
+    tail = -1 - torch.arange(real, k_sel, device=dev, dtype=torch.int32)
+    return torch.cat([ids, tail.expand(q, placeholders)], dim=1).contiguous()
+
+
+def _pass_b_rows(shape, seed, dev, dtype):
+    """Integer rows (bf16: [-127, 127]; f32: [-8, 8]), every dot product
+    exact in f32, with ties across segments (the first half again in the
+    second) and inside them (each even row again in the next)."""
+    C = (_grid(shape, seed, dev, dtype) if dtype == torch.bfloat16
+         else _small_grid(shape, seed, dev))
+    C = _tied(C)
+    m = shape[0] // 4
+    C[1:2 * m:2] = C[0:2 * m:2]
+    return C
+
+
+# (q, n, d, L2, k_sel, k, placeholders)
+PASS_B_CASES = [
+    (300, 50000, 384, 32, 11, 10, 0),     # the shard's segments
+    (64, 20000, 384, 32, 41, 40, 0),      # the serve engine's
+    (200, 20011, 384, 32, 41, 10, 0),     # a last segment past n
+    (33, 1000, 384, 32, 41, 40, 20),      # placeholders
+    (17, 30000, 384, 1, 128, 127, 0),     # k = 127 on one-row segments
+    (9, 40000, 384, 128, 128, 127, 0),    # k_sel 128 and L2 128
+    (70, 5000, 384, 8, 20, 1, 0),         # k = 1
+    (40, 5000, 72, 16, 20, 10, 0),        # D 72: 16-byte loads
+    (40, 5000, 100, 16, 20, 10, 0),       # D 100: bf16 a value a lane
+    (40, 5000, 30, 16, 20, 10, 0),        # D 30: a value a lane
+    (40, 3000, 1024, 32, 128, 40, 40),    # the widest bf16 pass A, k_sel 128
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q,n,d,L2,k_sel,k,ph", PASS_B_CASES)
+def test_pass_b_kernel_matches_plain(dev, dtype, q, n, d, L2, k_sel, k, ph):
+    """Integer rows with ties inside and across segments, every other
+    query's list led by the last segment (past n where n % L2) and holding
+    it twice: values, ids and tie order bit-equal to the plain version."""
+    Q = _pass_b_rows((q, d), 60, dev, dtype)
+    C = _pass_b_rows((n, d), 61, dev, dtype)
+    n_segs = -(-n // L2)
+    seg = _segs(q, k_sel, n_segs, 62, dev, ph)
+    seg[::2, 0] = n_segs - 1
+    launches = topk.PASS_B_LAUNCHES
+    kv, ki = topk.pass_b_rescore(Q, C, seg, n, L2, k)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, n, L2, k)
+    torch.cuda.synchronize()
+    assert topk.PASS_B_LAUNCHES == launches + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [384, 100])
+def test_pass_b_kernel_on_unit_rows(dev, dtype, d):
+    """Real-valued scores summed in another order than the plain bmm:
+    values within D * 2^-24, ids equal wherever the plain version's
+    adjacent scores differ by more than that."""
+    Q = _unit((500, d), 63, dev).to(dtype)
+    C = _unit((50000, d), 64, dev).to(dtype)
+    seg = _segs(500, 12, -(-50000 // 32), 65, dev)
+    tol = d * 2.0 ** -24
+    kv, ki = topk.pass_b_rescore(Q, C, seg, 50000, 32, 10)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, 50000, 32, 11)
+    err, bad, skipped = _near_tie_agree(kv, ki, pv, pi, tol / 2)
+    assert err <= tol and bad == 0
+    assert skipped <= kv.numel() // 100, skipped
+
+
+def test_pass_b_kernel_on_a_side_stream(dev):
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        Q, C = _grid((129, 384), 66, dev), _grid((20011, 384), 67, dev)
+        seg = _segs(129, 41, 626, 68, dev)
+        kv, ki = topk.pass_b_rescore(Q, C, seg, 20011, 32, 40)
+        kv, ki = kv.cpu(), ki.cpu()
+    side.synchronize()
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, 20011, 32, 40)
+    assert torch.equal(ki, pi.cpu()) and torch.equal(kv, pv.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pass_b_never_reads_rows_past_n(dev, dtype):
+    """NaN rows after n: no candidate past n is read, so no NaN appears,
+    and the result equals the plain version on the first n rows."""
+    Q = _pass_b_rows((70, 384), 69, dev, dtype)
+    C = _pass_b_rows((5000, 384), 70, dev, dtype)
+    C[4001:] = float("nan")
+    for n, L2 in [(4001, 32), (4001, 128), (3968, 32), (77, 8)]:
+        n_segs = -(-n // L2)
+        seg = _segs(70, min(11, n_segs), n_segs, 71, dev)
+        seg[:, 0] = n_segs - 1
+        kv, ki = topk.pass_b_rescore(Q, C, seg, n, L2, 10)
+        pv, pi = topk.pass_b_rescore_plain(Q, C[:n].clone(), seg, n, L2, 10)
+        assert not bool(kv.isnan().any()), (n, L2)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), (n, L2)
+
+
+def test_pass_b_takes_an_unaligned_corpus(dev):
+    """A corpus view 2 bytes past a 16-byte boundary: one value a lane,
+    the same result."""
+    buf = _grid((5000 * 384 + 1,), 72, dev)
+    C = buf[1:].view(5000, 384)
+    assert C.data_ptr() % 16
+    Q = _grid((50, 384), 73, dev)
+    seg = _segs(50, 11, 157, 74, dev)
+    kv, ki = topk.pass_b_rescore(Q, C, seg, 5000, 32, 10)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, 5000, 32, 10)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+def test_twopass_on_the_card_never_runs_the_plain_pass_b(dev, monkeypatch):
+    """Every two-pass mode on CUDA tensors rescores through the kernel,
+    one launch a call, and equals the CPU path."""
+    def plain(*args, **kw):
+        raise AssertionError("the plain pass B ran on CUDA tensors")
+
+    Q, C = _grid((300, 384), 75, dev), _grid((50000, 384), 76, dev)
+    want = {}
+    for kw in ({}, {"mxu_overlap": True}, {"pass_a_int8": True}):
+        want[str(kw)] = topk.topk_scores_twopass(Q.cpu(), C.cpu(), k=40,
+                                                 block_n=16384, seg_split=4,
+                                                 **kw)
+    monkeypatch.setattr(topk, "pass_b_rescore_plain", plain)
+    for kw in ({}, {"mxu_overlap": True}, {"pass_a_int8": True}):
+        launches = topk.PASS_B_LAUNCHES
+        kv, ki = topk.topk_scores_twopass(Q, C, k=40, block_n=16384,
+                                          seg_split=4, **kw)
+        assert topk.PASS_B_LAUNCHES == launches + 1
+        pv, pi = want[str(kw)]
+        assert torch.equal(ki.cpu(), pi) and torch.equal(kv.cpu(), pv), kw
+
+
 # ------------------------------------------------------ flash: f32, T, Dh
 
 def _flash_mask(b, t, g, dev, lo=None):
@@ -978,14 +1119,15 @@ def test_batched_signals_on_cuda_match_cpu(dev):
 def test_wrappers_raise_instead_of_falling_back(dev):
     """What the kernels still refuse raises, and nothing is launched:
     float64 operands, a bf16 tensor sent to the int8 wrapper, k past 2048,
-    a T past 128 that is not a multiple of 64, empty input."""
+    a T past 128 that is not a multiple of 64, empty input; pass B's k past
+    its candidates and a width past its shared memory."""
     x = torch.zeros((4, 64), device=dev, dtype=torch.float64)
     launches = (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
                 topk.SEGTOPK_OVERLAP_LAUNCHES, topk.SEGTOPK_INT8_LAUNCHES,
                 topk.TOPK_FUSED_LAUNCHES, topk.TOPK_FUSED_F32_LAUNCHES,
                 fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES,
                 fa.FLASH_WIDE_LAUNCHES, sim.SIM_LAUNCHES,
-                sim.SIM_BF16_LAUNCHES)
+                sim.SIM_BF16_LAUNCHES, topk.PASS_B_LAUNCHES)
     with pytest.raises(NotImplementedError):
         topk.segtopk_pass_a(x, x, 4, 1, 2)
     with pytest.raises(NotImplementedError):
@@ -1016,12 +1158,25 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         sim.similarity_matrix(x[:0].float())
     with pytest.raises(ValueError, match="empty"):
         sim.similarity_matrix(x[:0].bfloat16())
+    # pass B: f64 and mixed operands, k past its k_sel * L2 candidates, a
+    # width whose query and scores pass the shared memory
+    seg = torch.zeros((4, 2), device=dev, dtype=torch.int32)
+    with pytest.raises(NotImplementedError):
+        topk.pass_b_rescore(x, x, seg, 4, 1, 1)
+    with pytest.raises(NotImplementedError):
+        topk.pass_b_rescore(x.float(), x.bfloat16(), seg, 4, 1, 1)
+    with pytest.raises(ValueError, match="k_sel"):
+        topk.pass_b_rescore(x.float(), x.float(), seg, 4, 1, 3)
+    wide = torch.zeros((4, 60000), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        topk.pass_b_rescore(wide, wide, seg, 4, 1, 1)
     assert launches == (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
                         topk.SEGTOPK_OVERLAP_LAUNCHES,
                         topk.SEGTOPK_INT8_LAUNCHES, topk.TOPK_FUSED_LAUNCHES,
                         topk.TOPK_FUSED_F32_LAUNCHES, fa.FLASH_LAUNCHES,
                         fa.FLASH_F32_LAUNCHES, fa.FLASH_WIDE_LAUNCHES,
-                        sim.SIM_LAUNCHES, sim.SIM_BF16_LAUNCHES)
+                        sim.SIM_LAUNCHES, sim.SIM_BF16_LAUNCHES,
+                        topk.PASS_B_LAUNCHES)
 
 
 def test_wrappers_take_what_they_refused(dev):

@@ -125,6 +125,10 @@ def test_two_process_ring_similarity(dist_outputs, mesh8):
     got = _leg(dist_outputs, "ring")
     for g in got:
         np.testing.assert_allclose(g["S"], S, rtol=0, atol=TOL)
+        # on (dcn 2, data 2), one slice a process, and on (dcn 1, data 2)
+        # over the processes' subgroup: the same matrix everywhere
+        np.testing.assert_allclose(g["S_slices"], S, rtol=0, atol=TOL)
+        np.testing.assert_allclose(g["S_group"], S, rtol=0, atol=TOL)
     # each process holds its own row block of the 2-shard ring
     for pid, g in enumerate(got):
         np.testing.assert_allclose(

@@ -745,3 +745,88 @@ def test_tf32x3_pass_a_model_matches_jax_kernel(rng, monkeypatch, d, integer):
         apart[:, 1:] &= gap
         apart[:, :-1] &= gap
         np.testing.assert_array_equal(mi[apart], ji[apart])
+
+
+# ------------------------------------------------------------------ pass B
+
+def _pass_b_reference(Q, C, seg_ids, n, L2, k):
+    """Pass B written out per query in Python: every candidate's (score,
+    position, row), invalid ones at NEG_INF and unread, sorted by score
+    descending with ties to the earlier position."""
+    vals, ids = [], []
+    for qi, segs in enumerate(seg_ids):
+        cands = []
+        for s, seg in enumerate(segs):
+            for j in range(L2):
+                row = max(int(seg), 0) * L2 + j
+                valid = seg >= 0 and row < n
+                score = float(Q[qi] @ C[row]) if valid else ttopk.NEG_INF
+                cands.append((np.float32(score), s * L2 + j, row))
+        cands.sort(key=lambda t: -t[0])  # stable: ties keep position order
+        vals.append([v for v, _, _ in cands[:k]])
+        ids.append([r for _, _, r in cands[:k]])
+    return np.array(vals, np.float32), np.array(ids, np.int32)
+
+
+# (n, L2, k_sel, k, seg rows): placeholders, a last segment past n, k = 1,
+# k = 127 at k_sel 128, L2 = 128, one-row segments
+PASS_B_CASES = [
+    (50, 4, 6, 5, [[0, 3, 12, -4, -5, -6], [12, 11, 10, 9, 8, 7]]),
+    (50, 4, 6, 24, [[12, 0, -3, -4, -5, -6], [1, 2, 3, 4, 5, 6]]),
+    (301, 32, 5, 1, [[9, 0, 4, 2, 1], [3, -2, -3, -4, -5]]),
+    (400, 1, 128, 127, [list(range(0, 384, 3))[:128],
+                        list(range(399, 271, -1))]),
+    (300, 128, 3, 127, [[2, 0, 1], [1, -2, -3]]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,L2,k_sel,k,segs", PASS_B_CASES)
+def test_pass_b_rescore_on_the_cpu(rng, dtype, n, L2, k_sel, k, segs):
+    """Integer rows with ties inside a segment and across segments: the
+    wrapper on CPU tensors equals the plain version at every query chunk,
+    and both equal the reference written out per query, values bit for
+    bit; no kernel is launched."""
+    d = 24
+    base = rng.integers(-4, 5, size=(n // 3 + 1, d))
+    C = np.concatenate([base, base[::-1], base])[:n + 5].astype(np.float32)
+    C[n:] = np.nan  # rows past n must never be read
+    Q = rng.integers(-4, 5, size=(len(segs), d)).astype(np.float32)
+    seg_ids = torch.tensor(segs, dtype=torch.int32)
+    Qt, Ct = torch.from_numpy(Q).to(dtype), torch.from_numpy(C).to(dtype)
+    before = ttopk.PASS_B_LAUNCHES
+    v, i = ttopk.pass_b_rescore(Qt, Ct[:n], seg_ids, n, L2, k)
+    assert ttopk.PASS_B_LAUNCHES == before
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    assert v.shape == i.shape == (len(segs), k)
+    for q_chunk in (1, 256):
+        pv, pi = ttopk.pass_b_rescore_plain(Qt, Ct[:n], seg_ids, n, L2, k,
+                                            q_chunk)
+        assert torch.equal(v, pv) and torch.equal(i, pi)
+    rv, ri = _pass_b_reference(Q, C, segs, n, L2, k)
+    np.testing.assert_array_equal(i.numpy(), ri)
+    np.testing.assert_array_equal(v.numpy(), rv)
+
+
+def test_pass_b_rescore_refuses_k_outside_its_candidates():
+    Q, C = torch.zeros((2, 8)), torch.zeros((40, 8))
+    segs = torch.zeros((2, 3), dtype=torch.int32)
+    for k in (0, 13):
+        with pytest.raises(ValueError, match="k_sel"):
+            ttopk.pass_b_rescore(Q, C, segs, 40, 4, k)
+    with pytest.raises(ValueError, match="corpus"):
+        ttopk.pass_b_rescore(Q, C, segs, 41, 4, 3)
+
+
+@pytest.mark.parametrize("k_sel,L2", [(128, 128), (11, 32), (41, 32),
+                                      (12, 4)])
+def test_pass_b_smem_fits_every_two_pass_shape(k_sel, L2):
+    """Every segment length block_n <= 16384 gives (up to 128 rows) at
+    every k_sel up to 128, at the widest bf16 pass A, fits; f32 widths fit
+    up to the shared memory's own limit."""
+    assert ttopk.pass_b_smem_bytes(ttopk.pass_a_max_d(k_sel), k_sel,
+                                   L2) <= ttopk.SMEM_LIMIT
+    d = (ttopk.SMEM_LIMIT - ttopk.pass_b_smem_bytes(0, k_sel, L2)) // 16 * 4
+    assert ttopk.pass_b_smem_bytes(d, k_sel, L2) <= ttopk.SMEM_LIMIT
+    assert ttopk.pass_b_smem_bytes(d + 4, k_sel, L2) > ttopk.SMEM_LIMIT
+    assert d > 40000
