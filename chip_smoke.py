@@ -11,9 +11,11 @@ flash at any T and every head width, f32 and bf16 similarity, stacked
 short documents and padded widths included) (phase 2),
 serves hybrid queries end to end through ``HybridQueryEngine`` at the
 default encoder's full width (phase 3), times every kernel at the per-chip
-shard size of 1,250,000 x 384 bf16, pass A also at the serve shape and the
-fused top-k at the live-search shape, flash also at head widths 256 and
-320 (320 on the wide path, its own entry), f32 flash beside both its bounds
+shard size of 1,250,000 x 384 bf16, pass A and pass B also at the serve
+shape (pass B one call and 50 queued), pass B also with every query
+picking the same segments, and the fused top-k at the live-search shape,
+flash also at head widths 256 and 320 (320 on the wide path, its own
+entry), f32 flash beside both its bounds
 (three TF32 products, and f32 FMAs) (phase 4), and serves deep candidate
 lists over a live index: adds, removals, a 10,000-query search through the
 fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
@@ -145,6 +147,24 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def queued_ms(fn, calls: int) -> float:
+    """Device time a call: ``calls`` calls queued between two CUDA events,
+    over ``calls``, after one warm-up call; the host's side of each call
+    overlaps the device's work of the calls before it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def zero_counts() -> None:
@@ -1117,8 +1137,11 @@ def phase_dense(report):
         "queries, segment ids and outputs once, and multiply-adds every "
         "valid candidate with its query at the bf16 peak (f32_*: the f32 "
         "FMA peak); gathered_bound_ms reads a query's rows for each query "
-        "(no reuse between queries); the kernel reads them so, the rest "
-        "from L2")
+        "(no reuse between queries: the floor of a one-CTA-a-query "
+        "design); the segment-major kernel reads each selected segment "
+        "about once; hot_*: every query one of 64 repeated, so all pick "
+        "the same segments; serve_queued_ms: 50 calls queued between two "
+        "events, over 50 (the device's time a call, apart from the host's)")
     log(f"  pass B alone (Q={q}, k_sel {k_sel}, L2 {L2}): kernel "
         f"{pb['ms']:.3f} ms (turns {turns[0]:.3f}, {turns[2]:.3f}), plain "
         f"{pb['plain_ms']:.2f} ms, bound {pb['bound_ms']:.3f} ms "
@@ -1142,12 +1165,33 @@ def phase_dense(report):
     _, s_seg = topk.segtopk_pass_a(qs, cs, 20000, 32, 41)
     pb["serve_ms"] = time_ms(lambda: topk.pass_b_rescore(
         qs, cs, s_seg, 20000, 32, 40), reps=50, warmup=3)
+    pb["serve_queued_ms"] = queued_ms(lambda: topk.pass_b_rescore(
+        qs, cs, s_seg, 20000, 32, 40), 50)
     (pb["serve_bound_ms"], pb["serve_bound_by"],
      pb["serve_gathered_bound_ms"]) = pass_b_bound(s_seg, 20000, 32, d, 40, 2)
     log(f"  pass B at the serve shape (64 x 20,000, k_sel 41, k 40): kernel "
-        f"{pb['serve_ms']:.4f} ms, bound {pb['serve_bound_ms']:.4f} ms "
-        f"({pb['serve_bound_by']}; a query's rows once a query "
-        f"{pb['serve_gathered_bound_ms']:.4f} ms)")
+        f"{pb['serve_ms']:.4f} ms a call by events, "
+        f"{pb['serve_queued_ms']:.4f} ms a call with 50 queued, bound "
+        f"{pb['serve_bound_ms']:.4f} ms ({pb['serve_bound_by']}; a query's "
+        f"rows once a query {pb['serve_gathered_bound_ms']:.4f} ms)")
+    # every query the same (hot segments): 64 distinct queries repeated to
+    # the shard's 32,768, so every query picks the same k_sel segments
+    hot_q = queries[:64].repeat(q // 64, 1)
+    _, hot_seg = topk.segtopk_pass_a(hot_q, corpus, n, L2, k_sel)
+    pb["max_abs_err"] = max(pb["max_abs_err"], check_pass_b(
+        hot_q, corpus, hot_seg, n, L2, k, f"with every query one of 64 "
+        f"repeated (hot segments, Q={q})"))
+    pb["hot_ms"] = time_ms(lambda: topk.pass_b_rescore(
+        hot_q, corpus, hot_seg, n, L2, k), reps=5)
+    pb["hot_bound_ms"], pb["hot_bound_by"], _ = pass_b_bound(
+        hot_seg, n, L2, d, k, 2)
+    log(f"  pass B with hot segments (64 queries repeated to {q}): kernel "
+        f"{pb['hot_ms']:.3f} ms against {pb['ms']:.3f} ms for distinct "
+        f"queries, bound {pb['hot_bound_ms']:.4f} ms ({pb['hot_bound_by']})")
+    check(pb["hot_ms"] <= 1.1 * pb["ms"],
+          "pass B with every query picking the same segments is no slower "
+          "than with distinct queries (within 10 %)")
+    del hot_q, hot_seg
     log(f"  pass A at the serve shape (64 x 20,000, k_sel 41): kernel "
         f"{seg['serve_ms']:.4f} ms, overlap schedule (one warpgroup) "
         f"{ov['serve_ms']:.4f} ms (turns "
@@ -4289,7 +4333,8 @@ def main() -> int:
              "rerank_launches", "train_launches", "entry_launches",
              "shard_launches", "dense_launches", "f32_launches",
              "gathered_bound_ms", "serve_gathered_bound_ms",
-             "f32_gathered_bound_ms",
+             "f32_gathered_bound_ms", "serve_queued_ms", "hot_ms",
+             "hot_bound_ms", "hot_bound_by",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32")

@@ -77,7 +77,8 @@ SEGTOPK_F32_LAUNCHES = 0
 SEGTOPK_OVERLAP_F32_LAUNCHES = 0
 TOPK_FUSED_LAUNCHES = 0
 TOPK_FUSED_F32_LAUNCHES = 0
-# launches of pass B (csrc/pass_b.cu), bf16 and f32 alike
+# calls of pass B (csrc/pass_b.cu), bf16 and f32 alike: one a call,
+# whatever number of kernels the call launches
 PASS_B_LAUNCHES = 0
 
 
@@ -271,6 +272,7 @@ def _on_card(what: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -965,12 +967,148 @@ def topk_scores_twopass(
 
 
 # -------------------------------------------------------------------- pass B
+#
+# csrc/pass_b.cu runs pass B segment-major in three stages a query chunk:
+# the (query, slot) pairs bucketed by segment, each work item (up to 16
+# pairs of one segment) scored against the segment's rows staged once in
+# shared memory, and each query's top k selected from the scores. The plan
+# is made here.
 
-def pass_b_smem_bytes(d: int, k_sel: int, L2: int) -> int:
-    """Shared memory of the pass-B kernel: two 64-bit slots a warp for the
-    block maximum, the query widened to f32 (``d`` rounded up to 4 values),
-    the k_sel * L2 scores and the k_sel segment ids."""
-    return 2 * 8 * 8 + 4 * _round_up(d, 4) + 4 * k_sel * L2 + 4 * k_sel
+# the scratch a call may hold (scores, pairs, segment arrays, work items);
+# more queries run in chunks that fit it
+PASS_B_SCRATCH_BYTES = 256 << 20
+_PB_ITEM = 16            # pairs a work item (csrc/pass_b.cu QROWS)
+_PB_SCORE_SMEM = 45056   # five score CTAs an SM (1 KB each reserved)
+# launches of pass B's bucket stage alone (:func:`pass_b_buckets`)
+PASS_B_BUCKET_LAUNCHES = 0
+
+
+def _pass_b_seg_ints(n_segs: int) -> int:
+    """Ints of each of the three segment arrays (counts then first pairs,
+    cursors, first items): n_segs and three totals, rounded up to the
+    scan's 8 a thread."""
+    return _round_up(n_segs + 3, 8)
+
+
+def _pass_b_items(pairs: int, n_segs: int) -> int:
+    """Work items the score stage may take: each non-empty segment's pairs
+    in items of at most 16, so at most pairs / 16 plus one a segment."""
+    return -(-pairs // _PB_ITEM) + min(n_segs, pairs)
+
+
+@functools.lru_cache(maxsize=256)
+def pass_b_plan(q: int, k_sel: int, n: int, L2: int, d: int, elem: int,
+                budget: int = PASS_B_SCRATCH_BYTES) -> dict:
+    """The pass-B kernel's plan for ``q`` queries of ``k_sel`` segments of
+    ``L2`` rows over ``n`` rows of width ``d`` (``elem`` bytes a value):
+
+    * ``q_chunk``: queries a chunk, the most whose scratch (``scratch``
+      bytes: the f32 scores, the int2 pairs, three int arrays a segment
+      and the int4 work items, each region 16-byte aligned) fits
+      ``budget``, at least one;
+    * ``pairs``: the most (query, slot) pairs a score CTA takes, 16 (a
+      work item: up to 16 pairs of one segment, one MMA tile of queries);
+      ``grid``: score CTAs a full chunk, a work item each (at most pairs /
+      16 plus one a segment; CTAs past the items return at once);
+    * ``rt`` segment rows a tile (16 queries a tile), the width in chunks
+      of ``dc`` columns (a multiple of 16, chunks of equal size as near as
+      may be), and the score CTA's shared memory ``smem``: both tiles at a
+      16-byte pad a row, and 4 bytes a pair; it fits five CTAs an SM at
+      every width."""
+    n_segs = -(-n // L2)
+
+    def scratch(qc: int) -> int:
+        pairs = qc * k_sel
+        return (_round_up(4 * pairs * L2, 16) + _round_up(8 * pairs, 16)
+                + 12 * _pass_b_seg_ints(n_segs)
+                + 16 * _pass_b_items(pairs, n_segs))
+
+    lo, hi = 1, max(q, 1)  # the most queries whose scratch fits, at least 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if scratch(mid) <= budget else (lo, mid - 1)
+    rt = min(32, _round_up(L2, 8))
+    pad = 16 // elem
+    fixed = 4 * _PB_ITEM
+    widest = ((_PB_SCORE_SMEM - fixed) // ((rt + _PB_ITEM) * elem)
+              - pad) // 16 * 16
+    chunks = -(-_round_up(d, 16) // widest)
+    dc = _round_up(-(-d // chunks), 16)
+    return {"q_chunk": lo, "pairs": _PB_ITEM,
+            "grid": _pass_b_items(lo * k_sel, n_segs),
+            "rt": rt, "dc": dc,
+            "smem": (rt + _PB_ITEM) * (dc + pad) * elem + fixed,
+            "n_segs": n_segs, "scratch": scratch(lo)}
+
+
+def pass_b_buckets_plain(seg_ids: torch.Tensor, n: int, L2: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass B's first stage in torch ops: the (query, slot) pairs of
+    ``seg_ids`` (Q, k_sel) bucketed by segment. Returns ``pairs`` (Q *
+    k_sel, 2) int32, whose first ``starts[-1]`` rows are (segment, query *
+    k_sel + slot) sorted by segment, then by position, and -1 after; and
+    ``starts`` (n_segs + 1) int32, each bucket's first row, then the
+    number of pairs. Placeholders (ids < 0) and segments wholly past ``n``
+    are dropped; a segment listed twice by one query is two pairs."""
+    n_segs = -(-n // L2)
+    flat = seg_ids.reshape(-1).long()
+    keep = torch.nonzero((flat >= 0) & (flat < n_segs)).reshape(-1)
+    order = torch.sort(flat[keep], stable=True).indices
+    pos = keep[order]
+    pairs = torch.full((flat.numel(), 2), -1, dtype=torch.int32,
+                       device=seg_ids.device)
+    pairs[: pos.numel(), 0] = flat[pos].int()
+    pairs[: pos.numel(), 1] = pos.int()
+    counts = torch.bincount(flat[keep], minlength=n_segs)
+    starts = torch.zeros(n_segs + 1, dtype=torch.int64, device=seg_ids.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    return pairs, starts.int()
+
+
+def pass_b_items_plain(starts: torch.Tensor) -> torch.Tensor:
+    """The score stage's work items from :func:`pass_b_buckets_plain`'s
+    ``starts``: each non-empty bucket cut into items of at most 16 pairs,
+    in segment order; (items, 3) int64 rows of (segment, first pair,
+    pairs)."""
+    starts = starts.long()
+    counts = starts[1:] - starts[:-1]
+    per_seg = (counts + _PB_ITEM - 1) // _PB_ITEM
+    seg = torch.repeat_interleave(torch.arange(counts.numel()), per_seg)
+    first = torch.cumsum(per_seg, 0) - per_seg
+    j = torch.arange(seg.numel()) - torch.repeat_interleave(first, per_seg)
+    lo = starts[seg] + j * _PB_ITEM
+    return torch.stack([seg, lo, (counts[seg] - j * _PB_ITEM).clamp(
+        max=_PB_ITEM)], 1)
+
+
+def pass_b_buckets(seg_ids: torch.Tensor, n: int, L2: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pass_b_buckets_plain` through the kernel's own first stage
+    (``csrc/pass_b.cu``, ``pass_b_bucket``) for CUDA tensors, counted in
+    ``PASS_B_BUCKET_LAUNCHES``; the plain version for CPU tensors. On the
+    card the order inside a bucket follows the atomics and the rows past
+    the pairs are unspecified."""
+    global PASS_B_BUCKET_LAUNCHES
+    q, k_sel = seg_ids.shape
+    if not _on_card("pass_b_buckets", seg_ids) or q == 0:
+        return pass_b_buckets_plain(seg_ids, n, L2)
+    seg_ids = seg_ids.to(torch.int32).contiguous()
+    dev = seg_ids.device
+    n_segs = -(-n // L2)
+    pairs = torch.empty((q * k_sel, 2), dtype=torch.int32, device=dev)
+    segs = torch.empty(3 * _pass_b_seg_ints(n_segs), dtype=torch.int32,
+                       device=dev)
+    items = torch.empty((_pass_b_items(q * k_sel, n_segs), 4),
+                        dtype=torch.int32, device=dev)
+    fn = _build.load("pass_b").pass_b_bucket
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    _build.check(fn(seg_ids.data_ptr(), pairs.data_ptr(), segs.data_ptr(),
+                    items.data_ptr(), q, n, L2, k_sel, _raw_stream(dev)),
+                 "pass_b_bucket")
+    PASS_B_BUCKET_LAUNCHES += 1
+    return pairs, segs[: n_segs + 1]
 
 
 def pass_b_rescore_plain(queries: torch.Tensor, corpus: torch.Tensor,
@@ -1001,9 +1139,32 @@ def pass_b_rescore_plain(queries: torch.Tensor, corpus: torch.Tensor,
     return torch.cat(out_v), torch.cat(out_i).to(torch.int32)
 
 
+def _raw_stream(dev: torch.device) -> int:
+    """The current stream's ``cudaStream_t`` on ``dev``, by the call
+    PyTorch's own generated code makes (``torch.cuda.current_stream`` builds
+    a Stream object first, a third of pass B's host time at the serve
+    shape)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(dev).cuda_stream
+    return raw(dev.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_b_entry():
+    """The kernel's C entry point, its signature set once."""
+    fn = _build.load("pass_b").pass_b_rescore
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong]
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    return fn
+
+
 def pass_b_rescore(queries: torch.Tensor, corpus: torch.Tensor,
                    seg_ids: torch.Tensor, n: int, L2: int, k: int,
-                   q_chunk: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
+                   q_chunk: int = 256,
+                   scratch_budget: int = PASS_B_SCRATCH_BYTES
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass B of the two-pass top-k: (values f32, row ids int32), each
     (Q, k). Candidate ``s * L2 + j`` of query ``q`` is row
     ``max(seg_ids[q, s], 0) * L2 + j``, valid iff ``seg_ids[q, s] >= 0``
@@ -1013,11 +1174,15 @@ def pass_b_rescore(queries: torch.Tensor, corpus: torch.Tensor,
     their candidates' rows.
 
     For CPU tensors it runs :func:`pass_b_rescore_plain` (``q_chunk``
-    bounds its buffer). For CUDA tensors it launches ``csrc/pass_b.cu`` on
-    bf16 or f32 operands, every query in one launch, or raises: another
-    dtype (``NotImplementedError``), k outside 1..k_sel * L2 or a query,
-    score and segment buffer past the shared memory
-    (:func:`pass_b_smem_bytes`, ``ValueError``)."""
+    bounds its buffer). For CUDA tensors it runs ``csrc/pass_b.cu`` on bf16
+    or f32 operands of any width, or raises: another dtype
+    (``NotImplementedError``), k outside 1..k_sel * L2 (``ValueError``).
+    The kernel works segment-major, planned by :func:`pass_b_plan`: each
+    query chunk whose scratch fits ``scratch_budget`` bytes (one
+    ``torch.empty``) is one memset and four kernels (the pairs bucketed by
+    segment in two, scored against each segment's rows read once, each
+    query's top k selected), with no host synchronisation; one call counts
+    one launch in ``PASS_B_LAUNCHES``."""
     global PASS_B_LAUNCHES
     q, k_sel = seg_ids.shape
     d = queries.shape[1]
@@ -1032,29 +1197,24 @@ def pass_b_rescore(queries: torch.Tensor, corpus: torch.Tensor,
         return pass_b_rescore_plain(queries, corpus, seg_ids, n, L2, k,
                                     q_chunk)
     f32 = _f32_operands("the pass-B kernel", queries, corpus)
-    if pass_b_smem_bytes(d, k_sel, L2) > SMEM_LIMIT:
-        raise ValueError(f"pass B: a width of {d} with k_sel * L2 = "
-                         f"{k_sel * L2} candidates needs "
-                         f"{pass_b_smem_bytes(d, k_sel, L2)} bytes of shared "
-                         f"memory, past {SMEM_LIMIT}")
     dev = queries.device
     out_v = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_v, out_i
-    queries = queries.contiguous()
+    queries = _aligned(queries)
     corpus = corpus.contiguous()
     seg_ids = seg_ids.to(torch.int32).contiguous()
     elem = corpus.element_size()
     vec = (16 // elem if corpus.data_ptr() % 16 == 0 and (d * elem) % 16 == 0
            else 1)
-    fn = _build.load("pass_b").pass_b_rescore
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    status = fn(queries.data_ptr(), corpus.data_ptr(), seg_ids.data_ptr(),
-                out_v.data_ptr(), out_i.data_ptr(), q, n, d, L2, k_sel, k,
-                int(f32), vec, torch.cuda.current_stream(dev).cuda_stream)
+    plan = pass_b_plan(q, k_sel, n, L2, d, elem, scratch_budget)
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
+    status = _pass_b_entry()(
+        queries.data_ptr(), corpus.data_ptr(), seg_ids.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), scratch.data_ptr(), q, n, d, L2,
+        k_sel, k, int(f32), vec, plan["q_chunk"], _sm_count(dev), plan["dc"],
+        plan["rt"], _raw_stream(dev))
     _build.check(status, "pass_b_rescore (f32)" if f32 else "pass_b_rescore")
     PASS_B_LAUNCHES += 1
     return out_v, out_i

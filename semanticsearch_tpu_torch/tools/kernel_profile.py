@@ -35,10 +35,15 @@ documents of 64 rows); and the two f32 schedules (the shapes of
 ``chip_smoke.py`` phase 7) on the f32 shard (1,250,000 x 384): pass A at
 32,768 queries (k_sel 11) and at the serve shape (64 x 20,000, k_sel 41),
 the fused top-k at 16,384 queries (k = 200) and at the f32 live round's
-shape (10,000 queries over 20,000 rows, k = 712). ``--only`` keeps the
-shapes whose names start with one of the given prefixes (``pass_a``,
-``overlap``, ``fused``, ``flash``, ``sim``, ``f32``); a shard is built
-only when a shape needs it.
+shape (10,000 queries over 20,000 rows, k = 712). Pass B runs on pass A's
+own segments: ``pass_b_shard`` (32,768 queries, k_sel 11, k 10),
+``pass_b_serve`` (64 x 20,000, k_sel 41, k 40; also ``*_queued_ms``, 50
+calls queued between two events over 50, the device's time a call apart
+from the host's), ``pass_b_hot`` (64 distinct queries repeated to 32,768:
+every query picks the same segments) and ``f32_pass_b_shard``. ``--only``
+keeps the shapes whose names start with one of the given prefixes
+(``pass_a``, ``pass_b``, ``overlap``, ``fused``, ``flash``, ``sim``,
+``f32``); a shard is built only when a shape needs it.
 """
 from __future__ import annotations
 
@@ -96,7 +101,8 @@ def main() -> int:
     runs = {}
     if any(wanted(name) for name in ("pass_a_shard", "overlap_shard",
                                      "pass_a_serve", "fused_shard",
-                                     "fused_live")):
+                                     "fused_live", "pass_b_shard",
+                                     "pass_b_serve", "pass_b_hot")):
         n, d = 1_250_000, 384
         corpus = synth.corpus(n, d, torch.bfloat16, "cuda")
         queries = synth.corpus(32768, d, torch.bfloat16, "cuda",
@@ -115,8 +121,24 @@ def main() -> int:
             "fused_live": lambda: topk.topk_scores_fused(queries[:10000],
                                                          live, 200),
         })
+        if any(wanted(name) for name in ("pass_b_shard", "pass_b_serve",
+                                         "pass_b_hot")):
+            seg = topk.segtopk_pass_a(queries, corpus, n, 32, 11)[1]
+            serve_seg = topk.segtopk_pass_a(queries[:64], small, 20000, 32,
+                                            41)[1]
+            hot_q = queries[:64].repeat(512, 1)
+            hot_seg = topk.segtopk_pass_a(hot_q, corpus, n, 32, 11)[1]
+            runs.update({
+                "pass_b_shard": lambda: topk.pass_b_rescore(
+                    queries, corpus, seg, n, 32, 10),
+                "pass_b_serve": lambda: topk.pass_b_rescore(
+                    queries[:64], small, serve_seg, 20000, 32, 40),
+                "pass_b_hot": lambda: topk.pass_b_rescore(
+                    hot_q, corpus, hot_seg, n, 32, 10),
+            })
     if any(wanted(name) for name in ("f32_pass_a_shard", "f32_pass_a_serve",
-                                     "f32_fused_shard", "f32_fused_live")):
+                                     "f32_fused_shard", "f32_fused_live",
+                                     "f32_pass_b_shard")):
         n, d = 1_250_000, 384
         corpus32 = synth.corpus(n, d, torch.float32, "cuda")
         queries32 = synth.corpus(32768, d, torch.float32, "cuda",
@@ -132,6 +154,10 @@ def main() -> int:
             "f32_fused_live": lambda: topk.topk_scores_fused(
                 queries32[:10000], small32, 712),
         })
+        if wanted("f32_pass_b_shard"):
+            seg32 = topk.segtopk_pass_a(queries32, corpus32, n, 32, 11)[1]
+            runs["f32_pass_b_shard"] = lambda: topk.pass_b_rescore(
+                queries32, corpus32, seg32, n, 32, 10)
     gen = torch.Generator().manual_seed(3)
     for prefix, dtype in (("flash_", torch.bfloat16),
                           ("flash_f32_", torch.float32)):
@@ -154,12 +180,24 @@ def main() -> int:
         runs[name] = lambda E=E: sim.similarity_matrix(E)
     runs = {name: fn for name, fn in runs.items() if wanted(name)}
     reps = {"pass_a_serve": 50, "fused_live": 5, "f32_pass_a_serve": 50,
+            "pass_b_serve": 50, "pass_b_shard": 10, "pass_b_hot": 10,
+            "f32_pass_b_shard": 10,
             "f32_fused_live": 5, "sim_long": 20, "sim_batched": 20,
             **{prefix + name: 20 for prefix in ("flash_", "flash_f32_")
                for name, *_ in FLASH_SHAPES}}
     for name, fn in runs.items():
         res[name + "_ms"] = time_ms(fn, reps=reps.get(name, 3))
-        if name.startswith("flash"):
+        if name == "pass_b_serve":
+            # the device's time a call: 50 calls queued between two events
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(50):
+                fn()
+            b.record()
+            b.synchronize()
+            res[name + "_queued_ms"] = a.elapsed_time(b) / 50
+        if name.startswith(("flash", "pass_b_serve")):
             # the host's side of a call: 50 calls queued without a wait
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -172,7 +210,7 @@ def main() -> int:
 
         rows = {}
         for name, fn in runs.items():
-            calls = 5 if name.startswith("sim") else 1
+            calls = 5 if name.startswith(("sim", "pass_b_serve")) else 1
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(calls):
@@ -183,7 +221,7 @@ def main() -> int:
                                  getattr(ev, "cuda_time_total", 0.0))
                 if dev_us > 0 and any(w in ev.key for w in
                                       ("topk", "merge", "flash", "gram",
-                                       "split")):
+                                       "split", "pass_b", "emset")):
                     kernel = ev.key.replace("(anonymous namespace)::", "")
                     rows[f"{name}: {kernel[:40]}"] = dev_us / 1e3 / calls
         res["profiler_device_ms_by_kernel"] = rows

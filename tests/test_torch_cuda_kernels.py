@@ -780,6 +780,158 @@ def test_pass_b_takes_an_unaligned_corpus(dev):
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q,n,k_sel,k", [(32768, 1_250_000, 11, 10),
+                                         (64, 20000, 41, 40),
+                                         (1000, 20011, 41, 40)])
+def test_pass_b_hot_segments(dev, dtype, q, n, k_sel, k):
+    """Every query the same (64 distinct ones at the shard, repeated), so
+    each selected segment is picked by thousands of queries and spread over
+    many score CTAs: bit-equal to the plain version on integer rows."""
+    L2 = 32
+    n_segs = -(-n // L2)
+    C = _pass_b_rows((n, 384), 80, dev, dtype)
+    base = _pass_b_rows((min(q, 64), 384), 81, dev, dtype)
+    Q = base.repeat(-(-q // base.shape[0]), 1)[:q].contiguous()
+    seg = _segs(1, k_sel, n_segs, 82, dev).expand(q, k_sel).contiguous()
+    seg[:, 0] = n_segs - 1
+    kv, ki = topk.pass_b_rescore(Q, C, seg, n, L2, k)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, n, L2, k)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pass_b_segment_cut_by_a_slice_boundary(dev, dtype):
+    """Every query lists segment 5, so its 300 pairs are cut into 19 work
+    items (score CTAs) of at most 16, each scoring its share; the first 17
+    queries list segment 7 as well (an item of 16 and one of 1; a query
+    that drew 5 or 7 already lists it twice)."""
+    q, n, L2, k_sel = 300, 5000, 32, 11
+    Q = _pass_b_rows((q, 384), 83, dev, dtype)
+    C = _pass_b_rows((n, 384), 84, dev, dtype)
+    seg = _segs(q, k_sel, -(-n // L2), 85, dev)
+    seg[:, 3] = 5
+    seg[:17, 4] = 7
+    kv, ki = topk.pass_b_rescore(Q, C, seg, n, L2, 40)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, n, L2, 40)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pass_b_one_query(dev, dtype):
+    """Q = 1: one pair a score CTA."""
+    Q = _pass_b_rows((1, 384), 86, dev, dtype)
+    C = _pass_b_rows((20011, 384), 87, dev, dtype)
+    seg = _segs(1, 41, 626, 88, dev)
+    seg[0, 0] = 625
+    kv, ki = topk.pass_b_rescore(Q, C, seg, 20011, 32, 40)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, 20011, 32, 40)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pass_b_query_chunks_under_a_lowered_budget(dev, dtype):
+    """A scratch budget of about 37 queries (37 queries' own plan): the
+    call runs in several chunks, the last one ragged, and equals the plain
+    version; still one launch counted."""
+    q, n, L2, k_sel = 200, 20011, 32, 41
+    Q = _pass_b_rows((q, 384), 89, dev, dtype)
+    C = _pass_b_rows((n, 384), 90, dev, dtype)
+    seg = _segs(q, k_sel, 626, 91, dev, 3)
+    budget = topk.pass_b_plan(37, k_sel, n, L2, 384,
+                              C.element_size())["scratch"]
+    plan = topk.pass_b_plan(q, k_sel, n, L2, 384, C.element_size(), budget)
+    assert 1 < plan["q_chunk"] < q and q % plan["q_chunk"]
+    launches = topk.PASS_B_LAUNCHES
+    kv, ki = topk.pass_b_rescore(Q, C, seg, n, L2, 40, scratch_budget=budget)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, n, L2, 40)
+    assert topk.PASS_B_LAUNCHES == launches + 1
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pass_b_two_runs_bit_equal(dev, dtype):
+    """Real-valued rows: the bucket order changes with the atomics, the
+    scores' bits do not (one writer each, a fixed summation order)."""
+    Q = _unit((2000, 384), 92, dev).to(dtype)
+    C = _unit((50000, 384), 93, dev).to(dtype)
+    seg = _segs(2000, 11, 1563, 94, dev)
+    seg[::3, 2] = 17  # a hot segment across slices
+    a = topk.pass_b_rescore(Q, C, seg, 50000, 32, 10)
+    b = topk.pass_b_rescore(Q, C, seg, 50000, 32, 10)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("q,n,L2,k_sel,k", [
+    (64, 20000, 32, 41, 200),     # k past 128: the k-round select
+    (5, 40000, 128, 300, 100)])   # candidates past the shared memory
+def test_pass_b_round_select(dev, dtype, q, n, L2, k_sel, k):
+    """The selection's other route, bit-equal to the plain version on
+    integer rows with ties, the last segment past n in every other list."""
+    Q = _pass_b_rows((q, 384), 99, dev, dtype)
+    C = _pass_b_rows((n, 384), 100, dev, dtype)
+    n_segs = -(-n // L2)
+    seg = _segs(q, k_sel, n_segs, 101, dev, 2)
+    seg[::2, 0] = n_segs - 1
+    kv, ki = topk.pass_b_rescore(Q, C, seg, n, L2, k)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, n, L2, k)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("k", [10, 40, 127, 200])
+def test_pass_b_zero_query(dev, k):
+    """A zero query scores every row 0 (signed zeros): both selections keep
+    the candidates in position order, as the stable sort does."""
+    Q = _grid((8, 384), 102, dev)
+    Q[3] = 0
+    C = _grid((20000, 384), 103, dev)
+    seg = _segs(8, 41, 625, 104, dev)
+    kv, ki = topk.pass_b_rescore(Q, C, seg, 20000, 32, k)
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, 20000, 32, k)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+def test_pass_b_buckets_kernel_matches_plain(dev):
+    """The kernel's first stage: the same buckets as the plain counting
+    sort (the order inside a bucket follows the atomics), placeholders and
+    ids past the last segment dropped, a segment listed twice kept twice."""
+    n, L2, q, k_sel = 20011, 32, 500, 41
+    n_segs = -(-n // L2)
+    g = torch.Generator(device=dev).manual_seed(95)
+    seg = torch.randint(-3, n_segs + 3, (q, k_sel), generator=g, device=dev,
+                        dtype=torch.int32)
+    seg[:, 1] = seg[:, 0]
+    seg[::2, 5] = 9  # hot
+    launches = topk.PASS_B_BUCKET_LAUNCHES
+    kp, ks = topk.pass_b_buckets(seg, n, L2)
+    pp, ps = topk.pass_b_buckets_plain(seg.cpu(), n, L2)
+    torch.cuda.synchronize()
+    assert topk.PASS_B_BUCKET_LAUNCHES == launches + 1
+    assert torch.equal(ks.cpu(), ps)
+    total = int(ps[-1])
+    kp = kp[:total].cpu()
+    for s in range(n_segs):
+        lo, hi = int(ps[s]), int(ps[s + 1])
+        assert sorted(kp[lo:hi].tolist()) == sorted(pp[lo:hi].tolist())
+
+
+def test_pass_b_makes_no_host_sync(dev):
+    """The whole call under sync-debug mode "error": no stage waits for the
+    host, so the served path's legs overlap."""
+    Q, C = _grid((64, 384), 96, dev), _grid((20000, 384), 97, dev)
+    seg = _segs(64, 41, 625, 98, dev)
+    topk.pass_b_rescore(Q, C, seg, 20000, 32, 40)  # built and planned
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kv, ki = topk.pass_b_rescore(Q, C, seg, 20000, 32, 40)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pv, pi = topk.pass_b_rescore_plain(Q, C, seg, 20000, 32, 40)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
 def test_twopass_on_the_card_never_runs_the_plain_pass_b(dev, monkeypatch):
     """Every two-pass mode on CUDA tensors rescores through the kernel,
     one launch a call, and equals the CPU path."""
@@ -1120,7 +1272,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     """What the kernels still refuse raises, and nothing is launched:
     float64 operands, a bf16 tensor sent to the int8 wrapper, k past 2048,
     a T past 128 that is not a multiple of 64, empty input; pass B's k past
-    its candidates and a width past its shared memory."""
+    its candidates."""
     x = torch.zeros((4, 64), device=dev, dtype=torch.float64)
     launches = (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
                 topk.SEGTOPK_OVERLAP_LAUNCHES, topk.SEGTOPK_INT8_LAUNCHES,
@@ -1158,8 +1310,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         sim.similarity_matrix(x[:0].float())
     with pytest.raises(ValueError, match="empty"):
         sim.similarity_matrix(x[:0].bfloat16())
-    # pass B: f64 and mixed operands, k past its k_sel * L2 candidates, a
-    # width whose query and scores pass the shared memory
+    # pass B: f64 and mixed operands, k past its k_sel * L2 candidates
     seg = torch.zeros((4, 2), device=dev, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
         topk.pass_b_rescore(x, x, seg, 4, 1, 1)
@@ -1167,9 +1318,6 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         topk.pass_b_rescore(x.float(), x.bfloat16(), seg, 4, 1, 1)
     with pytest.raises(ValueError, match="k_sel"):
         topk.pass_b_rescore(x.float(), x.float(), seg, 4, 1, 3)
-    wide = torch.zeros((4, 60000), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        topk.pass_b_rescore(wide, wide, seg, 4, 1, 1)
     assert launches == (topk.SEGTOPK_LAUNCHES, topk.SEGTOPK_F32_LAUNCHES,
                         topk.SEGTOPK_OVERLAP_LAUNCHES,
                         topk.SEGTOPK_INT8_LAUNCHES, topk.TOPK_FUSED_LAUNCHES,
@@ -1183,7 +1331,8 @@ def test_wrappers_take_what_they_refused(dev):
     """The refusals the kernels no longer make, each a parity case against
     its plain version, counted on its own launch counter: f32 pass A (both
     wrappers) and f32 fused top-k, f32 flash, flash at T = 96, bf16
-    similarity, int8 pass A at D = 72."""
+    similarity, int8 pass A at D = 72, pass B at a width of 60,000 (its
+    width now streams through shared memory in chunks)."""
     x = _grid((4, 64), 40, dev, torch.float32)
     before = topk.SEGTOPK_F32_LAUNCHES, topk.SEGTOPK_OVERLAP_F32_LAUNCHES
     for wrapper in (topk.segtopk_pass_a, topk.segtopk_pass_a_overlap):
@@ -1222,6 +1371,14 @@ def test_wrappers_take_what_they_refused(dev):
                                                          torch.int8)
     kv, ki = topk.segtopk_pass_a_int8(Q8, C8, 700, 8, 20)
     pv, pi = topk.segtopk_pass_a_int8_plain(Q8, C8, 700, 8, 20)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    wide = _small_grid((4, 60000), 44, dev)
+    seg = torch.zeros((4, 2), device=dev, dtype=torch.int32)
+    seg[:, 1] = 3
+    launches = topk.PASS_B_LAUNCHES
+    kv, ki = topk.pass_b_rescore(wide, wide, seg, 4, 1, 1)
+    pv, pi = topk.pass_b_rescore_plain(wide, wide, seg, 4, 1, 1)
+    assert topk.PASS_B_LAUNCHES == launches + 1
     assert torch.equal(ki, pi) and torch.equal(kv, pv)
 
 

@@ -822,11 +822,117 @@ def test_pass_b_rescore_refuses_k_outside_its_candidates():
                                       (12, 4)])
 def test_pass_b_smem_fits_every_two_pass_shape(k_sel, L2):
     """Every segment length block_n <= 16384 gives (up to 128 rows) at
-    every k_sel up to 128, at the widest bf16 pass A, fits; f32 widths fit
-    up to the shared memory's own limit."""
-    assert ttopk.pass_b_smem_bytes(ttopk.pass_a_max_d(k_sel), k_sel,
-                                   L2) <= ttopk.SMEM_LIMIT
-    d = (ttopk.SMEM_LIMIT - ttopk.pass_b_smem_bytes(0, k_sel, L2)) // 16 * 4
-    assert ttopk.pass_b_smem_bytes(d, k_sel, L2) <= ttopk.SMEM_LIMIT
-    assert ttopk.pass_b_smem_bytes(d + 4, k_sel, L2) > ttopk.SMEM_LIMIT
-    assert d > 40000
+    every k_sel up to 128, at the widest bf16 pass A and at f32 widths past
+    what one row of shared memory holds, at one query, the serve batch and
+    the shard's: the score CTA's tiles (up to 32 segment rows, 16 queries)
+    fit five CTAs an SM, and the width's chunks are multiples of the
+    16-wide MMA step, of near-equal size, and cover it."""
+    for d, elem in [(ttopk.pass_a_max_d(k_sel), 2), (384, 4), (40000, 4),
+                    (60000, 4), (30, 2), (100, 4)]:
+        for q in (1, 64, 32768):
+            plan = ttopk.pass_b_plan(q, k_sel, 1_250_000, L2, d, elem)
+            assert plan["smem"] == ((plan["rt"] + 16)
+                                    * (plan["dc"] + 16 // elem) * elem + 64)
+            assert 5 * (plan["smem"] + 1024) <= 233472
+            assert plan["smem"] <= ttopk.SMEM_LIMIT
+            assert plan["dc"] % 16 == 0 and plan["dc"] >= 16
+            chunks = -(-d // plan["dc"])
+            assert (chunks - 1) * plan["dc"] < d <= chunks * plan["dc"]
+            assert chunks * plan["dc"] - d < 16 * chunks
+            assert plan["rt"] % 8 == 0 and min(L2, 32) <= plan["rt"] <= 32
+
+
+def test_pass_b_plan_fills_the_card_and_bounds_the_scratch():
+    """A score CTA a work item of at most 16 pairs of one segment: the grid
+    is at most pairs / 16 plus one a segment (789 at the serve shape, about
+    six an SM); one chunk at the serve and shard shapes; a lowered budget
+    cuts the queries into chunks whose scratch fits it, and the largest
+    shape (k_sel 128, L2 128) runs in chunks under the default budget."""
+    serve = ttopk.pass_b_plan(64, 41, 20000, 32, 384, 2)
+    assert (serve["pairs"], serve["grid"], serve["q_chunk"]) == (16, 164 + 625,
+                                                                  64)
+    assert serve["scratch"] == (64 * 41 * 32 * 4 + 64 * 41 * 8 + 3 * 632 * 4
+                                + 16 * 789)
+    shard = ttopk.pass_b_plan(32768, 11, 1_250_000, 32, 384, 2)
+    assert (shard["grid"], shard["q_chunk"]) == (22528 + 39063, 32768)
+    assert shard["n_segs"] == 39063 and shard["dc"] == 384
+    assert ttopk.pass_b_plan(32768, 11, 1_250_000, 32, 384, 4)["dc"] == 192
+    big = ttopk.pass_b_plan(32768, 128, 1_250_000, 128, 1024, 2)
+    assert big["q_chunk"] < 32768
+    assert big["scratch"] <= ttopk.PASS_B_SCRATCH_BYTES
+    for budget in (1 << 16, 1 << 20, 5 << 20):
+        plan = ttopk.pass_b_plan(1000, 41, 20000, 32, 384, 2, budget)
+        assert plan["q_chunk"] < 1000 and plan["scratch"] <= budget
+        assert ttopk.pass_b_plan(plan["q_chunk"] + 1, 41, 20000, 32, 384, 2,
+                                 1 << 40)["scratch"] > budget
+    # a budget below one query's scratch still runs a query at a time
+    assert ttopk.pass_b_plan(9, 41, 20000, 32, 384, 2, 1)["q_chunk"] == 1
+
+
+def _pass_b_spans(starts):
+    """Score CTAs (work items) that each non-empty bucket takes."""
+    items = ttopk.pass_b_items_plain(starts)
+    spans = torch.bincount(items[:, 0], minlength=starts.numel() - 1)
+    return spans[spans > 0], items
+
+
+def test_pass_b_buckets_plain_sorts_every_valid_pair_once(rng):
+    """Placeholders, ids past the last segment and a segment listed twice
+    by one query: every valid (segment, position) pair once, sorted by
+    segment, each bucket where its start says, -1 after the pairs."""
+    n, L2, q, k_sel = 1000, 32, 40, 9
+    n_segs = -(-n // L2)
+    segs = rng.integers(-3, n_segs + 3, size=(q, k_sel)).astype(np.int32)
+    segs[:, 1] = segs[:, 0]  # listed twice
+    pairs, starts = ttopk.pass_b_buckets_plain(torch.from_numpy(segs), n, L2)
+    flat = segs.reshape(-1)
+    want = sorted((int(s), p) for p, s in enumerate(flat) if 0 <= s < n_segs)
+    total = int(starts[-1])
+    assert total == len(want) < q * k_sel
+    got = [tuple(r) for r in pairs[:total].tolist()]
+    assert sorted(got) == want
+    assert got == sorted(got, key=lambda t: t[0])
+    assert bool((pairs[total:] == -1).all())
+    assert starts.shape == (n_segs + 1,) and int(starts[0]) == 0
+    for s in range(n_segs):
+        lo, hi = int(starts[s]), int(starts[s + 1])
+        assert all(g == s for g, _ in got[lo:hi])
+        assert hi - lo == int((flat == s).sum())
+    # the wrapper on CPU tensors is the plain version
+    p2, s2 = ttopk.pass_b_buckets(torch.from_numpy(segs), n, L2)
+    assert torch.equal(p2, pairs) and torch.equal(s2, starts)
+
+
+@pytest.mark.parametrize("q,k_sel,n", [(32768, 11, 1_250_000),
+                                       (64, 41, 20000)])
+def test_pass_b_hot_segments_split_as_planned(q, k_sel, n):
+    """Every query the same: each of its k_sel segments is picked by every
+    query, and its pairs are cut into ceil(q / 16) work items (score CTAs)
+    of at most 16 each, consecutive in the bucket, no more items than the
+    plan's grid: a hot segment is spread over as many CTAs as its pairs
+    need (2,048 at the shard)."""
+    L2 = 32
+    row = torch.arange(k_sel, dtype=torch.int32) * 7 + 3
+    pairs, starts = ttopk.pass_b_buckets_plain(row.expand(q, k_sel), n, L2)
+    plan = ttopk.pass_b_plan(q, k_sel, n, L2, 384, 2)
+    spans, items = _pass_b_spans(starts)
+    assert plan["pairs"] == 16
+    assert spans.numel() == k_sel and bool((spans == -(-q // 16)).all())
+    assert int(items[:, 2].max()) == 16 and int(items[:, 2].sum()) == q * k_sel
+    assert bool((items[1:, 1] == items[:-1, 1] + items[:-1, 2]).all())
+    assert items.shape[0] == k_sel * -(-q // 16) <= plan["grid"]
+
+
+def test_pass_b_reads_each_selected_segment_about_once(rng):
+    """Random segments at the shard shape (32,768 queries x 11 of 39,063)
+    and the serve shape (64 x 41 of 625): the score CTAs together load each
+    selected segment once, or twice where it has more than 16 pairs."""
+    for q, k_sel, n in [(32768, 11, 1_250_000), (64, 41, 20000)]:
+        L2 = 32
+        segs = torch.from_numpy(
+            rng.integers(0, -(-n // L2), size=(q, k_sel)).astype(np.int32))
+        _, starts = ttopk.pass_b_buckets_plain(segs, n, L2)
+        plan = ttopk.pass_b_plan(q, k_sel, n, L2, 384, 2)
+        spans, items = _pass_b_spans(starts)
+        assert 1.0 <= float(spans.sum()) / spans.numel() <= 1.1
+        assert items.shape[0] <= plan["grid"]
