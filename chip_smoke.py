@@ -42,9 +42,13 @@ over phase 3's corpus, the coalescing HTTP server under 64 concurrent
 clients with a freshness round, a ``python -m
 semanticsearch_tpu_torch.cli.main serve --port 0`` subprocess, ``chunk``
 under ``semantic_grouping`` over phase 6's documents, and ``oie-train`` ->
-``oie --extractor neural`` (phase 11). Phase 3 also serves the ``serve_device`` profile (the
-device BM25 leg; hits equal the host leg's) and an index with a trained
-subword ``tokenizer.json``; phases 3, 5 and 6 check that the native host
+``oie --extractor neural`` (phase 11), runs the sharded paths on four
+virtual shards of the card (phase 12), and trains data parallel across
+two processes on the card over gloo, each forwarding its own rows,
+against the same steps in one process (phase 13). Phase 3 also serves
+the ``serve_device`` profile (the device BM25 leg; hits equal the host
+leg's) and an index with a trained subword ``tokenizer.json``; phases 3,
+5 and 6 check that the native host
 kernels ran and split their host time by part.
 Progress and measurements go to stdout; the line before the last is the card's name and power limit, the
 one before it the JSON ``kernels`` record, and the last line
@@ -4244,6 +4248,273 @@ def phase_shard_lexical(report, lex):
     torch.cuda.empty_cache()
 
 
+MP_PROCESSES = 2
+MP_DEVICE = "cuda:0"       # both processes' rows and kernels
+MP_STEPS = 4               # contrastive steps, then MLM steps, batch 64
+MP_GRAD_RTOL = 1e-5        # step 1's flat gradient, against its norm
+MP_TIMEOUT_S = 300
+
+
+def _mp_train(mesh, data):
+    """Phase 13's training on ``mesh``, each trainer from the seed-0
+    default encoder under flash (Adam turns rounding-level differences in
+    the gradients of parameters whose true gradient is zero into whole
+    steps, so a trainer started from the other's result would start from
+    masters that differ between runs): MP_STEPS contrastive steps
+    (ContrastiveConfig's batch 64 at 64 + 256 tokens, no hard negatives)
+    and MP_STEPS MLM steps (MLMConfig's batch 64 at 128 tokens), each
+    trainer one epoch. Returns (a JSON-able record, each trainer's step-1
+    flat gradient on the host): per-step losses (MLM's summed over the
+    processes), the rows of every ``train_forward`` call, ms a step by
+    CUDA events after a warm-up step, the gradient all-reduce's ms in each
+    of those steps (CUDA events on either side of it, so the span holds
+    the wait for the other process too), flash launches and the masters'
+    digest after each trainer."""
+    import hashlib
+
+    import torch
+
+    from semanticsearch_tpu_torch.core import distributed
+    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.train import encoder_train as et
+    from semanticsearch_tpu_torch.train import optim
+    from semanticsearch_tpu_torch.train.mlm_pretrain import (MLMConfig,
+                                                             MLMPretrainer)
+
+    res = {"rows": [], "reduce_ms": {}, "losses": {}, "ms": {},
+           "digest": {}, "launches": {}}
+    grads, spans = {}, {}
+    reduce, name = et.all_reduce_flat, None
+
+    def timed_reduce(*args, **kw):  # CUDA events: no synchronize added
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        reduce(*args, **kw)
+        ev[1].record()
+        spans.setdefault(name, []).append(ev)
+
+    et.all_reduce_flat = timed_reduce
+    trainers = (
+        ("contrastive", lambda enc: et.ContrastiveEncoderTrainer(
+            enc, et.ContrastiveConfig(epochs=1, use_hard_negatives=False,
+                                      seed=0)),
+         [tuple(p) for p in data["pairs"]]),
+        ("mlm", lambda enc: MLMPretrainer(enc, MLMConfig(epochs=1)),
+         data["texts"]))
+    try:
+        for name, make, inputs in trainers:
+            enc = SentenceEncoder(EncoderConfig(attention="flash"),
+                                  mesh=mesh, seed=0)
+            res["params"] = sum(p.numel() for p in enc.master.parameters())
+            forward = enc._mesh_apply
+
+            def counted(ids, masks, *args, _fwd=forward, **kw):
+                res["rows"].append(sum(int(x.shape[0]) for x in ids))
+                return _fwd(ids, masks, *args, **kw)
+
+            enc._mesh_apply = counted  # rows this process forwards
+            trainer = make(enc)
+            losses, loss_fn = [], trainer._loss
+
+            def recorded(*args, _fn=loss_fn, _out=losses):
+                loss = _fn(*args)
+                _out.append(loss.detach())
+                return loss
+
+            trainer._loss = recorded
+            zero_counts()
+            with _StepTimer() as st:
+                timed = optim.Optimizer.step
+
+                def first_grad(opt, _name=name, _timed=timed):
+                    if _name not in grads:
+                        grads[_name] = torch.cat([
+                            (p.grad if p.grad is not None
+                             else torch.zeros_like(p)).reshape(-1)
+                            for p in opt.params.values()]).cpu()
+                    _timed(opt)
+
+                optim.Optimizer.step = first_grad
+                trainer.fit(inputs)
+            res["ms"][name] = st.ms()
+            res["reduce_ms"][name] = [a.elapsed_time(b)  # the timed steps
+                                      for a, b in spans.get(name, [])[1:]]
+            res["launches"][name] = fa.FLASH_LAUNCHES
+            shares = torch.stack(losses)
+            if name == "mlm":  # each process's share of the global loss
+                distributed.all_reduce_flat(mesh, [shares])
+            res["losses"][name] = shares.cpu().tolist()
+            flat = torch.cat([p.detach().reshape(-1)
+                              for p in enc.master.parameters()])
+            res["digest"][name] = hashlib.sha256(
+                flat.cpu().numpy().tobytes()).hexdigest()
+    finally:
+        et.all_reduce_flat = reduce
+    return res, grads
+
+
+def _mp_worker(rank: str, port: str, out_dir: str) -> int:
+    """One of phase 13's processes: join the gloo group, take a global mesh
+    of its one shard on MP_DEVICE, train, write its record and gradients
+    into ``out_dir``."""
+    import torch
+
+    from semanticsearch_tpu_torch.core import distributed
+
+    rank = int(rank)
+    distributed.initialize(f"127.0.0.1:{port}", MP_PROCESSES, rank,
+                           backend="gloo")
+    mesh = distributed.global_mesh(local_devices=[torch.device(MP_DEVICE)])
+    with open(os.path.join(out_dir, "data.json")) as f:
+        data = json.load(f)
+    res, grads = _mp_train(mesh, data)
+    for name, g in grads.items():
+        torch.save(g, os.path.join(out_dir, f"grad_{name}_{rank}.pt"))
+    with open(os.path.join(out_dir, f"mp_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multiprocess(report, ctx):
+    """Phase 13: data-parallel training across MP_PROCESSES processes on
+    the one card, over gloo (NCCL refuses two ranks on one device), each
+    forwarding its own half of every batch; held against the one-process
+    run on a (data 2) mesh of the card twice."""
+    import torch
+
+    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch.data.tsv import read_tsv
+
+    log(f"== phase 13: data-parallel training across {MP_PROCESSES} "
+        f"processes on {MP_DEVICE} over gloo (collectives staged through "
+        "the host; main path)")
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ctx["tmp"], "multiprocess")
+    os.makedirs(out_dir)
+    texts = [r["chunk_text"] for _, r in zip(range(MP_STEPS * 64),
+                                             read_tsv(ctx["tsv"]))]
+    data = {"pairs": [(f"query {t[:40]}", t) for t in texts],
+            "texts": texts}
+    with open(os.path.join(out_dir, "data.json"), "w") as f:
+        json.dump(data, f)
+    one, one_grads = _mp_train(_virtual_mesh(data=MP_PROCESSES), data)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-worker", str(r),
+         port, out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in range(MP_PROCESSES)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        check(False, f"phase 13's processes ended within {MP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            log("\n".join(f"  proc {r}: {line}"
+                          for line in out.splitlines()[-30:]))
+        check(p.returncode == 0, f"process {r} of {MP_PROCESSES} exited 0")
+    mp = []
+    for r in range(MP_PROCESSES):
+        with open(os.path.join(out_dir, f"mp_{r}.json")) as f:
+            mp.append(json.load(f))
+    res = {"processes": MP_PROCESSES, "wall_s": wall_s,
+           "allreduce_bytes": 4 * one["params"]}
+    for name in ("contrastive", "mlm"):
+        want = one["losses"][name]
+        got = [m["losses"][name] for m in mp]
+        ref = one_grads[name].double()
+        g_err = max(float((torch.load(os.path.join(
+            out_dir, f"grad_{name}_{r}.pt")).double() - ref).norm()
+            / ref.norm()) for r in range(MP_PROCESSES))
+        rel = max(abs(a - b) / abs(b) for g in got
+                  for a, b in zip(g[1:], want[1:]))
+        first = max(abs(g[0] - want[0]) / abs(want[0]) for g in got)
+        step1 = (all(g[0] == want[0] for g in got) if name == "contrastive"
+                 else first <= MP_GRAD_RTOL)
+        check(step1 and g_err <= MP_GRAD_RTOL and rel <= TP_LOSS_RTOL
+              and got[0] == got[1],
+              f"{name}: step-1 loss {got[0][0]!r} vs one process "
+              f"{want[0]!r} ("
+              + ("bit-equal" if name == "contrastive"
+                 else f"rel {first:.1e} <= {MP_GRAD_RTOL}")
+              + f"); step-1 flat gradient within {g_err:.1e} <= "
+              f"{MP_GRAD_RTOL} of its norm; later losses "
+              f"{[round(x, 5) for x in got[0][1:]]} vs "
+              f"{[round(x, 5) for x in want[1:]]} (rel {rel:.1e} <= "
+              f"{TP_LOSS_RTOL}); both processes report the same losses")
+        check(mp[0]["digest"][name] == mp[1]["digest"][name],
+              f"{name}: the masters are bit-identical across the processes "
+              f"(sha256 {mp[0]['digest'][name][:16]})")
+        reduce_ms = [float(np.mean(m["reduce_ms"][name])) for m in mp]
+        res[name] = {"ms": [m["ms"][name] for m in mp],
+                     "one_process_ms": one["ms"][name],
+                     "reduce_ms": reduce_ms,
+                     "reduce_share": [a / m["ms"][name]
+                                      for a, m in zip(reduce_ms, mp)],
+                     "losses": got[0], "one_process_losses": want,
+                     "loss_rel": rel, "grad_rel": g_err}
+    per = 64 // MP_PROCESSES
+    rows = sorted({x for m in mp for x in m["rows"]})
+    calls = 2 * MP_STEPS + MP_STEPS
+    check(rows == [per] and all(len(m["rows"]) == calls for m in mp)
+          and one["rows"] == [64] * calls,
+          f"each process's {calls} train_forward calls forwarded {rows} rows "
+          f"of 64 ({MP_STEPS} contrastive steps x 2 sides, {MP_STEPS} MLM "
+          "steps); the one-process run forwarded all 64 on its two shards")
+    layers = EncoderConfig().num_layers
+    want_launches = {"contrastive": 2 * MP_STEPS * layers,
+                     "mlm": MP_STEPS * layers}
+    for name, n in want_launches.items():
+        got_l = [m["launches"][name] for m in mp]
+        check(got_l == [n] * MP_PROCESSES
+              and one["launches"][name] == MP_PROCESSES * n,
+              f"{name}: flash launched {got_l} times a process == {n} "
+              f"({layers} layers a forward on its one shard); the one-process "
+              f"run {one['launches'][name]} on two shards")
+    res.update({"launches": [sum(m["launches"].values()) for m in mp],
+                "phase_s": time.perf_counter() - t_phase})
+    report["flash"]["mp_train_launches"] = sum(res["launches"])
+    report["multiprocess"] = res
+    for name in want_launches:
+        r = res[name]
+        log(f"  {name} step: {r['ms'][0]:.2f} / {r['ms'][1]:.2f} ms a "
+            f"process by events ({MP_PROCESSES} processes, {per} rows each) "
+            f"vs {r['one_process_ms']:.2f} ms in one process on two shards; "
+            f"gradient all-reduce {r['reduce_ms'][0]:.2f} / "
+            f"{r['reduce_ms'][1]:.2f} ms (CUDA events, including the wait "
+            f"for the other process), {r['reduce_share'][0]:.3f} / "
+            f"{r['reduce_share'][1]:.3f} of a step")
+    log(f"  all-reduced a step: {res['allreduce_bytes'] / 1e6:.1f} MB "
+        f"({one['params']:,} f32 parameters); processes' wall "
+        f"{wall_s:.1f} s, phase {res['phase_s']:.1f} s")
+    log(json.dumps({"multiprocess": res}))
+
+
 def main() -> int:
     try:
         import torch
@@ -4261,6 +4532,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mp-worker"]:  # one of phase 13's processes
+        return _mp_worker(*sys.argv[2:5])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     seg_src = "semanticsearch_tpu_torch/csrc/segtopk.cu"
@@ -4319,6 +4592,7 @@ def main() -> int:
             phase_train(report, ctx)
             phase_entry(report, ctx)
             phase_shard(report, ctx)
+            phase_multiprocess(report, ctx)
         phase_shard_lexical(report, phase_lexical(report))
     except CheckFailed as exc:
         print(f"chip_smoke: check failed: {exc}", file=sys.stderr)
@@ -4330,7 +4604,8 @@ def main() -> int:
              "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
-             "rerank_launches", "train_launches", "entry_launches",
+             "rerank_launches", "train_launches", "mp_train_launches",
+             "entry_launches",
              "shard_launches", "dense_launches", "f32_launches",
              "gathered_bound_ms", "serve_gathered_bound_ms",
              "f32_gathered_bound_ms", "serve_queued_ms", "hot_ms",

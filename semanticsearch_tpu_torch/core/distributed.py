@@ -6,7 +6,9 @@ drives all of its own devices (``core/mesh.py``); processes join one
 before building the global mesh with :func:`global_mesh`. The sharded
 top-k, the ring similarity and the device BM25's candidate merge cross the
 process boundary through :func:`all_gather_rows` and :func:`ring_shift`
-(NCCL on the card, gloo on the CPU).
+(NCCL on the card, gloo on the CPU); data-parallel training through the
+differentiable :func:`gather_rows` and the one-bucket gradient sum
+:func:`all_reduce_flat`.
 
 A single-process run skips initialization entirely, so every code path
 works unchanged in one process.
@@ -139,6 +141,71 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
                       dtype=src.dtype, device=dev)
     dist.all_gather_into_tensor(out, src, group=mesh.group)
     return out.to(x.device)
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`all_gather_rows` with a gradient. Every process computes the
+    same loss from the same gathered rows, so the gradient on the gathered
+    tensor is the same everywhere: each process takes back its own rows'
+    slice of it, and the processes' parameter gradients sum
+    (:func:`all_reduce_flat`) to the gradient of the one loss."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, counts):
+        ctx.lo, ctx.n = sum(counts[:mesh.rank]), counts[mesh.rank]
+        most = max(counts)
+        if x.shape[0] < most:  # one shape everywhere for the collective
+            x = torch.cat([x, x.new_zeros((most - x.shape[0],
+                                           *x.shape[1:]))])
+        out = all_gather_rows(mesh, x)
+        if min(counts) == most:
+            return out
+        return torch.cat([out[p * most: p * most + c]
+                          for p, c in enumerate(counts)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.lo: ctx.lo + ctx.n], None, None
+
+
+def gather_rows(mesh: Mesh, x: torch.Tensor,
+                counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Differentiable :func:`all_gather_rows`: every process's ``x`` along
+    dim 0 in process order, ``counts[p]`` rows from process p (the same
+    count everywhere when None; uneven blocks are padded for the
+    collective and trimmed after it). Its backward returns this process's
+    rows of the incoming gradient, which is exact when every process
+    computes the same loss from the result. ``x`` itself inside one
+    process."""
+    if mesh.group is None:
+        return x
+    counts = (list(counts) if counts is not None
+              else [x.shape[0]] * dist.get_world_size(mesh.group))
+    if x.shape[0] != counts[mesh.rank]:
+        raise ValueError(f"process {mesh.rank} holds {x.shape[0]} rows, "
+                         f"not {counts[mesh.rank]}")
+    return _GatherRows.apply(x, mesh, counts)
+
+
+def all_reduce_flat(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> None:
+    """Sum each of ``tensors`` over the processes, in place, in one
+    collective: the tensors (one dtype, one device) are flattened into one
+    bucket, staged through the host under gloo and kept on the card under
+    NCCL. A no-op inside one process."""
+    if mesh.group is None or not tensors:
+        return
+    if len({t.dtype for t in tensors}) != 1:
+        raise ValueError("all_reduce_flat takes tensors of one dtype")
+    home = tensors[0].device
+    with torch.no_grad():
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        flat = flat.to(_comm_device(mesh, home))
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+        flat = flat.to(home)
+        off = 0
+        for t in tensors:
+            t.copy_(flat[off: off + t.numel()].view_as(t))
+            off += t.numel()
 
 
 def ring_shift(mesh: Mesh, blocks: List[torch.Tensor],

@@ -188,3 +188,10 @@ def local_row_devices(mesh: Mesh) -> List[torch.device]:
     rows = row_devices(mesh)
     return [rows[i] for i in local_rows(mesh)]
 
+
+def split_bounds(n_rows: int, n_parts: int) -> List[int]:
+    """The n_parts + 1 row offsets of ``tensor_split(n_parts)`` over
+    ``n_rows`` rows: the first ``n_rows % n_parts`` parts take one row
+    more."""
+    q, r = divmod(n_rows, n_parts)
+    return [i * q + min(i, r) for i in range(n_parts + 1)]

@@ -21,7 +21,11 @@ kernel launches once per slice on a card), and the outputs are
 concatenated in order on the first device. On a mesh with a ``model`` axis
 that divides the heads and the MLP width, each slice runs the
 tensor-parallel forward of ``parallel/tensor.py`` instead. A mesh of one
-device is the single-device path.
+device is the single-device path. On a mesh across processes
+(``core/distributed.py``) training is data parallel across them too: each
+process forwards only its own rows of the global batch
+(:meth:`SentenceEncoder.train_forward`); encoding stays replicated, every
+process encoding the whole batch on its own shards.
 
 Parameters: as flax keeps float32 parameters and computes in ``dtype``,
 ``SentenceEncoder`` keeps float32 master parameters (``master``) beside the
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import math
 from typing import Callable, Optional, Sequence
 
@@ -290,6 +295,8 @@ class SentenceEncoder:
         self._tp = (mesh_tp_size(mesh)
                     if tp_compatible(cfg, mesh_tp_size(mesh)) else 1)
         self._n_data = len(self._data_devices) if mesh is not None else 1
+        # processes split the global batch (train_forward)
+        self._multiprocess = mesh is not None and mesh.group is not None
         self.tokenizer = tokenizer or HashingTokenizer(
             vocab_size=cfg.vocab_size, max_len=cfg.max_len)
         if self._tp > 1:
@@ -358,12 +365,14 @@ class SentenceEncoder:
         """One forward per data shard on its row slice (``ids[i]`` and
         ``masks[i]`` already on shard i's device): the serving copies, or
         in training (``params``, the float32 masters) the serving module
-        on their casts. Each shard's launches are issued before its output
-        is copied to the first device; outputs concatenate in order."""
+        on their casts, one cast a shard even where shards share a device,
+        so each shard's gradient reaches the masters in float32 and the
+        shards' gradients sum there, as they do across devices and across
+        processes. Each shard's launches are issued before its output is
+        copied to the first device; outputs concatenate in order."""
         dtype = getattr(torch, self.cfg.dtype)
         training = params is not None
         outs = []
-        casts: dict = {}
         for i, (dev, ids_i, mask_i) in enumerate(
                 zip(self._data_devices, ids, masks)):
             if self._tp > 1:
@@ -377,37 +386,97 @@ class SentenceEncoder:
                 out = self._replicas[dev](ids_i, mask_i,
                                           return_tokens=return_tokens)
             else:
-                if dev not in casts:
-                    casts[dev] = {k: v.to(dtype).to(dev, non_blocking=True)
-                                  for k, v in params.items()}
+                cast = {k: v.to(dtype).to(dev, non_blocking=True)
+                        for k, v in params.items()}
                 out = torch.func.functional_call(
-                    self.model, casts[dev], (ids_i, mask_i),
+                    self.model, cast, (ids_i, mask_i),
                     {"return_tokens": return_tokens})
             outs.append(out.to(self.device, non_blocking=True))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
+    def _row_bounds(self, b: int):
+        """The row offsets of a global batch of ``b`` rows over the global
+        row shards (``tensor_split``); each process forwards its block of
+        shards, so its rows are contiguous on a process-major mesh."""
+        from ..core.distributed import check_process_major
+        from ..core.mesh import n_row_shards, split_bounds
+
+        check_process_major(self.mesh)
+        return split_bounds(b, n_row_shards(self.mesh))
+
+    def local_shard_rows(self, b: int) -> list:
+        """The rows of a global training batch of ``b`` rows that each of
+        this process's row shards forwards in :meth:`train_forward`, in
+        shard order; one slice of every row without a mesh."""
+        if self.mesh is None:
+            return [slice(0, b)]
+        bounds = self._row_bounds(b)
+        return [slice(bounds[i], bounds[i + 1]) for i in self._data_rows]
+
+    def _process_generator(self, generator: torch.Generator
+                           ) -> torch.Generator:
+        """This process's dropout generator for one :meth:`train_forward`
+        call across processes. ``generator`` is shared: every process holds
+        it in the same state, so its state names the call, and one draw
+        from it moves it on for the next call. The state is read on the
+        host, so nothing waits for the card."""
+        place = hashlib.sha256(
+            generator.get_state().numpy().tobytes()).digest()
+        torch.rand(1, generator=generator, device=generator.device)
+        return dropout_generator(generator.device,
+                                 int.from_bytes(place[:8], "little"),
+                                 self._data_rows[0])
+
     def train_forward(self, ids: torch.Tensor, mask: torch.Tensor,
                       params: dict, return_tokens: bool = False,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      gather: bool = True) -> torch.Tensor:
         """The serving module's forward in training mode on ``params`` (the
         float32 masters by name) cast to ``cfg.dtype``: the casts carry the
         gradient back to float32, as flax's ``dtype`` does. Dropout masks
-        come from ``generator``. On a mesh the global batch's rows split
-        over the data shards and the output is the whole batch's on the
-        first device, so a loss over it sees every shard's rows."""
+        come from ``generator``.
+
+        On a mesh the global batch's rows split with ``tensor_split`` over
+        the global row shards, as JAX's ``P("data")`` cuts them. Inside one
+        process every shard is local and the output is the whole batch's
+        on the first device, so a loss over it sees every shard's rows.
+        Across processes (a mesh with a group, process-major) this process
+        forwards only its block of shards' rows (:meth:`local_shard_rows`)
+        and returns every process's rows gathered in process order
+        (``gather``; differentiable, ``core.distributed.gather_rows``: what
+        a loss with in-batch negatives needs) or its own rows alone
+        (``gather=False``, for a loss that splits by row).
+
+        Dropout across processes: each call draws from a generator of this
+        process's own (:meth:`_process_generator`), seeded from where
+        ``generator`` stands in its stream and from the first row shard,
+        and then moves ``generator`` on. So no two processes draw the same
+        masks for different rows, two calls of one step (a trainer's query
+        side, then its chunk side) draw fresh ones, and a rerun draws the
+        same; inside one process the shards draw from ``generator``
+        itself, in shard order."""
         dtype = getattr(torch, self.cfg.dtype)
+        if self._multiprocess and generator is not None:
+            generator = self._process_generator(generator)
         set_dropout_generator(self.model, generator)
         self.model.train()
         try:
-            if self.sharded:
-                n = self._n_data
-                return self._mesh_apply(
-                    [x.to(d, non_blocking=True) for x, d in
-                     zip(ids.tensor_split(n), self._data_devices)],
-                    [x.to(d, non_blocking=True) for x, d in
-                     zip(mask.tensor_split(n), self._data_devices)],
+            if self.sharded or self._multiprocess:
+                shards = self.local_shard_rows(ids.shape[0])
+                out = self._mesh_apply(
+                    [ids[s].to(d, non_blocking=True)
+                     for s, d in zip(shards, self._data_devices)],
+                    [mask[s].to(d, non_blocking=True)
+                     for s, d in zip(shards, self._data_devices)],
                     params, return_tokens)
+                if self._multiprocess and gather:
+                    from ..core.distributed import gather_rows
+
+                    bounds, per = self._row_bounds(ids.shape[0]), self._n_data
+                    out = gather_rows(self.mesh, out, [
+                        bounds[p + per] - bounds[p]
+                        for p in range(0, len(bounds) - 1, per)])
+                return out
             cast = {k: v.to(dtype) for k, v in params.items()}
             return torch.func.functional_call(
                 self.model, cast, (ids, mask),

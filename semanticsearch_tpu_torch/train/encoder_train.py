@@ -21,7 +21,13 @@ split over the data shards (tensor parallel within each on a ``model``
 axis) and the logits and loss are taken over the whole batch on the first
 device, so every other row of the global batch, on any shard, is an
 in-batch negative; the gradient flows back through the copies into the
-one set of float32 masters.
+one set of float32 masters. On a mesh across processes
+(``core.distributed.global_mesh``) each process forwards its own block of
+the query rows and of the chunk rows, both sides are gathered in process
+order (differentiably), every process takes the same logits and loss, and
+the masters' gradients are summed over the processes in one flat bucket
+before the step (:func:`reduce_gradients`), so the masters stay equal on
+every process.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from torch.nn import functional as F
 
 from ..core.checkpoint import load_metadata, restore_checkpoint, save_checkpoint
 from ..core.config import EncoderConfig
+from ..core.distributed import all_reduce_flat, is_primary
 from ..core.logging import get_logger
 from ..models.convert import encoder_flax_tree, flax_to_state_dict
 from ..models.encoder import SentenceEncoder, dropout_generator
@@ -132,6 +139,22 @@ def adamw_for(encoder: SentenceEncoder, total_steps: int,
                      schedule, weight_decay=weight_decay)
 
 
+def reduce_gradients(encoder: SentenceEncoder,
+                     params: Dict[str, torch.Tensor]) -> None:
+    """Sum the float32 masters' gradients over the processes of the
+    encoder's mesh in one flat bucket (``core.distributed.all_reduce_flat``)
+    so that every process takes the same step; a parameter without a
+    gradient takes zeros, as the optimizer's step would give it. A no-op
+    inside one process."""
+    mesh = encoder.mesh
+    if mesh is None or mesh.group is None:
+        return
+    for p in params.values():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    all_reduce_flat(mesh, [p.grad for p in params.values()])
+
+
 class ContrastiveEncoderTrainer:
     """Train a SentenceEncoder's float32 masters with InfoNCE::
 
@@ -214,6 +237,7 @@ class ContrastiveEncoderTrainer:
                 opt.zero_grad()
                 loss = self._loss(params, *up, gen)
                 loss.backward()
+                reduce_gradients(enc, params)
                 opt.step()
                 losses.append(loss.detach())
             enc.sync()
@@ -299,17 +323,23 @@ def save_encoder(encoder: SentenceEncoder, path: str) -> str:
     ...}`` with its config in the metadata, in the npz layout
     (``core/checkpoint.py``), which the JAX package's ``load_encoder``
     reads; a trained subword tokenizer goes beside it as
-    ``tokenizer.json``."""
+    ``tokenizer.json``. On a mesh across processes (whose masters are
+    equal) only the primary process writes, and every process returns
+    after the write."""
     cfg = encoder.cfg
-    out = save_checkpoint(
-        path,
-        {"params": encoder_flax_tree(encoder.master.state_dict(),
-                                     cfg.num_layers, cfg.num_heads)},
-        metadata={"encoder_config": dataclasses.asdict(cfg),
-                  "kind": "sentence_encoder"})
-    if hasattr(encoder.tokenizer, "save"):
-        encoder.tokenizer.save(os.path.join(path, "tokenizer.json"))
-    return out
+    group = encoder.mesh.group if encoder.mesh is not None else None
+    if group is None or is_primary():
+        save_checkpoint(
+            path,
+            {"params": encoder_flax_tree(encoder.master.state_dict(),
+                                         cfg.num_layers, cfg.num_heads)},
+            metadata={"encoder_config": dataclasses.asdict(cfg),
+                      "kind": "sentence_encoder"})
+        if hasattr(encoder.tokenizer, "save"):
+            encoder.tokenizer.save(os.path.join(path, "tokenizer.json"))
+    if group is not None:
+        torch.distributed.barrier(group=group)
+    return path
 
 
 def load_encoder(path: str, device="cuda", mesh=None) -> SentenceEncoder:

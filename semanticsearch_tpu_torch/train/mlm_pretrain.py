@@ -8,9 +8,14 @@ model predicts the original ids there through a decoder tied to the
 float32 master token table, so the parameter tree stays the encoder's.
 The corruption draws from the same ``np.random.Generator`` calls as the
 JAX package's, so the same seed corrupts the same positions to the same ids.
-On a meshed encoder the batch's rows split over the data shards and the
-loss is taken over the whole batch on the first device
-(``SentenceEncoder.train_forward``).
+On a meshed encoder the batch's rows split over the data shards
+(``SentenceEncoder.train_forward``) and the loss is taken on the first
+device, the tied decoder a shard's rows at a time. On a mesh across
+processes every process corrupts the whole global batch from the same
+generator calls, forwards only its own rows, and takes their share of the
+loss, Σ(nll·w) over them divided by Σw over the global batch; the shares
+summed over the processes are the reported loss, and the masters'
+gradients are summed as the contrastive trainer's are.
 """
 from __future__ import annotations
 
@@ -22,9 +27,10 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..core.distributed import all_reduce_flat
 from ..core.logging import get_logger
 from ..models.encoder import SentenceEncoder, dropout_generator
-from .encoder_train import adamw_for
+from .encoder_train import adamw_for, reduce_gradients
 
 logger = get_logger("mlm_pretrain")
 
@@ -79,15 +85,27 @@ class MLMPretrainer:
         return corrupt, pos, tgt, w
 
     def _loss(self, params, ids, mask, pos, tgt, w, gen):
-        h = self.encoder.train_forward(ids, mask, params,
-                                       return_tokens=True,
-                                       generator=gen)  # (B, T, H) f32
-        hs = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))
+        """This process's share of the global batch's loss: Σ(nll·w) over
+        the rows it forwards, over Σw of the whole batch (every row in
+        one process). The tied decoder runs a row shard at a time, as
+        JAX's einsum partitioned over ``data`` does, so a shard's logits
+        are the same products in one process and across processes."""
+        enc = self.encoder
+        h = enc.train_forward(ids, mask, params, return_tokens=True,
+                              generator=gen, gather=False)  # (b, T, H) f32
         emb = params["token_embed.weight"]  # the tied decoder, f32 master
-        logits = torch.einsum("bmh,vh->bmv", hs, emb)
-        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                              tgt.reshape(-1), reduction="none")
-        return (nll * w.reshape(-1)).sum() / torch.clamp(w.sum(), min=1.0)
+        shards = enc.local_shard_rows(ids.shape[0])
+        lo = shards[0].start
+        nums = []
+        for s in shards:
+            h_s = h[s.start - lo: s.stop - lo]
+            hs = torch.gather(h_s, 1,
+                              pos[s][..., None].expand(-1, -1, h.shape[-1]))
+            logits = torch.einsum("bmh,vh->bmv", hs, emb)
+            nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  tgt[s].reshape(-1), reduction="none")
+            nums.append((nll * w[s].reshape(-1)).sum())
+        return sum(nums[1:], nums[0]) / torch.clamp(w.sum(), min=1.0)
 
     def fit(self, texts: Sequence[str]) -> List[Dict[str, float]]:
         """Pretrain on raw texts; updates the encoder's masters and, after
@@ -128,11 +146,15 @@ class MLMPretrainer:
                 opt.zero_grad()
                 loss = self._loss(params, *up, gen)
                 loss.backward()
+                reduce_gradients(enc, params)
                 opt.step()
                 losses.append(loss.detach())  # fetched once per epoch
             enc.sync()
+            losses = torch.stack(losses)
+            if enc.mesh is not None:  # the processes' shares, summed
+                all_reduce_flat(enc.mesh, [losses])
             row = {"epoch": epoch,
-                   "loss": float(torch.stack(losses).mean()),
+                   "loss": float(losses.mean()),
                    "time_s": time.perf_counter() - t0}
             history.append(row)
             logger.info("mlm epoch %d: %s", epoch, row)
