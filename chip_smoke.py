@@ -4089,7 +4089,7 @@ def _shard_encoder(report, ctx, res):
     zero_counts()
     got = dp.encode(texts)
     torch.cuda.synchronize()
-    _, _, buckets = dp._buckets(texts)
+    _, _, buckets, _ = dp._buckets(texts)
     batches = sum(-(-len(v) // 256) for v in buckets.values())
     want = batches * SHARDS * encoder.cfg.num_layers
     res["launches"]["encode_flash"] = fa.FLASH_LAUNCHES

@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.config import IndexConfig
 from ..core.mesh import Mesh, local_mesh, n_row_shards
 from ..ops.topk import (
@@ -111,25 +112,34 @@ class EmbeddingIndex:
         fetch: CUDA launches are asynchronous, so the caller can run host
         work while the card computes. Accepts host or device queries."""
         k = self.cfg.top_k if k is None else k  # k=0 is a real request
+        n_q = len(queries)
         if self._shards is not None:
             from ..parallel.sharding import sharded_topk, sharded_topk_2level
 
             # ("dcn", "data") meshes merge each slice first
             fn = (sharded_topk_2level if "dcn" in self._mesh.axis_names
                   else sharded_topk)
-            return fn(queries, self._shards, self._mesh, k=k,
-                      valid_n=self._valid_n,
-                      block_n=self.cfg.block_rows,
-                      seg_split=self.cfg.seg_split)
-        q = torch.as_tensor(queries, device=self.device).to(self._corpus.dtype)
-        if k < 128:
-            return topk_scores_twopass(
-                q, self._corpus, k=k, block_n=self.cfg.block_rows,
-                valid_n=self._valid_n, seg_split=self.cfg.seg_split)
-        if q.shape[0] <= CHUNKED_MAX_QUERIES:
-            return topk_scores_chunked(q, self._corpus, k=k,
-                                       valid_n=self._valid_n)
-        return topk_scores_fused(q, self._corpus, k=k, valid_n=self._valid_n)
+            with profiling.span("index.search",
+                                {"route": "sharded", "Q": n_q, "k": k}):
+                return fn(queries, self._shards, self._mesh, k=k,
+                          valid_n=self._valid_n,
+                          block_n=self.cfg.block_rows,
+                          seg_split=self.cfg.seg_split)
+        route = ("twopass" if k < 128 else "chunked"
+                 if n_q <= CHUNKED_MAX_QUERIES else "fused")
+        with profiling.span("index.search", {"route": route, "Q": n_q,
+                                             "k": k}):
+            q = torch.as_tensor(queries, device=self.device).to(
+                self._corpus.dtype)
+            if route == "twopass":
+                return topk_scores_twopass(
+                    q, self._corpus, k=k, block_n=self.cfg.block_rows,
+                    valid_n=self._valid_n, seg_split=self.cfg.seg_split)
+            if route == "chunked":
+                return topk_scores_chunked(q, self._corpus, k=k,
+                                           valid_n=self._valid_n)
+            return topk_scores_fused(q, self._corpus, k=k,
+                                     valid_n=self._valid_n)
 
 
 def _normalized(emb: torch.Tensor, cfg: IndexConfig, normalize: bool

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import profiling
 from ..core.config import IndexConfig, RankingConfig
 from ..core.logging import get_logger
 from ..data.tsv import read_tsv, write_tsv
@@ -126,16 +127,23 @@ def _unpack_scores_indices(packed: np.ndarray) -> SearchResult:
     )
 
 
+def _finish_lexical(device_bm25, handle, batch: int):
+    """The device lexical leg's finish of one batch, under its span."""
+    with profiling.span("serve.lexical_finish", {"batch": batch}):
+        return device_bm25.finish_topk_batch(handle)
+
+
 class _SyncLexHandle:
     """The device lexical leg's finish run on the calling thread when
     ``result()`` joins it (``lexical_async_finish = False``)."""
 
-    def __init__(self, device_bm25, handle) -> None:
+    def __init__(self, device_bm25, handle, batch: int) -> None:
         self._device_bm25 = device_bm25
         self._handle = handle
+        self._batch = batch
 
     def result(self):
-        return self._device_bm25.finish_topk_batch(self._handle)
+        return _finish_lexical(self._device_bm25, self._handle, self._batch)
 
 
 @dataclass
@@ -186,6 +194,9 @@ class HybridQueryEngine:
         # fuses; one worker keeps finishes ordered and its stats unraced
         self._lex_executor = None
         self.lexical_async_finish = True
+        # batches dispatched: each batch's number joins the spans of its
+        # dispatch and its finish, which a pipelined search interleaves
+        self._batches = 0
 
     # ------------------------------------------------------------- build/load
     @classmethod
@@ -542,7 +553,15 @@ class HybridQueryEngine:
     ) -> Dict:
         """Phase 1 of ``search``: launch the card work (encode, dense top-k,
         result packing), then run the host BM25 leg while the card
-        computes. No result is fetched here."""
+        computes. No result is fetched here. The state carries the batch's
+        number (``batch``), which its finish's spans repeat."""
+        batch = self._batches
+        self._batches += 1
+        with profiling.span("serve.dispatch", {"batch": batch}):
+            state = self._dispatch(queries, k, candidates, hybrid, batch)
+        return state
+
+    def _dispatch(self, queries, k, candidates, hybrid, batch: int) -> Dict:
         depth = candidates or max(4 * k, 20)
         # tombstones: over-fetch so the filtered lists stay full while the
         # tombstones are few; bucketed to 64s as in the JAX package
@@ -555,26 +574,35 @@ class HybridQueryEngine:
                 "hybrid search requested but the index has no BM25 stats "
                 "(build with HybridQueryEngine.build); serving dense-only")
             self._warned_no_bm25 = True
-        q_tokens = [tokenize(q) for q in queries] if use_bm25 else None
+        q_tokens = None
+        if use_bm25:
+            with profiling.span("serve.tokenize_lexical"):
+                q_tokens = [tokenize(q) for q in queries]
         q_emb = self.encoder.encode_device(list(queries))
         dense_packed = _pack_scores_indices(*self.index.search_device(
             q_emb, k=min(fetch, self.index.size)))
         # serve-time adds: the delta buffer, merged by score in _leg_lists
         n_delta = self._delta.n if self._delta is not None else 0
-        delta = self._delta.search(q_emb, min(fetch, n_delta)) if n_delta \
-            else None
+        delta = None
+        if n_delta:
+            with profiling.span("serve.delta"):
+                delta = self._delta.search(q_emb, min(fetch, n_delta))
         bm_host = delta_lex = lex_handle = None
         if use_bm25:
             bm_depth = min(fetch, self.index.size)
-            if self.cfg.lexical_device:
-                lex_handle = self._start_device_lexical(q_tokens, bm_depth)
-            else:
-                bm_host = self.bm25.get_topk_batch(
-                    q_tokens, bm_depth,
-                    n_threads=self.cfg.resolved_bm25_threads())
+            with profiling.span("serve.lexical"):
+                if self.cfg.lexical_device:
+                    lex_handle = self._start_device_lexical(q_tokens,
+                                                            bm_depth, batch)
+                else:
+                    bm_host = self.bm25.get_topk_batch(
+                        q_tokens, bm_depth,
+                        n_threads=self.cfg.resolved_bm25_threads())
             if n_delta and self._delta_bm25 is not None:
-                delta_lex = self._delta_bm25.score(q_tokens)
+                with profiling.span("serve.delta_lexical"):
+                    delta_lex = self._delta_bm25.score(q_tokens)
         return {
+            "batch": batch,
             "queries": queries,
             "depth": depth,
             "use_bm25": use_bm25,
@@ -586,7 +614,7 @@ class HybridQueryEngine:
             "delta_lex": delta_lex,
         }
 
-    def _start_device_lexical(self, q_tokens, depth: int):
+    def _start_device_lexical(self, q_tokens, depth: int, batch: int):
         """Launch the device BM25 leg and hand its finish to the background
         worker; ``_leg_lists`` joins it. The leg is built on first use, and
         rebuilt for a request deeper than the K' it was built for (a
@@ -617,13 +645,13 @@ class HybridQueryEngine:
         leg = self._device_bm25
         handle = leg.start_topk_batch(q_tokens, depth)
         if not self.lexical_async_finish:
-            return _SyncLexHandle(leg, handle)
+            return _SyncLexHandle(leg, handle, batch)
         if self._lex_executor is None:
             from concurrent.futures import ThreadPoolExecutor
 
             self._lex_executor = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="lex-finish")
-        return self._lex_executor.submit(leg.finish_topk_batch, handle)
+        return self._lex_executor.submit(_finish_lexical, leg, handle, batch)
 
     def _leg_lists(
         self, state: Dict
@@ -678,6 +706,11 @@ class HybridQueryEngine:
                      ) -> List[List[Hit]]:
         """Phase 2 of ``search``: fetch, RRF-fuse both legs, and rerank
         the fused head when asked."""
+        with profiling.span("serve.finish", {"batch": state["batch"]}):
+            return self._finish(state, k, rerank_top)
+
+    def _finish(self, state: Dict, k: int, rerank_top: int
+                ) -> List[List[Hit]]:
         queries = state["queries"]
         if rerank_top > 0:
             if self.reranker is None:
@@ -688,11 +721,24 @@ class HybridQueryEngine:
                 raise ValueError(
                     "rerank_top > 0 but the index has no texts.tsv "
                     "(rebuild the index with HybridQueryEngine.build)")
-        dense_lists, lex_lists = self._leg_lists(state)
+        with profiling.span("serve.lists"):
+            dense_lists, lex_lists = self._leg_lists(state)
+        with profiling.span("serve.fuse"):
+            per_query, rows_per_query = self._fuse(dense_lists, lex_lists,
+                                                   k, rerank_top)
+        if rerank_top > 0:
+            with profiling.span("serve.rerank"):
+                self._rerank_heads(queries, per_query, rows_per_query,
+                                   rerank_top)
+        return [hits[:k] for hits in per_query]
+
+    def _fuse(self, dense_lists, lex_lists, k: int, rerank_top: int):
+        """Each query's hits by reciprocal rank over both legs' lists, the
+        fused head as deep as ``max(k, rerank_top)``, and their rows."""
         w_dense, w_lex = rrf_weights(self.cfg.fusion_alpha)
         per_query: List[List[Hit]] = []
         rows_per_query: List[List[int]] = []
-        for qi in range(len(queries)):
+        for qi in range(len(dense_lists)):
             rrf: Dict[int, float] = {}
             dense_rank: Dict[int, int] = {}
             lex_rank: Dict[int, int] = {}
@@ -712,9 +758,7 @@ class HybridQueryEngine:
                 for row, score in ranked
             ])
             rows_per_query.append([row for row, _ in ranked])
-        if rerank_top > 0:
-            self._rerank_heads(queries, per_query, rows_per_query, rerank_top)
-        return [hits[:k] for hits in per_query]
+        return per_query, rows_per_query
 
     def _rerank_heads(self, queries, per_query: List[List[Hit]],
                       rows_per_query: List[List[int]], rerank_top: int

@@ -11,7 +11,9 @@ Protocol (JSON over HTTP/1.1, stdlib-only on both ends):
 - ``GET  /healthz``  -> ``{"ok": true, "docs": N}`` (live count: base +
   delta adds - tombstones)
 - ``GET  /statz``    -> freshness-layer sizes + device-BM25 phase
-  timings/certificate stats + the coalescer's counters
+  timings/certificate stats + the coalescer's counters (batches, merged
+  requests, and the seconds requests waited in its queue before their
+  batch was dispatched: in all, and the longest)
 - ``POST /search``   body ``{"queries": ["..."], "k": 10,
   "hybrid": true, "rerank_top": 0}`` -> ``{"results": [[hit, ...], ...]}``
   where hit = ``{chunk_id, score, dense_rank, lexical_rank
@@ -66,6 +68,7 @@ from typing import Iterator
 
 import torch
 
+from ..core import profiling
 from ..core.logging import get_logger
 
 logger = get_logger("server")
@@ -112,9 +115,11 @@ def _hit_dict(h) -> dict:
 
 class _Op:
     """One queued engine operation; the submitting handler thread blocks on
-    ``done`` until the dispatcher fills ``result`` or ``error``."""
+    ``done`` until the dispatcher fills ``result`` or ``error``.
+    ``submitted`` is the host clock at :meth:`_Coalescer.submit`."""
 
-    __slots__ = ("kind", "queries", "params", "fn", "done", "result", "error")
+    __slots__ = ("kind", "queries", "params", "fn", "done", "result", "error",
+                 "submitted")
 
     def __init__(self, kind, queries=None, params=None, fn=None):
         self.kind = kind          # "search" | "mutate"
@@ -124,6 +129,7 @@ class _Op:
         self.done = threading.Event()
         self.result = None
         self.error = None
+        self.submitted = 0.0
 
 
 _SHUTDOWN = _Op("shutdown")
@@ -150,6 +156,11 @@ class _Coalescer:
         self._close_lock = threading.Lock()
         self.batches = 0          # observability: engine.search calls made
         self.merged_requests = 0  # requests that rode a shared batch
+        self.dispatched = 0       # merged batches dispatched
+        # searches' time in the queue, from submit to their batch's
+        # dispatch: summed, and the longest
+        self.queue_wait_s = 0.0
+        self.queue_wait_max_ms = 0.0
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="search-coalescer")
         self._thread.start()
@@ -158,6 +169,7 @@ class _Coalescer:
         # the closed-check and the put must be one atomic step against
         # shutdown(): an op enqueued AFTER the dispatcher's final drain
         # would leave its handler thread blocked on ``done`` forever
+        op.submitted = time.perf_counter()
         with self._close_lock:
             if self._closed:  # in-flight handler racing server_close: fail
                 raise RuntimeError("server shutting down")  # fast, no hang
@@ -311,6 +323,13 @@ class _Coalescer:
         Returns the in-flight tuple, or None when the dispatch itself
         failed (the batch is already failed over)."""
         k, hybrid, rerank_top = batch[0].params
+        now = time.perf_counter()
+        for op in batch:
+            wait = now - op.submitted
+            self.queue_wait_s += wait
+            self.queue_wait_max_ms = max(self.queue_wait_max_ms, 1e3 * wait)
+        number = self.dispatched
+        self.dispatched += 1
         try:
             all_q = [q for op in batch for q in op.queries]
             n = len(all_q)
@@ -325,7 +344,9 @@ class _Coalescer:
             while target < n:
                 target <<= 1
             all_q.extend(all_q[-1:] * (target - n))
-            state = self.engine._dispatch_legs(all_q, k, None, hybrid)
+            with profiling.span("coalescer.batch",
+                                {"batch": number, "requests": len(batch)}):
+                state = self.engine._dispatch_legs(all_q, k, None, hybrid)
             return (batch, n, state, (k, rerank_top))
         except BaseException as exc:
             for op in batch:
@@ -458,6 +479,8 @@ def make_server(engine, host: str = "127.0.0.1", port: int = 8080,
                     "coalesce": (None if coalescer is None else {
                         "batches": coalescer.batches,
                         "merged_requests": coalescer.merged_requests,
+                        "queue_wait_s": coalescer.queue_wait_s,
+                        "queue_wait_max_ms": coalescer.queue_wait_max_ms,
                         "max_batch": coalescer.max_batch,
                         "max_wait_ms": coalescer.max_wait_s * 1e3,
                     }),

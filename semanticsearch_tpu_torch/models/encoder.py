@@ -49,12 +49,18 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..core import profiling
 from ..core.config import EncoderConfig
 from ..ops.flash_attention import flash_attention
 from .tokenizer import HashingTokenizer
 
 _LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 _BUCKETS = (64, 128, 256)
+# tokens the encoder's forwards took in this process (encode and
+# encode_device): the texts' real tokens, and the positions run, rows x
+# bucket length, rows padded to the mesh's shards included
+TOKENS_REAL = 0
+TOKENS_RUN = 0
 
 
 def use_flash(cfg: EncoderConfig, device: torch.device) -> bool:
@@ -492,35 +498,47 @@ class SentenceEncoder:
         return self.cfg.max_len
 
     def _buckets(self, texts: Sequence[str]):
-        """Token ids and masks of every text, and the text positions in
-        each length bucket."""
-        ids_full, mask_full = self.tokenizer.encode_batch(
-            texts, max_len=self.cfg.max_len)
-        buckets: dict = {}
-        for i, ln in enumerate(mask_full.sum(axis=1)):
-            buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
-        return ids_full, mask_full, buckets
+        """Token ids and masks of every text, the text positions in each
+        length bucket, and every text's real token count."""
+        with profiling.span("encoder.tokenize"):
+            ids_full, mask_full = self.tokenizer.encode_batch(
+                texts, max_len=self.cfg.max_len)
+            lens = mask_full.sum(axis=1)
+            buckets: dict = {}
+            for i, ln in enumerate(lens):
+                buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
+        return ids_full, mask_full, buckets, lens
 
     def _forward(self, ids_full: np.ndarray, mask_full: np.ndarray,
-                 sel: Sequence[int], L: int) -> torch.Tensor:
+                 lens: np.ndarray, sel: Sequence[int], L: int
+                 ) -> torch.Tensor:
         """Launch the model on one batch of texts (asynchronous); on a mesh
         the batch is padded to a multiple of the data shards and each
-        shard's slice uploads to its own device."""
-        packed = np.stack(
-            [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64)
-        if not self.sharded:
-            packed = self._upload(packed)
-            return self.model(packed[0], packed[1])
-        b, n = packed.shape[1], self._n_data
+        shard's slice uploads to its own device. Counts the batch's real
+        tokens and the positions it runs."""
+        global TOKENS_REAL, TOKENS_RUN
+        b, n = len(sel), self._n_data
         b_pad = -(-b // n) * n
-        if b_pad != b:
-            packed = np.concatenate(
-                [packed, np.zeros((2, b_pad - b, L), np.int64)], axis=1)
-        step = b_pad // n
-        parts = [self._upload(packed[:, i * step: (i + 1) * step], dev)
-                 for i, dev in enumerate(self._data_devices)]
-        out = self._mesh_apply([p[0] for p in parts], [p[1] for p in parts])
-        return out[:b]
+        with profiling.span("encoder.forward", {"L": L, "rows": b_pad}):
+            packed = np.stack(
+                [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64)
+            if not self.sharded:
+                packed = self._upload(packed)
+                out = self.model(packed[0], packed[1])
+            else:
+                if b_pad != b:
+                    packed = np.concatenate(
+                        [packed, np.zeros((2, b_pad - b, L), np.int64)],
+                        axis=1)
+                step = b_pad // n
+                parts = [self._upload(packed[:, i * step: (i + 1) * step],
+                                      dev)
+                         for i, dev in enumerate(self._data_devices)]
+                out = self._mesh_apply([p[0] for p in parts],
+                                       [p[1] for p in parts])[:b]
+        TOKENS_REAL += int(lens[sel].sum())
+        TOKENS_RUN += b_pad * L
+        return out
 
     @torch.no_grad()
     def encode_device(self, texts: Sequence[str], batch_size: int = 256
@@ -534,14 +552,14 @@ class SentenceEncoder:
         if not len(texts):
             return torch.zeros((0, self.cfg.hidden_dim), dtype=torch.float32,
                                device=self.device)
-        ids_full, mask_full, buckets = self._buckets(texts)
+        ids_full, mask_full, buckets, lens = self._buckets(texts)
         order_parts, emb_parts = [], []
         for L, idxs in buckets.items():
             eff, s = batch_size, 0
             while s < len(idxs):
                 sel = idxs[s: s + eff]
                 try:
-                    emb = self._forward(ids_full, mask_full, sel, L)
+                    emb = self._forward(ids_full, mask_full, lens, sel, L)
                 except Exception as exc:
                     if not _is_oom(exc) or eff == 1:
                         raise
@@ -554,9 +572,10 @@ class SentenceEncoder:
         embs = emb_parts[0] if len(emb_parts) == 1 else torch.cat(emb_parts)
         if np.array_equal(order, np.arange(order.size)):
             return embs
-        inv = np.empty_like(order)
-        inv[order] = np.arange(order.size)
-        return embs[self._upload(inv)]
+        with profiling.span("encoder.reorder"):
+            inv = np.empty_like(order)
+            inv[order] = np.arange(order.size)
+            return embs[self._upload(inv)]
 
     def _upload(self, host: np.ndarray, device=None) -> torch.Tensor:
         """Host array -> device tensor (``device``, default the encoder's)
@@ -588,7 +607,7 @@ class SentenceEncoder:
         out = np.zeros((len(texts), self.cfg.hidden_dim), np.float32)
         if not len(texts):
             return out
-        ids_full, mask_full, buckets = self._buckets(texts)
+        ids_full, mask_full, buckets, lens = self._buckets(texts)
         for L, idxs in buckets.items():
             eff, s = batch_size, 0
             pending = None  # (embeddings, texts, start) launched, unfetched
@@ -597,8 +616,8 @@ class SentenceEncoder:
                     launched = None
                     if s < len(idxs):
                         sel = idxs[s: s + eff]
-                        launched = (self._forward(ids_full, mask_full, sel,
-                                                  L), sel, s)
+                        launched = (self._forward(ids_full, mask_full,
+                                                  lens, sel, L), sel, s)
                     if pending is not None:
                         out[pending[1]] = self._fetch(pending[0])
                     pending = launched

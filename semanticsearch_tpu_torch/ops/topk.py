@@ -58,6 +58,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import profiling
 from . import _build
 
 NEG_INF = -1e30
@@ -951,14 +952,18 @@ def topk_scores_twopass(
     out_v, out_i = [], []
     for s in range(0, max(q, 1), _MAX_TWOPASS_Q):
         qs = queries[s: s + _MAX_TWOPASS_Q]
-        if pass_a_int8:
-            _, seg_ids = segtopk_pass_a_int8(_quantize_rows_int8(qs, w8),
-                                             corpus_q8, n, L2, k_sel)
-        else:
-            pass_a = segtopk_pass_a_overlap if mxu_overlap else segtopk_pass_a
-            _, seg_ids = pass_a(qs.to(corpus.dtype), corpus, n, L2, k_sel)
-        v, i = pass_b_rescore(qs.to(corpus.dtype), corpus, seg_ids, n, L2,
-                              k, q_chunk)
+        with profiling.span("index.pass_a"):
+            if pass_a_int8:
+                _, seg_ids = segtopk_pass_a_int8(
+                    _quantize_rows_int8(qs, w8), corpus_q8, n, L2, k_sel)
+            else:
+                pass_a = (segtopk_pass_a_overlap if mxu_overlap
+                          else segtopk_pass_a)
+                _, seg_ids = pass_a(qs.to(corpus.dtype), corpus, n, L2,
+                                    k_sel)
+        with profiling.span("index.pass_b"):
+            v, i = pass_b_rescore(qs.to(corpus.dtype), corpus, seg_ids, n,
+                                  L2, k, q_chunk)
         out_v.append(v)
         out_i.append(i)
     if len(out_v) == 1:

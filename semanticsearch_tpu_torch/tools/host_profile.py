@@ -11,7 +11,8 @@ live search (2,000 chunks added, 500 removed, 10,000 hybrid queries at
 k = 50). ``--tree`` names the root of another checkout (default: the one
 this file lies in), whose package is then the one driven, so two versions
 can be timed in turns on one card: run the script once per tree, all in one
-shell command. The corpus and queries are made here, from fixed seeds, so
+shell command. The parts are read from the driven package's own spans, so
+a tree must have them (``core/profiling.py``'s ``span``). The corpus and queries are made here, from fixed seeds, so
 every tree sees the same ones. One JSON line per run goes to stdout (and is
 appended to ``--out``).
 """
@@ -35,72 +36,54 @@ PARTS = ("tokenize", "bm25_topk", "delta_score", "fetch_and_lists", "rrf",
 
 class HostSplit:
     """Times the host parts of an engine's searches while in the ``with``
-    block, by wrapping the engine's own objects (nothing is changed once it
-    exits):
+    block, from the program's spans (``core/profiling.py``), which it
+    switches on for the block:
 
-    - ``tokenize``: the encoder's ``tokenizer.encode_batch`` and the BM25
-      whitespace tokenizer of ``index/query_engine.py``;
-    - ``bm25_topk``: the lexical leg's call (``bm25.get_topk_batch``, or the
-      device leg's launch and rare-term traversal under ``lexical_device``,
-      whose host fallbacks then add the time they run on the worker);
-    - ``delta_score``: ``DeltaBM25.score`` over the added documents;
-    - ``fetch_and_lists``: ``_leg_lists``, the wait for the card and the
+    - ``tokenize``: ``encoder.tokenize`` (the encoder's tokenizer and length
+      buckets) and ``serve.tokenize_lexical`` (the BM25 whitespace
+      tokenizer);
+    - ``bm25_topk``: ``serve.lexical``, the lexical leg's call (the native
+      top-k, or the device leg's launch and rare-term traversal under
+      ``lexical_device``);
+    - ``delta_score``: ``serve.delta_lexical``, ``DeltaBM25.score`` over
+      the added documents;
+    - ``fetch_and_lists``: ``serve.lists``, the wait for the card and the
       per-query list building (and the join of a device lexical leg);
-    - ``rrf``: ``_finish_legs`` less its ``_leg_lists``, the fusion;
+    - ``rrf``: ``serve.fuse``, the fusion;
     - ``rest``: the wall time of the block less all of the above.
+
+    ``engine`` is the engine searched; the spans are the whole process's,
+    so nothing else should search in the block.
     """
+
+    SPANS = {"tokenize": ("encoder.tokenize", "serve.tokenize_lexical"),
+             "bm25_topk": ("serve.lexical",),
+             "delta_score": ("serve.delta_lexical",),
+             "fetch_and_lists": ("serve.lists",),
+             "rrf": ("serve.fuse",)}
 
     def __init__(self, engine) -> None:
         self.engine = engine
         self.seconds: Dict[str, float] = dict.fromkeys(PARTS, 0.0)
-        self._undo = []
-
-    def _wrap(self, obj, name: str, part: str) -> None:
-        if obj is None or not hasattr(obj, name):
-            return
-        fn = getattr(obj, name)
-        seconds = self.seconds
-
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                seconds[part] += time.perf_counter() - t0
-
-        # a module's function or an instance's own attribute is put back;
-        # a method the instance takes from its class is just deleted
-        self._undo.append((obj, name, fn, name in vars(obj)))
-        setattr(obj, name, timed)
 
     def __enter__(self) -> "HostSplit":
-        from importlib import import_module
+        from ..core import profiling
 
-        eng = self.engine
-        qe = import_module(type(eng).__module__)
-        self._wrap(getattr(eng.encoder, "tokenizer", None), "encode_batch",
-                   "tokenize")
-        self._wrap(qe, "tokenize", "tokenize")
-        if getattr(eng.cfg, "lexical_device", False):
-            self._wrap(eng, "_start_device_lexical", "bm25_topk")
-        self._wrap(eng.bm25, "get_topk_batch", "bm25_topk")
-        self._wrap(getattr(eng, "_delta_bm25", None), "score", "delta_score")
-        self._wrap(eng, "_leg_lists", "fetch_and_lists")
-        self._wrap(eng, "_finish_legs", "rrf")
+        self._was_on = profiling.enable(True)
+        self._before = profiling.span_totals()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> None:
+        from ..core import profiling
+
         total = time.perf_counter() - self._t0
-        for obj, name, fn, own in reversed(self._undo):
-            if own:
-                setattr(obj, name, fn)
-            else:
-                delattr(obj, name)
-        self._undo = []
+        after = profiling.span_totals()
+        profiling.enable(self._was_on)
         s = self.seconds
-        # _finish_legs holds _leg_lists: the fusion is the difference
-        s["rrf"] = max(0.0, s["rrf"] - s["fetch_and_lists"])
+        for part, names in self.SPANS.items():
+            s[part] = sum(after.get(n, (0.0, 0))[0]
+                          - self._before.get(n, (0.0, 0))[0] for n in names)
         s["rest"] = total - sum(s[p] for p in PARTS if p != "rest")
         s["total"] = total
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..core import profiling
 from ..core.checkpoint import load_metadata, restore_checkpoint, save_checkpoint
 from ..core.config import EncoderConfig
 from ..core.distributed import all_reduce_flat, is_primary
@@ -155,6 +156,25 @@ def reduce_gradients(encoder: SentenceEncoder,
     all_reduce_flat(mesh, [p.grad for p in params.values()])
 
 
+def train_step(encoder: SentenceEncoder, opt: Optimizer, loss_fn,
+               batch: Sequence[torch.Tensor], generator) -> torch.Tensor:
+    """Both encoder trainers' step on an uploaded batch: the gradients
+    zeroed, the loss (``loss_fn(params, *batch, generator)``), its
+    backward, the gradients' sum over the processes, and the optimizer's
+    update. Returns the loss, detached and left on the device."""
+    params = opt.params
+    opt.zero_grad()
+    with profiling.span("train.forward"):
+        loss = loss_fn(params, *batch, generator)
+    with profiling.span("train.backward"):
+        loss.backward()
+    with profiling.span("train.reduce"):
+        reduce_gradients(encoder, params)
+    with profiling.span("train.optimizer_step"):
+        opt.step()
+    return loss.detach()
+
+
 class ContrastiveEncoderTrainer:
     """Train a SentenceEncoder's float32 masters with InfoNCE::
 
@@ -207,43 +227,46 @@ class ContrastiveEncoderTrainer:
         # sequence lengths are capped by the encoder's position table
         len_q = min(cfg.max_len_query, enc.cfg.max_len)
         len_c = min(cfg.max_len_chunk, enc.cfg.max_len)
-        q_ids, q_mask = self._tokenize([p[0] for p in pairs], len_q)
-        c_ids, c_mask = self._tokenize([p[1] for p in pairs], len_c)
-        if use_hn:
-            n_ids, n_mask = self._tokenize(
-                [hn if hn is not None else pairs[i][1]
-                 for i, hn in enumerate(hard_negatives)], len_c)
+        with profiling.span("train.tokenize"):
+            q_ids, q_mask = self._tokenize([p[0] for p in pairs], len_q)
+            c_ids, c_mask = self._tokenize([p[1] for p in pairs], len_c)
+            if use_hn:
+                n_ids, n_mask = self._tokenize(
+                    [hn if hn is not None else pairs[i][1]
+                     for i, hn in enumerate(hard_negatives)], len_c)
 
-        opt = adamw_for(enc, total, cfg.learning_rate, cfg.warmup_frac,
-                        cfg.weight_decay)
-        params = opt.params
+        with profiling.span("train.optimizer"):
+            opt = adamw_for(enc, total, cfg.learning_rate, cfg.warmup_frac,
+                            cfg.weight_decay)
         history: List[Dict[str, float]] = []
         for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
             order = np.random.default_rng(cfg.seed + epoch).permutation(n)
             losses = []
             for si, s in enumerate(range(0, n, bsz)):
-                sel = order[s: s + bsz]
-                if len(sel) < bsz:  # wrap-around flush, as in pairs.py
-                    sel = np.concatenate(
-                        [sel, np.resize(order, bsz - len(sel))])
-                bc_ids, bc_mask = c_ids[sel], c_mask[sel]
-                if use_hn:
-                    bc_ids = np.concatenate([bc_ids, n_ids[sel]])
-                    bc_mask = np.concatenate([bc_mask, n_mask[sel]])
-                up = [torch.from_numpy(x).to(enc.device, non_blocking=True)
-                      for x in (q_ids[sel], q_mask[sel], bc_ids, bc_mask)]
-                gen = dropout_generator(enc.device, cfg.seed, epoch, si)
-                opt.zero_grad()
-                loss = self._loss(params, *up, gen)
-                loss.backward()
-                reduce_gradients(enc, params)
-                opt.step()
-                losses.append(loss.detach())
-            enc.sync()
+                with profiling.span("train.step", {"epoch": epoch,
+                                                   "step": si}):
+                    with profiling.span("train.upload"):
+                        sel = order[s: s + bsz]
+                        if len(sel) < bsz:  # wrap-around, as in pairs.py
+                            sel = np.concatenate(
+                                [sel, np.resize(order, bsz - len(sel))])
+                        bc_ids, bc_mask = c_ids[sel], c_mask[sel]
+                        if use_hn:
+                            bc_ids = np.concatenate([bc_ids, n_ids[sel]])
+                            bc_mask = np.concatenate([bc_mask, n_mask[sel]])
+                        up = [torch.from_numpy(x).to(enc.device,
+                                                     non_blocking=True)
+                              for x in (q_ids[sel], q_mask[sel], bc_ids,
+                                        bc_mask)]
+                    gen = dropout_generator(enc.device, cfg.seed, epoch, si)
+                    losses.append(train_step(enc, opt, self._loss, up, gen))
+            with profiling.span("train.sync"):
+                enc.sync()
+                loss = float(torch.stack(losses).mean())
             row: Dict[str, float] = {
                 "epoch": epoch,
-                "loss": float(torch.stack(losses).mean()),
+                "loss": loss,
                 "time_s": time.perf_counter() - t0,
             }
             if eval_fn is not None:

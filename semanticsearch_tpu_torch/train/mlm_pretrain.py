@@ -27,10 +27,11 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from ..core import profiling
 from ..core.distributed import all_reduce_flat
 from ..core.logging import get_logger
 from ..models.encoder import SentenceEncoder, dropout_generator
-from .encoder_train import adamw_for, reduce_gradients
+from .encoder_train import adamw_for, train_step
 
 logger = get_logger("mlm_pretrain")
 
@@ -115,15 +116,17 @@ class MLMPretrainer:
         if not texts:
             raise ValueError("no pretraining texts")
         max_len = min(cfg.max_len, enc.cfg.max_len)
-        ids_full, mask_full = enc.tokenizer.encode_batch(texts,
-                                                         max_len=max_len)
+        with profiling.span("train.tokenize"):
+            ids_full, mask_full = enc.tokenizer.encode_batch(
+                texts, max_len=max_len)
         n = len(texts)
         bsz = min(cfg.batch_size, n)
         steps_per_epoch = -(-n // bsz)
-        opt = adamw_for(enc, steps_per_epoch * cfg.epochs, cfg.learning_rate,
-                        cfg.warmup_frac, cfg.weight_decay)
+        with profiling.span("train.optimizer"):
+            opt = adamw_for(enc, steps_per_epoch * cfg.epochs,
+                            cfg.learning_rate, cfg.warmup_frac,
+                            cfg.weight_decay)
         n_mask = max(1, int(round(cfg.mask_prob * max_len)))
-        params = opt.params
         history: List[Dict[str, float]] = []
         for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
@@ -131,30 +134,30 @@ class MLMPretrainer:
             order = rng_np.permutation(n)
             losses = []
             for si, s in enumerate(range(0, n, bsz)):
-                sel = order[s: s + bsz]
-                if len(sel) < bsz:  # wrap-around flush, as in pairs.py
-                    sel = np.concatenate(
-                        [sel, np.resize(order, bsz - len(sel))])
-                corrupt, pos, tgt, w = self._corrupt(
-                    rng_np, ids_full[sel], mask_full[sel], n_mask)
-                up = [torch.from_numpy(x.astype(dt)).to(enc.device)
-                      for x, dt in ((corrupt, np.int64),
-                                    (mask_full[sel], np.int64),
-                                    (pos, np.int64), (tgt, np.int64),
-                                    (w, np.float32))]
-                gen = dropout_generator(enc.device, cfg.seed, epoch, si)
-                opt.zero_grad()
-                loss = self._loss(params, *up, gen)
-                loss.backward()
-                reduce_gradients(enc, params)
-                opt.step()
-                losses.append(loss.detach())  # fetched once per epoch
-            enc.sync()
-            losses = torch.stack(losses)
-            if enc.mesh is not None:  # the processes' shares, summed
-                all_reduce_flat(enc.mesh, [losses])
-            row = {"epoch": epoch,
-                   "loss": float(losses.mean()),
+                with profiling.span("train.step", {"epoch": epoch,
+                                                   "step": si}):
+                    with profiling.span("train.upload"):
+                        sel = order[s: s + bsz]
+                        if len(sel) < bsz:  # wrap-around, as in pairs.py
+                            sel = np.concatenate(
+                                [sel, np.resize(order, bsz - len(sel))])
+                        corrupt, pos, tgt, w = self._corrupt(
+                            rng_np, ids_full[sel], mask_full[sel], n_mask)
+                        up = [torch.from_numpy(x.astype(dt)).to(enc.device)
+                              for x, dt in ((corrupt, np.int64),
+                                            (mask_full[sel], np.int64),
+                                            (pos, np.int64), (tgt, np.int64),
+                                            (w, np.float32))]
+                    gen = dropout_generator(enc.device, cfg.seed, epoch, si)
+                    # fetched once per epoch
+                    losses.append(train_step(enc, opt, self._loss, up, gen))
+            with profiling.span("train.sync"):
+                enc.sync()
+                losses = torch.stack(losses)
+                if enc.mesh is not None:  # the processes' shares, summed
+                    all_reduce_flat(enc.mesh, [losses])
+                loss = float(losses.mean())
+            row = {"epoch": epoch, "loss": loss,
                    "time_s": time.perf_counter() - t0}
             history.append(row)
             logger.info("mlm epoch %d: %s", epoch, row)
