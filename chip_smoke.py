@@ -1363,7 +1363,101 @@ def phase_dense(report):
         "B=2048 T=64 (3-12 real); dh256_* at B=64 H=8 T=256 (40-256 real) "
         "with Dh 256 (Dh 320: the flash_wide entry); q, k, v transposed "
         "(B, T, H, Dh) views; bounds count the real keys' K and V and "
-        "products (a row with none counts every key)")
+        "products (a row with none counts every key); varlen_* the packed "
+        "entry at the serve shape (4,096 texts, lognormal, median 8 tokens, "
+        "2-33), varlen_chunk_* at 256 chunks of 40-256 tokens, H=12 Dh=32, "
+        "(N, H, Dh) views of (N, 384) rows, bounds on the real tokens' q, k, "
+        "v and o and each text's own products, padded_ms the padded kernel "
+        "on the same texts at T = 64 (serve) or 256 (chunks)")
+    time_flash_varlen(report, gen)
+
+
+def varlen_bound(lens, h: int, dh: int, itemsize: int, peak: float):
+    """bound_ms of packed texts' attention: q, k, v and o of every real
+    token once, the offsets and tiles, and each text's own products."""
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+
+    lens = np.asarray(lens, np.float64)
+    n_tiles = len(fa.varlen_tiles(np.concatenate([[0], np.cumsum(lens)])
+                                  .astype(np.int64)))
+    return bound_ms(4.0 * h * dh * float((lens * lens).sum()),
+                    4.0 * lens.sum() * h * dh * itemsize
+                    + 4.0 * (lens.size + 1) + 16.0 * n_tiles, peak)
+
+
+def time_flash_varlen(report, gen):
+    """The packed entry (bf16 and f32) against its plain version and timed
+    at the serve shape and the chunks' shape, beside the padded kernel on
+    the same texts and SDPA on them padded to the longest."""
+    import torch
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+
+    h, dh = 12, 32
+    shapes = [("varlen_", np.clip(np.rint(np.random.default_rng(4).lognormal(
+        np.log(8), 0.5, 4096)), 2, 33), 64),
+        ("varlen_chunk_", np.random.default_rng(5).integers(40, 257, 256),
+         256)]
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        entry = report["flash_f32"] if f32 else report["flash"]
+        for key, lens, t in shapes:
+            layout = fa.varlen_layout(lens, "cuda")
+            n = int(lens.sum())
+            q, k, v = (torch.randn((n, h * dh), generator=gen).to(
+                "cuda", dtype).view(n, h, dh) for _ in range(3))
+            got = fa.flash_attention_varlen(q, k, v, layout)
+            want = fa.flash_attention_varlen_plain(q, k, v, layout)
+            diff = (got.float() - want.float()).abs()
+            worst = (float((diff / (2e-5 + 2e-5 * want.float().abs())).max())
+                     if f32 else
+                     float((diff / want.float().abs().clamp(min=0.5)).max())
+                     / 2e-2)
+            check(bool(torch.isfinite(got).all()) and worst <= 1.0,
+                  f"packed flash in {dtype}, {len(lens)} texts of "
+                  f"{int(lens.min())}-{int(lens.max())} tokens vs plain: "
+                  f"worst error {worst:.3f} of its bound (f32: 2e-5 + 2e-5 "
+                  "|o|; bf16: 2e-2 max(|o|, 0.5))")
+            entry[key + "max_abs_err"] = float(diff.max())
+            entry[key + "ms"] = time_ms(
+                lambda: fa.flash_attention_varlen(q, k, v, layout), reps=20,
+                warmup=3)
+            entry[key + "plain_ms"] = time_ms(
+                lambda: fa.flash_attention_varlen_plain(q, k, v, layout),
+                reps=5)
+            # the same texts padded: the padded kernel at the bucket, SDPA
+            # at the longest text
+            padded = [torch.zeros((len(lens), t, h, dh), device="cuda",
+                                  dtype=dtype) for _ in range(3)]
+            idx = (layout.seg.long(), layout.pos.long())
+            for p, x in zip(padded, (q, k, v)):
+                p[idx] = x
+            mask = torch.zeros((len(lens), t), device="cuda")
+            mask[idx] = 1.0
+            views = [p.transpose(1, 2) for p in padded]
+            entry[key + "padded_ms"] = time_ms(
+                lambda: fa.flash_attention(*views, mask), reps=20, warmup=3)
+            w = layout.width
+            short = [x[:, :, :w] for x in views]
+            bool_mask = mask[:, None, None, :w].bool()
+            entry[key + "library_ms"] = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    *short, attn_mask=bool_mask), reps=20, warmup=3)
+            if f32:
+                entry[key + "bound_ms"], entry[key + "bound_by"] = (
+                    varlen_bound(lens, h, dh, 4, PEAK_TF32_FLOPS / 3))
+                entry[key + "fma_bound_ms"] = varlen_bound(
+                    lens, h, dh, 4, PEAK_F32_FLOPS)[0]
+            else:
+                entry[key + "bound_ms"], entry[key + "bound_by"] = (
+                    varlen_bound(lens, h, dh, 2, PEAK_BF16_FLOPS))
+            log(f"  packed flash {dtype} {len(lens)} texts, {n} tokens, "
+                f"H={h} Dh={dh}: kernel {entry[key + 'ms']:.4f} ms, padded "
+                f"kernel at T={t} {entry[key + 'padded_ms']:.4f} ms, plain "
+                f"{entry[key + 'plain_ms']:.3f} ms, SDPA at T={w} "
+                f"{entry[key + 'library_ms']:.4f} ms, bound "
+                f"{entry[key + 'bound_ms']:.4f} ms ({entry[key + 'bound_by']}"
+                + (f"; 3xTF32; f32 FMAs {entry[key + 'fma_bound_ms']:.4f} ms)"
+                   if f32 else ")"))
 
 
 # phase 5: chunks added to and removed from the phase-3 index, and queries
@@ -3511,11 +3605,15 @@ def _entry_serve(report, ctx, idx, flash, proc, t_spawn, launches):
         check(topk.SEGTOPK_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0,
               "the dispatcher thread launched segtopk and flash")
         engine._dispatch_legs = dispatch
-        # the engine's answer for every batch the dispatcher ran
+        # the engine's answer for every batch the dispatcher ran, each query
+        # from the row that carried it: the coalescer's padding copies of a
+        # batch's last query sit at other offsets of the packed encoder
+        # forward, where attention sums in another order, so they may
+        # differ from it in the last bits
         by_query = {}
         for qs, k in batches[1:]:
             for q, hits in zip(qs, _engine_rows(engine.search(qs, k=k))):
-                by_query[q] = hits
+                by_query.setdefault(q, hits)
         served = all(_hit_rows(answers[(c, r)])
                      == [by_query[q] for q in plan[c][r]]
                      for c in range(HTTP_CLIENTS)
@@ -3993,12 +4091,19 @@ def _shard_chunk(report, ctx, res):
     res["ring_kernel_ms"] = time_ms(lambda: sim.similarity_matrix(E), reps=3)
 
     # the grouping run of phase 6 on the mesh: the encoder data parallel,
-    # the 640-sentence document through the ring
-    g_tsv, g_cfg, g_map = ctx["group"]
+    # the 640-sentence document through the ring. Held to phase 6's run on
+    # the same data-parallel encoder without the mesh: the mesh's encoder
+    # pads each shard's rows to their bucket where phase 6's one device
+    # packs them, so the two embed within bf16 rounding of each other, and
+    # a sentence group at a boundary may differ (counted, not checked)
+    g_tsv, g_cfg, g_map6 = ctx["group"]
     cfg = g_cfg.override(chunking={"sp_min_sentences": GROUP_LONG_SENTENCES})
     dp = SentenceEncoder(encoder.cfg, mesh=mesh,
                          state_dict=encoder.master.state_dict(),
                          tokenizer=encoder.tokenizer)
+    chunk_pipeline.ChunkPipeline(cfg, encoder=dp).run(
+        g_tsv, os.path.join(ctx["tmp"], "group_dp"), write_chunk_map=True)
+    g_map = os.path.join(ctx["tmp"], "group_dp", f"{cfg.name}_chunk_map.tsv")
     calls = []
     doc_sim = ring_similarity.sharded_doc_similarity
 
@@ -4027,15 +4132,19 @@ def _shard_chunk(report, ctx, res):
     _, ref_ids = _coverage(g_map)
     res["pipeline_docs_differing"] = sum(mine[d_] != theirs.get(d_)
                                          for d_ in mine)
+    packed = _boundaries(g_map6)
+    res["pipeline_docs_differing_packed"] = sum(mine[d_] != packed.get(d_)
+                                                for d_ in mine)
     check(calls == [GROUP_LONG_SENTENCES] and out["fallbacks"] == 0
           and sim.SIM_LAUNCHES > 0 and fa.FLASH_LAUNCHES > 0
           and ids == ref_ids,
           f"ChunkPipeline(mesh=...) under semantic_grouping: the "
           f"{GROUP_LONG_SENTENCES}-sentence document through the ring "
           f"({calls}), {sim.SIM_LAUNCHES} Gram launches for the rest, "
-          f"{fa.FLASH_LAUNCHES} flash launches; chunk ids == phase 6's "
-          f"unsharded run ({res['pipeline_docs_differing']} documents' "
-          "sentence groups differ)")
+          f"{fa.FLASH_LAUNCHES} flash launches; chunk ids == the unsharded "
+          f"run on the same encoder ({res['pipeline_docs_differing']} "
+          f"documents' sentence groups differ; from phase 6's packed "
+          f"encoder, {res['pipeline_docs_differing_packed']})")
 
     # the same four shards as a hybrid (dcn 2, data 2) mesh: the ring runs
     # over data inside slice 0, dcn replicated; the matrix and the grouping
@@ -4612,10 +4721,11 @@ def main() -> int:
              "hot_bound_ms", "hot_bound_by",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
-                                              "dh256", "f32")
+                                              "dh256", "f32", "varlen",
+                                              "varlen_chunk")
                for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms", "fma_bound_ms", "tf32x3_bound_ms",
-                           "max_abs_err")))
+                           "max_abs_err", "padded_ms")))
     kernels = [{**{key: report[k][key] for key in keys},
                 **{key: report[k][key] for key in notes if key in report[k]}}
                for k in ("segtopk", "segtopk_int8", "segtopk_overlap",

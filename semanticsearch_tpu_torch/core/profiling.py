@@ -50,7 +50,7 @@ _COUNTER_SOURCES = (
     ("launch", "ops.flash_attention", r"(\w+)_LAUNCHES"),
     ("launch", "ops.similarity", r"(\w+)_LAUNCHES"),
     ("native", "native", r"(\w+)_CALLS"),
-    ("encoder", "models.encoder", r"(TOKENS_\w+)"),
+    ("encoder", "models.encoder", r"(TOKENS_\w+|PACKED_FORWARDS)"),
 )
 
 _clock = time.perf_counter
@@ -130,7 +130,8 @@ def counters() -> Dict[str, int]:
     kernel launches (``launch.segtopk``, ``launch.pass_b``,
     ``launch.flash``, ...), native calls (``native.hash_tokenize``, ...)
     and the encoder's tokens (``encoder.tokens_real``,
-    ``encoder.tokens_run``)."""
+    ``encoder.tokens_run``) and packed forwards
+    (``encoder.packed_forwards``)."""
     out = {}
     for prefix, mod_name, pattern in _COUNTER_SOURCES:
         mod = importlib.import_module(f"{_PACKAGE}.{mod_name}")

@@ -57,6 +57,21 @@
 //    key at a time, query rows at or past T never stored. T a multiple of 64
 //    runs the code it ran before, bit for bit.
 //
+//  * Packed texts (the VARLEN instantiation of both kernels, entry point
+//    flash_attention_varlen_fwd): the encoder's inference forward runs on
+//    its texts' real tokens end to end, q, k, v and o (N, H, Dh), with
+//    cu (rows + 1) int32 offsets of the texts. A CTA takes a tile of 64
+//    consecutive tokens, which may span several short texts, from a table
+//    the host builds (ops/flash_attention.py::varlen_tiles: a text longer
+//    than a tile gets tiles of its own, as T does in the padded kernel).
+//    Its keys are the span of the texts its rows belong to, streamed from
+//    the span's first key in 64-key blocks (zero fill past its end, so
+//    every byte read is a real token's); a row scores -inf (p = 0 exactly)
+//    at every key outside its own text, whose bounds each thread finds for
+//    its two rows by a binary search in cu. No mask, no dead blocks: each
+//    block holds some row's keys. Rows past the tile are zero-filled and
+//    never stored, as in TAIL.
+//
 // The f32 path (flash_tf32_kernel): the JAX kernel computes in f32 whatever
 // its input, and an f32 encoder is held to 2e-5 of the plain f32 attention;
 // bf16 P or one TF32 product (2^-11) would miss that. So both products run
@@ -110,6 +125,42 @@ struct Args {
   long long q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st;
   int H, Tlen, nqb, hg;  // hg: heads a CTA takes in turn
   float scale_log2;  // log2(e) / sqrt(Dh)
+  // packed texts (VARLEN): the texts' token offsets, and per tile its
+  // first row, its end, the text of its first row and one past its last's
+  const int* cu;
+  const int* tiles;
+};
+
+// A packed tile's rows [q0, q0 + q_rows) and keys [k0, k0 + k_len), and
+// the keys [lo, hi) of one row's text counted from k0 (none past the
+// tile): the text i of [first, last) with cu[i] <= r < cu[i + 1], by a
+// binary search (an empty text repeats an offset and is passed over).
+struct Tile {
+  int q0, q_rows, k0, k_len;
+  __device__ Tile(const Args& a, int t) {
+    const int* e = a.tiles + 4 * t;
+    q0 = e[0];
+    q_rows = e[1] - e[0];
+    k0 = a.cu[e[2]];
+    k_len = a.cu[e[3]] - k0;
+  }
+  __device__ void row_keys(const Args& a, int t, int row, int& lo, int& hi) const {
+    if (row >= q_rows) {
+      lo = hi = 0;
+      return;
+    }
+    int first = a.tiles[4 * t + 2], last = a.tiles[4 * t + 3];
+    const int r = q0 + row;
+    while (last - first > 1) {
+      const int mid = (first + last) / 2;
+      if (a.cu[mid] <= r)
+        first = mid;
+      else
+        last = mid;
+    }
+    lo = a.cu[first] - k0;
+    hi = a.cu[first + 1] - k0;
+  }
 };
 
 template <typename T>
@@ -190,10 +241,12 @@ __host__ __device__ inline size_t smem_bytes(int dh, int bq, int nkb) {
 
 // TAIL: T is not a multiple of 64 (then below 128, NW = 4): zero-filled
 // tail rows, keys at or past T at -inf, the mask read a key at a time.
+// VARLEN (with TAIL, NW = 4): a packed tile (Tile), no mask.
 // Dh = 256 keeps Q's fragments in shared memory and loads them a key block
 // at a time: in registers they would take 64 more a thread beside O's 128.
-template <int DH, typename T, int NW, bool TAIL>
+template <int DH, typename T, int NW, bool TAIL, bool VARLEN = false>
 __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
+  static_assert(!VARLEN || (TAIL && NW == 4), "a packed tile is 64 zero-filled rows");
   constexpr int BQ = NW * 16, LD = row_ld(DH), CH = DH / 8, NT = NW * 32;
   constexpr int NST = ring_stages(DH);
   constexpr bool Q_IN_REGS = DH <= 128;
@@ -213,10 +266,21 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
   bid /= a.nqb;
   const int nhg = a.H / a.hg;
   const int h0 = (bid % nhg) * a.hg, b = bid / nhg;  // heads h0 .. h0 + hg - 1
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh + (long long)qb * BQ * a.q_st;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h0 * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h0 * a.v_sh;
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h0 * a.o_sh + ((long long)qb * BQ + warp * 16) * a.o_st;
+  // the CTA's rows [q0, q0 + q_rows) and keys [k_first, k_first + k_len):
+  // its share of T and all of T, or a packed tile's; packed, the keys of
+  // rows g and g + 8 of the warp's 16
+  int q0 = qb * BQ, q_rows = a.Tlen - q0, k_first = 0, k_len = a.Tlen;
+  int lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+  if constexpr (VARLEN) {
+    const Tile tile(a, qb);
+    q0 = tile.q0, q_rows = tile.q_rows, k_first = tile.k0, k_len = tile.k_len;
+    tile.row_keys(a, qb, warp * 16 + g, lo0, hi0);
+    tile.row_keys(a, qb, warp * 16 + g + 8, lo1, hi1);
+  }
+  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh + (long long)q0 * a.q_st;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h0 * a.k_sh + (long long)k_first * a.k_st;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h0 * a.v_sh + (long long)k_first * a.v_st;
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + h0 * a.o_sh + ((long long)q0 + warp * 16) * a.o_st;
   const float* mp = a.mask + (long long)b * a.Tlen;
 
   auto load_q = [&](int hi) {  // the Q tile of head h0 + hi
@@ -225,7 +289,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     for (int i = tid; i < BQ * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * 8;
       if (TAIL)
-        cp_async16_zfill(qs + r * LD + c, src + r * a.q_st + c, qb * BQ + r < a.Tlen);
+        cp_async16_zfill(qs + r * LD + c, src + r * a.q_st + c, r < q_rows);
       else
         cp_async16(qs + r * LD + c, src + r * a.q_st + c);
     }
@@ -233,37 +297,43 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
   // the Q tile of head h0 starts on its way while the mask is read
   load_q(0);
 
-  // the key blocks that hold a real key, in order; all of them if none does
-  int* flag = live + nkb;
-  for (int j = warp; j < nkb; j += NW) {
-    const int k0 = j * BKV + lane, k1 = k0 + 32;
-    const bool any = TAIL ? __any_sync(0xffffffffu, (k0 < a.Tlen && mp[k0] > 0.0f) ||
-                                                        (k1 < a.Tlen && mp[k1] > 0.0f))
-                          : __any_sync(0xffffffffu, mp[k0] > 0.0f || mp[k1] > 0.0f);
-    if (lane == 0) flag[j] = any;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int base = 0; base < nkb; base += 32) {
-      const bool f = base + lane < nkb && flag[base + lane];
-      const unsigned ballot = __ballot_sync(0xffffffffu, f);
-      if (f) live[n + __popc(ballot & ((1u << lane) - 1))] = base + lane;
-      n += __popc(ballot);
+  int nl;  // key blocks to run: packed, every block of the span
+  if constexpr (VARLEN) {
+    nl = (k_len + BKV - 1) / BKV;
+  } else {
+    // the key blocks that hold a real key, in order; all of them if none does
+    int* flag = live + nkb;
+    for (int j = warp; j < nkb; j += NW) {
+      const int k0 = j * BKV + lane, k1 = k0 + 32;
+      const bool any = TAIL ? __any_sync(0xffffffffu, (k0 < a.Tlen && mp[k0] > 0.0f) ||
+                                                          (k1 < a.Tlen && mp[k1] > 0.0f))
+                            : __any_sync(0xffffffffu, mp[k0] > 0.0f || mp[k1] > 0.0f);
+      if (lane == 0) flag[j] = any;
     }
-    if (n == 0) {
-      for (int j = lane; j < nkb; j += 32) live[j] = j;
-      n = nkb;
+    __syncthreads();
+    if (warp == 0) {
+      int n = 0;
+      for (int base = 0; base < nkb; base += 32) {
+        const bool f = base + lane < nkb && flag[base + lane];
+        const unsigned ballot = __ballot_sync(0xffffffffu, f);
+        if (f) live[n + __popc(ballot & ((1u << lane) - 1))] = base + lane;
+        n += __popc(ballot);
+      }
+      if (n == 0) {
+        for (int j = lane; j < nkb; j += 32) live[j] = j;
+        n = nkb;
+      }
+      if (lane == 0) n_live = n;
     }
-    if (lane == 0) n_live = n;
+    __syncthreads();
+    nl = n_live;
   }
-  __syncthreads();
-  const int nl = n_live, n_items = nl * a.hg;
+  const int n_items = nl * a.hg;
 
   // item it: head h0 + it / nl, its (it % nl)-th live key block, into stage
   // it % NST with the head's Q tile if it is the head's first block
   auto load_item = [&](int it) {
-    const int hi = it / nl, kb = live[it % nl], stage = it % NST;
+    const int hi = it / nl, kb = VARLEN ? it % nl : live[it % nl], stage = it % NST;
     if (it % nl == 0 && hi > 0) load_q(hi);
     T* ks = k_s + stage * BKV * LD;
     T* vs = v_s + stage * BKV * LD;
@@ -273,13 +343,14 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
       const int r = i / CH, c = (i % CH) * 8;
       const long long row = (long long)kb * BKV + r;
       if (TAIL) {
-        cp_async16_zfill(ks + r * LD + c, ksrc + row * a.k_st + c, row < a.Tlen);
-        cp_async16_zfill(vs + r * LD + c, vsrc + row * a.v_st + c, row < a.Tlen);
+        cp_async16_zfill(ks + r * LD + c, ksrc + row * a.k_st + c, row < k_len);
+        cp_async16_zfill(vs + r * LD + c, vsrc + row * a.v_st + c, row < k_len);
       } else {
         cp_async16(ks + r * LD + c, ksrc + row * a.k_st + c);
         cp_async16(vs + r * LD + c, vsrc + row * a.v_st + c);
       }
     }
+    if (VARLEN) return;
     if (TAIL) {
       // read by every thread two barriers on; keys past T are -inf below
       if (tid < BKV) m_s[stage * BKV + tid] = kb * BKV + tid < a.Tlen ? mp[kb * BKV + tid] : 0.0f;
@@ -341,17 +412,26 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
 
     // online softmax in the registers
     float mx0 = NEG_INF, mx1 = NEG_INF;
-    const int key0 = TAIL ? live[j] * BKV + 2 * tg : 0;  // this thread's first key
+    // this thread's first key
+    const int key0 = VARLEN ? j * BKV + 2 * tg : TAIL ? live[j] * BKV + 2 * tg : 0;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      const float2 mk = *reinterpret_cast<const float2*>(ms + 8 * jj + 2 * tg);
-      s[jj][0] = mk.x > 0.0f ? s[jj][0] * a.scale_log2 : NEG_INF;
-      s[jj][1] = mk.y > 0.0f ? s[jj][1] * a.scale_log2 : NEG_INF;
-      s[jj][2] = mk.x > 0.0f ? s[jj][2] * a.scale_log2 : NEG_INF;
-      s[jj][3] = mk.y > 0.0f ? s[jj][3] * a.scale_log2 : NEG_INF;
-      if (TAIL) {  // no key at all: p = 0 whatever the row's maximum
-        if (key0 + 8 * jj >= a.Tlen) s[jj][0] = s[jj][2] = -INFINITY;
-        if (key0 + 8 * jj + 1 >= a.Tlen) s[jj][1] = s[jj][3] = -INFINITY;
+      if constexpr (VARLEN) {  // a key of another text: p = 0 exactly
+        const int k = key0 + 8 * jj;
+        s[jj][0] = k >= lo0 && k < hi0 ? s[jj][0] * a.scale_log2 : -INFINITY;
+        s[jj][1] = k + 1 >= lo0 && k + 1 < hi0 ? s[jj][1] * a.scale_log2 : -INFINITY;
+        s[jj][2] = k >= lo1 && k < hi1 ? s[jj][2] * a.scale_log2 : -INFINITY;
+        s[jj][3] = k + 1 >= lo1 && k + 1 < hi1 ? s[jj][3] * a.scale_log2 : -INFINITY;
+      } else {
+        const float2 mk = *reinterpret_cast<const float2*>(ms + 8 * jj + 2 * tg);
+        s[jj][0] = mk.x > 0.0f ? s[jj][0] * a.scale_log2 : NEG_INF;
+        s[jj][1] = mk.y > 0.0f ? s[jj][1] * a.scale_log2 : NEG_INF;
+        s[jj][2] = mk.x > 0.0f ? s[jj][2] * a.scale_log2 : NEG_INF;
+        s[jj][3] = mk.y > 0.0f ? s[jj][3] * a.scale_log2 : NEG_INF;
+        if (TAIL) {  // no key at all: p = 0 whatever the row's maximum
+          if (key0 + 8 * jj >= a.Tlen) s[jj][0] = s[jj][2] = -INFINITY;
+          if (key0 + 8 * jj + 1 >= a.Tlen) s[jj][1] = s[jj][3] = -INFINITY;
+        }
       }
       mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
       mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
@@ -419,7 +499,7 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
       T* dst = op + hi * a.o_sh;
       for (int e = lane; e < 16 * CH; e += 32) {
         const int r = e / CH, c = (e % CH) * 8;
-        if (TAIL && qb * BQ + warp * 16 + r >= a.Tlen) continue;
+        if (TAIL && warp * 16 + r >= q_rows) continue;
         *reinterpret_cast<uint4*>(dst + r * a.o_st + c) =
             *reinterpret_cast<const uint4*>(os + r * LD + c);
       }
@@ -440,18 +520,19 @@ inline int heads_per_cta(int H, long long ctas_per_head) {
   return 1;
 }
 
-template <int DH, typename T, int NW, bool TAIL>
+// Packed (VARLEN): B = 1, Tlen = 0, and a.nqb the caller's tiles.
+template <int DH, typename T, int NW, bool TAIL, bool VARLEN = false>
 int launch(Args a, int B, cudaStream_t st) {
   constexpr int BQ = NW * 16;
-  a.nqb = (a.Tlen + BQ - 1) / BQ;
+  if (!VARLEN) a.nqb = (a.Tlen + BQ - 1) / BQ;
   a.hg = heads_per_cta(a.H, (long long)B * a.nqb);
   const size_t smem = smem_bytes(DH, BQ, (a.Tlen + BKV - 1) / BKV);
   const long long grid = (long long)a.nqb * (a.H / a.hg) * B;
   if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW, TAIL>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW, TAIL, VARLEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<DH, T, NW, TAIL><<<(unsigned)grid, NW * 32, smem, st>>>(a);
+  flash_fwd_kernel<DH, T, NW, TAIL, VARLEN><<<(unsigned)grid, NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -526,9 +607,11 @@ __host__ __device__ inline size_t tf_smem_bytes(int dh, int nkb) {
 __device__ __forceinline__ int key_perm(int r) { return (r >> 1) + (r & 1) * 4; }
 
 // Q's rows at or past T (TAIL) are zero-filled and never stored; keys at
-// or past T score -inf; the mask is read a key at a time.
-template <int DH, bool TAIL>
+// or past T score -inf; the mask is read a key at a time. VARLEN (with
+// TAIL): a packed tile (Tile), no mask.
+template <int DH, bool TAIL, bool VARLEN = false>
 __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kernel(const Args a) {
+  static_assert(!VARLEN || TAIL, "a packed tile is zero-filled");
   constexpr int BQ = TF_BQ, NT = TF_NW * 32, LDK = tf_ldk(DH), LDV = tf_ldv(DH), C4 = DH / 4;
   constexpr int NST = tf_stages(DH), NQ = tf_q_tiles(DH);
   constexpr bool Q_IN_REGS = DH <= 32;
@@ -546,12 +629,23 @@ __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kerne
   bid /= a.nqb;
   const int nhg = a.H / a.hg;
   const int h0 = (bid % nhg) * a.hg, b = bid / nhg;  // heads h0 .. h0 + hg - 1
+  // rows, keys and (packed) the keys of rows g and g + 8, as in flash_fwd_kernel
+  int q0 = qb * BQ, q_rows = a.Tlen - q0, k_first = 0, k_len = a.Tlen;
+  int lo0 = 0, hi0 = 0, lo1 = 0, hi1 = 0;
+  if constexpr (VARLEN) {
+    const Tile tile(a, qb);
+    q0 = tile.q0, q_rows = tile.q_rows, k_first = tile.k0, k_len = tile.k_len;
+    tile.row_keys(a, qb, warp * 16 + g, lo0, hi0);
+    tile.row_keys(a, qb, warp * 16 + g + 8, lo1, hi1);
+  }
   const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h0 * a.q_sh +
-                    (long long)qb * BQ * a.q_st;
-  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h0 * a.k_sh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h0 * a.v_sh;
+                    (long long)q0 * a.q_st;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + h0 * a.k_sh +
+                    (long long)k_first * a.k_st;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + h0 * a.v_sh +
+                    (long long)k_first * a.v_st;
   float* op = static_cast<float*>(a.o) + b * a.o_sb + h0 * a.o_sh +
-              ((long long)qb * BQ + warp * 16) * a.o_st;
+              ((long long)q0 + warp * 16) * a.o_st;
   const float* mp = a.mask + (long long)b * a.Tlen;
 
   auto load_q = [&](int hi) {  // the Q tile of head h0 + hi
@@ -560,20 +654,21 @@ __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kerne
     for (int i = tid; i < BQ * C4; i += NT) {
       const int r = i / C4, c = (i % C4) * 4;
       if (TAIL)
-        cp_async16_zfill(qs + r * LDK + c, src + r * a.q_st + c, qb * BQ + r < a.Tlen);
+        cp_async16_zfill(qs + r * LDK + c, src + r * a.q_st + c, r < q_rows);
       else
         cp_async16(qs + r * LDK + c, src + r * a.q_st + c);
     }
   };
   load_q(0);  // on its way while the mask is read
-  const int nl = find_live_blocks(mp, a.Tlen, live, &n_live);
+  const int nl = VARLEN ? (k_len + BKV - 1) / BKV : find_live_blocks(mp, a.Tlen, live, &n_live);
   const int n_items = 2 * nl * a.hg;
 
   // item it: the K (it even) or V (odd) block of the CTA's (it / 2)-th
   // (head, live block), into stage it % NST; a head's first K block brings
   // the head's Q tile, and every K block its mask
   auto load_item = [&](int it) {
-    const int blk = it >> 1, hi = blk / nl, kb = live[blk % nl], stage = it % NST;
+    const int blk = it >> 1, hi = blk / nl, kb = VARLEN ? blk % nl : live[blk % nl];
+    const int stage = it % NST;
     const bool is_v = it & 1;
     if (!is_v && blk % nl == 0 && hi > 0) load_q(hi);
     float* ts = t_s + stage * BKV * LDV;
@@ -584,11 +679,11 @@ __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kerne
       const int r = i / C4, c = (i % C4) * 4;
       const long long row = (long long)kb * BKV + r;
       if (TAIL)
-        cp_async16_zfill(ts + r * ld + c, src + row * st + c, row < a.Tlen);
+        cp_async16_zfill(ts + r * ld + c, src + row * st + c, row < k_len);
       else
         cp_async16(ts + r * ld + c, src + row * st + c);
     }
-    if (is_v) return;
+    if (is_v || VARLEN) return;
     if (TAIL) {
       // read by every thread two barriers on; keys past T are -inf below
       if (tid < BKV) m_s[stage * BKV + tid] = kb * BKV + tid < a.Tlen ? mp[kb * BKV + tid] : 0.0f;
@@ -662,17 +757,28 @@ __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kerne
 
     // online softmax in the registers; s becomes P (f32)
     float mx0 = NEG_INF, mx1 = NEG_INF;
-    const int key0 = TAIL ? live[j] * BKV + tg : 0;  // this thread's first key
+    // this thread's first key
+    const int key0 = VARLEN ? j * BKV + tg : TAIL ? live[j] * BKV + tg : 0;
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      const float mk0 = ms[8 * jj + tg], mk1 = ms[8 * jj + tg + 4];
-      s[jj][0] = mk0 > 0.0f ? (s[jj][0] + sl[jj][0]) * a.scale_log2 : NEG_INF;
-      s[jj][1] = mk1 > 0.0f ? (s[jj][1] + sl[jj][1]) * a.scale_log2 : NEG_INF;
-      s[jj][2] = mk0 > 0.0f ? (s[jj][2] + sl[jj][2]) * a.scale_log2 : NEG_INF;
-      s[jj][3] = mk1 > 0.0f ? (s[jj][3] + sl[jj][3]) * a.scale_log2 : NEG_INF;
-      if (TAIL) {  // no key at all: p = 0 whatever the row's maximum
-        if (key0 + 8 * jj >= a.Tlen) s[jj][0] = s[jj][2] = -INFINITY;
-        if (key0 + 8 * jj + 4 >= a.Tlen) s[jj][1] = s[jj][3] = -INFINITY;
+      if constexpr (VARLEN) {  // a key of another text: p = 0 exactly
+        const int k = key0 + 8 * jj;
+        s[jj][0] = k >= lo0 && k < hi0 ? (s[jj][0] + sl[jj][0]) * a.scale_log2 : -INFINITY;
+        s[jj][1] = k + 4 >= lo0 && k + 4 < hi0 ? (s[jj][1] + sl[jj][1]) * a.scale_log2
+                                               : -INFINITY;
+        s[jj][2] = k >= lo1 && k < hi1 ? (s[jj][2] + sl[jj][2]) * a.scale_log2 : -INFINITY;
+        s[jj][3] = k + 4 >= lo1 && k + 4 < hi1 ? (s[jj][3] + sl[jj][3]) * a.scale_log2
+                                               : -INFINITY;
+      } else {
+        const float mk0 = ms[8 * jj + tg], mk1 = ms[8 * jj + tg + 4];
+        s[jj][0] = mk0 > 0.0f ? (s[jj][0] + sl[jj][0]) * a.scale_log2 : NEG_INF;
+        s[jj][1] = mk1 > 0.0f ? (s[jj][1] + sl[jj][1]) * a.scale_log2 : NEG_INF;
+        s[jj][2] = mk0 > 0.0f ? (s[jj][2] + sl[jj][2]) * a.scale_log2 : NEG_INF;
+        s[jj][3] = mk1 > 0.0f ? (s[jj][3] + sl[jj][3]) * a.scale_log2 : NEG_INF;
+        if (TAIL) {  // no key at all: p = 0 whatever the row's maximum
+          if (key0 + 8 * jj >= a.Tlen) s[jj][0] = s[jj][2] = -INFINITY;
+          if (key0 + 8 * jj + 4 >= a.Tlen) s[jj][1] = s[jj][3] = -INFINITY;
+        }
       }
       mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
       mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
@@ -744,7 +850,7 @@ __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kerne
       float* dst = op + hi * a.o_sh;
       for (int e = lane; e < 16 * C4; e += 32) {
         const int r = e / C4, c = (e % C4) * 4;
-        if (TAIL && qb * BQ + warp * 16 + r >= a.Tlen) continue;
+        if (TAIL && warp * 16 + r >= q_rows) continue;
         *reinterpret_cast<float4*>(dst + r * a.o_st + c) =
             *reinterpret_cast<const float4*>(os + r * LDK + c);
       }
@@ -756,17 +862,18 @@ __global__ void __launch_bounds__(TF_NW * 32, DH <= 64 ? 3 : 1) flash_tf32_kerne
   }
 }
 
-template <int DH, bool TAIL>
+// Packed (VARLEN): B = 1, Tlen = 0, and a.nqb the caller's tiles.
+template <int DH, bool TAIL, bool VARLEN = false>
 int launch_tf32(Args a, int B, cudaStream_t st) {
-  a.nqb = (a.Tlen + TF_BQ - 1) / TF_BQ;
+  if (!VARLEN) a.nqb = (a.Tlen + TF_BQ - 1) / TF_BQ;
   a.hg = tf_q_tiles(DH) > 1 ? heads_per_cta(a.H, (long long)B * a.nqb) : 1;
   const size_t smem = tf_smem_bytes(DH, (a.Tlen + BKV - 1) / BKV);
   const long long grid = (long long)a.nqb * (a.H / a.hg) * B;
   if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_tf32_kernel<DH, TAIL>,
+  cudaError_t err = cudaFuncSetAttribute(flash_tf32_kernel<DH, TAIL, VARLEN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_tf32_kernel<DH, TAIL><<<(unsigned)grid, TF_NW * 32, smem, st>>>(a);
+  flash_tf32_kernel<DH, TAIL, VARLEN><<<(unsigned)grid, TF_NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1081,6 +1188,30 @@ int dispatch_dh(const Args& a, int B, int Dh, cudaStream_t st) {
   }
 }
 
+// the packed entry's kernels by head width: 64-row tiles in every dtype
+template <typename T>
+int dispatch_varlen(const Args& a, int Dh, cudaStream_t st) {
+  switch (Dh) {
+    case 16: return launch<16, T, 4, true, true>(a, 1, st);
+    case 32: return launch<32, T, 4, true, true>(a, 1, st);
+    case 64: return launch<64, T, 4, true, true>(a, 1, st);
+    case 128: return launch<128, T, 4, true, true>(a, 1, st);
+    case 256: return launch<256, T, 4, true, true>(a, 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch_varlen_f32(const Args& a, int Dh, cudaStream_t st) {
+  switch (Dh) {
+    case 16: return launch_tf32<16, true, true>(a, 1, st);
+    case 32: return launch_tf32<32, true, true>(a, 1, st);
+    case 64: return launch_tf32<64, true, true>(a, 1, st);
+    case 128: return launch_tf32<128, true, true>(a, 1, st);
+    case 256: return launch_tf32<256, true, true>(a, 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = bfloat16, 1 = float16, 2 = float32. T at most 128 or a multiple
@@ -1116,9 +1247,53 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.Tlen = Tlen;
   a.nqb = a.hg = 0;
   a.scale_log2 = scale * LOG2E;
+  a.cu = a.tiles = nullptr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dh<__nv_bfloat16>(a, B, Dh, st);
   if (dtype == 1) return dispatch_dh<__half>(a, B, Dh, st);
   if (dtype == 2) return dispatch_f32(a, B, Dh, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Packed texts: q, k, v and o (N, H, Dh), their (h, t) element strides in
+// that order (8), the head dimension contiguous; cu (rows + 1) int32 token
+// offsets of the texts; tiles (n_tiles, 4) int32, each a tile's first row,
+// its end (at most 64 rows on), the text of its first row and one past the
+// text of its last row. Dh one of 16, 32, 64, 128, 256; dtype as above.
+// Pointers and strides 16-byte aligned as above. Returns
+// cudaGetLastError() after the launch.
+extern "C" int flash_attention_varlen_fwd(const void* q, const void* k, const void* v, void* o,
+                                          const int* cu, const int* tiles, int n_tiles, int H,
+                                          int Dh, const long long* strides, float scale,
+                                          int dtype, void* stream) {
+  if (n_tiles <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (align % 16) return (int)cudaErrorInvalidValue;
+  const int vec = dtype == 2 ? 4 : 8;  // elements in 16 bytes
+  for (int i = 0; i < 8; ++i)
+    if (strides[i] % vec) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = nullptr;
+  a.o = o;
+  a.q_sb = a.k_sb = a.v_sb = a.o_sb = 0;
+  a.q_sh = strides[0], a.q_st = strides[1];
+  a.k_sh = strides[2], a.k_st = strides[3];
+  a.v_sh = strides[4], a.v_st = strides[5];
+  a.o_sh = strides[6], a.o_st = strides[7];
+  a.H = H;
+  a.Tlen = 0;
+  a.nqb = n_tiles;
+  a.hg = 0;
+  a.scale_log2 = scale * LOG2E;
+  a.cu = cu;
+  a.tiles = tiles;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_varlen<__nv_bfloat16>(a, Dh, st);
+  if (dtype == 1) return dispatch_varlen<__half>(a, Dh, st);
+  if (dtype == 2) return dispatch_varlen_f32(a, Dh, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,15 @@ Attention: "stock" is plain torch math, "flash" the hand-written kernel
 dropout is 0 and ``max_len >= 1024``, where the (T, T) score matrix starts
 to dominate.
 
+Packed texts: the unsharded inference forward (``encode``,
+``encode_device``) runs on the real tokens of its texts end to end, (N,)
+ids with an ``ops.flash_attention.Varlen`` layout in place of the mask, so
+the embeddings, every LayerNorm, dense layer, GELU and residual add take
+(N, hidden) and no padding; attention takes the kernel's packed entry
+(flash) or its plain version (stock, and the CPU), and mean pooling is a
+segment sum over the texts' offsets. Training, ``return_tokens`` callers,
+the mesh and head widths past 256 under flash keep (B, T) and a mask.
+
 Meshes (``core/mesh.py``): with ``mesh=`` the encoder is data parallel,
 as the JAX encoder is under a batch sharded over ``data``. A batch is
 padded to a multiple of the data shards, each row slice runs its forward
@@ -51,16 +60,20 @@ from torch.nn import functional as F
 
 from ..core import profiling
 from ..core.config import EncoderConfig
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import (
+    Varlen, flash_attention, flash_attention_varlen,
+    flash_attention_varlen_plain, varlen_tiles)
 from .tokenizer import HashingTokenizer
 
 _LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 _BUCKETS = (64, 128, 256)
 # tokens the encoder's forwards took in this process (encode and
-# encode_device): the texts' real tokens, and the positions run, rows x
-# bucket length, rows padded to the mesh's shards included
+# encode_device): the texts' real tokens, and the positions run (a packed
+# forward's real tokens; a padded one's rows x bucket length, rows padded
+# to the mesh's shards included); and the forwards that ran packed
 TOKENS_REAL = 0
 TOKENS_RUN = 0
+PACKED_FORWARDS = 0
 
 
 def use_flash(cfg: EncoderConfig, device: torch.device) -> bool:
@@ -143,11 +156,19 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(hidden_dim, hidden_dim)
         self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, flash: bool,
+    def forward(self, x: torch.Tensor, mask, flash: bool,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, t, _ = x.shape
+        """x (B, T, hidden) with a (B, T) mask, or packed texts' (N,
+        hidden) with their ``Varlen`` layout."""
         dh = self.head_dim
         h = self.query.weight.shape[0] // dh
+        if isinstance(mask, Varlen):
+            q, k, v = (p(x).unflatten(-1, (h, dh))
+                       for p in (self.query, self.key, self.value))
+            attend = (flash_attention_varlen if flash
+                      else flash_attention_varlen_plain)
+            return self.out(attend(q, k, v, mask).flatten(1))
+        b, t, _ = x.shape
         q = self.query(x).view(b, t, h, dh)
         k = self.key(x).view(b, t, h, dh)
         v = self.value(x).view(b, t, h, dh)
@@ -196,7 +217,9 @@ class SentenceTransformerModel(nn.Module):
 
     ``forward(ids, mask)`` returns (B, hidden_dim) float32 embeddings;
     ``return_tokens=True`` returns the final (B, T, hidden_dim) token states
-    in float32 instead. Parameters follow the module's dtype."""
+    in float32 instead. ``forward(ids, layout)`` takes packed texts, (N,)
+    ids and their ``Varlen`` layout, and returns one embedding a text.
+    Parameters follow the module's dtype."""
 
     def __init__(self, cfg: EncoderConfig) -> None:
         super().__init__()
@@ -223,15 +246,18 @@ class SentenceTransformerModel(nn.Module):
                     p.copy_(torch.randn(p.shape, generator=generator)
                             / math.sqrt(fan_in))
 
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+    def forward(self, ids: torch.Tensor, mask,
                 return_tokens: bool = False,
                 run_block: Optional[Callable] = None) -> torch.Tensor:
         """``run_block(i, x, flash)`` takes the place of block i's call
         (the tensor-parallel forward, ``parallel/tensor.py``)."""
         c = self.cfg
         flash = use_flash(c, ids.device)
-        pos = torch.arange(ids.shape[1], device=ids.device)
-        x = self.token_embed(ids) + self.pos_embed(pos)[None]
+        if isinstance(mask, Varlen):  # each token at its place in its text
+            x = self.token_embed(ids) + self.pos_embed(mask.pos)
+        else:
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            x = self.token_embed(ids) + self.pos_embed(pos)[None]
         x = self.ln_embed(x)
         for i, layer in enumerate(self.layers):
             x = (layer(x, mask, flash) if run_block is None
@@ -239,14 +265,25 @@ class SentenceTransformerModel(nn.Module):
         return pool_tokens(c, self.ln_final(x), mask, return_tokens)
 
 
-def pool_tokens(cfg: EncoderConfig, x: torch.Tensor, mask: torch.Tensor,
+def pool_tokens(cfg: EncoderConfig, x: torch.Tensor, mask,
                 return_tokens: bool = False) -> torch.Tensor:
     """The model's head on the final token states ``x``: the tokens in
     float32, or the masked mean (or first token) pooled and L2-normalized
-    by the rsqrt of the clamped squared norm."""
+    by the rsqrt of the clamped squared norm. Packed texts (``mask`` a
+    ``Varlen``) pool by their offsets: a segment sum, rounded to x's dtype
+    as the masked sum is, over the length clamped at 1 (a text with no
+    token pools to 0), or the text's first token."""
     if return_tokens:
         return x.float()
-    if cfg.pooling == "cls":
+    if isinstance(mask, Varlen):
+        cu = mask.cu_seqlens
+        if cfg.pooling == "cls":
+            pooled = x.index_select(0, cu[:-1])
+        else:
+            n = torch.clamp(cu[1:] - cu[:-1], min=1).to(x.dtype)[:, None]
+            pooled = torch.segment_reduce(x.float(), "sum", offsets=cu,
+                                          axis=0).to(x.dtype) / n
+    elif cfg.pooling == "cls":
         pooled = x[:, 0, :]
     else:
         m = mask[..., None].to(x.dtype)
@@ -269,12 +306,16 @@ def _resolve_device(device) -> torch.device:
 class SentenceEncoder:
     """Batched sentence encoding on one device or a mesh.
 
-    Texts are tokenized on the host, padded into the smallest length bucket
-    (64/128/256, capped at ``max_len``), run through the model per bucket
-    and batch, and reassembled in input order. ``master`` holds the float32
-    parameters (what training updates and ``save_encoder`` writes),
-    ``model`` serves in ``cfg.dtype``. With ``mesh`` (see the module
-    docstring) ``device`` is the mesh's first device.
+    Texts are tokenized on the host. On one device they run in input
+    order, ``batch_size`` a forward, packed (the module docstring), or,
+    where packing does not apply (:meth:`_packs`), padded to the length
+    bucket (64/128/256, capped at ``max_len``) of the forward's longest
+    text. On a mesh they are padded into the smallest bucket that holds
+    each, run per bucket and batch, and reassembled in input order.
+    ``master`` holds the float32 parameters (what training updates and
+    ``save_encoder`` writes), ``model`` serves in ``cfg.dtype``. With
+    ``mesh`` (see the module docstring) ``device`` is the mesh's first
+    device.
     """
 
     def __init__(
@@ -498,25 +539,73 @@ class SentenceEncoder:
         return self.cfg.max_len
 
     def _buckets(self, texts: Sequence[str]):
-        """Token ids and masks of every text, the text positions in each
-        length bucket, and every text's real token count."""
+        """Token ids and masks of every text, the text positions of each
+        forward group, and every text's real token count. On a mesh a group
+        is a length bucket; on one device every text, in input order, under
+        the key None (:meth:`_forward` picks each forward's layout)."""
         with profiling.span("encoder.tokenize"):
             ids_full, mask_full = self.tokenizer.encode_batch(
                 texts, max_len=self.cfg.max_len)
             lens = mask_full.sum(axis=1)
+            if not self.sharded:
+                return ids_full, mask_full, {None: np.arange(len(texts))}, lens
             buckets: dict = {}
             for i, ln in enumerate(lens):
                 buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
         return ids_full, mask_full, buckets, lens
 
+    def _packs(self, lens: np.ndarray) -> bool:
+        """Whether one device's forward of texts with these token counts
+        runs packed: not at a head width the packed kernel lacks (past 256,
+        under flash), nor under cls pooling with a text of no token, whose
+        first position is a pad that packing has no place for."""
+        c = self.cfg
+        return ((c.hidden_dim // c.num_heads <= 256
+                 or not use_flash(c, self.device))
+                and (c.pooling != "cls" or int(lens.min()) > 0))
+
+    def _forward_packed(self, ids: np.ndarray, mask: np.ndarray):
+        """Launch the model on one batch of texts, (B, max_len) ids and
+        mask, packed end to end: their real tokens, each one's text and
+        place in it, the texts' offsets and the attention tiles, built on
+        the host and uploaded as one int32 array. Returns the embeddings
+        and the tokens run."""
+        cols = np.flatnonzero(mask.any(axis=0))
+        width = int(cols[-1]) + 1 if cols.size else 0
+        seg, pos = np.nonzero(mask[:, :width])
+        n = seg.size
+        with profiling.span("encoder.forward", {"rows": len(mask),
+                                                "tokens": n}):
+            cu = np.zeros(len(mask) + 1, np.int64)
+            np.cumsum(np.bincount(seg, minlength=len(mask)), out=cu[1:])
+            tiles = varlen_tiles(cu)
+            host = np.concatenate([ids[seg, pos], pos, seg, cu,
+                                   tiles.ravel()]).astype(np.int32)
+            tok, pos_d, seg_d, cu_d, tiles_d = torch.split(
+                self._upload(host), [n, n, n, len(cu), tiles.size])
+            layout = Varlen(cu_d, tiles_d.view(-1, 4), seg_d, pos_d, width)
+            return self.model(tok, layout), n
+
     def _forward(self, ids_full: np.ndarray, mask_full: np.ndarray,
-                 lens: np.ndarray, sel: Sequence[int], L: int
+                 lens: np.ndarray, sel: Sequence[int], L: Optional[int]
                  ) -> torch.Tensor:
-        """Launch the model on one batch of texts (asynchronous); on a mesh
-        the batch is padded to a multiple of the data shards and each
-        shard's slice uploads to its own device. Counts the batch's real
-        tokens and the positions it runs."""
-        global TOKENS_REAL, TOKENS_RUN
+        """Launch the model on one batch of texts (asynchronous). ``L`` the
+        bucket of a mesh's group, where the batch is padded to a multiple
+        of the data shards and each shard's slice uploads to its own
+        device; None on one device, where the batch runs packed or, where
+        it cannot (:meth:`_packs`), padded to its longest text's bucket.
+        Counts the batch's real tokens and the positions it runs."""
+        global TOKENS_REAL, TOKENS_RUN, PACKED_FORWARDS
+        if L is None:  # one device: a run of texts in input order
+            rows = slice(int(sel[0]), int(sel[-1]) + 1)
+            if self._packs(lens[rows]):
+                out, run = self._forward_packed(ids_full[rows],
+                                                mask_full[rows])
+                TOKENS_REAL += run
+                TOKENS_RUN += run
+                PACKED_FORWARDS += 1
+                return out
+            L = self._bucket_for(int(lens[rows].max()))
         b, n = len(sel), self._n_data
         b_pad = -(-b // n) * n
         with profiling.span("encoder.forward", {"L": L, "rows": b_pad}):

@@ -21,13 +21,23 @@ padded to a multiple of 8 (:func:`_padded_heads`,
 one copy of q, k and v; the scale stays that of the real width), the output
 sliced back. The CPU path takes the same route, so the tests here reach
 it.
+
+Packed texts (:func:`flash_attention_varlen`, the encoder's inference
+forward): q, k, v (N, H, Dh) hold the real tokens of a batch's texts end to
+end, and a token attends to the keys of its own text alone. The kernel's
+packed entry takes 64-token tiles of the stream from :func:`varlen_tiles`
+and reads only real tokens; its plain version,
+:func:`flash_attention_varlen_plain`, scatters the texts into a padded
+batch for :func:`flash_attention_plain` and gathers the tokens back.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -65,7 +75,8 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     dimension contiguous, 16-byte aligned rows), else a contiguous copy."""
     vec = 16 // x.element_size()
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % vec == 0 for n, s in zip(x.shape[:3], x.stride()[:3])
+            and all(s % vec == 0 for n, s in zip(x.shape[:-1],
+                                                 x.stride()[:-1])
                     if n > 1)):
         return x
     return x.clone(memory_format=torch.contiguous_format)
@@ -177,3 +188,146 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked non-causal attention: q, k, v (B, H, T, Dh); mask (B, T) with
     1 = real key. Returns (B, H, T, Dh) in q's dtype."""
     return _FlashAttention.apply(q, k, v, mask)
+
+
+# the packed kernel's tile: consecutive tokens a CTA takes as its query rows
+VARLEN_TILE = 64
+
+
+@dataclasses.dataclass
+class Varlen:
+    """A batch of texts packed end to end, one token a row, on the tokens'
+    device: ``cu_seqlens`` (rows + 1,) int32 offsets of the texts,
+    ``tiles`` (n_tiles, 4) int32 from :func:`varlen_tiles`, and per token
+    ``seg``, its text, and ``pos``, its place in the text; ``width``
+    exceeds every ``pos`` (the plain version's padded length)."""
+
+    cu_seqlens: torch.Tensor
+    tiles: torch.Tensor
+    seg: torch.Tensor
+    pos: torch.Tensor
+    width: int
+
+    @property
+    def rows(self) -> int:
+        return self.cu_seqlens.shape[0] - 1
+
+
+def varlen_tiles(cu_seqlens: np.ndarray) -> np.ndarray:
+    """The packed kernel's tiles over texts at offsets ``cu_seqlens``: up to
+    ``VARLEN_TILE`` consecutive tokens each, which may span several texts,
+    except that a text longer than a tile starts a tile and ends one, so
+    its tiles hold its tokens alone (as the padded kernel's do). Returns
+    (n_tiles, 4) int32: a tile's first token, its end, the text of its
+    first token and one past the text of its last; its keys are those
+    texts' tokens."""
+    tile = VARLEN_TILE
+    cu = np.asarray(cu_seqlens, np.int64)
+    n = int(cu[-1])
+    if n == 0:
+        return np.zeros((0, 4), np.int32)
+    long = np.diff(cu) > tile
+    cuts = np.unique(np.concatenate([[0, n], cu[:-1][long], cu[1:][long]]))
+    per = -(-np.diff(cuts) // tile)  # tiles of each stretch between cuts
+    first = np.repeat(np.cumsum(per) - per, per)
+    q0 = np.repeat(cuts[:-1], per) + tile * (np.arange(per.sum()) - first)
+    q1 = np.minimum(q0 + tile, np.repeat(cuts[1:], per))
+    return np.stack([q0, q1, np.searchsorted(cu, q0, "right") - 1,
+                     np.searchsorted(cu, q1 - 1, "right")],
+                    axis=1).astype(np.int32)
+
+
+def varlen_layout(lens, device="cpu") -> Varlen:
+    """The ``Varlen`` layout of texts of ``lens`` tokens each, a text's
+    tokens at its first places, on ``device``."""
+    lens = np.asarray(lens, np.int64)
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    seg = np.repeat(np.arange(lens.size), lens)
+    pos = np.arange(cu[-1]) - cu[:-1][seg]
+    return Varlen(*(torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                    .to(device) for x in (cu, varlen_tiles(cu), seg, pos)),
+                  int(lens.max(initial=0)))
+
+
+def flash_attention_varlen_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, layout: Varlen
+                                 ) -> torch.Tensor:
+    """:func:`flash_attention_varlen` in plain math: the tokens scattered
+    into a (rows, width) batch whose mask holds each text's own tokens,
+    :func:`flash_attention_plain`, and the tokens gathered back."""
+    h, dh = q.shape[1:]
+    idx = (layout.seg.long(), layout.pos.long())
+
+    def padded(x):
+        out = x.new_zeros((layout.rows, layout.width, h, dh))
+        out[idx] = x
+        return out.transpose(1, 2)
+
+    mask = torch.zeros((layout.rows, layout.width), device=q.device)
+    mask[idx] = 1.0
+    out = flash_attention_plain(padded(q), padded(k), padded(v), mask)
+    return out.transpose(1, 2)[idx]
+
+
+def flash_attention_varlen(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, layout: Varlen) -> torch.Tensor:
+    """Attention of packed texts (no gradient): q, k, v (N, H, Dh), the
+    tokens of ``layout``'s texts end to end; each token attends to the keys
+    of its own text. Returns (N, H, Dh) in q's dtype. On a CUDA tensor the
+    kernel's packed entry, at head widths up to 256 (padded as
+    :func:`flash_attention` pads them); on a CPU tensor the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_attention_varlen_plain(q, k, v, layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_varlen: tensors on {q.device}")
+    if q.dtype not in _KERNEL_DTYPES or not (k.dtype == v.dtype == q.dtype):
+        raise NotImplementedError(
+            f"the flash kernel takes bfloat16, float16 or float32 q, k, v; "
+            f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[-1] > _KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(f"flash kernel: packed texts at head width "
+                         f"{q.shape[-1]} (at most {_KERNEL_HEAD_DIMS[-1]})")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError("flash_attention_varlen has no backward")
+    return _padded_heads(_launch_varlen, q, k, v, layout)
+
+
+def _launch_varlen(q, k, v, layout: Varlen, scale):
+    """Launch the kernel's packed entry on CUDA tensors of a head width it
+    takes, or raise."""
+    global FLASH_LAUNCHES, FLASH_F32_LAUNCHES
+    n, h, dh = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    cu, tiles = layout.cu_seqlens, layout.tiles
+    if not all(x.device == q.device for x in (k, v, cu, tiles)):
+        raise ValueError("flash kernel: q, k, v and the layout on different "
+                         "devices")
+    if cu.dtype != torch.int32 or tiles.dtype != torch.int32 or not (
+            cu.is_contiguous() and tiles.is_contiguous()):
+        raise ValueError("flash kernel: cu_seqlens and tiles must be "
+                         "contiguous int32")
+    if n == 0:
+        return torch.empty_like(q)
+    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 8)(*(
+        s for x in (q, k, v, out)
+        for s in (x.stride(1) if h > 1 else 0, x.stride(0))))
+    fn = _build.load("flash_attention").flash_attention_varlen_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                cu.data_ptr(), tiles.data_ptr(), tiles.shape[0], h, dh,
+                strides, scale, _KERNEL_DTYPES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention_varlen")
+    if q.dtype == torch.float32:
+        FLASH_F32_LAUNCHES += 1
+    else:
+        FLASH_LAUNCHES += 1
+    return out

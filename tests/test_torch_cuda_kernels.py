@@ -425,6 +425,93 @@ def test_flash_backward_on_cuda(dev):
         assert torch.equal(a.grad, b.grad)
 
 
+def _varlen_lengths(case, seed):
+    """Token counts of a packed batch: the serve shape (4,096 queries,
+    lognormal, median 8), 256 chunks of 40-256 tokens, and a mix with
+    texts of no token and texts across 64-token tiles."""
+    rng = np.random.default_rng(seed)
+    if case == "serve":
+        return np.clip(np.rint(rng.lognormal(np.log(8), 0.5, 4096)), 2, 33)
+    if case == "chunks":
+        return rng.integers(40, 257, 256)
+    return np.array([30, 40, 70, 1, 0, 64, 65, 2, 256, 0, 129, 3, 63])
+
+
+def _varlen_check(got, want, dtype):
+    """bf16/fp16 to the chunking batch's 2e-2 of max(|o|, 0.5); f32
+    (3xTF32) to 2e-5 + 2e-5 |o|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        assert bool((diff <= 2e-5 + 2e-5 * want.abs()).all())
+    else:
+        assert float((diff / want.abs().clamp(min=0.5)).max()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("case", ["serve", "chunks", "mixed"])
+def test_flash_varlen_matches_plain(dev, dtype, case):
+    """The packed entry on the encoder's layout ((N, H, Dh) views of the
+    (N, hidden) projections) against its plain version, one launch of the
+    dtype's counter, the output in q's strides."""
+    lens = _varlen_lengths(case, 21)
+    layout = fa.varlen_layout(lens, dev)
+    n, h, dh = int(lens.sum()), 12, 32
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn((n, h * dh), generator=g, device=dev).to(dtype)
+               .view(n, h, dh) for _ in range(3))
+    counter = ("FLASH_F32_LAUNCHES" if dtype == torch.float32
+               else "FLASH_LAUNCHES")
+    before = getattr(fa, counter)
+    got = fa.flash_attention_varlen(q, k, v, layout)
+    assert getattr(fa, counter) == before + 1
+    assert got.shape == q.shape and got.stride() == q.stride()
+    _varlen_check(got, fa.flash_attention_varlen_plain(q, k, v, layout),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_packed_encoder_is_bit_reproducible(dev, dtype):
+    """The same texts in the same packed forward give the same bits: the
+    packed entry, the segment sum of the pooling and the GEMMs take one
+    summation order a call (a copy of a text at another offset may differ
+    in the last bits: attention sums its keys in another order there)."""
+    from semanticsearch_tpu_torch.core.config import EncoderConfig
+    from semanticsearch_tpu_torch.models import encoder as encoder_mod
+
+    enc = encoder_mod.SentenceEncoder(
+        EncoderConfig(dtype=str(dtype).split(".")[1], attention="flash"),
+        device=dev, seed=3)
+    rng = np.random.default_rng(24)
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 5000, n))
+             for n in _varlen_lengths("mixed", 0).clip(1, 255)] * 40
+    before = encoder_mod.PACKED_FORWARDS
+    a = enc.encode_device(texts, batch_size=256)
+    b = enc.encode_device(texts, batch_size=256)
+    assert encoder_mod.PACKED_FORWARDS == before + 2 * 3
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [16, 24, 64, 80, 128, 256])
+def test_flash_varlen_head_widths(dev, dtype, dh):
+    """Every head width up to 256, the ones the kernel lacks padded, on
+    the mixed lengths; past 256 the packed entry refuses (the encoder keeps
+    the padded forward there)."""
+    layout = fa.varlen_layout(_varlen_lengths("mixed", 0), dev)
+    n = int(layout.cu_seqlens[-1])
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = (torch.randn((n, 4, dh), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    _varlen_check(fa.flash_attention_varlen(q, k, v, layout),
+                  fa.flash_attention_varlen_plain(q, k, v, layout), dtype)
+    wide = torch.zeros((n, 4, 264), device=dev, dtype=dtype)
+    with pytest.raises(ValueError, match="head width"):
+        fa.flash_attention_varlen(wide, wide, wide, layout)
+
+
 # ------------------------------------------------- f32 schedules (top-k)
 
 def _small_grid(shape, seed, dev):

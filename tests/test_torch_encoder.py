@@ -1,7 +1,11 @@
 """The port's sentence encoder against the JAX package's, with the JAX
 parameters converted by models/convert.py. float32 throughout; embeddings
 agree to rtol = atol = 1e-4 (the two frameworks sum in different orders,
-and the stock paths differ in LayerNorm's variance formula)."""
+and the stock paths differ in LayerNorm's variance formula). One device's
+forwards run packed (texts' real tokens end to end): against the padded
+forward of the same model to 1e-6 in float32 and 2e-2 in bfloat16 (the
+bf16 tolerance of the encoder's training tests: activations round at 2^-8,
+and the two layouts sum attention's keys in different orders)."""
 import dataclasses
 
 import jax
@@ -16,6 +20,7 @@ from semanticsearch_tpu.models.encoder import (
     SentenceTransformerModel as JModel,
 )
 from semanticsearch_tpu_torch.core.config import EncoderConfig as TCfg
+from semanticsearch_tpu_torch.models import encoder as encoder_mod
 from semanticsearch_tpu_torch.models.convert import flax_to_state_dict
 from semanticsearch_tpu_torch.models.encoder import (
     SentenceEncoder as TEncoder,
@@ -23,6 +28,7 @@ from semanticsearch_tpu_torch.models.encoder import (
     use_flash,
 )
 from semanticsearch_tpu_torch.models.tokenizer import HashingTokenizer
+from semanticsearch_tpu_torch.ops.flash_attention import Varlen
 
 SMALL = dict(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=4,
              mlp_dim=128, max_len=256, dtype="float32")
@@ -97,6 +103,70 @@ def test_encode_buckets_match_jax(jax_params):
     assert tenc.encode_device(texts).device.type == "cpu"
 
 
+def _texts_of(lengths):
+    """Texts of exactly these word counts (a word a token)."""
+    words = [f"w{i}" for i in range(400)]
+    return [" ".join(words[(5 * i + j) % 400] for j in range(n))
+            for i, n in enumerate(lengths)]
+
+
+@pytest.mark.parametrize("attention", ["stock", "flash"])
+def test_packed_encode_matches_jax(jax_params, attention):
+    """One device's forwards run packed, three texts a forward in input
+    order over lengths that the buckets would split: ``encode`` and
+    ``encode_device`` match the JAX encoder row by row."""
+    texts = _texts_of([3, 200, 90, 10, 250, 60, 120, 1, 64, 65])
+    jenc = JEncoder(JCfg(**SMALL, attention=attention), params=jax_params)
+    tenc = TEncoder(TCfg(**SMALL, attention=attention), device="cpu",
+                    state_dict=flax_to_state_dict(jax_params,
+                                                  SMALL["num_layers"]))
+    want = jenc.encode(texts)
+    before = encoder_mod.PACKED_FORWARDS
+    np.testing.assert_allclose(tenc.encode(texts, batch_size=3), want,
+                               **TOL)
+    got = tenc.encode_device(texts, batch_size=3)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert encoder_mod.PACKED_FORWARDS - before == 2 * 4
+
+
+PACKED_LENGTHS = [1, 2, 63, 64, 65, 256, 7, 130]
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("pooling", ["mean", "cls"])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6), ("bfloat16", 2e-2)])
+def test_packed_forward_matches_padded(dtype, tol, pooling, normalize):
+    """The packed forward of texts of 1, 2, 63, 64, 65, 256, 7 and 130
+    tokens equals the padded forward of the same model at T = 256, with and
+    without a text of no token among them: packed under mean pooling (the
+    empty text pools to 0), padded under cls pooling (the empty text's first
+    position is a pad, which packing has no place for) and then bit for
+    bit."""
+    cfg = TCfg(**dict(SMALL, dtype=dtype), pooling=pooling,
+               normalize=normalize, attention="flash")
+    tok = HashingTokenizer(vocab_size=SMALL["vocab_size"], max_len=256,
+                           add_cls=False)
+    enc = TEncoder(cfg, device="cpu", seed=5, tokenizer=tok)
+    for lengths in (PACKED_LENGTHS, PACKED_LENGTHS[:3] + [0]
+                    + PACKED_LENGTHS[3:]):
+        texts = _texts_of(lengths)
+        ids, mask = tok.encode_batch(texts, max_len=256)
+        assert mask.sum(axis=1).tolist() == lengths
+        with torch.no_grad():
+            want = enc.model(torch.from_numpy(ids).long(),
+                             torch.from_numpy(mask)).numpy()
+        before = encoder_mod.PACKED_FORWARDS
+        got = enc.encode_device(texts, batch_size=len(texts)).numpy()
+        packed = pooling == "mean" or 0 not in lengths
+        assert encoder_mod.PACKED_FORWARDS - before == int(packed)
+        if packed:
+            np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+        else:
+            np.testing.assert_array_equal(got, want)
+        if 0 in lengths and pooling == "mean":
+            assert not got[3].any()
+
+
 def test_tokenizer_ids_match_jax():
     from semanticsearch_tpu.models.tokenizer import HashingTokenizer as JTok
 
@@ -139,9 +209,10 @@ class _Failing(torch.nn.Module):
         self.sizes = []
 
     def forward(self, ids, mask):
-        if ids.shape[0] > self.limit:
+        rows = mask.rows if isinstance(mask, Varlen) else ids.shape[0]
+        if rows > self.limit:
             raise self.error
-        self.sizes.append(ids.shape[0])
+        self.sizes.append(rows)
         return self.model(ids, mask)
 
 

@@ -226,3 +226,61 @@ def test_tf32_flash_model_matches_jax(rng, b, h, t, dh, block, rows):
     nan_k, nan_v = (torch.from_numpy(np.where(keys, np.float32("nan"), x))
                     for x in (k, v))
     assert torch.equal(flash_model(tq, nan_k, nan_v, tm), got)
+
+
+@pytest.mark.parametrize("lens", [
+    [30, 40, 70, 1, 64, 65, 2],    # texts across 64-token tile boundaries
+    [5, 0, 3, 0, 0, 60, 8, 1],     # texts with no token between others
+    [256, 7, 200, 129, 3],         # texts longer than a tile
+    [1],
+])
+def test_varlen_plain_equals_each_text_alone(rng, lens):
+    """Packed texts' attention: each token attends to its own text alone,
+    equal to the plain version on that text by itself (2e-6: f32 sums over
+    the same keys, padded to another length)."""
+    h, dh = 3, 16
+    layout = tfa.varlen_layout(lens)
+    n = int(sum(lens))
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, h, dh))
+                                .astype(np.float32)) for _ in range(3))
+    got = tfa.flash_attention_varlen(q, k, v, layout)
+    assert got.shape == (n, h, dh)
+    start = 0
+    for ln in lens:
+        s = slice(start, start + ln)
+        start += ln
+        if not ln:
+            continue
+        want = tfa.flash_attention_plain(
+            *(x[s].transpose(0, 1)[None] for x in (q, k, v)),
+            torch.ones((1, ln)))[0].transpose(0, 1)
+        np.testing.assert_allclose(got[s].numpy(), want.numpy(), rtol=2e-6,
+                                   atol=2e-6)
+    assert tfa.FLASH_LAUNCHES == tfa.FLASH_F32_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("lens", [
+    [30, 40, 70, 1, 64, 65, 2],
+    [5, 0, 3, 0, 0, 60, 8, 1, 0],
+    [256, 7, 200, 129, 3, 64],
+    list(np.random.default_rng(7).integers(0, 40, 500)),
+])
+def test_varlen_tiles_cover_the_tokens(lens):
+    """The packed kernel's tiles: consecutive, up to 64 tokens, covering
+    every token once; a text longer than 64 tokens has tiles of its own;
+    a tile's key span is the span of the texts its tokens belong to."""
+    lens = np.asarray(lens)
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    tiles = tfa.varlen_tiles(cu)
+    assert tiles.dtype == np.int32 and tiles.shape[1] == 4
+    q0, q1, first, last = tiles.T
+    assert q0[0] == 0 and q1[-1] == cu[-1]
+    assert np.array_equal(q0[1:], q1[:-1])
+    assert ((q1 - q0 >= 1) & (q1 - q0 <= tfa.VARLEN_TILE)).all()
+    text = np.repeat(np.arange(lens.size), lens)
+    for a, b, f, l in tiles:
+        texts = np.unique(text[a:b])
+        assert (f, l) == (texts[0], texts[-1] + 1)
+        if len(texts) > 1:  # only texts of at most a tile share one
+            assert (lens[texts] <= tfa.VARLEN_TILE).all()
+    assert tfa.varlen_tiles(np.zeros(3, np.int64)).shape == (0, 4)

@@ -140,17 +140,21 @@ def test_trace_writes_the_spans_of_every_thread(tmp_path):
 
 
 def _counts():
-    return encoder_mod.TOKENS_REAL, encoder_mod.TOKENS_RUN
+    return (encoder_mod.TOKENS_REAL, encoder_mod.TOKENS_RUN,
+            encoder_mod.PACKED_FORWARDS)
 
 
 @pytest.mark.parametrize("shards", [1, 3])
 def test_encoder_counters_hold_the_masks_tokens(shards):
     """Texts over the 64 and 128 buckets, through ``encode`` and
-    ``encode_device``; on a mesh of three data shards a batch's rows pad to
-    a multiple of three, and the padded rows count as run."""
+    ``encode_device``. On one device every forward runs packed, a batch of
+    texts in input order: the positions run are the real tokens, one packed
+    forward a batch, no reorder. On a mesh of three data shards the texts
+    go by bucket, a batch's rows pad to a multiple of three and the padded
+    rows count as run, and the outputs come back out of bucket order."""
     rng = np.random.default_rng(1)
     long = _texts(rng, 5, 70, 110)
-    # a long text first, so the outputs come back out of bucket order
+    # a long text first, so a mesh's outputs come back out of bucket order
     texts = long[:2] + _texts(rng, 9, 2, 30) + long[2:]
     mesh = (make_mesh(MeshSpec(data=shards), [torch.device("cpu")] * shards)
             if shards > 1 else None)
@@ -160,30 +164,42 @@ def test_encoder_counters_hold_the_masks_tokens(shards):
     lens = mask.sum(axis=1)
     real = int(lens.sum())
     batch = 4
-    run = 0
-    for L in (64, 128):
-        n = int(((lens <= L) & (lens > L // 2 if L > 64 else True)).sum())
-        rows = [min(batch, n - s) for s in range(0, n, batch)]
-        run += sum(-(-r // shards) * shards * L for r in rows)
+    if shards == 1:
+        run, packed = real, -(-len(texts) // batch)
+    else:
+        run, packed = 0, 0
+        for L in (64, 128):
+            n = int(((lens <= L) & (lens > L // 2 if L > 64 else True)).sum())
+            rows = [min(batch, n - s) for s in range(0, n, batch)]
+            run += sum(-(-r // shards) * shards * L for r in rows)
     before = _counts()
     enc.encode(texts, batch_size=batch)
     mid = _counts()
-    assert (mid[0] - before[0], mid[1] - before[1]) == (real, run)
+    assert tuple(m - b for m, b in zip(mid, before)) == (real, run, packed)
     window = lambda: enc.encode_device(texts, batch_size=batch)  # noqa: E731
     _, spans = _traced(window)
     after = _counts()
-    assert (after[0] - mid[0], after[1] - mid[1]) == (real, run)
+    assert tuple(a - m for a, m in zip(after, mid)) == (real, run, packed)
     counted = profiling.last_window()["counters"]
     assert counted["encoder.tokens_real"] == real
     assert counted["encoder.tokens_run"] == run
+    assert counted["encoder.packed_forwards"] == packed
     assert profiling.counters()["encoder.tokens_run"] == after[1]
+    assert profiling.counters()["encoder.packed_forwards"] == after[2]
     forwards = [n for n, _, _ in spans if n.startswith("encoder.forward")]
+    others = [n for n, _, _ in spans if not n.startswith("encoder.forward")]
+    if shards == 1:
+        assert forwards == [
+            f"encoder.forward rows={len(lens[s: s + batch])} "
+            f"tokens={int(lens[s: s + batch].sum())}"
+            for s in range(0, len(texts), batch)]
+        assert others == ["encoder.tokenize"]
+        return
     # the first text's bucket runs first
     assert forwards[0] == (f"encoder.forward L=128 "
                            f"rows={-(-batch // shards) * shards}")
     assert len(forwards) == 3 + 2
-    assert [n for n, _, _ in spans if not n.startswith("encoder.forward")
-            ] == ["encoder.tokenize", "encoder.reorder"]
+    assert others == ["encoder.tokenize", "encoder.reorder"]
 
 
 def test_counters_read_the_launch_and_call_integers(monkeypatch):
