@@ -16,7 +16,11 @@ shape (pass B one call and 50 queued), pass B also with every query
 picking the same segments, and the fused top-k at the live-search shape,
 flash also at head widths 256 and 320 (320 on the wide path, its own
 entry), f32 flash beside both its bounds
-(three TF32 products, and f32 FMAs) (phase 4), and serves deep candidate
+(three TF32 products, and f32 FMAs) (phase 4), holds the LLM search
+cell's two kernels against their plain versions at that cell's shapes and
+times them: the packed flash entry, causal with grouped K/V, over 256
+texts of its length law at 32 query and 8 K/V heads x 64, and pass A's
+wide schedule at 256 x 10,000,000 x 2,048 (phase 4b), and serves deep candidate
 lists over a live index: adds, removals, a 10,000-query search through the
 fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
 600-document corpus with one document of 3,939 sentences through
@@ -185,7 +189,9 @@ def zero_counts() -> None:
     topk.SEGTOPK_INT8_LAUNCHES = topk.TOPK_FUSED_LAUNCHES = 0
     topk.SEGTOPK_F32_LAUNCHES = topk.SEGTOPK_OVERLAP_F32_LAUNCHES = 0
     topk.TOPK_FUSED_F32_LAUNCHES = topk.PASS_B_LAUNCHES = 0
+    topk.SEGTOPK_WIDE_LAUNCHES = 0
     fa.FLASH_LAUNCHES = fa.FLASH_F32_LAUNCHES = fa.FLASH_WIDE_LAUNCHES = 0
+    fa.FLASH_CAUSAL_LAUNCHES = 0
     sim.SIM_LAUNCHES = sim.SIM_BF16_LAUNCHES = 0
 
 
@@ -1459,6 +1465,156 @@ def time_flash_varlen(report, gen):
                 + (f"; 3xTF32; f32 FMAs {entry[key + 'fma_bound_ms']:.4f} ms)"
                    if f32 else ")"))
 
+
+
+def varlen_causal_bound(lens, h: int, h_kv: int, dh: int, itemsize: int):
+    """bound_ms of packed texts' causal grouped-K/V attention: q and o of
+    the ``h`` heads and k and v of the ``h_kv`` heads of every real token
+    once, the offsets and tiles, and each text's causal products (a token
+    and the keys up to itself)."""
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+
+    lens = np.asarray(lens, np.float64)
+    n_tiles = len(fa.varlen_tiles(np.concatenate([[0], np.cumsum(lens)])
+                                  .astype(np.int64)))
+    return bound_ms(4.0 * h * dh * float((lens * (lens + 1) / 2).sum()),
+                    2.0 * lens.sum() * (h + h_kv) * dh * itemsize
+                    + 4.0 * (lens.size + 1) + 16.0 * n_tiles)
+
+
+def phase_llm_kernels(report):
+    """The LLM search cell's (``lfm2-8b-a1b-bf16.mine_b256``) two kernels
+    at its shapes: the packed flash entry, causal with grouped K/V, over a
+    forward of 256 texts whose lengths follow the cell's law (log-normal
+    words, median 160, sigma 0.6, 32-511, plus a BOS token) at 32 query and
+    8 K/V heads x 64; and pass A's wide bf16 schedule (past
+    ``pass_a_max_d``) at 256 queries over 10,000,000 rows of 2,048 (the
+    cell's segments: 16,384-row blocks split 4 ways, k_sel 11). Each is
+    held against its plain version, launch counters from 0; pass A on
+    integer rows in [-63, 63], whose products sum exactly in float32 (63^2
+    x 2,048 < 2^24), so ids, tie order and values must be equal bit for
+    bit."""
+    import torch
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import topk
+
+    log("== phase 4b: the LLM search cell's kernels at its shapes")
+    torch.cuda.empty_cache()
+    fc, wide = report["flash_causal"], report["segtopk_wide"]
+    gen = torch.Generator().manual_seed(23)
+
+    h, h_kv, dh = 32, 8, 64
+    lens = np.clip(np.rint(np.random.default_rng(23).lognormal(
+        np.log(160), 0.6, 256)), 32, 511).astype(np.int64) + 1
+    layout = fa.varlen_layout(lens, "cuda")
+    n = int(lens.sum())
+    q = torch.randn((n, h, dh), generator=gen).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((n, h_kv, dh), generator=gen).to(
+        "cuda", torch.bfloat16) for _ in range(2))
+    zero_counts()
+    got = fa.flash_attention_varlen(q, k, v, layout, causal=True)
+    fc["launches"] = fa.FLASH_CAUSAL_LAUNCHES
+    launches = (fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES,
+                fa.FLASH_WIDE_LAUNCHES)
+    want = fa.flash_attention_varlen_plain(q, k, v, layout, causal=True)
+    diff = (got.float() - want.float()).abs()
+    worst = float((diff / want.float().abs().clamp(min=0.5)).max()) / 2e-2
+    fc["max_abs_err"] = float(diff.max())
+    check(fc["launches"] == 1 and launches == (0, 0, 0)
+          and bool(torch.isfinite(got).all()) and worst <= 1.0,
+          f"causal grouped-K/V packed flash, {len(lens)} texts of "
+          f"{int(lens.min())}-{int(lens.max())} tokens ({n}), {h}/{h_kv} "
+          f"heads x {dh}, vs plain: one launch of its entry and none of "
+          f"another, worst error {worst:.3f} of its bound (2e-2 max(|o|, "
+          "0.5))")
+    del want, diff
+    fc["ms"] = time_ms(lambda: fa.flash_attention_varlen(
+        q, k, v, layout, causal=True), reps=20, warmup=3)
+    fc["plain_ms"] = time_ms(lambda: fa.flash_attention_varlen_plain(
+        q, k, v, layout, causal=True), reps=3)
+    # SDPA over the texts padded to the longest, causal: pads sit after a
+    # text's tokens, so no real query sees one
+    w = layout.width
+    idx = (layout.seg.long(), layout.pos.long())
+    padded = []
+    for x in (q, k, v):
+        p = x.new_zeros((len(lens), w) + x.shape[1:])
+        p[idx] = x
+        padded.append(p.transpose(1, 2))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        sdpa(*padded, is_causal=True, enable_gqa=True)
+        fc["library_ms"] = time_ms(lambda: sdpa(
+            *padded, is_causal=True, enable_gqa=True), reps=20, warmup=3)
+        fc["library_note"] = ("SDPA padded to the longest text, causal, "
+                              "enable_gqa")
+    except TypeError:  # a torch without enable_gqa: K/V heads repeated
+        rep = [x.repeat_interleave(h // h_kv, dim=1) for x in padded[1:]]
+        fc["library_ms"] = time_ms(lambda: sdpa(
+            padded[0], *rep, is_causal=True), reps=20, warmup=3)
+        fc["library_note"] = ("SDPA padded to the longest text, causal, "
+                              "K/V heads repeated before the call")
+    fc["bound_ms"], fc["bound_by"] = varlen_causal_bound(lens, h, h_kv, dh, 2)
+    fc["shape_note"] = (f"{len(lens)} texts of {int(lens.min())}-"
+                        f"{int(lens.max())} tokens ({n}) in one forward, "
+                        f"{h} query and {h_kv} K/V heads x {dh}, bf16; "
+                        "bound: q, k, v, o once, the causal products")
+    log(f"  causal GQA packed flash, {n} tokens: kernel {fc['ms']:.4f} ms, "
+        f"plain {fc['plain_ms']:.3f} ms, SDPA {fc['library_ms']:.4f} ms, "
+        f"bound {fc['bound_ms']:.4f} ms ({fc['bound_by']})")
+    del q, k, v, got, padded
+    torch.cuda.empty_cache()
+
+    nq, nr, d, k_sel, seg_rows = 256, 10_000_000, 2048, 11, 32
+    check(topk.pass_a_schedule(d, k_sel) == "wide",
+          f"D {d} is past pass_a_max_d({k_sel}) = {topk.pass_a_max_d(k_sel)}"
+          ": pass A takes its wide schedule")
+    g = torch.Generator(device="cuda").manual_seed(24)
+
+    def grid(rows):
+        out = torch.empty((rows, d), dtype=torch.bfloat16, device="cuda")
+        for s in range(0, rows, 1 << 16):
+            r = min(1 << 16, rows - s)
+            out[s: s + r] = torch.randint(-63, 64, (r, d), generator=g,
+                                          device="cuda").to(torch.bfloat16)
+        return out
+
+    queries, corpus = grid(nq), grid(nr)
+    zero_counts()
+    kv, ki = topk.segtopk_pass_a(queries, corpus, nr, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    wide["launches"] = topk.SEGTOPK_WIDE_LAUNCHES
+    other = topk.SEGTOPK_LAUNCHES
+    pv, pi = topk.segtopk_pass_a_plain(queries, corpus, nr, seg_rows, k_sel)
+    wide["max_abs_err"] = float((kv - pv).abs().max())
+    check(wide["launches"] == 1 and other == 0 and torch.equal(ki, pi)
+          and torch.equal(kv, pv),
+          f"wide pass A at {nq} x {nr:,} x {d} (segments of {seg_rows} "
+          f"rows, k_sel {k_sel}) == plain: one launch of the wide schedule, "
+          "none of the resident-tile one, ids in the same order and values "
+          "bit for bit")
+    del kv, ki, pv, pi
+    wide["ms"] = time_ms(lambda: topk.segtopk_pass_a(
+        queries, corpus, nr, seg_rows, k_sel), reps=5)
+    wide["plain_ms"] = time_ms(lambda: topk.segtopk_pass_a_plain(
+        queries, corpus, nr, seg_rows, k_sel), reps=1, warmup=0)
+
+    def gemm_floor():
+        for s in range(0, nr, 16384):
+            torch.matmul(queries, corpus[s: s + 16384].T)
+
+    wide["library_ms"] = time_ms(gemm_floor, reps=3)
+    wide["library_note"] = "bf16 torch.matmul over 16,384-row blocks"
+    wide["bound_ms"], wide["bound_by"] = bound_ms(
+        2.0 * nq * nr * d, 2.0 * (nq * d + nr * d) + 8.0 * nq * k_sel)
+    wide["shape_note"] = (f"{nq} queries x {nr:,} rows x {d}, bf16, "
+                          f"segments of {seg_rows} rows, k_sel {k_sel}")
+    log(f"  wide pass A: kernel {wide['ms']:.2f} ms, plain "
+        f"{wide['plain_ms']:.2f} ms, bf16 GEMM floor "
+        f"{wide['library_ms']:.2f} ms, bound {wide['bound_ms']:.2f} ms "
+        f"({wide['bound_by']})")
+    del queries, corpus
+    torch.cuda.empty_cache()
 
 # phase 5: chunks added to and removed from the phase-3 index, and queries
 LIVE_ADDS, LIVE_REMOVES, LIVE_QUERIES = 2000, 500, 10000
@@ -4687,6 +4843,16 @@ def main() -> int:
         report[key] = {**{k: report[base][k] for k in ("route", "source",
                                                        "replaces")},
                        "name": name}
+    report["flash_causal"] = {
+        **{k: report["flash"][k] for k in ("route", "source", "replaces")},
+        "name": "flash_attention_varlen (causal, grouped K/V)",
+        "launches_note": "one direct call (phase 4b); the LLM search cell "
+                         "launches it once an attention layer a forward"}
+    report["segtopk_wide"] = {
+        **{k: report["segtopk"][k] for k in ("route", "source", "replaces")},
+        "name": "segtopk_pass_a (wide bf16)",
+        "launches_note": "one direct call (phase 4b); the LLM search cell "
+                         "launches it once a search"}
     t_start = time.perf_counter()
     try:
         phase_build()
@@ -4694,6 +4860,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             ctx = phase_serve(report, tmp)
             phase_dense(report)
+            phase_llm_kernels(report)
             phase_live(report, ctx)
             phase_chunk(report, ctx)
             phase_f32(report, ctx)
@@ -4732,7 +4899,8 @@ def main() -> int:
                          "segtopk_f32", "segtopk_overlap_f32", "pass_b",
                          "topk_fused",
                          "topk_fused_f32", "flash", "flash_f32", "flash_wide",
-                         "similarity", "similarity_bf16")]
+                         "flash_causal", "segtopk_wide", "similarity",
+                         "similarity_bf16")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
         f"{report['recall_at_10']}; int8 two-pass recall@10 "
         f"{report['recall_at_10_int8']}; f32 two-pass recall@10 "

@@ -12,7 +12,7 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, ClassVar, Dict, Optional, Tuple
 
 
 def _replace_from_dict(obj, overrides: Dict[str, Any]):
@@ -48,6 +48,76 @@ class EncoderConfig:
     # once max_len >= 1024 (and dropout is 0), plain torch math otherwise;
     # "flash" / "stock" force it
     attention: str = "auto"
+
+    # the block's architecture: the pre-LN BERT block of models/encoder.py
+    # (:class:`LFM2MoEConfig` names its own); a class attribute, so the
+    # fields stay the JAX package's field for field
+    arch: ClassVar[str] = "bert"
+
+
+# LFM2-8B-A1B's published layer pattern: 18 gated short convolutions and 6
+# grouped-query attention layers (2, 6, 10, 14, 18, 21)
+LFM2_LAYER_TYPES = tuple(
+    "full_attention" if i in (2, 6, 10, 14, 18, 21) else "conv"
+    for i in range(24))
+
+
+@dataclass(frozen=True)
+class LFM2MoEConfig(EncoderConfig):
+    """A causal LFM2-MoE language model served as a retrieval encoder
+    (``models/lfm2_moe.py``), the port's own: gated short convolutions and
+    grouped-query causal attention with RoPE, a dense SwiGLU in the first
+    ``num_dense_layers`` layers and a sigmoid-routed mixture of experts in
+    the rest, each text pooled at its last token. Defaults are
+    LFM2-8B-A1B's published sizes, but ``max_len``, which bounds the
+    tokens a text keeps (RoPE has no table). ``mlp_dim`` is the dense
+    layers' SwiGLU width, ``num_heads`` the query heads. Inference only:
+    the encoder holds serving weights in ``dtype`` and no float32
+    masters."""
+
+    arch: ClassVar[str] = "lfm2_moe"
+    vocab_size: int = 65536
+    hidden_dim: int = 2048
+    num_layers: int = 24
+    num_heads: int = 32
+    mlp_dim: int = 7168
+    max_len: int = 512
+    pooling: str = "last"
+    attention: str = "flash"
+    num_kv_heads: int = 8
+    layer_types: Tuple[str, ...] = LFM2_LAYER_TYPES
+    num_dense_layers: int = 2
+    num_experts: int = 32
+    experts_per_token: int = 4
+    expert_dim: int = 1792
+    norm_topk_prob: bool = True
+    routed_scaling: float = 1.0
+    conv_kernel: int = 3
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+
+    def __post_init__(self) -> None:
+        if len(self.layer_types) != self.num_layers or not set(
+                self.layer_types) <= {"conv", "full_attention"}:
+            raise ValueError(f"layer_types must name 'conv' or "
+                             f"'full_attention' for each of the "
+                             f"{self.num_layers} layers")
+        # heads matter only where a layer attends
+        if "full_attention" in self.layer_types and (
+                self.hidden_dim % self.num_heads or self.num_kv_heads < 1
+                or self.num_heads % self.num_kv_heads):
+            raise ValueError(f"{self.num_heads} query heads must divide the "
+                             f"width {self.hidden_dim} and be a multiple of "
+                             f"{self.num_kv_heads} K/V heads")
+        if not 0 <= self.num_dense_layers <= self.num_layers:
+            raise ValueError(f"num_dense_layers {self.num_dense_layers} of "
+                             f"{self.num_layers} layers")
+        if not 0 < self.experts_per_token <= self.num_experts:
+            raise ValueError(f"{self.experts_per_token} experts a token of "
+                             f"{self.num_experts}")
+        if self.pooling != "last":
+            raise ValueError("an LFM2-MoE encoder pools each text's last "
+                             "token (pooling='last')")
 
 
 @dataclass(frozen=True)

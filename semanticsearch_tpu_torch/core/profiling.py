@@ -51,6 +51,7 @@ _COUNTER_SOURCES = (
     ("launch", "ops.similarity", r"(\w+)_LAUNCHES"),
     ("native", "native", r"(\w+)_CALLS"),
     ("encoder", "models.encoder", r"(TOKENS_\w+|PACKED_FORWARDS)"),
+    ("encoder", "models.lfm2_moe", r"(MOE_\w+)"),
 )
 
 _clock = time.perf_counter
@@ -130,8 +131,9 @@ def counters() -> Dict[str, int]:
     kernel launches (``launch.segtopk``, ``launch.pass_b``,
     ``launch.flash``, ...), native calls (``native.hash_tokenize``, ...)
     and the encoder's tokens (``encoder.tokens_real``,
-    ``encoder.tokens_run``) and packed forwards
-    (``encoder.packed_forwards``)."""
+    ``encoder.tokens_run``), packed forwards (``encoder.packed_forwards``)
+    and an LFM2-MoE encoder's token-expert pairs and MoE layer forwards
+    (``encoder.moe_pairs``, ``encoder.moe_layers``)."""
     out = {}
     for prefix, mod_name, pattern in _COUNTER_SOURCES:
         mod = importlib.import_module(f"{_PACKAGE}.{mod_name}")

@@ -71,6 +71,15 @@
 //    its two rows by a binary search in cu. No mask, no dead blocks: each
 //    block holds some row's keys. Rows past the tile are zero-filled and
 //    never stored, as in TAIL.
+//  * Packed texts of a causal language model (the LM instantiation, entry
+//    point flash_attention_varlen_lm_fwd; replaces no TPU kernel: the
+//    LFM2-MoE encoder is the port's own). The VARLEN kernel with two
+//    changes: a row's keys end at the row itself, so a tile's key span
+//    ends at its last row and the blocks past it are never loaded; and K
+//    and V hold fewer heads than Q (grouped-query attention), query head h
+//    reading K/V head h / kv_group, so a K/V block is read once for each
+//    query head of its group, from L2 after the first. Bound as VARLEN is:
+//    by the bytes of q, k, v and o at the encoder's lengths.
 //
 // The f32 path (flash_tf32_kernel): the JAX kernel computes in f32 whatever
 // its input, and an f32 encoder is held to 2e-5 of the plain f32 attention;
@@ -129,6 +138,9 @@ struct Args {
   // first row, its end, the text of its first row and one past its last's
   const int* cu;
   const int* tiles;
+  // LM: query heads that share a K/V head (query head h reads K/V head
+  // h / kv_group)
+  int kv_group;
 };
 
 // A packed tile's rows [q0, q0 + q_rows) and keys [k0, k0 + k_len), and
@@ -242,11 +254,16 @@ __host__ __device__ inline size_t smem_bytes(int dh, int bq, int nkb) {
 // TAIL: T is not a multiple of 64 (then below 128, NW = 4): zero-filled
 // tail rows, keys at or past T at -inf, the mask read a key at a time.
 // VARLEN (with TAIL, NW = 4): a packed tile (Tile), no mask.
+// LM (with VARLEN): a causal language model's attention, as the LFM2-MoE
+// encoder runs it: a row's keys end at the row itself (its text's keys up
+// to its own place), so a tile's key span ends at its last row, and K and
+// V have fewer heads than Q, query head h reading K/V head h / kv_group.
 // Dh = 256 keeps Q's fragments in shared memory and loads them a key block
 // at a time: in registers they would take 64 more a thread beside O's 128.
-template <int DH, typename T, int NW, bool TAIL, bool VARLEN = false>
+template <int DH, typename T, int NW, bool TAIL, bool VARLEN = false, bool LM = false>
 __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
   static_assert(!VARLEN || (TAIL && NW == 4), "a packed tile is 64 zero-filled rows");
+  static_assert(!LM || VARLEN, "the causal grouped-K/V form runs on packed texts");
   constexpr int BQ = NW * 16, LD = row_ld(DH), CH = DH / 8, NT = NW * 32;
   constexpr int NST = ring_stages(DH);
   constexpr bool Q_IN_REGS = DH <= 128;
@@ -276,10 +293,17 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     q0 = tile.q0, q_rows = tile.q_rows, k_first = tile.k0, k_len = tile.k_len;
     tile.row_keys(a, qb, warp * 16 + g, lo0, hi0);
     tile.row_keys(a, qb, warp * 16 + g + 8, lo1, hi1);
+    if constexpr (LM) {  // causal: no key past the row, none past the tile
+      hi0 = min(hi0, q0 + warp * 16 + g + 1 - k_first);
+      hi1 = min(hi1, q0 + warp * 16 + g + 9 - k_first);
+      k_len = min(k_len, q0 + q_rows - k_first);
+    }
   }
   const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h0 * a.q_sh + (long long)q0 * a.q_st;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + h0 * a.k_sh + (long long)k_first * a.k_st;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + h0 * a.v_sh + (long long)k_first * a.v_st;
+  // LM: each head's K/V head is found where its blocks load (kv_head)
+  const int kv_h0 = LM ? 0 : h0;
+  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + kv_h0 * a.k_sh + (long long)k_first * a.k_st;
+  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + kv_h0 * a.v_sh + (long long)k_first * a.v_st;
   T* op = static_cast<T*>(a.o) + b * a.o_sb + h0 * a.o_sh + ((long long)q0 + warp * 16) * a.o_st;
   const float* mp = a.mask + (long long)b * a.Tlen;
 
@@ -337,8 +361,9 @@ __global__ void __launch_bounds__(NW * 32) flash_fwd_kernel(const Args a) {
     if (it % nl == 0 && hi > 0) load_q(hi);
     T* ks = k_s + stage * BKV * LD;
     T* vs = v_s + stage * BKV * LD;
-    const T* ksrc = kp + hi * a.k_sh;
-    const T* vsrc = vp + hi * a.v_sh;
+    const int kv_head = LM ? (h0 + hi) / a.kv_group : hi;
+    const T* ksrc = kp + kv_head * a.k_sh;
+    const T* vsrc = vp + kv_head * a.v_sh;
     for (int i = tid; i < BKV * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * 8;
       const long long row = (long long)kb * BKV + r;
@@ -521,7 +546,7 @@ inline int heads_per_cta(int H, long long ctas_per_head) {
 }
 
 // Packed (VARLEN): B = 1, Tlen = 0, and a.nqb the caller's tiles.
-template <int DH, typename T, int NW, bool TAIL, bool VARLEN = false>
+template <int DH, typename T, int NW, bool TAIL, bool VARLEN = false, bool LM = false>
 int launch(Args a, int B, cudaStream_t st) {
   constexpr int BQ = NW * 16;
   if (!VARLEN) a.nqb = (a.Tlen + BQ - 1) / BQ;
@@ -529,10 +554,10 @@ int launch(Args a, int B, cudaStream_t st) {
   const size_t smem = smem_bytes(DH, BQ, (a.Tlen + BKV - 1) / BKV);
   const long long grid = (long long)a.nqb * (a.H / a.hg) * B;
   if (grid > INT_MAX || smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW, TAIL, VARLEN>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DH, T, NW, TAIL, VARLEN, LM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<DH, T, NW, TAIL, VARLEN><<<(unsigned)grid, NW * 32, smem, st>>>(a);
+  flash_fwd_kernel<DH, T, NW, TAIL, VARLEN, LM><<<(unsigned)grid, NW * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1201,6 +1226,18 @@ int dispatch_varlen(const Args& a, int Dh, cudaStream_t st) {
   }
 }
 
+// the causal grouped-K/V form (LM) at the head widths a language model's
+// attention takes
+template <typename T>
+int dispatch_varlen_lm(const Args& a, int Dh, cudaStream_t st) {
+  switch (Dh) {
+    case 32: return launch<32, T, 4, true, true, true>(a, 1, st);
+    case 64: return launch<64, T, 4, true, true, true>(a, 1, st);
+    case 128: return launch<128, T, 4, true, true, true>(a, 1, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 int dispatch_varlen_f32(const Args& a, int Dh, cudaStream_t st) {
   switch (Dh) {
     case 16: return launch_tf32<16, true, true>(a, 1, st);
@@ -1248,6 +1285,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   a.nqb = a.hg = 0;
   a.scale_log2 = scale * LOG2E;
   a.cu = a.tiles = nullptr;
+  a.kv_group = 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dh<__nv_bfloat16>(a, B, Dh, st);
   if (dtype == 1) return dispatch_dh<__half>(a, B, Dh, st);
@@ -1291,9 +1329,50 @@ extern "C" int flash_attention_varlen_fwd(const void* q, const void* k, const vo
   a.scale_log2 = scale * LOG2E;
   a.cu = cu;
   a.tiles = tiles;
+  a.kv_group = 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_varlen<__nv_bfloat16>(a, Dh, st);
   if (dtype == 1) return dispatch_varlen<__half>(a, Dh, st);
   if (dtype == 2) return dispatch_varlen_f32(a, Dh, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Packed texts of a causal language model (the LM instantiation): as
+// flash_attention_varlen_fwd, and a row attends to its own text's keys up
+// to itself; k and v hold H / kv_group heads, query head h reading K/V head
+// h / kv_group. Dh one of 32, 64, 128; dtype 0 (bfloat16) or 1 (float16).
+extern "C" int flash_attention_varlen_lm_fwd(const void* q, const void* k, const void* v,
+                                             void* o, const int* cu, const int* tiles,
+                                             int n_tiles, int H, int kv_group, int Dh,
+                                             const long long* strides, float scale, int dtype,
+                                             void* stream) {
+  if (n_tiles <= 0 || H <= 0 || kv_group <= 0 || H % kv_group) return (int)cudaErrorInvalidValue;
+  uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (align % 16) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 8; ++i)
+    if (strides[i] % 8) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = nullptr;
+  a.o = o;
+  a.q_sb = a.k_sb = a.v_sb = a.o_sb = 0;
+  a.q_sh = strides[0], a.q_st = strides[1];
+  a.k_sh = strides[2], a.k_st = strides[3];
+  a.v_sh = strides[4], a.v_st = strides[5];
+  a.o_sh = strides[6], a.o_st = strides[7];
+  a.H = H;
+  a.Tlen = 0;
+  a.nqb = n_tiles;
+  a.hg = 0;
+  a.scale_log2 = scale * LOG2E;
+  a.cu = cu;
+  a.tiles = tiles;
+  a.kv_group = kv_group;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_varlen_lm<__nv_bfloat16>(a, Dh, st);
+  if (dtype == 1) return dispatch_varlen_lm<__half>(a, Dh, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -90,6 +90,19 @@
 // again from L2 for every corpus tile. TMA needs 16-byte row pitches: f32
 // widths are multiples of 4 (the wrapper pads others with zero columns).
 // Tiles and stages come from ops/topk.py::pass_a_f32_plan.
+//
+// The wide schedule (mode 4): mode 0's kernel and register epilogue on bf16
+// operands wider than the resident query tile allows
+// (ops/topk.py::pass_a_max_d: 1,536 columns at k_sel 1, 1,024 at 128; a
+// 2,048-wide LLM embedder's rows do not fit). qs_mainloop.cuh streams the
+// query tile's K chunks through the ring beside the corpus tile's, as the
+// f32 schedule does, so the shared memory does not grow with D; the same
+// wgmma products in the same order and the same epilogue give mode 0's
+// selections and ties. What bounds it: at the LFM2 cell's shape (256
+// queries, 10M x 2,048) the corpus read, 41 GB, with the query tile read
+// again from L2 for every corpus tile. The wrapper takes it only past
+// pass_a_max_d, so narrower rows keep mode 0. Tiles and stages come from
+// ops/topk.py::pass_a_wide_plan.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,6 +111,7 @@
 #include <cmath>
 
 #include "qc_mainloop.cuh"
+#include "qs_mainloop.cuh"
 #include "tf32_mainloop.cuh"
 
 namespace {
@@ -112,11 +126,16 @@ constexpr float NEG_INF = -1e30f;
 __host__ __device__ inline int list_stride(int k_sel) { return k_sel | 1; }
 
 // bytes of shared memory of the wgmma kernel: the main loop's
-// (qc_mainloop.cuh's for bf16 and int8, tf32_mainloop.cuh's for f32), then
-// the lists (per query row list_stride(k_sel) values and as many ids)
+// (qc_mainloop.cuh's for bf16 and int8, qs_mainloop.cuh's for the wide
+// schedule, tf32_mainloop.cuh's for f32), then the lists (per query row
+// list_stride(k_sel) values and as many ids)
 template <typename Op>
 inline size_t wg_smem_bytes(int bq, int D, int n_stages, int k_sel) {
-  return tf32q::mainloop_bytes_of<Op>(bq, D, n_stages) + (size_t)bq * list_stride(k_sel) * 8;
+  const size_t lists = (size_t)bq * list_stride(k_sel) * 8;
+  if constexpr (std::is_same<Op, qs::Bf16StreamOp>::value)
+    return qs::mainloop_bytes(bq, n_stages) + lists;
+  else
+    return tf32q::mainloop_bytes_of<Op>(bq, D, n_stages) + lists;
 }
 
 // the epilogue's maxima in the accumulators' own type: fmaxf for f32, max
@@ -169,14 +188,18 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int BQW = NWG * 64;
   constexpr int ELEM = sizeof(typename Op::Elem);
   constexpr bool F32 = std::is_same<Op, tf32q::F32Op>::value;  // the 3xTF32 main loop
+  constexpr bool QS = std::is_same<Op, qs::Bf16StreamOp>::value;  // the wide schedule
   extern __shared__ unsigned char smem_raw[];
   const int rb = qc::row_bytes(D, ELEM);
   const int kchunks = rb / qc::CHUNK_BYTES;
   qc::Ring ring;
   tf32q::Ring ring32;
+  qs::Ring ring_qs;
   unsigned char* own;
   if constexpr (F32)
     own = tf32q::ring_setup(ring32, smem_raw, BQW, n_stages, NWG * 4);
+  else if constexpr (QS)
+    own = qs::ring_setup(ring_qs, smem_raw, BQW, n_stages, NWG * 4);
   else
     own = qc::ring_setup(ring, smem_raw, BQW, rb, n_stages, NWG * 4);
   const int ls = list_stride(k_sel);
@@ -206,6 +229,8 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (tid == NWG * qc::WG_THREADS) {
       if constexpr (F32)
         tf32q::produce(ring32, &qmap, &cmap, q0, kchunks, r_begin, n_tiles);
+      else if constexpr (QS)
+        qs::produce(ring_qs, &qmap, &cmap, q0, kchunks, r_begin, n_tiles);
       else
         qc::produce(ring, &qmap, &cmap, BQW, q0, kchunks, qc::CHUNK_BYTES / ELEM, r_begin,
                     n_tiles);
@@ -317,6 +342,8 @@ segtopk_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     };
     if constexpr (F32)
       tf32q::consume<NWG>(ring32, kchunks, n_tiles, epilogue);
+    else if constexpr (QS)
+      qs::consume<Op>(ring_qs, wg, kchunks, n_tiles, epilogue);
     else
       qc::consume<Op>(ring, wg, BQW, kchunks, n_tiles, epilogue);
 
@@ -505,7 +532,9 @@ int launch_tiles(const void* q, const void* c, void* part_v, void* part_i, void*
 // pass_a_plan: up to 4; mode 1, the overlap schedule, overlap_plan: the
 // deepest ring that fits); mode 2: int8, the same kernel on s8 wgmma
 // (pass_a_int8_plan; D a multiple of 16); mode 3: f32, the same kernel on
-// the 3xTF32 main loop (pass_a_f32_plan: 2-4 stages; D a multiple of 4).
+// the 3xTF32 main loop (pass_a_f32_plan: 2-4 stages; D a multiple of 4);
+// mode 4: bf16 wider than the resident query tile allows, the same kernel
+// on the streamed-query loop (pass_a_wide_plan; D a multiple of 8).
 extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* part_i,
                               void* out_v, void* out_i, int Q, int n, int D, int L2,
                               int n_valid_segs, int k_sel, int n_splits, int mode, int bq,
@@ -525,6 +554,9 @@ extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* 
     case 3:
       return launch_tiles<tf32q::F32Op>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
                                         n_valid_segs, k_sel, n_splits, bq, n_stages, st);
+    case 4:
+      return launch_tiles<qs::Bf16StreamOp>(q, c, part_v, part_i, out_v, out_i, Q, n, D, L2,
+                                            n_valid_segs, k_sel, n_splits, bq, n_stages, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,7 +21,7 @@ second, swizzled copy of its corpus.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +38,9 @@ from ..ops.topk import (
 # k >= 128: the column-chunked search up to this many queries, the fused
 # kernel above (the JAX engine's rule)
 CHUNKED_MAX_QUERIES = 8192
+# rows normalized at a time into the index's store: a float32 copy of this
+# many rows is the build's only scratch
+NORMALIZE_ROWS = 1 << 16
 
 
 @dataclass
@@ -67,31 +70,70 @@ class EmbeddingIndex:
     @classmethod
     def build(
         cls,
-        embeddings: np.ndarray,
+        embeddings: Union[np.ndarray, torch.Tensor, Iterable],
         mesh: Optional[Mesh] = None,
         cfg: IndexConfig = IndexConfig(),
         normalize: bool = True,
         device="cuda",
+        rows: Optional[int] = None,
     ) -> "EmbeddingIndex":
-        """Normalize and place the corpus (host array or tensor): over
-        every local device of ``device``'s kind when ``mesh`` is None."""
+        """Normalize and place the corpus: over every local device of
+        ``device``'s kind when ``mesh`` is None. ``embeddings`` is one (N,
+        D) host array or tensor, or on one row shard an iterable of (n_i,
+        D) row blocks, taken once each in order (blocks made on demand,
+        as a corpus too large for one float32 copy is); ``rows``, their
+        total, lets the store be allocated before the first block, and a
+        list or tuple of blocks gives it by itself. Rows are normalized in
+        float32 a block of at most :data:`NORMALIZE_ROWS` at a time, each
+        written into one store in ``cfg.dtype``: the build holds the store
+        and one block. The result does not depend on how the rows come
+        cut."""
         if mesh is None:
             mesh = local_mesh(device)
-        emb = (embeddings if isinstance(embeddings, torch.Tensor)
-               else torch.as_tensor(np.asarray(embeddings)))
-        if n_row_shards(mesh) > 1:
+        if isinstance(embeddings, np.ndarray):
+            embeddings = torch.as_tensor(embeddings)
+        if isinstance(embeddings, torch.Tensor) and n_row_shards(mesh) > 1:
             from ..parallel.sharding import pad_to_shards, shard_corpus
 
             # pad ONLY to the shard count (n_pad < n_shards): every global
             # pad row costs one more local candidate in sharded_topk
-            emb, valid_n = pad_to_shards(emb, mesh)
+            emb, valid_n = pad_to_shards(embeddings, mesh)
             shards = [_normalized(s, cfg, normalize)
                       for s in shard_corpus(emb, mesh)]
             return cls(shards, valid_n, cfg, mesh)
+        if isinstance(embeddings, torch.Tensor):
+            embeddings, rows = (embeddings,), embeddings.shape[0]
+        return cls._build_blocks(embeddings, rows, mesh, cfg, normalize)
+
+    @classmethod
+    def _build_blocks(cls, blocks, rows: Optional[int], mesh: Mesh,
+                      cfg: IndexConfig, normalize: bool) -> "EmbeddingIndex":
+        """:meth:`build` over row blocks, on one row shard."""
         from ..core.mesh import row_devices
 
-        emb = _normalized(emb.to(row_devices(mesh)[0]), cfg, normalize)
-        return cls(emb, emb.shape[0], cfg, mesh)
+        if n_row_shards(mesh) > 1:
+            raise NotImplementedError("a corpus in row blocks builds on one "
+                                      "row shard")
+        if rows is None:
+            blocks = list(blocks)
+            rows = sum(int(b.shape[0]) for b in blocks)
+        dev = row_devices(mesh)[0]
+        store, off = None, 0
+        for block in blocks:
+            block = (block if isinstance(block, torch.Tensor)
+                     else torch.as_tensor(np.asarray(block)))
+            if store is None:
+                store = torch.empty((rows, block.shape[1]),
+                                    dtype=getattr(torch, cfg.dtype),
+                                    device=dev)
+            if off + block.shape[0] > rows:
+                raise ValueError(f"row blocks hold more than rows={rows}")
+            _normalized(block, cfg, normalize, dev,
+                        out=store[off: off + block.shape[0]])
+            off += block.shape[0]
+        if store is None or off != rows:
+            raise ValueError(f"row blocks hold {off} rows, not rows={rows}")
+        return cls(store, rows, cfg, mesh)
 
     @property
     def size(self) -> int:
@@ -142,12 +184,22 @@ class EmbeddingIndex:
                                      valid_n=self._valid_n)
 
 
-def _normalized(emb: torch.Tensor, cfg: IndexConfig, normalize: bool
+def _normalized(emb: torch.Tensor, cfg: IndexConfig, normalize: bool,
+                device=None, out: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
     """Rows L2-normalized in float32 (when ``normalize``), stored in
-    ``cfg.dtype``."""
-    if normalize:
-        emb = emb.float()
-        emb = emb / torch.clamp(torch.linalg.norm(emb, dim=1, keepdim=True),
+    ``cfg.dtype`` on ``device`` (emb's by default), into ``out`` when it is
+    given; :data:`NORMALIZE_ROWS` rows at a time, so the float32 copy is
+    never the whole corpus."""
+    device = emb.device if device is None else torch.device(device)
+    if out is None:
+        out = torch.empty(emb.shape, dtype=getattr(torch, cfg.dtype),
+                          device=device)
+    for s in range(0, emb.shape[0], NORMALIZE_ROWS):
+        x = emb[s: s + NORMALIZE_ROWS].to(device)
+        if normalize:
+            x = x.float()
+            x = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
                                 min=1e-9)
-    return emb.to(getattr(torch, cfg.dtype))
+        out[s: s + x.shape[0]] = x
+    return out

@@ -44,6 +44,15 @@ runs the serving module's forward on the masters cast to ``cfg.dtype``
 (:meth:`SentenceEncoder.train_forward`), so the gradient reaches the
 float32 masters, and :meth:`SentenceEncoder.sync` copies them into the
 serving module after a step.
+
+Architectures: ``cfg.arch`` "bert" is the block above; an
+``LFM2MoEConfig`` ("lfm2_moe") builds ``models/lfm2_moe.py``'s causal
+LFM2-MoE model, pooled at each text's last token, on the same packed path
+(``encode``, ``encode_device``) on one device. It is inference only: built
+once on the device in ``cfg.dtype`` from the state dict's own tensors,
+with no float32 master (an 8B-parameter model's masters would not fit
+beside its index), so training, :meth:`SentenceEncoder.sync` and a mesh
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -331,6 +340,9 @@ class SentenceEncoder:
 
         self.cfg = cfg
         self.mesh = mesh
+        if cfg.arch != "bert" and mesh is not None:
+            raise NotImplementedError(f"the {cfg.arch} encoder runs on one "
+                                      f"device, not on a mesh")
         if mesh is not None:
             from ..core.mesh import local_row_devices, local_rows
 
@@ -346,6 +358,12 @@ class SentenceEncoder:
         self._multiprocess = mesh is not None and mesh.group is not None
         self.tokenizer = tokenizer or HashingTokenizer(
             vocab_size=cfg.vocab_size, max_len=cfg.max_len)
+        if cfg.arch != "bert":
+            from .lfm2_moe import build_model
+
+            self.master = None  # inference only: serving weights alone
+            self.model = build_model(cfg, self.device, seed, state_dict)
+            return
         if self._tp > 1:
             # stock attention under TP, as in the JAX package
             cfg = dataclasses.replace(cfg, attention="stock")
@@ -384,9 +402,17 @@ class SentenceEncoder:
             if dev not in self._replicas:
                 self._replicas[dev] = copy.deepcopy(self.model).to(dev)
 
+    def _trainable(self) -> None:
+        if self.master is None:
+            raise NotImplementedError(
+                f"the {self.cfg.arch} encoder is inference only: it holds "
+                f"its serving weights in {self.cfg.dtype} and no float32 "
+                f"masters")
+
     def sync(self) -> None:
         """Copy the float32 masters into the serving module (cast to
         ``cfg.dtype``) and its copies on the mesh."""
+        self._trainable()
         if self.model is not self.master:
             with torch.no_grad():
                 for p, m in zip(self.model.parameters(),
@@ -502,6 +528,7 @@ class SentenceEncoder:
         side, then its chunk side) draw fresh ones, and a rerun draws the
         same; inside one process the shards draw from ``generator``
         itself, in shard order."""
+        self._trainable()
         dtype = getattr(torch, self.cfg.dtype)
         if self._multiprocess and generator is not None:
             generator = self._process_generator(generator)
@@ -558,8 +585,11 @@ class SentenceEncoder:
         """Whether one device's forward of texts with these token counts
         runs packed: not at a head width the packed kernel lacks (past 256,
         under flash), nor under cls pooling with a text of no token, whose
-        first position is a pad that packing has no place for."""
+        first position is a pad that packing has no place for. An LFM2-MoE
+        encoder always runs packed."""
         c = self.cfg
+        if c.arch != "bert":
+            return True
         return ((c.hidden_dim // c.num_heads <= 256
                  or not use_flash(c, self.device))
                 and (c.pooling != "cls" or int(lens.min()) > 0))

@@ -29,6 +29,14 @@ packed entry takes 64-token tiles of the stream from :func:`varlen_tiles`
 and reads only real tokens; its plain version,
 :func:`flash_attention_varlen_plain`, scatters the texts into a padded
 batch for :func:`flash_attention_plain` and gathers the tokens back.
+
+Packed texts of a causal language model (``causal=True``, the LFM2-MoE
+encoder's attention): a token attends to the keys of its own text up to
+itself, and K and V may hold fewer heads than Q (grouped-query attention:
+query head h reads K/V head h // (H / H_kv)). The kernel's LM entry
+(``flash_attention_varlen_lm_fwd``) takes bf16 and fp16 at head widths 32,
+64 and 128; the plain version repeats each K/V head over its group and
+masks the keys past each row.
 """
 from __future__ import annotations
 
@@ -49,6 +57,9 @@ NEG_INF = -1e30
 FLASH_LAUNCHES = 0
 FLASH_F32_LAUNCHES = 0
 FLASH_WIDE_LAUNCHES = 0
+# the packed entry's causal grouped-K/V instantiation (LM)
+FLASH_CAUSAL_LAUNCHES = 0
+_LM_HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 _KERNEL_WIDE_STEP = 8  # past 256: 16-byte rows in every dtype
@@ -58,14 +69,21 @@ _KERNEL_MAX_TAIL_T = 128  # up to here T need not be a multiple of the block
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: torch.Tensor,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          causal: bool = False) -> torch.Tensor:
     """Plain attention in f32: masked keys score the finite NEG_INF, so a
     query with every key masked averages V. Returns q's dtype. ``scale``
-    defaults to 1/sqrt(Dh)."""
+    defaults to 1/sqrt(Dh). ``causal`` masks the keys past each query's
+    own place as well."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    s = torch.where(mask[:, None, None, :] > 0, s, torch.full_like(s, NEG_INF))
+    keep = mask[:, None, None, :] > 0
+    if causal:
+        t = s.shape[-1]
+        keep = keep & torch.ones(t, t, dtype=torch.bool,
+                                 device=s.device).tril()
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
@@ -250,35 +268,54 @@ def varlen_layout(lens, device="cpu") -> Varlen:
 
 
 def flash_attention_varlen_plain(q: torch.Tensor, k: torch.Tensor,
-                                 v: torch.Tensor, layout: Varlen
-                                 ) -> torch.Tensor:
+                                 v: torch.Tensor, layout: Varlen,
+                                 causal: bool = False) -> torch.Tensor:
     """:func:`flash_attention_varlen` in plain math: the tokens scattered
     into a (rows, width) batch whose mask holds each text's own tokens,
+    each K/V head repeated over its group of query heads,
     :func:`flash_attention_plain`, and the tokens gathered back."""
     h, dh = q.shape[1:]
+    _kv_group(q, k, v)
     idx = (layout.seg.long(), layout.pos.long())
 
     def padded(x):
+        x = x.repeat_interleave(h // x.shape[1], dim=1)
         out = x.new_zeros((layout.rows, layout.width, h, dh))
         out[idx] = x
         return out.transpose(1, 2)
 
     mask = torch.zeros((layout.rows, layout.width), device=q.device)
     mask[idx] = 1.0
-    out = flash_attention_plain(padded(q), padded(k), padded(v), mask)
+    out = flash_attention_plain(padded(q), padded(k), padded(v), mask,
+                                causal=causal)
     return out.transpose(1, 2)[idx]
 
 
+def _kv_group(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Query heads a K/V head serves: k and v (N, H_kv, Dh) beside q (N,
+    H, Dh), H a multiple of H_kv; raises on other shapes."""
+    n, h, dh = q.shape
+    hk = k.shape[1]
+    if (k.shape != v.shape or k.shape[0] != n or k.shape[2] != dh
+            or hk < 1 or h % hk):
+        raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    return h // hk
+
+
 def flash_attention_varlen(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, layout: Varlen) -> torch.Tensor:
+                           v: torch.Tensor, layout: Varlen,
+                           causal: bool = False) -> torch.Tensor:
     """Attention of packed texts (no gradient): q, k, v (N, H, Dh), the
     tokens of ``layout``'s texts end to end; each token attends to the keys
     of its own text. Returns (N, H, Dh) in q's dtype. On a CUDA tensor the
     kernel's packed entry, at head widths up to 256 (padded as
     :func:`flash_attention` pads them); on a CPU tensor the plain
-    version."""
+    version. ``causal`` (a token attends to its text's keys up to itself),
+    or k and v of (N, H_kv, Dh) with H a multiple of H_kv, take the
+    kernel's LM entry (:func:`_launch_varlen_lm`)."""
     if q.device.type == "cpu":
-        return flash_attention_varlen_plain(q, k, v, layout)
+        return flash_attention_varlen_plain(q, k, v, layout, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_varlen: tensors on {q.device}")
     if q.dtype not in _KERNEL_DTYPES or not (k.dtype == v.dtype == q.dtype):
@@ -290,7 +327,58 @@ def flash_attention_varlen(q: torch.Tensor, k: torch.Tensor,
                          f"{q.shape[-1]} (at most {_KERNEL_HEAD_DIMS[-1]})")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise NotImplementedError("flash_attention_varlen has no backward")
+    if causal or k.shape[1] != q.shape[1]:
+        return _launch_varlen_lm(q, k, v, layout, causal)
     return _padded_heads(_launch_varlen, q, k, v, layout)
+
+
+def _layout_args(q, layout: Varlen, tensors):
+    """The packed entries' shared checks: the layout's int32 arrays on
+    q's device."""
+    cu, tiles = layout.cu_seqlens, layout.tiles
+    if not all(x.device == q.device for x in tuple(tensors) + (cu, tiles)):
+        raise ValueError("flash kernel: q, k, v and the layout on different "
+                         "devices")
+    if cu.dtype != torch.int32 or tiles.dtype != torch.int32 or not (
+            cu.is_contiguous() and tiles.is_contiguous()):
+        raise ValueError("flash kernel: cu_seqlens and tiles must be "
+                         "contiguous int32")
+    return cu, tiles
+
+
+def _launch_varlen_lm(q, k, v, layout: Varlen, causal: bool):
+    """Launch the kernel's LM entry (causal, grouped K/V) on CUDA tensors,
+    or raise."""
+    global FLASH_CAUSAL_LAUNCHES
+    n, h, dh = q.shape
+    group = _kv_group(q, k, v)
+    if not causal:
+        raise NotImplementedError("the flash kernel's grouped K/V heads run "
+                                  "causal only")
+    if q.dtype == torch.float32 or dh not in _LM_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the causal flash kernel takes bfloat16 or float16 at head "
+            f"widths {_LM_HEAD_DIMS}, got {q.dtype} at {dh}")
+    cu, tiles = _layout_args(q, layout, (k, v))
+    if n == 0:
+        return torch.empty_like(q)
+    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 8)(*(
+        s for x in (q, k, v, out)
+        for s in (x.stride(1) if x.shape[1] > 1 else 0, x.stride(0))))
+    fn = _build.load("flash_attention").flash_attention_varlen_lm_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                cu.data_ptr(), tiles.data_ptr(), tiles.shape[0], h, group,
+                dh, strides, 1.0 / math.sqrt(dh), _KERNEL_DTYPES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention_varlen_lm")
+    FLASH_CAUSAL_LAUNCHES += 1
+    return out
 
 
 def _launch_varlen(q, k, v, layout: Varlen, scale):
@@ -301,14 +389,7 @@ def _launch_varlen(q, k, v, layout: Varlen, scale):
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    cu, tiles = layout.cu_seqlens, layout.tiles
-    if not all(x.device == q.device for x in (k, v, cu, tiles)):
-        raise ValueError("flash kernel: q, k, v and the layout on different "
-                         "devices")
-    if cu.dtype != torch.int32 or tiles.dtype != torch.int32 or not (
-            cu.is_contiguous() and tiles.is_contiguous()):
-        raise ValueError("flash kernel: cu_seqlens and tiles must be "
-                         "contiguous int32")
+    cu, tiles = _layout_args(q, layout, (k, v))
     if n == 0:
         return torch.empty_like(q)
     q, k, v = (_kernel_operand(x) for x in (q, k, v))

@@ -20,7 +20,11 @@ On bf16 and int8 operands both kernels run one Hopper main loop
 (``csrc/qc_mainloop.cuh``: TMA loads into an ``mbarrier`` ring, ``wgmma`` on
 a resident query tile; s8 ``wgmma`` for int8) and select in the accumulator
 registers; pass A's overlap schedule runs the same loop on a ring longer
-than a tile, so its two consumer warpgroups drift out of phase. Their tiles,
+than a tile, so its two consumer warpgroups drift out of phase; bf16 rows
+wider than the resident query tile allows (:func:`pass_a_max_d`) take pass
+A's wide schedule, the same products and epilogue with the query tile
+streamed through the ring beside the corpus tile
+(``csrc/qs_mainloop.cuh``, :func:`pass_a_wide_plan`). Their tiles,
 ring stages and corpus splits are planned here (:func:`pass_a_plan`,
 :func:`pass_a_int8_plan`, :func:`overlap_plan`, :func:`fused_plan`) and
 handed to the C entry points. f32 operands (an ``IndexConfig(dtype=
@@ -72,6 +76,7 @@ FUSED_MAX_K = 2048
 # schedule counted apart for each of the two wrappers that reach it), and
 # the fused top-k (csrc/topk_fused.cu) in bf16 and f32
 SEGTOPK_LAUNCHES = 0
+SEGTOPK_WIDE_LAUNCHES = 0
 SEGTOPK_OVERLAP_LAUNCHES = 0
 SEGTOPK_INT8_LAUNCHES = 0
 SEGTOPK_F32_LAUNCHES = 0
@@ -439,6 +444,33 @@ def pass_a_f32_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
             "smem": pass_a_f32_smem_bytes(bq, stages, k_sel)}
 
 
+# the wide schedule's tiles (csrc/qs_mainloop.cuh: a stage is one K chunk
+# of the query tile and of the corpus tile), in order of preference
+_WIDE_TILE_CHOICES = ((128, 6), (128, 4), (128, 3), (128, 2), (64, 6),
+                      (64, 4), (64, 3), (64, 2))
+
+
+def pass_a_wide_smem_bytes(bq: int, stages: int, k_sel: int) -> int:
+    """Shared memory of pass A's wide schedule (qs::mainloop_bytes, then
+    the lists): independent of the width."""
+    return (1024 + stages * (bq * _CHUNK_BYTES + _STAGE_BYTES) + 128
+            + bq * (k_sel | 1) * 8)
+
+
+def pass_a_wide_plan(q: int, d: int, k_sel: int, n_segs: int, seg_rows: int,
+                     sms: int = 132) -> dict:
+    """Tiles and grid of pass A's wide schedule, bf16 at any width
+    (``bq``, ``stages``, ``smem``, ``n_splits`` as in :func:`pass_a_plan`):
+    128 query rows a CTA on 6 stages at every k_sel (64 rows for a batch of
+    at most 64)."""
+    del d  # the shared memory does not grow with the width
+    bq, stages = _pick_tile(q, lambda b, s: pass_a_wide_smem_bytes(
+        b, s, k_sel) <= SMEM_LIMIT, _WIDE_TILE_CHOICES)
+    return {"bq": bq, "stages": stages,
+            "n_splits": _segment_splits(-(-q // bq), n_segs, seg_rows, sms),
+            "smem": pass_a_wide_smem_bytes(bq, stages, k_sel)}
+
+
 # the ring's barriers (two per stage and the query tile's) fit 128 bytes for
 # up to 7 stages
 OVERLAP_MAX_STAGES = 7
@@ -628,7 +660,8 @@ def _pad_bf16_width(queries: torch.Tensor, corpus: torch.Tensor
 _PASS_A_MODES = {"bf16": (0, torch.bfloat16, pass_a_plan),
                  "overlap": (1, torch.bfloat16, overlap_plan),
                  "int8": (2, torch.int8, pass_a_int8_plan),
-                 "f32": (3, torch.float32, pass_a_f32_plan)}
+                 "f32": (3, torch.float32, pass_a_f32_plan),
+                 "wide": (4, torch.bfloat16, pass_a_wide_plan)}
 
 
 def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
@@ -642,7 +675,7 @@ def _launch_pass_a(schedule: str, queries: torch.Tensor, corpus: torch.Tensor,
             f"the {schedule} pass-A kernel takes {dtype} operands, got "
             f"{queries.dtype} and {corpus.dtype}")
     q, d = queries.shape
-    vec = {0: 8, 1: 8, 2: 16, 3: 4}[mode]  # TMA rows: 16-byte pitches
+    vec = {0: 8, 1: 8, 2: 16, 3: 4, 4: 8}[mode]  # TMA rows: 16-byte pitches
     if corpus.shape[1] != d or d % vec:
         raise ValueError(f"pass A ({schedule}) needs matching widths that are "
                          f"multiples of {vec}, got {d} and {corpus.shape[1]}")
@@ -682,8 +715,9 @@ def segtopk_pass_a(
     :func:`segtopk_pass_a_plain`, which it runs for CPU tensors. For CUDA
     tensors it launches ``csrc/segtopk.cu`` (bf16 operands at a width not a
     multiple of 8, or the f32 schedule for f32 operands at a width not a
-    multiple of 4, padded with zero columns) or raises."""
-    global SEGTOPK_LAUNCHES, SEGTOPK_F32_LAUNCHES
+    multiple of 4, padded with zero columns; bf16 past
+    :func:`pass_a_max_d` in the wide schedule) or raises."""
+    global SEGTOPK_LAUNCHES, SEGTOPK_F32_LAUNCHES, SEGTOPK_WIDE_LAUNCHES
     if not _on_card("segtopk_pass_a", queries, corpus):
         return segtopk_pass_a_plain(queries, corpus, n, seg_rows, k_sel)
     if _f32_operands("the pass-A kernel", queries, corpus):
@@ -691,10 +725,21 @@ def segtopk_pass_a(
                              seg_rows, k_sel)
         SEGTOPK_F32_LAUNCHES += 1
     else:
-        out = _launch_pass_a("bf16", *_pad_bf16_width(queries, corpus), n,
-                             seg_rows, k_sel)
-        SEGTOPK_LAUNCHES += 1
+        queries, corpus = _pad_bf16_width(queries, corpus)
+        if pass_a_schedule(queries.shape[1], k_sel) == "wide":
+            out = _launch_pass_a("wide", queries, corpus, n, seg_rows, k_sel)
+            SEGTOPK_WIDE_LAUNCHES += 1
+        else:
+            out = _launch_pass_a("bf16", queries, corpus, n, seg_rows, k_sel)
+            SEGTOPK_LAUNCHES += 1
     return out
+
+
+def pass_a_schedule(d: int, k_sel: int) -> str:
+    """The bf16 schedule :func:`segtopk_pass_a` launches at width ``d``:
+    "bf16" (the resident query tile) up to :func:`pass_a_max_d`, "wide"
+    past it."""
+    return "bf16" if d <= pass_a_max_d(k_sel) else "wide"
 
 
 def segtopk_pass_a_overlap(

@@ -42,9 +42,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _grid(shape, seed, dev, dtype=torch.bfloat16):
+def _grid(shape, seed, dev, dtype=torch.bfloat16, hi=127):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return torch.randint(-127, 128, shape, generator=g, device=dev,
+    return torch.randint(-hi, hi + 1, shape, generator=g, device=dev,
                          dtype=torch.int16).to(dtype)
 
 
@@ -179,15 +179,19 @@ def test_topk_kernels_on_a_side_stream(dev):
 
 
 def test_wgmma_kernels_refuse_widths_past_their_plans(dev):
+    """The fused kernel refuses a width past its plan; bf16 pass A takes
+    its wide schedule there instead of the resident-tile one."""
     x = torch.zeros((4, topk.fused_max_d() + 64), device=dev,
                     dtype=torch.bfloat16)
     launches = topk.SEGTOPK_LAUNCHES, topk.TOPK_FUSED_LAUNCHES
     with pytest.raises(ValueError, match="widths up to"):
         topk.topk_scores_fused(x, x, 2)
-    wide = torch.zeros((4, topk.pass_a_max_d(2) + 64), device=dev,
-                       dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="widths up to"):
-        topk.segtopk_pass_a(wide, wide, 4, 1, 2)
+    wide = _grid((4, topk.pass_a_max_d(2) + 64), 27, dev)
+    wide_launches = topk.SEGTOPK_WIDE_LAUNCHES
+    kv, ki = topk.segtopk_pass_a(wide, wide, 4, 1, 2)
+    pv, pi = topk.segtopk_pass_a_plain(wide, wide, 4, 1, 2)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    assert topk.SEGTOPK_WIDE_LAUNCHES == wide_launches + 1
     assert launches == (topk.SEGTOPK_LAUNCHES, topk.TOPK_FUSED_LAUNCHES)
     y = _grid((9, 1024), 25, dev)  # the widest the earlier kernels took
     C = _grid((700, 1024), 26, dev)
@@ -295,6 +299,46 @@ def test_twopass_kernel_path_matches_plain_path(dev):
     Q, C = _grid((300, 384), 3, dev), _grid((50000, 384), 4, dev)
     kv, ki = topk.topk_scores_twopass(Q, C, k=40, block_n=16384, seg_split=4)
     pv, pi = topk.topk_scores_twopass(Q.cpu(), C.cpu(), k=40, block_n=16384,
+                                      seg_split=4)
+    assert torch.equal(ki.cpu(), pi)
+    assert torch.equal(kv.cpu(), pv)
+
+
+# pass A's wide schedule (bf16 past pass_a_max_d): values in [-63, 63],
+# whose products sum exactly in f32 up to D = 4,096 (63^2 x 4096 < 2^24)
+WIDE_PASS_A_CASES = [
+    (256, 20011, 2048, 32, 11),   # the LLM cell's shape, a ragged corpus
+    (64, 5000, 2048, 32, 11),     # 64-row query tiles
+    (65, 4097, 1544, 32, 41),     # a width not a multiple of the K chunk
+    (5, 300, 2048, 32, 41),       # fewer segments than k_sel
+    (130, 9000, 2048, 128, 128),  # a segment a tile, the largest k_sel
+    (33, 1000, 1032, 1, 128),     # one-row segments, just past 1,024
+    (200, 30000, 4096, 512, 11),  # segments of four tiles
+    (1, 5000, 2048, 4, 11),       # one query, segments inside half a quad
+]
+
+
+@pytest.mark.parametrize("q,n,d,seg_rows,k_sel", WIDE_PASS_A_CASES)
+def test_segtopk_wide_matches_plain(dev, q, n, d, seg_rows, k_sel):
+    assert topk.pass_a_schedule(d, k_sel) == "wide"
+    Q, C = _grid((q, d), 5, dev, hi=63), _grid((n, d), 6, dev, hi=63)
+    launches = topk.SEGTOPK_WIDE_LAUNCHES, topk.SEGTOPK_LAUNCHES
+    kv, ki = topk.segtopk_pass_a(Q, C, n, seg_rows, k_sel)
+    pv, pi = topk.segtopk_pass_a_plain(Q, C, n, seg_rows, k_sel)
+    torch.cuda.synchronize()
+    assert (topk.SEGTOPK_WIDE_LAUNCHES, topk.SEGTOPK_LAUNCHES) == (
+        launches[0] + 1, launches[1])
+    assert torch.equal(ki, pi)
+    assert torch.equal(kv, pv)
+
+
+def test_twopass_wide_matches_plain_path(dev):
+    """The two-pass search at D = 2,048: the wide pass A, then pass B at
+    that width, against the CPU's plain path."""
+    Q, C = (_grid((256, 2048), 7, dev, hi=63),
+            _grid((40000, 2048), 8, dev, hi=63))
+    kv, ki = topk.topk_scores_twopass(Q, C, k=10, block_n=16384, seg_split=4)
+    pv, pi = topk.topk_scores_twopass(Q.cpu(), C.cpu(), k=10, block_n=16384,
                                       seg_split=4)
     assert torch.equal(ki.cpu(), pi)
     assert torch.equal(kv.cpu(), pv)
@@ -1591,3 +1635,89 @@ def test_contrastive_steps_on_the_card_match_cpu(dev):
     for k in p_cpu:
         tol = 2e-3 if k.endswith("attn.key.bias") else 1e-5
         assert float((p_card[k] - p_cpu[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("h,kv,dh", [(32, 8, 64), (4, 4, 32), (8, 2, 128)])
+@pytest.mark.parametrize("case", ["chunks", "mixed"])
+def test_flash_varlen_causal_grouped_matches_plain(dev, dtype, h, kv, dh,
+                                                   case):
+    """The packed entry's causal grouped-K/V instantiation (the LFM2-MoE
+    encoder's attention: 32 query heads on 8 K/V heads at Dh 64) against
+    its plain version, one launch of its own counter and none of the
+    others'."""
+    lens = _varlen_lengths(case, 23)
+    layout = fa.varlen_layout(lens, dev)
+    n = int(lens.sum())
+    g = torch.Generator(device=dev).manual_seed(24)
+    q = torch.randn((n, h * dh), generator=g, device=dev).to(dtype).view(
+        n, h, dh)
+    k, v = (torch.randn((n, kv * dh), generator=g, device=dev).to(dtype)
+            .view(n, kv, dh) for _ in range(2))
+    before = fa.FLASH_CAUSAL_LAUNCHES, fa.FLASH_LAUNCHES
+    got = fa.flash_attention_varlen(q, k, v, layout, causal=True)
+    assert (fa.FLASH_CAUSAL_LAUNCHES, fa.FLASH_LAUNCHES) == (
+        before[0] + 1, before[1])
+    assert got.shape == q.shape
+    _varlen_check(got, fa.flash_attention_varlen_plain(q, k, v, layout,
+                                                       causal=True), dtype)
+
+
+def _lfm2_tiny(dev):
+    from semanticsearch_tpu_torch.core.config import LFM2MoEConfig
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+
+    cfg = LFM2MoEConfig(vocab_size=1000, hidden_dim=256, num_layers=4,
+                        num_heads=8, num_kv_heads=2, mlp_dim=384,
+                        layer_types=("conv", "full_attention", "conv",
+                                     "full_attention"),
+                        num_dense_layers=1, num_experts=8,
+                        experts_per_token=2, expert_dim=128, max_len=128)
+    return SentenceEncoder(cfg, device=dev, seed=5)
+
+
+def _lfm2_texts(n=300, seed=25):
+    rng = np.random.default_rng(seed)
+    return [" ".join(f"w{j}" for j in rng.integers(0, 5000, m))
+            for m in rng.integers(1, 127, n)]
+
+
+def test_lfm2_encode_device_makes_no_host_sync(dev):
+    """The LFM2-MoE forward (routing, the sort by expert, the grouped
+    expert products, the combine, the causal flash and the conv) launches
+    without a device-to-host sync, and gives the same bits twice."""
+    from semanticsearch_tpu_torch.models import lfm2_moe
+
+    enc = _lfm2_tiny(dev)
+    texts = _lfm2_texts()
+    enc.encode_device(texts, batch_size=128)  # warm: kernels built
+    torch.cuda.synchronize()
+    pairs, causal = lfm2_moe.MOE_PAIRS, fa.FLASH_CAUSAL_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = enc.encode_device(texts, batch_size=128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b = enc.encode_device(texts, batch_size=128)
+    assert torch.equal(a, b)
+    assert fa.FLASH_CAUSAL_LAUNCHES == causal + 2 * 3 * 2
+    assert lfm2_moe.MOE_PAIRS == pairs + 2 * 3 * 2 * sum(
+        len(t.split()) + 1 for t in texts)
+
+
+def test_lfm2_on_the_card_matches_the_cpu(dev):
+    """The tiny model in bf16 on the card (kernels, grouped products)
+    against the same weights in float32 on the CPU (plain attention),
+    every text alike in direction."""
+    enc = _lfm2_tiny(dev)
+    texts = _lfm2_texts(64, 26)
+    got = enc.encode_device(texts, batch_size=32).float().cpu()
+    import dataclasses
+
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+
+    cpu = SentenceEncoder(
+        dataclasses.replace(enc.cfg, dtype="float32"), device="cpu", state_dict={k: v.float().cpu() for k, v in
+                                  enc.model.state_dict().items()})
+    want = cpu.encode_device(texts, batch_size=32)
+    assert float((got * want).sum(1).min()) > 0.98

@@ -1,0 +1,337 @@
+"""The LFM2-MoE encoder (``models/lfm2_moe.py``) and what it brought into
+the port, on the CPU at a small size: the packed forward against the
+float64 reference of ``tests/_lfm2_reference.py``, texts of different
+lengths in one forward; the plain causal grouped-K/V packed attention; the
+wide pass A's plan and its plain version's ids and tie order; the index
+built from row blocks; and the BERT encoder's outputs at the default
+config, as they were before the second architecture came."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from semanticsearch_tpu_torch.core import profiling
+from semanticsearch_tpu_torch.core.config import (EncoderConfig, IndexConfig,
+                                                  LFM2MoEConfig)
+from semanticsearch_tpu_torch.index import engine
+from semanticsearch_tpu_torch.index.engine import EmbeddingIndex
+from semanticsearch_tpu_torch.models import lfm2_moe
+from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+from semanticsearch_tpu_torch.ops import flash_attention as fa
+from semanticsearch_tpu_torch.ops import topk
+
+import _lfm2_reference as ref
+
+TINY = dict(vocab_size=500, hidden_dim=64, num_layers=4, num_heads=4,
+            num_kv_heads=2, mlp_dim=96,
+            layer_types=("conv", "full_attention", "conv", "full_attention"),
+            num_dense_layers=1, num_experts=8, experts_per_token=2,
+            expert_dim=32, max_len=48, dtype="float32")
+TEXTS = ["one", "two words", "a text of seven words in it",
+         " ".join(f"w{i}" for i in range(40)), "x y", "z " * 20]
+
+
+def _ref_cfg(cfg: LFM2MoEConfig) -> dict:
+    return {"norm_eps": cfg.norm_eps, "hidden": cfg.hidden_dim,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "layer_types": cfg.layer_types,
+            "num_dense_layers": cfg.num_dense_layers,
+            "top_k": cfg.experts_per_token}
+
+
+def _encoder(seed=7, **kw):
+    enc = SentenceEncoder(LFM2MoEConfig(**dict(TINY, **kw)), device="cpu",
+                          seed=seed)
+    with torch.no_grad():  # expert biases large enough to move choices
+        for m in enc.model.moe_layers():
+            m.expert_bias.normal_(0.0, 0.1, generator=torch.Generator()
+                                  .manual_seed(seed))
+    return enc
+
+
+def _ids(enc, text):
+    return list(enc.tokenizer.encode(text, max_len=enc.cfg.max_len))
+
+
+def _routed(enc, texts):
+    """The program's embeddings of ``texts`` in one packed forward and each
+    text's chosen experts, a (tokens, k) tensor a MoE layer."""
+    capture = []
+    enc.model.set_capture(capture)
+    try:
+        emb = enc.encode_device(texts, batch_size=len(texts))
+    finally:
+        enc.model.set_capture(None)
+    lens = [len(_ids(enc, t)) for t in texts]
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    return emb, [[c[starts[i]: starts[i + 1]] for c in capture]
+                 for i in range(len(texts))]
+
+
+def test_packed_forward_matches_the_reference():
+    """Texts of 2-41 tokens in one packed forward: each embedding is its
+    own text's last token, as the reference computes the text alone with
+    the program's choice of experts (float32 against float64), and every
+    choice is the reference's own."""
+    enc = _encoder()
+    emb, chosen = _routed(enc, TEXTS)
+    w = dict(enc.model.state_dict())
+    for text, e, ch in zip(TEXTS, emb, chosen):
+        want, _, gap = ref.embed(_ref_cfg(enc.cfg), w, _ids(enc, text), ch)
+        assert float((e.double() - want).norm()) < 2e-5, text
+        assert gap < 1e-6, text
+
+
+def test_texts_do_not_reach_each_other():
+    """The conv and the attention stay inside each packed text: a text's
+    embedding is the same alone, beside others, and moved to another
+    offset."""
+    enc = _encoder()
+    together = enc.encode_device(TEXTS, batch_size=len(TEXTS))
+    alone = torch.cat([enc.encode_device([t]) for t in TEXTS])
+    moved = enc.encode_device(TEXTS[::-1], batch_size=len(TEXTS)).flip(0)
+    assert float((together - alone).abs().max()) < 1e-5
+    assert float((together - moved).abs().max()) < 1e-5
+
+
+def test_a_prefix_pools_the_state_at_its_last_token():
+    """Causal and pooled at the last token: a text's embedding is the
+    longer text's final state at the prefix's last place."""
+    enc = _encoder()
+    full = "alpha beta gamma delta epsilon zeta"
+    states, _, _ = ref.text_states(_ref_cfg(enc.cfg),
+                                   dict(enc.model.state_dict()),
+                                   _ids(enc, full))
+    for words in (1, 3, 6):
+        prefix = " ".join(full.split()[:words])
+        want = states[words]  # the first id is the BOS
+        got = enc.encode_device([prefix])[0].double()
+        assert float((got - want / want.norm()).norm()) < 2e-5
+
+
+def test_the_bias_chooses_and_the_scores_weigh():
+    """The expert bias moves the choice (here toward expert 0 for every
+    token) and not the weights, which normalize the sigmoid scores of the
+    chosen experts."""
+    enc = _encoder()
+    moe = enc.model.moe_layers()[0]
+    x = torch.randn(50, TINY["hidden_dim"],
+                    generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        moe.expert_bias.zero_()
+        free, _ = moe.route(x)
+        moe.expert_bias[0] = 10.0
+        chosen, g = moe.route(x)
+    s = torch.sigmoid(x @ moe.gate.weight.T)
+    assert not bool((free == 0).any(dim=1).all())
+    assert bool((chosen == 0).any(dim=1).all())
+    want = s.gather(1, chosen)
+    torch.testing.assert_close(g, want / (want.sum(1, keepdim=True) + 1e-6))
+    # the other chosen expert is the best by score alone, not expert 0
+    assert torch.equal(chosen[:, 1], torch.topk(
+        s.scatter(1, torch.zeros(50, 1, dtype=torch.int64), -1.0), 1).indices[:, 0])
+
+
+def test_moe_counters_and_spans():
+    enc = _encoder()
+    before = profiling.counters()
+    prev = profiling.enable(True)
+    try:
+        profiling.reset()
+        enc.encode_device(TEXTS, batch_size=3)
+        spans = profiling.span_totals()
+    finally:
+        profiling.enable(prev)
+    after = profiling.counters()
+    tokens = sum(len(_ids(enc, t)) for t in TEXTS)
+    assert after["encoder.moe_layers"] - before["encoder.moe_layers"] == 2 * 3
+    assert (after["encoder.moe_pairs"] - before["encoder.moe_pairs"]
+            == 3 * 2 * tokens)
+    assert spans["encoder.moe"][1] == 3 * 2
+    assert spans["encoder.conv"][1] == spans["encoder.attention"][1] == 2 * 2
+
+
+def test_bf16_and_seeded_builds():
+    """A bf16 build keeps bf16 weights alone (no float32 master), takes a
+    state dict's own tensors without a copy, and stays near float32."""
+    enc32 = _encoder(seed=2)
+    enc16 = SentenceEncoder(dataclasses.replace(enc32.cfg, dtype="bfloat16"),
+                            device="cpu", state_dict={
+                                k: v.to(torch.bfloat16) for k, v in
+                                enc32.model.state_dict().items()})
+    assert enc16.master is None
+    assert {p.dtype for p in enc16.model.parameters()} == {torch.bfloat16}
+    sd = dict(enc16.model.state_dict())
+    again = SentenceEncoder(enc16.cfg, device="cpu", state_dict=sd)
+    assert again.model.embed.weight.data_ptr() == sd["embed.weight"].data_ptr()
+    a, b = enc32.encode_device(TEXTS), enc16.encode_device(TEXTS)
+    assert float((a * b).sum(1).min()) > 0.97
+
+
+def test_inference_only_and_config_checks():
+    enc = _encoder()
+    with pytest.raises(NotImplementedError, match="inference only"):
+        enc.train_forward(torch.zeros(1, 4, dtype=torch.int64),
+                          torch.ones(1, 4), {})
+    with pytest.raises(NotImplementedError, match="inference only"):
+        enc.sync()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        SentenceEncoder(enc.cfg, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="layer_types"):
+        LFM2MoEConfig(**dict(TINY, layer_types=("conv",)))
+    with pytest.raises(ValueError, match="K/V heads"):
+        LFM2MoEConfig(**dict(TINY, num_kv_heads=3))
+    with pytest.raises(ValueError, match="pools"):
+        LFM2MoEConfig(**dict(TINY, pooling="mean"))
+    # heads only matter where a layer attends
+    LFM2MoEConfig(**dict(TINY, num_kv_heads=8, layer_types=("conv",) * 4))
+    assert EncoderConfig.arch == "bert" and LFM2MoEConfig.arch == "lfm2_moe"
+    assert "arch" not in dataclasses.asdict(EncoderConfig())
+
+
+def _attention_per_text(q, k, v, lens):
+    """Causal grouped-query attention one text at a time, float64."""
+    out, s0 = [], 0
+    group = q.shape[1] // k.shape[1]
+    for n in lens:
+        for t in range(s0, s0 + n):
+            rows = []
+            for hd in range(q.shape[1]):
+                kk, vv = k[s0: t + 1, hd // group], v[s0: t + 1, hd // group]
+                p = torch.softmax(kk @ q[t, hd] / q.shape[2] ** 0.5, 0)
+                rows.append(p @ vv)
+            out.append(torch.stack(rows))
+        s0 += n
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 2), (4, 4), (8, 1)])
+def test_plain_causal_grouped_packed_attention(h, kv):
+    lens = np.array([1, 5, 64, 65, 3, 130])
+    layout = fa.varlen_layout(lens)
+    n, dh = int(lens.sum()), 16
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(n, h, dh, generator=g)
+    k, v = (torch.randn(n, kv, dh, generator=g) for _ in range(2))
+    got = fa.flash_attention_varlen(q, k, v, layout, causal=True)
+    want = _attention_per_text(q.double(), k.double(), v.double(), lens)
+    assert float((got.double() - want).abs().max()) < 1e-5
+    if kv != h:
+        with pytest.raises(ValueError, match="shapes"):
+            fa.flash_attention_varlen(q, k[:, :1].expand(n, 3, dh)
+                                      .contiguous(), v, layout, causal=True)
+
+
+def test_wide_pass_a_plan():
+    """Past pass_a_max_d the bf16 pass A takes the wide schedule, whose
+    shared memory does not grow with the width and fits at every k_sel."""
+    for k_sel in (1, 11, 41, 128):
+        widest = topk.pass_a_max_d(k_sel)
+        assert topk.pass_a_schedule(widest, k_sel) == "bf16"
+        assert topk.pass_a_schedule(widest + 8, k_sel) == "wide"
+        for q in (1, 64, 65, 256):
+            plans = [topk.pass_a_wide_plan(q, d, k_sel, 1000, 32)
+                     for d in (2048, 4096, 8192)]
+            assert plans[0] == plans[1] == plans[2]
+            plan = plans[0]
+            assert plan["smem"] <= topk.SMEM_LIMIT
+            assert plan["bq"] == (64 if q <= 64 else 128)
+            assert plan["smem"] == topk.pass_a_wide_smem_bytes(
+                plan["bq"], plan["stages"], k_sel)
+    assert topk.pass_a_wide_plan(256, 2048, 11, 312500, 32)["stages"] == 6
+
+
+@pytest.mark.parametrize("d,seg_rows,k_sel", [(2048, 32, 11), (1544, 1, 41),
+                                              (4096, 128, 128)])
+def test_wide_pass_a_ids_and_ties(d, seg_rows, k_sel):
+    """pass A at widths past pass_a_max_d on the CPU (the plain version the
+    wide schedule is held to on the card): the k_sel best segments by
+    maximum score, ties to the lower segment, against a direct
+    computation; every second query repeats rows, so segments tie."""
+    g = torch.Generator().manual_seed(5)
+    n = 3000
+    corpus = torch.randint(-3, 4, (n, d), generator=g).to(torch.bfloat16)
+    corpus[n // 2:] = corpus[: n - n // 2]  # equal rows: equal maxima
+    queries = torch.randint(-3, 4, (9, d), generator=g).to(torch.bfloat16)
+    v, ids = topk.segtopk_pass_a(queries, corpus, n, seg_rows, k_sel)
+    scores = queries.double() @ corpus.double().T
+    n_segs = -(-n // seg_rows)
+    pad = torch.zeros(9, n_segs * seg_rows - n, dtype=torch.float64)
+    segmax = torch.cat([scores, pad], 1).view(9, n_segs, seg_rows).amax(2)
+    order = sorted(range(n_segs), key=lambda s: s)
+    for qi in range(9):
+        ranked = sorted(order, key=lambda s: -float(segmax[qi, s]))
+        want = ranked[:k_sel]
+        assert ids[qi, : len(want)].tolist() == want
+        assert v[qi, : len(want)].double().tolist() == [
+            float(segmax[qi, s]) for s in want]
+
+
+def _blocks(x, cuts):
+    return [x[a:b] for a, b in zip([0] + cuts, cuts + [x.shape[0]])]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_index_build_from_row_blocks_is_bit_equal(monkeypatch, dtype):
+    """The index from row blocks (a list, a generator with ``rows``, numpy
+    blocks) holds the same bits as from one tensor, whatever the blocks'
+    cut and the normalize step's."""
+    cfg = IndexConfig(embed_dim=24, dtype=dtype)
+    x = torch.randn(1000, 24, generator=torch.Generator().manual_seed(6))
+    whole = EmbeddingIndex.build(x, cfg=cfg, device="cpu")._corpus
+    monkeypatch.setattr(engine, "NORMALIZE_ROWS", 100)
+    small = EmbeddingIndex.build(x, cfg=cfg, device="cpu")._corpus
+    cuts = [1, 250, 251, 999]
+    listed = EmbeddingIndex.build(_blocks(x, cuts), cfg=cfg,
+                                  device="cpu")._corpus
+    lazy = EmbeddingIndex.build((b for b in _blocks(x, cuts)), cfg=cfg,
+                                device="cpu", rows=1000)._corpus
+    host = EmbeddingIndex.build([b.numpy() for b in _blocks(x, [500])],
+                                cfg=cfg, device="cpu")._corpus
+    for other in (small, listed, lazy, host):
+        assert other.dtype == getattr(torch, dtype)
+        assert torch.equal(whole.view(torch.int16 if dtype == "bfloat16"
+                                      else torch.int32),
+                           other.view(torch.int16 if dtype == "bfloat16"
+                                      else torch.int32))
+    with pytest.raises(ValueError, match="rows"):
+        EmbeddingIndex.build(iter(_blocks(x, cuts)), cfg=cfg, device="cpu",
+                             rows=999)
+    q = torch.randn(5, 24, generator=torch.Generator().manual_seed(7))
+    a = EmbeddingIndex.build(x, cfg=cfg, device="cpu").search(q, k=7)
+    b = EmbeddingIndex.build(_blocks(x, cuts), cfg=cfg,
+                             device="cpu").search(q, k=7)
+    assert np.array_equal(a.indices, b.indices)
+    assert np.array_equal(a.scores, b.scores)
+
+
+# the encoder's outputs at seed 0 on these texts before the second
+# architecture came: the first four columns, float32 (stock attention)
+# through ``encode`` and bfloat16 through ``encode_device``
+BERT_TEXTS = ["the quick brown fox", "a",
+              "semantic search over chunks of text " * 5]
+BERT_F32 = [[-0.01986190304160118, 0.03400884568691254,
+             0.010212776251137257, 0.0446053147315979],
+            [0.02797470986843109, 0.08744558691978455,
+             0.00045939622214064, -0.07015188783407211],
+            [0.06875955313444138, 0.029296398162841797,
+             -0.09123362600803375, -0.0226089246571064]]
+BERT_BF16 = [[-0.020173830911517143, 0.03458371013402939,
+              0.009523050859570503, 0.044607974588871],
+             [0.02767583355307579, 0.08771110326051712,
+              0.0011043722042813897, -0.06982825696468353],
+             [0.06852445006370544, 0.029685210436582565,
+              -0.0910172089934349, -0.022361986339092255]]
+
+
+def test_the_bert_encoder_is_unchanged():
+    enc = SentenceEncoder(EncoderConfig(dtype="float32", attention="stock"),
+                          device="cpu", seed=0)
+    assert enc.master is not None and enc.cfg.arch == "bert"
+    np.testing.assert_allclose(enc.encode(BERT_TEXTS)[:, :4], BERT_F32,
+                               rtol=0, atol=1e-6)
+    enc = SentenceEncoder(EncoderConfig(), device="cpu", seed=0)
+    np.testing.assert_allclose(enc.encode_device(BERT_TEXTS)[:, :4].numpy(),
+                               BERT_BF16, rtol=0, atol=1e-6)
+    assert lfm2_moe.MOE_PAIRS >= 0
