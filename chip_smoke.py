@@ -17,11 +17,13 @@ picking the same segments, and the fused top-k at the live-search shape,
 flash also at head widths 256 and 320 (320 on the wide path, its own
 entry), f32 flash beside both its bounds
 (three TF32 products, and f32 FMAs) (phase 4), holds the LLM search
-cell's two kernels against their plain versions at that cell's shapes and
+cell's three kernels against their plain versions at that cell's shapes and
 times them: the packed flash entry, causal with grouped K/V, over 256
-texts of its length law at 32 query and 8 K/V heads x 64, and pass A's
-wide schedule at 256 x 10,000,000 x 2,048 (phase 4b), and serves deep candidate
-lists over a live index: adds, removals, a 10,000-query search through the
+texts of its length law at 32 query and 8 K/V heads x 64, the fused gated
+short convolution over the same texts at hidden 2,048, and pass A's
+wide schedule at 256 x 10,000,000 x 2,048, and counts the launches of one
+forward of the cell's whole encoder over those texts (phase 4b), and
+serves deep candidate lists over a live index: adds, removals, a 10,000-query search through the
 fused top-k, ``tune_fusion`` and ``compact`` (phase 5), chunks a
 600-document corpus with one document of 3,939 sentences through
 ``ChunkPipeline`` (phase 6), and serves the f32 configuration (an f32
@@ -181,6 +183,7 @@ def zero_counts() -> None:
     just after it."""
     from semanticsearch_tpu_torch import native
     from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import short_conv as sc
     from semanticsearch_tpu_torch.ops import similarity as sim
     from semanticsearch_tpu_torch.ops import topk
 
@@ -193,6 +196,7 @@ def zero_counts() -> None:
     fa.FLASH_LAUNCHES = fa.FLASH_F32_LAUNCHES = fa.FLASH_WIDE_LAUNCHES = 0
     fa.FLASH_CAUSAL_LAUNCHES = 0
     sim.SIM_LAUNCHES = sim.SIM_BF16_LAUNCHES = 0
+    sc.SHORT_CONV_LAUNCHES = 0
 
 
 def topk_agree(v, i, ref_v, ref_i, tol: float, gap: float = None):
@@ -1483,11 +1487,12 @@ def varlen_causal_bound(lens, h: int, h_kv: int, dh: int, itemsize: int):
 
 
 def phase_llm_kernels(report):
-    """The LLM search cell's (``lfm2-8b-a1b-bf16.mine_b256``) two kernels
+    """The LLM search cell's (``lfm2-8b-a1b-bf16.mine_b256``) three kernels
     at its shapes: the packed flash entry, causal with grouped K/V, over a
     forward of 256 texts whose lengths follow the cell's law (log-normal
     words, median 160, sigma 0.6, 32-511, plus a BOS token) at 32 query and
-    8 K/V heads x 64; and pass A's wide bf16 schedule (past
+    8 K/V heads x 64; the fused gated short convolution over the same texts
+    (:func:`phase_short_conv`); and pass A's wide bf16 schedule (past
     ``pass_a_max_d``) at 256 queries over 10,000,000 rows of 2,048 (the
     cell's segments: 16,384-row blocks split 4 ways, k_sel 11). Each is
     held against its plain version, launch counters from 0; pass A on
@@ -1564,6 +1569,8 @@ def phase_llm_kernels(report):
         f"bound {fc['bound_ms']:.4f} ms ({fc['bound_by']})")
     del q, k, v, got, padded
     torch.cuda.empty_cache()
+    phase_short_conv(report, lens, layout)
+    phase_llm_forward(report, lens)
 
     nq, nr, d, k_sel, seg_rows = 256, 10_000_000, 2048, 11, 32
     check(topk.pass_a_schedule(d, k_sel) == "wide",
@@ -1615,6 +1622,117 @@ def phase_llm_kernels(report):
         f"({wide['bound_by']})")
     del queries, corpus
     torch.cuda.empty_cache()
+
+
+def phase_short_conv(report, lens, layout):
+    """Phase 4b's fused gated short convolution (``csrc/short_conv.cu``) at
+    the LLM cell's conv layer: the texts of ``lens`` (``layout``), hidden
+    2,048, three taps, bf16, held bit for bit against its plain version,
+    one ``launch.short_conv``; timed beside the plain chain and its bound
+    (B, C and X read once, the result written once)."""
+    import torch
+    from semanticsearch_tpu_torch.core import profiling
+    from semanticsearch_tpu_torch.ops import short_conv as sc
+
+    conv = report["short_conv"]
+    h, taps, n = 2048, 3, int(lens.sum())
+    g = torch.Generator(device="cuda").manual_seed(25)
+    bcx = torch.randn((n, 3 * h), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((h, 1, taps), generator=g, device="cuda")
+         * taps ** -0.5).to(torch.bfloat16)
+    zero_counts()
+    got = sc.gated_short_conv(bcx, w, layout.pos)
+    conv["launches"] = profiling.counters()["launch.short_conv"]
+    want = sc.gated_short_conv_plain(bcx, w, layout.pos)
+    conv["max_abs_err"] = float((got.float() - want.float()).abs().max())
+    check(conv["launches"] == 1 and torch.equal(got.view(torch.int16),
+                                                want.view(torch.int16)),
+          f"fused gated short conv, {len(lens)} texts ({n} tokens) x {h}, "
+          f"{taps} taps, bf16 == plain bit for bit, one launch.short_conv")
+    del got, want
+    # the device's time a call, as the cell's forward queues it; one call
+    # between two events also holds the wrapper's host path (0.04-0.09 ms)
+    conv["ms"] = queued_ms(lambda: sc.gated_short_conv(bcx, w, layout.pos),
+                           50)
+    conv["call_ms"] = time_ms(lambda: sc.gated_short_conv(
+        bcx, w, layout.pos), reps=20, warmup=3)
+    conv["plain_ms"] = time_ms(lambda: sc.gated_short_conv_plain(
+        bcx, w, layout.pos), reps=5)
+    conv["library_ms"] = None
+    conv["library_note"] = "none: no one PyTorch call computes it"
+    conv["bound_ms"], conv["bound_by"] = bound_ms(
+        0.0, 2.0 * n * 4 * h + 4.0 * n + 2.0 * h * taps)
+    conv["shape_note"] = (f"{len(lens)} texts ({n} tokens) x hidden {h}, "
+                          f"{taps} taps, bf16; bound: B, C, X read once, "
+                          "the result written once; ms: 50 calls queued "
+                          "between two events, over 50; call_ms: one call "
+                          "between two events, the host path included")
+    log(f"  fused short conv, {n} tokens x {h}: kernel {conv['ms']:.4f} ms "
+        f"a call queued ({conv['call_ms']:.4f} one call alone), plain "
+        f"{conv['plain_ms']:.3f} ms, bound {conv['bound_ms']:.4f} ms "
+        f"({conv['bound_by']})")
+    del bcx
+    torch.cuda.empty_cache()
+
+
+def phase_llm_forward(report, lens):
+    """Phase 4b's whole LLM encoder: LFM2-8B-A1B at its published sizes in
+    bf16 (16.7 GB of seeded weights made on the card leaf by leaf), one
+    ``encode_device`` of 256 texts of ``lens`` tokens in one forward,
+    launch counters from 0: the fused conv once a conv layer and the
+    causal flash once an attention layer, and no other flash entry."""
+    import torch
+    from semanticsearch_tpu_torch.core import profiling
+    from semanticsearch_tpu_torch.core.config import LFM2MoEConfig
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+    from semanticsearch_tpu_torch.models.lfm2_moe import LFM2MoEModel
+    from semanticsearch_tpu_torch.ops import flash_attention as fa
+
+    cfg = LFM2MoEConfig(dtype="bfloat16")
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in LFM2MoEModel(cfg).state_dict()
+                  .items()}
+    g = torch.Generator(device="cuda").manual_seed(26)
+    weights = {}
+    for name, shape in shapes.items():
+        w = torch.randn(shape, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        if name.endswith("norm.weight"):
+            w.mul_(0.05).add_(1.0)
+        elif name.endswith("expert_bias"):
+            w.mul_(0.01)
+        elif not name.startswith("embed"):  # (..., out, fan_in)
+            w.mul_(shape[-1] ** -0.5)
+        weights[name] = w
+    enc = SentenceEncoder(cfg, device="cuda", state_dict=weights)
+    del weights
+    rng = np.random.default_rng(26)
+    # the tokenizer puts the first id before a text's words
+    texts = [" ".join(f"w{j}" for j in rng.integers(0, 50000, m - 1))
+             for m in lens]
+    conv_layers = cfg.layer_types.count("conv")
+    attn_layers = cfg.layer_types.count("full_attention")
+    zero_counts()
+    out = enc.encode_device(texts, batch_size=len(texts))
+    torch.cuda.synchronize()
+    counts = profiling.counters()
+    conv, causal = counts["launch.short_conv"], counts["launch.flash_causal"]
+    other = (fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES, fa.FLASH_WIDE_LAUNCHES)
+    report["short_conv"]["forward_launches"] = conv
+    report["flash_causal"]["forward_launches"] = causal
+    check(conv == conv_layers and causal == attn_layers
+          and other == (0, 0, 0) and out.shape == (len(texts), cfg.hidden_dim)
+          and bool(torch.isfinite(out).all()),
+          f"LFM2-8B-A1B forward over {len(texts)} texts ({int(lens.sum())} "
+          f"tokens): launch.short_conv {conv} (a conv layer: "
+          f"{conv_layers}), launch.flash_causal {causal} (an attention "
+          f"layer: {attn_layers}), no other flash entry, finite embeddings")
+    log(f"  LFM2-8B-A1B forward, {len(texts)} texts: launch.short_conv "
+        f"{conv}, launch.flash_causal {causal}")
+    del enc, out
+    torch.cuda.empty_cache()
+
 
 # phase 5: chunks added to and removed from the phase-3 index, and queries
 LIVE_ADDS, LIVE_REMOVES, LIVE_QUERIES = 2000, 500, 10000
@@ -4846,13 +4964,24 @@ def main() -> int:
     report["flash_causal"] = {
         **{k: report["flash"][k] for k in ("route", "source", "replaces")},
         "name": "flash_attention_varlen (causal, grouped K/V)",
-        "launches_note": "one direct call (phase 4b); the LLM search cell "
-                         "launches it once an attention layer a forward"}
+        "launches_note": "launches: one direct call (phase 4b); "
+                         "forward_launches: one forward of the LLM cell's "
+                         "encoder over 256 texts (phase 4b), once an "
+                         "attention layer"}
     report["segtopk_wide"] = {
         **{k: report["segtopk"][k] for k in ("route", "source", "replaces")},
         "name": "segtopk_pass_a (wide bf16)",
         "launches_note": "one direct call (phase 4b); the LLM search cell "
                          "launches it once a search"}
+    report["short_conv"] = {
+        "name": "gated_short_conv", "route": "cuda",
+        "source": "semanticsearch_tpu_torch/csrc/short_conv.cu",
+        "replaces": "none: the plain-torch chain of models/lfm2_moe.py "
+                    "ShortConv (ops/short_conv.py gated_short_conv_plain)",
+        "launches_note": "launches: one direct call (phase 4b); "
+                         "forward_launches: one forward of the LLM cell's "
+                         "encoder over 256 texts (phase 4b), once a conv "
+                         "layer"}
     t_start = time.perf_counter()
     try:
         phase_build()
@@ -4877,7 +5006,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     notes = ("plain_note", "library_note", "shape_note", "bound_note",
              "serve_ms", "serve_library_ms", "serve_bound_ms",
-             "serve_bound_by", "live_ms", "live_library_ms", "live_bound_ms",
+             "serve_bound_by", "call_ms", "forward_launches", "live_ms",
+             "live_library_ms", "live_bound_ms",
              "live_bound_by", "dh48_ms", "dh48_pad_ms", "fma_bound_ms",
              "tf32x3_bound_ms", "serve_tf32x3_bound_ms", "serve_fma_bound_ms",
              "rerank_launches", "train_launches", "mp_train_launches",
@@ -4899,8 +5029,8 @@ def main() -> int:
                          "segtopk_f32", "segtopk_overlap_f32", "pass_b",
                          "topk_fused",
                          "topk_fused_f32", "flash", "flash_f32", "flash_wide",
-                         "flash_causal", "segtopk_wide", "similarity",
-                         "similarity_bf16")]
+                         "flash_causal", "segtopk_wide", "short_conv",
+                         "similarity", "similarity_bf16")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
         f"{report['recall_at_10']}; int8 two-pass recall@10 "
         f"{report['recall_at_10_int8']}; f32 two-pass recall@10 "

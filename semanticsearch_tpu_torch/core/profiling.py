@@ -49,6 +49,7 @@ _COUNTER_SOURCES = (
     ("launch", "ops.topk", r"(\w+)_LAUNCHES"),
     ("launch", "ops.flash_attention", r"(\w+)_LAUNCHES"),
     ("launch", "ops.similarity", r"(\w+)_LAUNCHES"),
+    ("launch", "ops.short_conv", r"(\w+)_LAUNCHES"),
     ("native", "native", r"(\w+)_CALLS"),
     ("encoder", "models.encoder", r"(TOKENS_\w+|PACKED_FORWARDS)"),
     ("encoder", "models.lfm2_moe", r"(MOE_\w+)"),
@@ -129,7 +130,7 @@ def enabled() -> bool:
 def counters() -> Dict[str, int]:
     """Every counter of the program under its dotted name, as it stands:
     kernel launches (``launch.segtopk``, ``launch.pass_b``,
-    ``launch.flash``, ...), native calls (``native.hash_tokenize``, ...)
+    ``launch.flash``, ``launch.short_conv``, ...), native calls (``native.hash_tokenize``, ...)
     and the encoder's tokens (``encoder.tokens_real``,
     ``encoder.tokens_run``), packed forwards (``encoder.packed_forwards``)
     and an LFM2-MoE encoder's token-expert pairs and MoE layer forwards

@@ -30,7 +30,8 @@ token ids, the real tokens of a batch's texts end to end, with their
 
 then a final RMSNorm and each text's last token. Norms and RoPE tables are
 computed in float32 and rounded to the weights' dtype, the conv's taps
-summed in float32, and the experts' outputs mixed by one batched product
+summed in float32 (``ops.short_conv``: on the card one kernel from B, C, X
+to the gated result), and the experts' outputs mixed by one batched product
 (float32 accumulation) with the gate weights rounded to that dtype.
 
 The MoE layer makes no device-to-host sync: the route, the sort of the
@@ -60,6 +61,7 @@ from ..core import profiling
 from ..core.config import LFM2MoEConfig
 from ..ops.flash_attention import (Varlen, flash_attention_varlen,
                                    flash_attention_varlen_plain)
+from ..ops.short_conv import gated_short_conv
 
 # token-expert pairs the MoE layers ran, and MoE layer forwards, in this
 # process
@@ -82,20 +84,19 @@ class RMSNorm(nn.Module):
 
 
 class _Packed(NamedTuple):
-    """What every layer of one forward shares: the texts' layout, the RoPE
-    tables at each token's place, and for each conv tap the tokens that
-    have a predecessor that far back in their own text."""
+    """What every layer of one forward shares: the texts' layout and the
+    RoPE tables at each token's place."""
 
     layout: Varlen
     cos: Optional[torch.Tensor]
     sin: Optional[torch.Tensor]
-    back: List[torch.Tensor]
 
 
 class ShortConv(nn.Module):
     """The gated short convolution: in-projection to B, C, X, the
-    depthwise causal convolution of B * X over the text's own tokens, the C
-    gate, out-projection."""
+    depthwise causal convolution of B * X over the text's own tokens and
+    the C gate (``ops.short_conv``: one kernel on the card), out-projection.
+    """
 
     def __init__(self, cfg: LFM2MoEConfig) -> None:
         super().__init__()
@@ -105,16 +106,8 @@ class ShortConv(nn.Module):
         self.out_proj = nn.Linear(h, h, bias=False)
 
     def forward(self, x: torch.Tensor, packed: _Packed) -> torch.Tensor:
-        b, c, xx = self.in_proj(x).chunk(3, dim=-1)
-        u = (b * xx).float()
-        w = self.conv.weight[:, 0, :].float()  # (hidden, taps), last = now
-        taps = w.shape[1]
-        v = u * w[:, taps - 1]
-        for back, keep in enumerate(packed.back, start=1):
-            # u_{t-back}, 0 where the text has no token that far back
-            prev = F.pad(u[:-back], (0, 0, back, 0)) * keep
-            v = v + prev * w[:, taps - 1 - back]
-        return self.out_proj(c * v.to(c.dtype))
+        return self.out_proj(gated_short_conv(
+            self.in_proj(x), self.conv.weight, packed.layout.pos))
 
 
 class GQAttention(nn.Module):
@@ -305,8 +298,7 @@ class LFM2MoEModel(nn.Module):
             f = pos.float()[:, None] * inv[None]
             emb = torch.cat([f, f], dim=-1)
             cos, sin = emb.cos().to(dtype), emb.sin().to(dtype)
-        back = [(pos >= j).float()[:, None] for j in range(1, c.conv_kernel)]
-        return _Packed(layout, cos, sin, back)
+        return _Packed(layout, cos, sin)
 
     def forward(self, ids: torch.Tensor, layout: Varlen) -> torch.Tensor:
         # the attention kernel unless "stock" (on a CPU tensor the kernel's

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from semanticsearch_tpu_torch.ops import flash_attention as fa
+from semanticsearch_tpu_torch.ops import short_conv as sc
 from semanticsearch_tpu_torch.ops import similarity as sim
 from semanticsearch_tpu_torch.ops import topk
 
@@ -1684,8 +1685,10 @@ def _lfm2_texts(n=300, seed=25):
 
 def test_lfm2_encode_device_makes_no_host_sync(dev):
     """The LFM2-MoE forward (routing, the sort by expert, the grouped
-    expert products, the combine, the causal flash and the conv) launches
-    without a device-to-host sync, and gives the same bits twice."""
+    expert products, the combine, the causal flash and the fused conv)
+    launches without a device-to-host sync, and gives the same bits
+    twice."""
+    from semanticsearch_tpu_torch.core import profiling
     from semanticsearch_tpu_torch.models import lfm2_moe
 
     enc = _lfm2_tiny(dev)
@@ -1693,6 +1696,7 @@ def test_lfm2_encode_device_makes_no_host_sync(dev):
     enc.encode_device(texts, batch_size=128)  # warm: kernels built
     torch.cuda.synchronize()
     pairs, causal = lfm2_moe.MOE_PAIRS, fa.FLASH_CAUSAL_LAUNCHES
+    conv = profiling.counters()["launch.short_conv"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         a = enc.encode_device(texts, batch_size=128)
@@ -1701,6 +1705,8 @@ def test_lfm2_encode_device_makes_no_host_sync(dev):
     b = enc.encode_device(texts, batch_size=128)
     assert torch.equal(a, b)
     assert fa.FLASH_CAUSAL_LAUNCHES == causal + 2 * 3 * 2
+    # one fused conv a conv layer a forward: 2 calls x 3 forwards x 2 layers
+    assert profiling.counters()["launch.short_conv"] == conv + 2 * 3 * 2
     assert lfm2_moe.MOE_PAIRS == pairs + 2 * 3 * 2 * sum(
         len(t.split()) + 1 for t in texts)
 
@@ -1721,3 +1727,104 @@ def test_lfm2_on_the_card_matches_the_cpu(dev):
                                   enc.model.state_dict().items()})
     want = cpu.encode_device(texts, batch_size=32)
     assert float((got * want).sum(1).min()) > 0.98
+
+
+def test_lfm2_conv_kernel_leaves_the_embeddings_bit_equal(dev, monkeypatch):
+    """The tiny LFM2-MoE's embeddings with the fused conv kernel and with
+    its plain version in the conv layers: the same bits."""
+    from semanticsearch_tpu_torch.models import lfm2_moe
+
+    enc = _lfm2_tiny(dev)
+    texts = _lfm2_texts(64, 27)
+    before = sc.SHORT_CONV_LAUNCHES
+    got = enc.encode_device(texts, batch_size=32)
+    assert sc.SHORT_CONV_LAUNCHES == before + 2 * 2
+    monkeypatch.setattr(lfm2_moe, "gated_short_conv",
+                        sc.gated_short_conv_plain)
+    want = enc.encode_device(texts, batch_size=32)
+    assert sc.SHORT_CONV_LAUNCHES == before + 2 * 2
+    assert torch.equal(got, want)
+
+
+def _conv_bits(x):
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _conv_lengths(seed, run=32):
+    """A packed batch for the fused conv: texts of 1, 2 and 3 tokens, texts
+    longer than a thread's run of tokens (``RUN`` in csrc/short_conv.cu),
+    a total no multiple of it."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([[1, 2, 3], rng.integers(1, 200, 40),
+                           [1, 97, 2, 1]])
+    if lens.sum() % run == 0:
+        lens[-1] += 1
+    return lens
+
+
+def _conv_inputs(dev, dtype, h, taps, lens, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.sum(lens))
+    bcx = torch.randn((n, 3 * h), generator=g, device=dev).to(dtype)
+    w = (torch.randn((h, 1, taps), generator=g, device=dev)
+         * taps ** -0.5).to(dtype)
+    return bcx, w, fa.varlen_layout(lens, dev).pos
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("h", [256, 2048, 1003, 100])
+@pytest.mark.parametrize("taps", [2, 3, 4])
+def test_gated_short_conv_is_bit_equal_to_plain(dev, dtype, h, taps):
+    """The fused kernel against its plain version, bit for bit, one
+    ``launch.short_conv`` a call; widths not a multiple of 8 take
+    narrower vectors (100: 4, 1003: 1)."""
+    from semanticsearch_tpu_torch.core import profiling
+
+    lens = _conv_lengths(h + taps)
+    bcx, w, pos = _conv_inputs(dev, dtype, h, taps, lens, h * taps)
+    want = sc.gated_short_conv_plain(bcx, w, pos)
+    before = profiling.counters()["launch.short_conv"]
+    got = sc.gated_short_conv(bcx, w, pos)
+    assert profiling.counters()["launch.short_conv"] == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(_conv_bits(got), _conv_bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_gated_short_conv_signed_zeros_infinities_and_alignment(dev, dtype):
+    """Signed zeros as the plain version signs them, an infinite product
+    and the NaN of inf * 0 where a masked tap meets it in the same places,
+    and bcx 2 bytes off a 16-byte boundary (one channel a thread)."""
+    h, lens = 64, [1, 2, 3, 40, 1, 70, 5]
+    bcx, w, pos = _conv_inputs(dev, dtype, h, 3, lens, 8)
+    bcx[::3, :h] = 0.0
+    bcx[1::5, 2 * h:] = -0.0
+    bcx[4::9, :h] = float("inf")
+    bcx[7, 2 * h:] = float("-inf")
+    buf = torch.empty(bcx.numel() + 1, dtype=dtype, device=dev)
+    shifted = buf[1:].view_as(bcx)
+    shifted.copy_(bcx)
+    want = sc.gated_short_conv_plain(bcx, w, pos)
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and bool(torch.isinf(want).any())
+    for x in (bcx, shifted):
+        got = sc.gated_short_conv(x, w, pos)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(_conv_bits(got)[~nan], _conv_bits(want)[~nan])
+
+
+def test_gated_short_conv_refuses_what_it_does_not_take(dev):
+    bcx, w, pos = _conv_inputs(dev, torch.bfloat16, 32, 3, [4, 5], 3)
+    with pytest.raises(ValueError, match="taps"):
+        sc.gated_short_conv(bcx, torch.zeros(32, 1, 5, dtype=bcx.dtype,
+                                             device=dev), pos)
+    with pytest.raises(NotImplementedError, match="same dtype"):
+        sc.gated_short_conv(bcx, w.float(), pos)
+    with pytest.raises(ValueError, match="int32"):
+        sc.gated_short_conv(bcx, w, pos.long())
+    with pytest.raises(ValueError, match="3 \\* hidden"):
+        sc.gated_short_conv(bcx[:, :95], w, pos)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        sc.gated_short_conv(bcx, w.requires_grad_(True), pos)

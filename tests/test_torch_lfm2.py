@@ -335,3 +335,87 @@ def test_the_bert_encoder_is_unchanged():
     np.testing.assert_allclose(enc.encode_device(BERT_TEXTS)[:, :4].numpy(),
                                BERT_BF16, rtol=0, atol=1e-6)
     assert lfm2_moe.MOE_PAIRS >= 0
+
+
+def _inline_conv(bcx, weight, pos):
+    """``ShortConv``'s elementwise chain as the forward held it inline, kept
+    here as the record its plain version is held to."""
+    back = [(pos >= j).float()[:, None] for j in range(1, weight.shape[-1])]
+    b, c, xx = bcx.chunk(3, dim=-1)
+    u = (b * xx).float()
+    w = weight[:, 0, :].float()  # (hidden, taps), last = now
+    taps = w.shape[1]
+    v = u * w[:, taps - 1]
+    for j, keep in enumerate(back, start=1):
+        prev = torch.nn.functional.pad(u[:-j], (0, 0, j, 0)) * keep
+        v = v + prev * w[:, taps - 1 - j]
+    return c * v.to(c.dtype)
+
+
+def _bits(x):
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("taps", [2, 3, 4])
+@pytest.mark.parametrize("h", [8, 13])
+def test_gated_short_conv_on_the_cpu_is_the_inline_chain(dtype, taps, h):
+    """On CPU tensors the wrapper runs the plain version, launches nothing,
+    and gives the bits of the chain the forward held inline, on packed
+    texts of 1-70 tokens (1, 2 and 3 among them)."""
+    from semanticsearch_tpu_torch.ops import short_conv as sc
+
+    rng = np.random.default_rng(taps * 100 + h)
+    lens = np.concatenate([[1, 2, 3, 1], rng.integers(1, 71, 9), [1]])
+    pos = fa.varlen_layout(lens).pos
+    g = torch.Generator().manual_seed(h)
+    bcx = torch.randn(int(lens.sum()), 3 * h, generator=g).to(dtype)
+    bcx[::7, :h] = 0.0
+    bcx[3::11, 2 * h:] = -0.0
+    weight = torch.randn(h, 1, taps, generator=g).to(dtype)
+    before = sc.SHORT_CONV_LAUNCHES
+    got = sc.gated_short_conv(bcx, weight, pos)
+    assert sc.SHORT_CONV_LAUNCHES == before
+    assert got.dtype == dtype and got.shape == (bcx.shape[0], h)
+    assert torch.equal(_bits(got), _bits(sc.gated_short_conv_plain(
+        bcx, weight, pos)))
+    assert torch.equal(_bits(got), _bits(_inline_conv(bcx, weight, pos)))
+
+
+def test_gated_short_conv_plain_stays_inside_each_text():
+    """Each packed token's output is its own text's taps alone (float64,
+    one token at a time; the plain version sums in float32), however few
+    tokens the batch holds."""
+    from semanticsearch_tpu_torch.ops import short_conv as sc
+
+    h, taps = 6, 3
+    g = torch.Generator().manual_seed(9)
+    weight = torch.randn(h, 1, taps, generator=g)
+    for lens in ([1], [2], [1, 1], [5, 1, 3]):
+        layout = fa.varlen_layout(lens)
+        bcx = torch.randn(sum(lens), 3 * h, generator=g)
+        got = sc.gated_short_conv(bcx, weight, layout.pos).double()
+        b, c, x = bcx.double().chunk(3, dim=-1)
+        u, w = b * x, weight[:, 0].double()
+        for t, p in enumerate(layout.pos.tolist()):
+            v = sum(w[:, taps - 1 - j] * u[t - j]
+                    for j in range(taps) if p >= j)
+            torch.testing.assert_close(got[t], c[t] * v, rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_short_conv_vector_width():
+    """The kernel's channels a thread: 16 bytes' worth where the width and
+    the base address allow, halves down to one where they do not (rows of
+    3h elements then keep every vector aligned)."""
+    from semanticsearch_tpu_torch.ops import short_conv as sc
+
+    assert sc.short_conv_vec(2048, 2, 0) == 8
+    assert sc.short_conv_vec(2048, 4, 0) == 4
+    assert sc.short_conv_vec(100, 2, 0) == 4
+    assert sc.short_conv_vec(1003, 2, 0) == 1
+    assert sc.short_conv_vec(1003, 4, 16) == 1
+    assert sc.short_conv_vec(2048, 2, 2) == 1
+    assert sc.short_conv_vec(2048, 2, 4) == 2
+    assert sc.short_conv_vec(2050, 4, 0) == 2
