@@ -4472,8 +4472,7 @@ def _shard_encoder(report, ctx, res):
     zero_counts()
     got = dp.encode(texts)
     torch.cuda.synchronize()
-    _, _, buckets, _ = dp._buckets(texts)
-    batches = sum(-(-len(v) // 256) for v in buckets.values())
+    batches = sum(-(-len(idxs) // 256) for _, idxs in dp._groups(texts))
     want = batches * SHARDS * encoder.cfg.num_layers
     res["launches"]["encode_flash"] = fa.FLASH_LAUNCHES
     cos = float((torch.from_numpy(got) * torch.from_numpy(one)).sum(1).min())

@@ -338,27 +338,6 @@ __device__ inline void produce(const Ring& ring, const CUtensorMap* qmap, const 
   }
 }
 
-#ifdef QC_PHASE_PROBE
-// Built only by tools/pass_a_phase.py: per tile, when each consumer
-// warpgroup of the first CTA starts and ends its epilogue, by the SM clock,
-// and the global nanosecond timer at its start.
-constexpr int PROBE_TILES = 4096;
-__device__ long long phase_probe[2][3][PROBE_TILES];  // [warpgroup][start, end, start ns][tile]
-__device__ __forceinline__ void probe(int wg, int edge, int tile) {
-  if (blockIdx.x == 0 && blockIdx.y == 0 && (threadIdx.x & (WG_THREADS - 1)) == 0 &&
-      tile < PROBE_TILES) {
-    phase_probe[wg][edge][tile] = clock64();
-    if (edge == 0) {
-      long long ns;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-      phase_probe[wg][2][tile] = ns;
-    }
-  }
-}
-#else
-__device__ __forceinline__ void probe(int, int, int) {}
-#endif
-
 // Consumer warpgroup `wg` (all 128 threads): for each tile, the 64 x 128
 // scores of its 64 query rows into the accumulators, then on_tile(tile, acc).
 // The stages a tile read are released before on_tile runs, so the producer
@@ -401,9 +380,7 @@ __device__ __forceinline__ void consume(const Ring& ring, int wg, int bq, int kc
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(&ring.empty[pending]);
     fence_acc(acc);
-    probe(wg, 0, tile);
     on_tile(tile, acc);
-    probe(wg, 1, tile);
   }
 }
 

@@ -144,9 +144,7 @@ __device__ __forceinline__ void consume(const Ring& ring, int wg, int kchunks, i
     qc::wgmma_wait<0>();
     if (lane == 0) qc::mbar_arrive(&ring.empty[pending]);
     qc::fence_acc(acc);
-    qc::probe(wg, 0, tile);
     on_tile(tile, acc);
-    qc::probe(wg, 1, tile);
   }
 }
 

@@ -61,7 +61,7 @@
 // (ops/topk.py::overlap_plan: 7 stages at D = 384, more than a tile), so
 // neither warpgroup waits on the other's stages: they drift up to a tile
 // apart and one's drain and epilogue fall under the other's multiplies
-// (tools/pass_a_phase.py measures both). Barriers that hold them half a
+// (a clock probe in the epilogues measured both). Barriers that hold them half a
 // tile apart (FA3's warpgroup ordering) measured slower: each turns the
 // other warpgroup's jitter into a stall. A CTA of 64 query rows has one
 // consumer warpgroup and keeps mode 0's ring.
@@ -561,16 +561,3 @@ extern "C" int segtopk_pass_a(const void* q, const void* c, void* part_v, void* 
       return (int)cudaErrorInvalidValue;
   }
 }
-
-#ifdef QC_PHASE_PROBE
-// tools/pass_a_phase.py: copy the first CTA's epilogue clocks out
-// (qc::phase_probe, 2 x 3 x qc::PROBE_TILES int64), then zero them.
-extern "C" int segtopk_phase_probe(long long* out) {
-  cudaError_t err = cudaMemcpyFromSymbol(out, qc::phase_probe, sizeof(qc::phase_probe));
-  if (err != cudaSuccess) return (int)err;
-  void* p = nullptr;
-  err = cudaGetSymbolAddress(&p, qc::phase_probe);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaMemset(p, 0, sizeof(qc::phase_probe));
-}
-#endif

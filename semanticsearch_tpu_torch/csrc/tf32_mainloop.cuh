@@ -278,9 +278,7 @@ __device__ __forceinline__ void consume(const Ring& ring, int kchunks, int n_til
     qc::fence_acc(small);
 #pragma unroll
     for (int i = 0; i < 64; ++i) big[i] += small[i];
-    qc::probe(wg, 0, tile);
     on_tile(tile, big);
-    qc::probe(wg, 1, tile);
   }
 }
 

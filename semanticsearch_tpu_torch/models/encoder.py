@@ -37,7 +37,7 @@ process forwards only its own rows of the global batch
 process encoding the whole batch on its own shards.
 
 Parameters: as flax keeps float32 parameters and computes in ``dtype``,
-``SentenceEncoder`` keeps float32 master parameters (``master``) beside the
+the BERT family keeps float32 master parameters (``master``) beside the
 serving module (``model``, in ``cfg.dtype``; the same module when that is
 float32). Training (``train/encoder_train.py``, ``train/mlm_pretrain.py``)
 runs the serving module's forward on the masters cast to ``cfg.dtype``
@@ -45,20 +45,26 @@ runs the serving module's forward on the masters cast to ``cfg.dtype``
 float32 masters, and :meth:`SentenceEncoder.sync` copies them into the
 serving module after a step.
 
-Architectures: ``cfg.arch`` "bert" is the block above; an
-``LFM2MoEConfig`` ("lfm2_moe") builds ``models/lfm2_moe.py``'s causal
-LFM2-MoE model, pooled at each text's last token, on the same packed path
-(``encode``, ``encode_device``) on one device. It is inference only: built
-once on the device in ``cfg.dtype`` from the state dict's own tensors,
+Families: a config's type names its model family's module
+(``_FAMILIES``, the one place that names one): this module's BERT block
+for an ``EncoderConfig``, ``models/lfm2_moe.py``'s causal LFM2-MoE model,
+pooled at each text's last token, for an ``LFM2MoEConfig``. Each module
+has ``build_model(cfg, device, seed, state_dict)``, which builds every
+module once, on the meta device, then gives it its weights, and returns
+the serving module with its float32 masters, or None; and ``ON_MESH``,
+whether the family runs on a mesh. Each model's ``packs(lens)`` says
+whether a batch of texts of these token counts runs packed. LFM2-MoE is
+inference only: built in ``cfg.dtype`` from the state dict's own tensors,
 with no float32 master (an 8B-parameter model's masters would not fit
 beside its index), so training, :meth:`SentenceEncoder.sync` and a mesh
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
+import functools
 import hashlib
+import importlib
 import math
 from typing import Callable, Optional, Sequence
 
@@ -66,9 +72,10 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.overrides import TorchFunctionMode
 
 from ..core import profiling
-from ..core.config import EncoderConfig
+from ..core.config import EncoderConfig, LFM2MoEConfig
 from ..ops.flash_attention import (
     Varlen, flash_attention, flash_attention_varlen,
     flash_attention_varlen_plain, varlen_tiles)
@@ -83,6 +90,11 @@ _BUCKETS = (64, 128, 256)
 TOKENS_REAL = 0
 TOKENS_RUN = 0
 PACKED_FORWARDS = 0
+# a config's type -> its model family's module (``build_model``,
+# ``ON_MESH``): the one place that names a family
+_FAMILIES = {EncoderConfig: __name__,
+             LFM2MoEConfig: f"{__package__}.lfm2_moe"}
+ON_MESH = True  # the BERT family runs data or tensor parallel on a mesh
 
 
 def use_flash(cfg: EncoderConfig, device: torch.device) -> bool:
@@ -273,6 +285,16 @@ class SentenceTransformerModel(nn.Module):
                  else run_block(i, x, flash))
         return pool_tokens(c, self.ln_final(x), mask, return_tokens)
 
+    def packs(self, lens: np.ndarray) -> bool:
+        """Whether texts with these token counts run packed: not at a head
+        width the packed kernel lacks (past 256, under flash), nor under
+        cls pooling with a text of no token, whose first position is a pad
+        that packing has no place for."""
+        c = self.cfg
+        return ((c.hidden_dim // c.num_heads <= 256
+                 or not use_flash(c, self.ln_final.weight.device))
+                and (c.pooling != "cls" or int(lens.min()) > 0))
+
 
 def pool_tokens(cfg: EncoderConfig, x: torch.Tensor, mask,
                 return_tokens: bool = False) -> torch.Tensor:
@@ -297,11 +319,66 @@ def pool_tokens(cfg: EncoderConfig, x: torch.Tensor, mask,
     else:
         m = mask[..., None].to(x.dtype)
         pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
-    pooled = pooled.float()
-    if cfg.normalize:
-        sq = (pooled * pooled).sum(dim=-1, keepdim=True)
-        pooled = pooled * torch.rsqrt(torch.clamp(sq, min=1e-18))
-    return pooled
+    return l2_head(cfg, pooled.float())
+
+
+def l2_head(cfg: EncoderConfig, pooled: torch.Tensor) -> torch.Tensor:
+    """Both families' last step on their pooled (B, hidden) float32
+    states: where ``cfg.normalize``, each row times the rsqrt of its
+    squared norm clamped at 1e-18 (a zero row stays zero)."""
+    if not cfg.normalize:
+        return pooled
+    sq = (pooled * pooled).sum(dim=-1, keepdim=True)
+    return pooled * torch.rsqrt(torch.clamp(sq, min=1e-18))
+
+
+class _SkipInit(TorchFunctionMode):
+    """Leaves every ``torch.nn.init`` call undone: a module built on the
+    meta device is given its weights afterwards, and those calls' meta
+    kernels import ``torch._dynamo`` the first time, seconds of set-up."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__module__", None) == "torch.nn.init":
+            return args[0] if args else kwargs["tensor"]
+        return func(*args, **(kwargs or {}))
+
+
+def on_meta(model_cls, cfg: EncoderConfig) -> nn.Module:
+    """``model_cls(cfg)`` on the meta device, with no default init."""
+    with torch.device("meta"), _SkipInit():
+        return model_cls(cfg)
+
+
+def _assigned(cfg: EncoderConfig, tensors: dict) -> SentenceTransformerModel:
+    """The model built on the meta device and given ``tensors`` themselves
+    (``load_state_dict(assign=True)``, strict), in eval mode."""
+    model = on_meta(SentenceTransformerModel, cfg)
+    model.load_state_dict(tensors, assign=True)
+    return model.eval()
+
+
+def build_model(cfg: EncoderConfig, device: torch.device, seed: int = 0,
+                state_dict: Optional[dict] = None):
+    """The BERT family's (serving module, float32 masters) on ``device``,
+    each module built once. The masters take ``state_dict``'s tensors as
+    float32 copies of their own (training updates them in place, and must
+    not write into the caller's), or the seeded init drawn from the host
+    generator of ``seed``. The serving module is the masters at float32,
+    else a module given their casts to ``cfg.dtype``."""
+    if state_dict is None:
+        master = on_meta(SentenceTransformerModel, cfg)
+        master.to_empty(device=device).eval()
+        master.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        master = _assigned(cfg, {
+            k: v.to(device=device, dtype=torch.float32, copy=True,
+                    memory_format=torch.contiguous_format)
+            for k, v in state_dict.items()})
+    dtype = getattr(torch, cfg.dtype)
+    if dtype == torch.float32:
+        return master, master
+    return _assigned(cfg, {k: v.to(dtype)
+                           for k, v in master.state_dict().items()}), master
 
 
 def _resolve_device(device) -> torch.device:
@@ -317,12 +394,13 @@ class SentenceEncoder:
 
     Texts are tokenized on the host. On one device they run in input
     order, ``batch_size`` a forward, packed (the module docstring), or,
-    where packing does not apply (:meth:`_packs`), padded to the length
+    where the model cannot pack them (its ``packs``), padded to the length
     bucket (64/128/256, capped at ``max_len``) of the forward's longest
     text. On a mesh they are padded into the smallest bucket that holds
     each, run per bucket and batch, and reassembled in input order.
     ``master`` holds the float32 parameters (what training updates and
-    ``save_encoder`` writes), ``model`` serves in ``cfg.dtype``. With
+    ``save_encoder`` writes; None for an inference-only family), ``model``
+    serves in ``cfg.dtype``. With
     ``mesh`` (see the module docstring) ``device`` is the mesh's first
     device.
     """
@@ -340,7 +418,8 @@ class SentenceEncoder:
 
         self.cfg = cfg
         self.mesh = mesh
-        if cfg.arch != "bert" and mesh is not None:
+        family = importlib.import_module(_FAMILIES[type(cfg)])
+        if mesh is not None and not family.ON_MESH:
             raise NotImplementedError(f"the {cfg.arch} encoder runs on one "
                                       f"device, not on a mesh")
         if mesh is not None:
@@ -358,25 +437,12 @@ class SentenceEncoder:
         self._multiprocess = mesh is not None and mesh.group is not None
         self.tokenizer = tokenizer or HashingTokenizer(
             vocab_size=cfg.vocab_size, max_len=cfg.max_len)
-        if cfg.arch != "bert":
-            from .lfm2_moe import build_model
-
-            self.master = None  # inference only: serving weights alone
-            self.model = build_model(cfg, self.device, seed, state_dict)
-            return
         if self._tp > 1:
             # stock attention under TP, as in the JAX package
             cfg = dataclasses.replace(cfg, attention="stock")
-        master = SentenceTransformerModel(cfg)
-        if state_dict is None:
-            master.reset_parameters(torch.Generator().manual_seed(seed))
-        else:
-            master.load_state_dict(state_dict)
-        self.master = master.to(device=self.device,
-                                dtype=torch.float32).eval()
-        dtype = getattr(torch, cfg.dtype)
-        self.model = (self.master if dtype == torch.float32 else
-                      copy.deepcopy(self.master).to(dtype=dtype))
+        # master None: inference only, the serving weights alone
+        self.model, self.master = family.build_model(cfg, self.device, seed,
+                                                     state_dict)
         self._place()
 
     @property
@@ -400,7 +466,8 @@ class SentenceEncoder:
         self._replicas = {self.device: self.model}
         for dev in self._data_devices:
             if dev not in self._replicas:
-                self._replicas[dev] = copy.deepcopy(self.model).to(dev)
+                self._replicas[dev] = _assigned(self.model.cfg, {
+                    k: v.to(dev) for k, v in self.model.state_dict().items()})
 
     def _trainable(self) -> None:
         if self.master is None:
@@ -565,34 +632,54 @@ class SentenceEncoder:
                 return b
         return self.cfg.max_len
 
-    def _buckets(self, texts: Sequence[str]):
-        """Token ids and masks of every text, the text positions of each
-        forward group, and every text's real token count. On a mesh a group
-        is a length bucket; on one device every text, in input order, under
-        the key None (:meth:`_forward` picks each forward's layout)."""
+    def _groups(self, texts: Sequence[str]) -> list:
+        """Tokenize ``texts`` into forward groups, each (launch, positions)
+        with ``launch(sel)`` the asynchronous forward of the texts at
+        positions ``sel``: on one device one group, every text in input
+        order (:meth:`_forward_batch`); on a mesh one a length bucket
+        (:meth:`_buckets`, :meth:`_forward_bucket`)."""
         with profiling.span("encoder.tokenize"):
-            ids_full, mask_full = self.tokenizer.encode_batch(
+            ids, mask = self.tokenizer.encode_batch(
                 texts, max_len=self.cfg.max_len)
-            lens = mask_full.sum(axis=1)
+            lens = mask.sum(axis=1)
             if not self.sharded:
-                return ids_full, mask_full, {None: np.arange(len(texts))}, lens
-            buckets: dict = {}
-            for i, ln in enumerate(lens):
-                buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
-        return ids_full, mask_full, buckets, lens
+                return [(functools.partial(self._forward_batch, ids, mask,
+                                           lens), np.arange(len(texts)))]
+            return [(functools.partial(self._forward_bucket, ids, mask, lens,
+                                       L), idxs)
+                    for L, idxs in self._buckets(lens).items()]
 
-    def _packs(self, lens: np.ndarray) -> bool:
-        """Whether one device's forward of texts with these token counts
-        runs packed: not at a head width the packed kernel lacks (past 256,
-        under flash), nor under cls pooling with a text of no token, whose
-        first position is a pad that packing has no place for. An LFM2-MoE
-        encoder always runs packed."""
-        c = self.cfg
-        if c.arch != "bert":
-            return True
-        return ((c.hidden_dim // c.num_heads <= 256
-                 or not use_flash(c, self.device))
-                and (c.pooling != "cls" or int(lens.min()) > 0))
+    def _buckets(self, lens: np.ndarray) -> dict:
+        """A mesh's forward groups: the positions of the texts of each
+        length bucket, by the bucket."""
+        buckets: dict = {}
+        for i, ln in enumerate(lens):
+            buckets.setdefault(self._bucket_for(int(ln)), []).append(i)
+        return buckets
+
+    def _forward_batch(self, ids: np.ndarray, mask: np.ndarray,
+                       lens: np.ndarray, sel: np.ndarray) -> torch.Tensor:
+        """One device: launch the model on a run of texts in input order
+        (asynchronous), packed, or, where the model cannot pack them,
+        padded to their longest text's bucket. Counts the batch's real
+        tokens and the positions it runs."""
+        global TOKENS_REAL, TOKENS_RUN, PACKED_FORWARDS
+        rows = slice(int(sel[0]), int(sel[-1]) + 1)
+        ids, mask, lens = ids[rows], mask[rows], lens[rows]
+        if self.model.packs(lens):
+            out, run = self._forward_packed(ids, mask)
+            TOKENS_REAL += run
+            TOKENS_RUN += run
+            PACKED_FORWARDS += 1
+            return out
+        L = self._bucket_for(int(lens.max()))
+        with profiling.span("encoder.forward", {"L": L, "rows": len(sel)}):
+            padded = self._upload(
+                np.stack([ids[:, :L], mask[:, :L]]).astype(np.int64))
+            out = self.model(padded[0], padded[1])
+        TOKENS_REAL += int(lens.sum())
+        TOKENS_RUN += len(sel) * L
+        return out
 
     def _forward_packed(self, ids: np.ndarray, mask: np.ndarray):
         """Launch the model on one batch of texts, (B, max_len) ids and
@@ -616,45 +703,24 @@ class SentenceEncoder:
             layout = Varlen(cu_d, tiles_d.view(-1, 4), seg_d, pos_d, width)
             return self.model(tok, layout), n
 
-    def _forward(self, ids_full: np.ndarray, mask_full: np.ndarray,
-                 lens: np.ndarray, sel: Sequence[int], L: Optional[int]
-                 ) -> torch.Tensor:
-        """Launch the model on one batch of texts (asynchronous). ``L`` the
-        bucket of a mesh's group, where the batch is padded to a multiple
-        of the data shards and each shard's slice uploads to its own
-        device; None on one device, where the batch runs packed or, where
-        it cannot (:meth:`_packs`), padded to its longest text's bucket.
-        Counts the batch's real tokens and the positions it runs."""
-        global TOKENS_REAL, TOKENS_RUN, PACKED_FORWARDS
-        if L is None:  # one device: a run of texts in input order
-            rows = slice(int(sel[0]), int(sel[-1]) + 1)
-            if self._packs(lens[rows]):
-                out, run = self._forward_packed(ids_full[rows],
-                                                mask_full[rows])
-                TOKENS_REAL += run
-                TOKENS_RUN += run
-                PACKED_FORWARDS += 1
-                return out
-            L = self._bucket_for(int(lens[rows].max()))
+    def _forward_bucket(self, ids: np.ndarray, mask: np.ndarray,
+                        lens: np.ndarray, L: int, sel: Sequence[int]
+                        ) -> torch.Tensor:
+        """A mesh: launch the model on texts of bucket ``L`` (asynchronous),
+        padded to ``L`` tokens and to a multiple of the data shards, each
+        shard's slice uploaded to its own device. Counts the batch's real
+        tokens and the positions it runs."""
+        global TOKENS_REAL, TOKENS_RUN
         b, n = len(sel), self._n_data
         b_pad = -(-b // n) * n
         with profiling.span("encoder.forward", {"L": L, "rows": b_pad}):
-            packed = np.stack(
-                [ids_full[sel, :L], mask_full[sel, :L]]).astype(np.int64)
-            if not self.sharded:
-                packed = self._upload(packed)
-                out = self.model(packed[0], packed[1])
-            else:
-                if b_pad != b:
-                    packed = np.concatenate(
-                        [packed, np.zeros((2, b_pad - b, L), np.int64)],
-                        axis=1)
-                step = b_pad // n
-                parts = [self._upload(packed[:, i * step: (i + 1) * step],
-                                      dev)
-                         for i, dev in enumerate(self._data_devices)]
-                out = self._mesh_apply([p[0] for p in parts],
-                                       [p[1] for p in parts])[:b]
+            padded = np.zeros((2, b_pad, L), np.int64)
+            padded[:, :b] = np.stack([ids[sel, :L], mask[sel, :L]])
+            step = b_pad // n
+            parts = [self._upload(padded[:, i * step: (i + 1) * step], dev)
+                     for i, dev in enumerate(self._data_devices)]
+            out = self._mesh_apply([p[0] for p in parts],
+                                   [p[1] for p in parts])[:b]
         TOKENS_REAL += int(lens[sel].sum())
         TOKENS_RUN += b_pad * L
         return out
@@ -671,14 +737,13 @@ class SentenceEncoder:
         if not len(texts):
             return torch.zeros((0, self.cfg.hidden_dim), dtype=torch.float32,
                                device=self.device)
-        ids_full, mask_full, buckets, lens = self._buckets(texts)
         order_parts, emb_parts = [], []
-        for L, idxs in buckets.items():
+        for launch, idxs in self._groups(texts):
             eff, s = batch_size, 0
             while s < len(idxs):
                 sel = idxs[s: s + eff]
                 try:
-                    emb = self._forward(ids_full, mask_full, lens, sel, L)
+                    emb = launch(sel)
                 except Exception as exc:
                     if not _is_oom(exc) or eff == 1:
                         raise
@@ -726,8 +791,7 @@ class SentenceEncoder:
         out = np.zeros((len(texts), self.cfg.hidden_dim), np.float32)
         if not len(texts):
             return out
-        ids_full, mask_full, buckets, lens = self._buckets(texts)
-        for L, idxs in buckets.items():
+        for launch, idxs in self._groups(texts):
             eff, s = batch_size, 0
             pending = None  # (embeddings, texts, start) launched, unfetched
             while s < len(idxs) or pending is not None:
@@ -735,8 +799,7 @@ class SentenceEncoder:
                     launched = None
                     if s < len(idxs):
                         sel = idxs[s: s + eff]
-                        launched = (self._forward(ids_full, mask_full,
-                                                  lens, sel, L), sel, s)
+                        launched = (launch(sel), sel, s)
                     if pending is not None:
                         out[pending[1]] = self._fetch(pending[0])
                     pending = launched

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -62,11 +63,13 @@ from ..core.config import LFM2MoEConfig
 from ..ops.flash_attention import (Varlen, flash_attention_varlen,
                                    flash_attention_varlen_plain)
 from ..ops.short_conv import gated_short_conv
+from .encoder import l2_head, on_meta
 
 # token-expert pairs the MoE layers ran, and MoE layer forwards, in this
 # process
 MOE_PAIRS = 0
 MOE_LAYERS = 0
+ON_MESH = False  # the family runs on one device
 
 
 class RMSNorm(nn.Module):
@@ -261,6 +264,10 @@ class LFM2MoEModel(nn.Module):
             LFM2Block(cfg, i) for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_dim, cfg.norm_eps)
 
+    def packs(self, lens: np.ndarray) -> bool:
+        """Every batch runs packed: the model has no padded forward."""
+        return True
+
     def moe_layers(self) -> List[MoE]:
         return [b.ffn for b in self.layers if b.is_moe]
 
@@ -310,22 +317,17 @@ class LFM2MoEModel(nn.Module):
             x = layer(x, packed, flash)
         x = self.norm(x)
         last = (layout.cu_seqlens[1:] - 1).long()
-        pooled = x.index_select(0, last).float()
-        if self.cfg.normalize:
-            sq = (pooled * pooled).sum(dim=-1, keepdim=True)
-            pooled = pooled * torch.rsqrt(torch.clamp(sq, min=1e-18))
-        return pooled
+        return l2_head(self.cfg, x.index_select(0, last).float())
 
 
 def build_model(cfg: LFM2MoEConfig, device: torch.device, seed: int = 0,
-                state_dict: Optional[dict] = None) -> LFM2MoEModel:
-    """The model on ``device`` in ``cfg.dtype``, built once: on the meta
-    device, then given ``state_dict``'s tensors themselves where they are
-    already of that device and dtype (``load_state_dict(assign=True)``: no
-    copy, no float32 master), or a seeded init."""
+                state_dict: Optional[dict] = None):
+    """(The model on ``device`` in ``cfg.dtype``, None: no float32
+    masters), built once: on the meta device, then given ``state_dict``'s
+    tensors themselves where they are already of that device and dtype
+    (``load_state_dict(assign=True)``: no copy), or a seeded init."""
     dtype = getattr(torch, cfg.dtype)
-    with torch.device("meta"):
-        model = LFM2MoEModel(cfg)
+    model = on_meta(LFM2MoEModel, cfg)
     if state_dict is None:
         model = model.to_empty(device=device)
         model.reset_parameters(torch.Generator(device=device).manual_seed(
@@ -335,4 +337,4 @@ def build_model(cfg: LFM2MoEConfig, device: torch.device, seed: int = 0,
         model.load_state_dict(
             {k: v.to(device=device, dtype=dtype)
              for k, v in state_dict.items()}, assign=True)
-    return model.eval()
+    return model.eval(), None

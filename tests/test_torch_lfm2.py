@@ -5,7 +5,11 @@ lengths in one forward; the plain causal grouped-K/V packed attention; the
 wide pass A's plan and its plain version's ids and tie order; the index
 built from row blocks; and the BERT encoder's outputs at the default
 config, as they were before the second architecture came."""
+import copy
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -16,8 +20,10 @@ from semanticsearch_tpu_torch.core.config import (EncoderConfig, IndexConfig,
                                                   LFM2MoEConfig)
 from semanticsearch_tpu_torch.index import engine
 from semanticsearch_tpu_torch.index.engine import EmbeddingIndex
+from semanticsearch_tpu_torch.models import encoder as encoder_mod
 from semanticsearch_tpu_torch.models import lfm2_moe
-from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+from semanticsearch_tpu_torch.models.encoder import (
+    SentenceEncoder, SentenceTransformerModel)
 from semanticsearch_tpu_torch.ops import flash_attention as fa
 from semanticsearch_tpu_torch.ops import topk
 
@@ -335,6 +341,121 @@ def test_the_bert_encoder_is_unchanged():
     np.testing.assert_allclose(enc.encode_device(BERT_TEXTS)[:, :4].numpy(),
                                BERT_BF16, rtol=0, atol=1e-6)
     assert lfm2_moe.MOE_PAIRS >= 0
+
+
+BUILD_BERT = dict(vocab_size=500, hidden_dim=32, num_layers=2, num_heads=4,
+                  mlp_dim=64, max_len=64)
+
+
+def _build_cfg(family):
+    if family == "lfm2":
+        return LFM2MoEConfig(**dict(TINY, dtype="bfloat16"))
+    return EncoderConfig(**BUILD_BERT, dtype=family)
+
+
+def _build_state_dict(cfg):
+    """Seeded weights in the shapes of ``cfg``'s model: float32 on the CPU
+    for BERT (the device the masters live on, so a master that shared them
+    would show), ``cfg.dtype`` for LFM2-MoE."""
+    model_cls = (lfm2_moe.LFM2MoEModel if isinstance(cfg, LFM2MoEConfig)
+                 else SentenceTransformerModel)
+    shapes = encoder_mod.on_meta(model_cls, cfg).state_dict()
+    dtype = (getattr(torch, cfg.dtype) if isinstance(cfg, LFM2MoEConfig)
+             else torch.float32)
+    g = torch.Generator().manual_seed(11)
+    return {k: torch.randn(v.shape, generator=g).to(dtype)
+            for k, v in shapes.items()}
+
+
+def _earlier_build(cfg, seed, state_dict):
+    """The serving module and masters as the encoder built them before it
+    built each module once: BERT on the host with torch's default init,
+    then the seeded init or ``load_state_dict``'s copy, moved to float32
+    and deep-copied into ``cfg.dtype``; LFM2-MoE seeded or loaded in
+    float32 on the CPU and cast."""
+    dtype = getattr(torch, cfg.dtype)
+    torch.manual_seed(0)  # the default init draws from the global stream
+    if isinstance(cfg, LFM2MoEConfig):
+        model = lfm2_moe.LFM2MoEModel(cfg)
+        if state_dict is None:
+            model.reset_parameters(torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(state_dict)
+        return model.to(dtype).eval(), None
+    master = SentenceTransformerModel(cfg)
+    if state_dict is None:
+        master.reset_parameters(torch.Generator().manual_seed(seed))
+    else:
+        master.load_state_dict(state_dict)
+    master = master.to(torch.float32).eval()
+    return (master if dtype == torch.float32
+            else copy.deepcopy(master).to(dtype)), master
+
+
+def test_the_build_imports_no_dynamo():
+    """Building either family on the meta device skips the default init,
+    whose meta kernels would import ``torch._dynamo``: seconds of every
+    run's set-up."""
+    code = ("import sys, torch\n"
+            "from semanticsearch_tpu_torch.core.config import (\n"
+            "    EncoderConfig, LFM2MoEConfig)\n"
+            "from semanticsearch_tpu_torch.models.encoder import "
+            "SentenceEncoder\n"
+            f"cfg = LFM2MoEConfig(**{TINY!r})\n"
+            "sd = SentenceEncoder(cfg, device='cpu').model.state_dict()\n"
+            "SentenceEncoder(cfg, device='cpu', state_dict=sd)\n"
+            "SentenceEncoder(EncoderConfig(), device='cpu', state_dict={\n"
+            "    k: v.float() for k, v in SentenceEncoder(\n"
+            "        EncoderConfig(), device='cpu').model.state_dict()"
+            ".items()})\n"
+            "print('torch._dynamo' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240,
+                         cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False"]
+
+
+def _storages(module):
+    return {p.untyped_storage().data_ptr() for p in module.parameters()}
+
+
+@pytest.mark.parametrize("weights", ["seed", "state_dict"])
+@pytest.mark.parametrize("family", ["float32", "bfloat16", "lfm2"])
+def test_encoder_builds_once(family, weights):
+    """Each family builds its modules once, on the meta device: the serving
+    weights (and BERT's float32 masters) equal the earlier build's bit for
+    bit, BERT's masters own their storage apart from the caller's state
+    dict, LFM2-MoE takes the state dict's bf16 tensors themselves, and an
+    encode of packed texts is bit-equal to the earlier build's."""
+    cfg = _build_cfg(family)
+    sd = None if weights == "seed" else _build_state_dict(cfg)
+    enc = SentenceEncoder(cfg, device="cpu", seed=5, state_dict=sd)
+    want_model, want_master = _earlier_build(cfg, 5, sd)
+    got, want = enc.model.state_dict(), want_model.state_dict()
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+    assert not enc.model.training
+    if want_master is None:
+        assert enc.master is None
+        if sd is not None:  # no copy
+            assert all(got[k].data_ptr() == sd[k].data_ptr() for k in sd)
+    else:
+        for k, v in want_master.state_dict().items():
+            assert torch.equal(enc.master.state_dict()[k], v)
+        assert {p.dtype for p in enc.master.parameters()} == {torch.float32}
+        assert (enc.model is enc.master) == (family == "float32")
+        if sd is not None:
+            assert not _storages(enc.master) & {
+                v.untyped_storage().data_ptr() for v in sd.values()}
+        if enc.model is not enc.master:
+            assert not _storages(enc.master) & _storages(enc.model)
+    before = encoder_mod.PACKED_FORWARDS
+    emb = enc.encode(TEXTS)
+    assert encoder_mod.PACKED_FORWARDS == before + 1
+    enc.model = want_model
+    np.testing.assert_array_equal(enc.encode(TEXTS), emb)
 
 
 def _inline_conv(bcx, weight, pos):

@@ -470,36 +470,6 @@ def test_overlap_plan_raises_exactly_past_its_widest_d(k_sel):
             ttopk.overlap_plan(q, widest + 8, k_sel, 1000, 32)
 
 
-def _probe_clocks(offset: float, epilogue: float, tiles: int = 50,
-                  period: float = 1000.0) -> np.ndarray:
-    """Epilogue clocks as the phase probe records them: warpgroup 1 starts
-    each epilogue ``offset`` tiles after warpgroup 0."""
-    from semanticsearch_tpu_torch.tools import pass_a_phase
-
-    clk = np.zeros((2, 3, pass_a_phase.PROBE_TILES), np.int64)
-    start = 10_000 + period * np.arange(tiles)
-    for wg, shift in ((0, 0.0), (1, offset * period)):
-        clk[wg, 0, :tiles] = start + shift
-        clk[wg, 1, :tiles] = start + shift + epilogue * period
-        clk[wg, 2, :tiles] = (start + shift) / 2  # a 2 GHz clock, in ns
-    return clk
-
-
-@pytest.mark.parametrize("offset,shared", [(0.0, 1.0), (0.1, 0.5),
-                                           (0.5, 0.0), (1.0, 49 / 50)])
-def test_pass_a_phase_stats(offset, shared):
-    """The phase runner's reading of the probe: warpgroups in step share
-    all their epilogue time, half a tile apart none of it."""
-    from semanticsearch_tpu_torch.tools import pass_a_phase
-
-    st = pass_a_phase.phase_stats(_probe_clocks(offset, 0.2))
-    assert st["tiles"] == 50 and st["tile_cycles"] == 1000.0
-    assert st["tile_ns"] == 500.0 and st["sm_ghz"] == pytest.approx(2.0)
-    assert st["epilogue_share"] == pytest.approx([0.2, 0.2])
-    assert st["wg1_behind_tiles"] == pytest.approx([offset] * 3)
-    assert st["both_in_epilogue_share"] == pytest.approx(shared)
-
-
 # -------------------------------------- narrow widths: int8 padding, f32
 
 @pytest.mark.parametrize("d", [72, 100])
