@@ -183,6 +183,7 @@ def zero_counts() -> None:
     just after it."""
     from semanticsearch_tpu_torch import native
     from semanticsearch_tpu_torch.ops import flash_attention as fa
+    from semanticsearch_tpu_torch.ops import rms_norm as rn
     from semanticsearch_tpu_torch.ops import short_conv as sc
     from semanticsearch_tpu_torch.ops import similarity as sim
     from semanticsearch_tpu_torch.ops import topk
@@ -197,6 +198,7 @@ def zero_counts() -> None:
     fa.FLASH_CAUSAL_LAUNCHES = 0
     sim.SIM_LAUNCHES = sim.SIM_BF16_LAUNCHES = 0
     sc.SHORT_CONV_LAUNCHES = 0
+    rn.RMS_NORM_LAUNCHES = 0
 
 
 def topk_agree(v, i, ref_v, ref_i, tol: float, gap: float = None):
@@ -1570,6 +1572,7 @@ def phase_llm_kernels(report):
     del q, k, v, got, padded
     torch.cuda.empty_cache()
     phase_short_conv(report, lens, layout)
+    phase_rms_norm(report, lens)
     phase_llm_forward(report, lens)
 
     nq, nr, d, k_sel, seg_rows = 256, 10_000_000, 2048, 11, 32
@@ -1676,6 +1679,95 @@ def phase_short_conv(report, lens, layout):
     torch.cuda.empty_cache()
 
 
+def phase_rms_norm(report, lens):
+    """Phase 4b's RMSNorm kernel (``csrc/rms_norm.cu``) at the LLM cell's
+    shapes over the tokens of ``lens``, bf16: the add and the norm after it
+    at hidden 2,048, the norm alone at 2,048 (the first ``op_norm``) and
+    over each token's 32 q heads and 8 k heads of 64 (the q/k norms), each
+    with a weight of its own width; each one ``launch.rms_norm``, held
+    against its plain chain as ``tests/test_torch_cuda_kernels.py`` holds
+    it (``ops/rms_norm.py`` ``rms_norm_agrees``: 1/rms within two float32
+    ulps, each normalized value within one ulp, 99 % of the output
+    bit-equal; the residual bit for bit). The add and the q norm are timed
+    beside the plain chain and their bounds (x and d read once, s and out
+    written once)."""
+    import torch
+    from semanticsearch_tpu_torch.core import profiling
+    from semanticsearch_tpu_torch.ops import rms_norm as rn
+
+    norm = report["rms_norm"]
+    h, n, eps = 2048, int(lens.sum()), 1e-5
+    g = torch.Generator(device="cuda").manual_seed(27)
+
+    def weight(width):
+        return (1.0 + 0.2 * torch.randn(width, generator=g, device="cuda")
+                ).to(torch.bfloat16)
+
+    x = (torch.randn((n, h), generator=g, device="cuda") * 3.0).to(
+        torch.bfloat16)
+    d = torch.randn((n, h), generator=g, device="cuda").to(torch.bfloat16)
+    w, wq, wk = weight(h), weight(64), weight(64)
+    norm["bit_equal_share"] = {}
+    for what, args, wv in (("add", (x, d), w), ("norm", (x,), w),
+                           ("q", (x.view(n, 32, 64),), wq),
+                           ("k", (x[:, :512].contiguous().view(n, 8, 64),),
+                            wk)):
+        zero_counts()
+        if what == "add":
+            s, got = rn.add_rms_norm(*args, wv, eps)
+            want_s = rn.add_rms_norm_plain(*args, wv, eps)[0]
+            same_s = torch.equal(s.view(torch.int16),
+                                 want_s.view(torch.int16))
+        else:
+            got, want_s, same_s = rn.rms_norm(*args, wv, eps), args[0], True
+        launches = profiling.counters()["launch.rms_norm"]
+        rows, near, same = rn.rms_norm_agrees(got, want_s, wv, eps)
+        norm["bit_equal_share"][what] = same
+        if what == "add":
+            norm["launches"] = launches
+            norm["max_abs_err"] = float(
+                (got.float() - rn.rms_norm_plain(want_s, wv, eps).float())
+                .abs().max())
+        check(launches == 1 and same_s and rows and near and same >= 0.99,
+              f"RMSNorm {what} over {tuple(got.shape)}, bf16 vs plain: one "
+              "launch.rms_norm, "
+              + ("the residual bit for bit, " if what == "add" else "")
+              + "each row the plain chain's with 1/rms within two float32 "
+              f"ulps, each normalized value within one ulp, {100 * same:.4f}"
+              " % of the output bit-equal (>= 99)")
+        del got, want_s
+    norm["ms"] = queued_ms(lambda: rn.add_rms_norm(x, d, w, eps), 50)
+    norm["call_ms"] = time_ms(lambda: rn.add_rms_norm(x, d, w, eps), reps=20,
+                              warmup=3)
+    norm["plain_ms"] = time_ms(lambda: rn.add_rms_norm_plain(x, d, w, eps),
+                               reps=5)
+    norm["library_ms"] = None
+    norm["library_note"] = "none: PyTorch has no fused add and RMSNorm"
+    norm["bound_ms"], norm["bound_by"] = bound_ms(0.0, 2.0 * n * h * 4
+                                                  + 2.0 * h)
+    del d
+    q = x.view(n, 32, 64)
+    norm["head_ms"] = queued_ms(lambda: rn.rms_norm(q, wq, eps), 50)
+    norm["head_plain_ms"] = time_ms(lambda: rn.rms_norm_plain(q, wq, eps),
+                                    reps=5)
+    norm["head_bound_ms"] = bound_ms(0.0, 2.0 * n * h * 2 + 128.0)[0]
+    norm["shape_note"] = (f"{len(lens)} texts ({n} tokens) x hidden {h}, "
+                          "bf16; bound: x and d read once, s and out written "
+                          "once; ms: 50 calls queued between two events, "
+                          "over 50; call_ms: one call between two events; "
+                          f"head_*: rms_norm over ({n}, 32, 64), no add; "
+                          "bit_equal_share: the add, the norm alone at "
+                          "2,048, the q and k norms")
+    log(f"  fused add + RMSNorm, {n} tokens x {h}: kernel {norm['ms']:.4f} "
+        f"ms a call queued ({norm['call_ms']:.4f} one call alone), plain "
+        f"{norm['plain_ms']:.3f} ms, bound {norm['bound_ms']:.4f} ms "
+        f"({norm['bound_by']}); q norm ({n} x 32 x 64): kernel "
+        f"{norm['head_ms']:.4f} ms, plain {norm['head_plain_ms']:.3f} ms, "
+        f"bound {norm['head_bound_ms']:.4f} ms")
+    del x, q
+    torch.cuda.empty_cache()
+
+
 def phase_llm_forward(report, lens):
     """Phase 4b's whole LLM encoder: LFM2-8B-A1B at its published sizes in
     bf16 (16.7 GB of seeded weights made on the card leaf by leaf), one
@@ -1713,23 +1805,30 @@ def phase_llm_forward(report, lens):
              for m in lens]
     conv_layers = cfg.layer_types.count("conv")
     attn_layers = cfg.layer_types.count("full_attention")
+    # the first op_norm, an add and the norm after it twice a layer, the q
+    # and k norms of each attention layer
+    norm_launches = 1 + 2 * cfg.num_layers + 2 * attn_layers
     zero_counts()
     out = enc.encode_device(texts, batch_size=len(texts))
     torch.cuda.synchronize()
     counts = profiling.counters()
     conv, causal = counts["launch.short_conv"], counts["launch.flash_causal"]
+    norms = counts["launch.rms_norm"]
     other = (fa.FLASH_LAUNCHES, fa.FLASH_F32_LAUNCHES, fa.FLASH_WIDE_LAUNCHES)
     report["short_conv"]["forward_launches"] = conv
     report["flash_causal"]["forward_launches"] = causal
+    report["rms_norm"]["forward_launches"] = norms
     check(conv == conv_layers and causal == attn_layers
+          and norms == norm_launches
           and other == (0, 0, 0) and out.shape == (len(texts), cfg.hidden_dim)
           and bool(torch.isfinite(out).all()),
           f"LFM2-8B-A1B forward over {len(texts)} texts ({int(lens.sum())} "
           f"tokens): launch.short_conv {conv} (a conv layer: "
           f"{conv_layers}), launch.flash_causal {causal} (an attention "
-          f"layer: {attn_layers}), no other flash entry, finite embeddings")
+          f"layer: {attn_layers}), launch.rms_norm {norms} "
+          f"({norm_launches}), no other flash entry, finite embeddings")
     log(f"  LFM2-8B-A1B forward, {len(texts)} texts: launch.short_conv "
-        f"{conv}, launch.flash_causal {causal}")
+        f"{conv}, launch.flash_causal {causal}, launch.rms_norm {norms}")
     del enc, out
     torch.cuda.empty_cache()
 
@@ -4981,6 +5080,17 @@ def main() -> int:
                          "forward_launches: one forward of the LLM cell's "
                          "encoder over 256 texts (phase 4b), once a conv "
                          "layer"}
+    report["rms_norm"] = {
+        "name": "add_rms_norm / rms_norm", "route": "cuda",
+        "source": "semanticsearch_tpu_torch/csrc/rms_norm.cu",
+        "replaces": "none: the plain-torch RMSNorm and residual adds of "
+                    "models/lfm2_moe.py (ops/rms_norm.py "
+                    "add_rms_norm_plain)",
+        "launches_note": "launches: one direct call (phase 4b); "
+                         "forward_launches: one forward of the LLM cell's "
+                         "encoder over 256 texts (phase 4b): the first "
+                         "op_norm, an add and norm twice a layer, the q and "
+                         "k norms of each attention layer"}
     t_start = time.perf_counter()
     try:
         phase_build()
@@ -5014,7 +5124,8 @@ def main() -> int:
              "shard_launches", "dense_launches", "f32_launches",
              "gathered_bound_ms", "serve_gathered_bound_ms",
              "f32_gathered_bound_ms", "serve_queued_ms", "hot_ms",
-             "hot_bound_ms", "hot_bound_by",
+             "hot_bound_ms", "hot_bound_by", "bit_equal_share",
+             "head_ms", "head_plain_ms", "head_bound_ms",
              "live_tf32x3_bound_ms", "live_fma_bound_ms", "launches_note",
              *(f"{shape}_{key}" for shape in ("batched", "t1024", "chunk",
                                               "dh256", "f32", "varlen",
@@ -5029,7 +5140,7 @@ def main() -> int:
                          "topk_fused",
                          "topk_fused_f32", "flash", "flash_f32", "flash_wide",
                          "flash_causal", "segtopk_wide", "short_conv",
-                         "similarity", "similarity_bf16")]
+                         "rms_norm", "similarity", "similarity_bf16")]
     log(f"dense QPS {report['dense_qps']:.1f} at recall@10 "
         f"{report['recall_at_10']}; int8 two-pass recall@10 "
         f"{report['recall_at_10_int8']}; f32 two-pass recall@10 "

@@ -50,6 +50,7 @@ _COUNTER_SOURCES = (
     ("launch", "ops.flash_attention", r"(\w+)_LAUNCHES"),
     ("launch", "ops.similarity", r"(\w+)_LAUNCHES"),
     ("launch", "ops.short_conv", r"(\w+)_LAUNCHES"),
+    ("launch", "ops.rms_norm", r"(\w+)_LAUNCHES"),
     ("native", "native", r"(\w+)_CALLS"),
     ("encoder", "models.encoder", r"(TOKENS_\w+|PACKED_FORWARDS)"),
     ("encoder", "models.lfm2_moe", r"(MOE_\w+)"),

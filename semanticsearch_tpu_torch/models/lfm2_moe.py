@@ -29,10 +29,13 @@ token ids, the real tokens of a batch's texts end to end, with their
                  x += sum_E g_e W_2^e(silu(W_1^e h2) * W_3^e h2)
 
 then a final RMSNorm and each text's last token. Norms and RoPE tables are
-computed in float32 and rounded to the weights' dtype, the conv's taps
-summed in float32 (``ops.short_conv``: on the card one kernel from B, C, X
-to the gated result), and the experts' outputs mixed by one batched product
-(float32 accumulation) with the gate weights rounded to that dtype.
+computed in float32 and rounded to the weights' dtype (``ops.rms_norm``: on
+the card each residual add and the norm after it, the next layer's
+``op_norm`` or the final norm, in one kernel; the q/k norms in the same
+kernel), the conv's taps summed in float32 (``ops.short_conv``: on the
+card one kernel from B, C, X to the gated result), and the experts'
+outputs mixed by one batched product (float32 accumulation) with the gate
+weights rounded to that dtype.
 
 The MoE layer makes no device-to-host sync: the route, the sort of the
 (token, expert) pairs by expert, the group offsets (a scatter-add of
@@ -46,8 +49,9 @@ runs, and ``torch.cuda.set_sync_debug_mode("error")`` passes the forward
 Spans (``core/profiling.py``): ``encoder.conv layer=``,
 ``encoder.attention layer=`` around each token mixer, ``encoder.moe
 layer= tokens=`` around each MoE layer's routing, sort, products and
-combine. Counters: ``encoder.moe_pairs`` (token-expert pairs run) and
-``encoder.moe_layers`` (MoE layer forwards).
+combine; the residual adds and the norms lie outside them. Counters:
+``encoder.moe_pairs`` (token-expert pairs run) and ``encoder.moe_layers``
+(MoE layer forwards).
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ from ..core import profiling
 from ..core.config import LFM2MoEConfig
 from ..ops.flash_attention import (Varlen, flash_attention_varlen,
                                    flash_attention_varlen_plain)
+from ..ops.rms_norm import add_rms_norm, rms_norm
 from ..ops.short_conv import gated_short_conv
 from .encoder import l2_head, on_meta
 
@@ -73,7 +78,9 @@ ON_MESH = False  # the family runs on one device
 
 
 class RMSNorm(nn.Module):
-    """x / rms(x) in float32, rounded to x's dtype, times the weight."""
+    """x / rms(x) in float32, rounded to x's dtype, times the weight
+    (``ops.rms_norm``: one kernel on the card). ``add(x, d)`` is (x + d,
+    the norm of it), in one launch."""
 
     def __init__(self, dim: int, eps: float) -> None:
         super().__init__()
@@ -81,9 +88,10 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + self.eps)
-        return y.to(x.dtype) * self.weight
+        return rms_norm(x, self.weight, self.eps)
+
+    def add(self, x: torch.Tensor, d: torch.Tensor):
+        return add_rms_norm(x, d, self.weight, self.eps)
 
 
 class _Packed(NamedTuple):
@@ -234,20 +242,25 @@ class LFM2Block(nn.Module):
         self.ffn = (MoE(cfg) if self.is_moe
                     else SwiGLU(cfg.hidden_dim, cfg.mlp_dim))
 
-    def forward(self, x: torch.Tensor, packed: _Packed,
-                flash: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: torch.Tensor, norm: RMSNorm,
+                packed: _Packed, flash: bool):
+        """(x, h): the residual stream and this layer's ``op_norm`` of it in,
+        the stream after the layer and ``norm`` of it (the next layer's
+        ``op_norm``, or the final norm) out. Each residual add and the norm
+        after it are one launch, outside the spans."""
         if self.is_conv:
             with profiling.span("encoder.conv", {"layer": self.index}):
-                x = x + self.conv(self.op_norm(x), packed)
+                out = self.conv(h, packed)
         else:
             with profiling.span("encoder.attention", {"layer": self.index}):
-                x = x + self.attn(self.op_norm(x), packed, flash)
-        h = self.ffn_norm(x)
+                out = self.attn(h, packed, flash)
+        x, h = self.ffn_norm.add(x, out)
         if not self.is_moe:
-            return x + self.ffn(h)
+            return norm.add(x, self.ffn(h))
         with profiling.span("encoder.moe", {"layer": self.index,
                                             "tokens": x.shape[0]}):
-            return x + self.ffn(h)
+            out = self.ffn(h)
+        return norm.add(x, out)
 
 
 class LFM2MoEModel(nn.Module):
@@ -313,11 +326,12 @@ class LFM2MoEModel(nn.Module):
         flash = self.cfg.attention != "stock"
         x = self.embed(ids)
         packed = self._packed(layout, x.dtype)
-        for layer in self.layers:
-            x = layer(x, packed, flash)
-        x = self.norm(x)
+        h = self.layers[0].op_norm(x)
+        norms = [b.op_norm for b in self.layers[1:]] + [self.norm]
+        for layer, norm in zip(self.layers, norms):
+            x, h = layer(x, h, norm, packed, flash)
         last = (layout.cu_seqlens[1:] - 1).long()
-        return l2_head(self.cfg, x.index_select(0, last).float())
+        return l2_head(self.cfg, h.index_select(0, last).float())
 
 
 def build_model(cfg: LFM2MoEConfig, device: torch.device, seed: int = 0,

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from semanticsearch_tpu_torch.ops import flash_attention as fa
+from semanticsearch_tpu_torch.ops import rms_norm as rn
 from semanticsearch_tpu_torch.ops import short_conv as sc
 from semanticsearch_tpu_torch.ops import similarity as sim
 from semanticsearch_tpu_torch.ops import topk
@@ -1664,6 +1665,14 @@ def test_flash_varlen_causal_grouped_matches_plain(dev, dtype, h, kv, dh,
                                                        causal=True), dtype)
 
 
+# the largest element gap between the tiny LFM2's embeddings with the norm
+# kernel and with its plain chain (test_lfm2_norm_kernel_against_the_plain_chain):
+# an H100 reads 0.00095 at its weights, 0.00096 and 0.0029 at two other
+# draws of them, every route the same; 0.15-0.22 with every norm's weight
+# left out or reversed
+LFM2_NORM_GAP = 0.01
+
+
 def _lfm2_tiny(dev):
     from semanticsearch_tpu_torch.core.config import LFM2MoEConfig
     from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
@@ -1697,6 +1706,7 @@ def test_lfm2_encode_device_makes_no_host_sync(dev):
     torch.cuda.synchronize()
     pairs, causal = lfm2_moe.MOE_PAIRS, fa.FLASH_CAUSAL_LAUNCHES
     conv = profiling.counters()["launch.short_conv"]
+    norms = profiling.counters()["launch.rms_norm"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         a = enc.encode_device(texts, batch_size=128)
@@ -1707,6 +1717,10 @@ def test_lfm2_encode_device_makes_no_host_sync(dev):
     assert fa.FLASH_CAUSAL_LAUNCHES == causal + 2 * 3 * 2
     # one fused conv a conv layer a forward: 2 calls x 3 forwards x 2 layers
     assert profiling.counters()["launch.short_conv"] == conv + 2 * 3 * 2
+    # a forward: the first op_norm, two adds and norms a layer (4 layers),
+    # the q and k norms of each attention layer (2)
+    assert profiling.counters()["launch.rms_norm"] == norms + 2 * 3 * (
+        1 + 2 * 4 + 2 * 2)
     assert lfm2_moe.MOE_PAIRS == pairs + 2 * 3 * 2 * sum(
         len(t.split()) + 1 for t in texts)
 
@@ -1828,3 +1842,154 @@ def test_gated_short_conv_refuses_what_it_does_not_take(dev):
         sc.gated_short_conv(bcx[:, :95], w, pos)
     with pytest.raises(NotImplementedError, match="no backward"):
         sc.gated_short_conv(bcx, w.requires_grad_(True), pos)
+
+
+def _rms_bits(x):
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _rms_inputs(dev, dtype, shape, seed):
+    """x, d (with a row of zeros and a row where d = -x) and a weight near
+    1, as a trained model's norms hold."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 3.0).to(dtype)
+    d = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x[1] = 0.0
+    d[1] = 0.0
+    d[2] = -x[2]
+    w = (1.0 + 0.05 * torch.randn(shape[-1], generator=g, device=dev)).to(
+        dtype)
+    return x, d, w
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("h", [2048, 64, 1003])
+@pytest.mark.parametrize("add", [True, False])
+def test_rms_norm_matches_the_plain_chain(dev, dtype, h, add):
+    """The kernel against the plain chain: the residual bit for bit; each
+    row of the normed output the plain chain's with its float32 1/rms at
+    most two units in the last place away (the kernel sums the squares in
+    another order: a few float32 ulps of the mean, half of that after the
+    root; the card reads one in bf16, two in fp16 and f32); in bf16 and
+    fp16 the normalized value within one unit in the last place of the
+    plain one before the weight's product rounds, and at least 99 % of the
+    output bit-equal (the card reads 99.997 % or more; float32's output
+    carries the shifted 1/rms into every element). One
+    ``launch.rms_norm`` a call. Widths: the hidden (register path), a head
+    as the q/k norms see it (8 lanes a row), an odd one (one element a
+    vector, the loop path)."""
+    from semanticsearch_tpu_torch.core import profiling
+
+    shape = (700, 16, h) if h == 64 else (3001, h)
+    x, d, w = _rms_inputs(dev, dtype, shape, h + add)
+    eps = 1e-5
+    before = profiling.counters()["launch.rms_norm"]
+    if add:
+        s, got = rn.add_rms_norm(x, d, w, eps)
+        want_s, want = rn.add_rms_norm_plain(x, d, w, eps)
+        assert torch.equal(_rms_bits(s), _rms_bits(want_s))
+    else:
+        got, want_s = rn.rms_norm(x, w, eps), x
+        want = rn.rms_norm_plain(x, w, eps)
+    assert profiling.counters()["launch.rms_norm"] == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    rows, near, same = rn.rms_norm_agrees(got, want_s, w, eps)
+    assert rows
+    if dtype != torch.float32:
+        assert near and same >= 0.99, same
+
+
+@pytest.mark.parametrize("h", [2048, 64, 100, 13])
+def test_rms_norm_takes_any_alignment(dev, h):
+    """Inputs 2 bytes off a 16-byte boundary take narrower vectors (one
+    element at a time) and give the bits of the aligned call."""
+    x, d, w = _rms_inputs(dev, torch.bfloat16, (257, h), 5)
+    bufs = [torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            for t in (x, d)]
+    xs, ds = (b[1:].view_as(t) for b, t in zip(bufs, (x, d)))
+    xs.copy_(x)
+    ds.copy_(d)
+    assert rn.rms_norm_plan(h, 2, [xs.data_ptr()])[0] == 1
+    for fn, args, shifted in ((rn.add_rms_norm, (x, d), (xs, ds)),
+                              (rn.rms_norm, (x,), (xs,))):
+        a, b = fn(*args, w, 1e-5), fn(*shifted, w, 1e-5)
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(_rms_bits(u), _rms_bits(v))
+
+
+def test_rms_norm_refuses_what_it_does_not_take(dev):
+    x, d, w = _rms_inputs(dev, torch.bfloat16, (8, 64), 3)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        rn.add_rms_norm(x, d.float(), w, 1e-5)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        rn.rms_norm(x, w.float(), 1e-5)
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        rn.rms_norm(x.to(torch.int16), w.to(torch.int16), 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.add_rms_norm(x, d.t().contiguous().t(), w, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rms_norm(x[:, ::2], w[::2], 1e-5)
+    with pytest.raises(ValueError, match="weight of shape"):
+        rn.rms_norm(x, torch.ones(65, dtype=x.dtype, device=dev), 1e-5)
+    with pytest.raises(ValueError, match="d of shape"):
+        rn.add_rms_norm(x, d[:4], w, 1e-5)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rn.add_rms_norm(x, d, w.clone().requires_grad_(True), 1e-5)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rn.rms_norm(x.clone().requires_grad_(True), w, 1e-5)
+
+
+def test_lfm2_full_layer_pattern_launches_61_norms(dev):
+    """LFM2-8B-A1B's 24 layers (18 conv, 6 attention, 2 dense) at a small
+    width: one forward launches 61 ``launch.rms_norm`` (the first op_norm,
+    48 adds with the norm after each, 12 q/k norms), one fused conv a conv
+    layer and one causal flash an attention layer."""
+    from semanticsearch_tpu_torch.core import profiling
+    from semanticsearch_tpu_torch.core.config import LFM2MoEConfig
+    from semanticsearch_tpu_torch.models.encoder import SentenceEncoder
+
+    cfg = LFM2MoEConfig(vocab_size=1000, hidden_dim=256, num_heads=4,
+                        num_kv_heads=2, mlp_dim=384, num_experts=8,
+                        experts_per_token=2, expert_dim=128, max_len=128)
+    assert cfg.layer_types.count("full_attention") == 6
+    enc = SentenceEncoder(cfg, device=dev, seed=6)
+    texts = _lfm2_texts(40, 28)
+    enc.encode_device(texts, batch_size=len(texts))
+    before = profiling.counters()
+    enc.encode_device(texts, batch_size=len(texts))
+    after = profiling.counters()
+    assert {k: after[k] - before[k] for k in (
+        "launch.rms_norm", "launch.short_conv", "launch.flash_causal")} == {
+        "launch.rms_norm": 61, "launch.short_conv": 18,
+        "launch.flash_causal": 6}
+
+
+def test_lfm2_norm_kernel_against_the_plain_chain(dev, monkeypatch):
+    """The tiny LFM2-MoE's embeddings, each norm with a weight of its own
+    (1 + N(0, 0.2^2)), with the norm kernel and with its plain chain in
+    every norm: the same directions, to
+    ``test_lfm2_on_the_card_matches_the_cpu``'s tolerance, and no
+    embedding element more than ``LFM2_NORM_GAP`` apart: the gap that
+    the kernel's 1/rms, a few float32 units in the last place off the
+    plain chain's, leaves after four layers, far below what a norm with a
+    wrong weight leaves."""
+    from semanticsearch_tpu_torch.models import lfm2_moe
+
+    enc = _lfm2_tiny(dev)
+    g = torch.Generator().manual_seed(30)
+    with torch.no_grad():
+        for name, p in enc.model.named_parameters():
+            if name.endswith("norm.weight"):
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=g))
+    texts = _lfm2_texts(64, 29)
+    before = rn.RMS_NORM_LAUNCHES
+    got = enc.encode_device(texts, batch_size=32).float()
+    assert rn.RMS_NORM_LAUNCHES == before + 2 * (1 + 2 * 4 + 2 * 2)
+    monkeypatch.setattr(lfm2_moe, "rms_norm", rn.rms_norm_plain)
+    monkeypatch.setattr(lfm2_moe, "add_rms_norm", rn.add_rms_norm_plain)
+    want = enc.encode_device(texts, batch_size=32).float()
+    assert rn.RMS_NORM_LAUNCHES == before + 2 * (1 + 2 * 4 + 2 * 2)
+    assert float((got * want).sum(1).min()) > 0.98
+    assert float((got - want).abs().max()) < LFM2_NORM_GAP

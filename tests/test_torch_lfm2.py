@@ -75,12 +75,26 @@ def _routed(enc, texts):
                  for i in range(len(texts))]
 
 
-def test_packed_forward_matches_the_reference():
+def _norm_weights(enc, seed):
+    """Every RMSNorm weight of ``enc`` to 1 + N(0, 0.2^2), so that a norm
+    given another's weight shows."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in enc.model.named_parameters():
+            if name.endswith("norm.weight"):
+                p.copy_(1.0 + 0.2 * torch.randn(p.shape, generator=g))
+
+
+@pytest.mark.parametrize("norms", ["ones", "random"])
+def test_packed_forward_matches_the_reference(norms):
     """Texts of 2-41 tokens in one packed forward: each embedding is its
     own text's last token, as the reference computes the text alone with
     the program's choice of experts (float32 against float64), and every
-    choice is the reference's own."""
+    choice is the reference's own; with the seeded norm weights (all 1)
+    and with each norm's weight its own."""
     enc = _encoder()
+    if norms == "random":
+        _norm_weights(enc, 11)
     emb, chosen = _routed(enc, TEXTS)
     w = dict(enc.model.state_dict())
     for text, e, ch in zip(TEXTS, emb, chosen):
@@ -540,3 +554,159 @@ def test_short_conv_vector_width():
     assert sc.short_conv_vec(2048, 2, 2) == 1
     assert sc.short_conv_vec(2048, 2, 4) == 2
     assert sc.short_conv_vec(2050, 4, 0) == 2
+
+
+def _inline_norm(x, weight, eps):
+    """``RMSNorm.forward`` as the model held it inline, kept here as the
+    record its plain version is held to."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    return y.to(x.dtype) * weight
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h", [64, 2048, 13])
+@pytest.mark.parametrize("add", [True, False])
+def test_rms_norm_on_the_cpu_is_the_inline_chain(dtype, h, add):
+    """On CPU tensors the wrappers run the plain chain, launch nothing, and
+    give the bits of the add and norm the forward held inline, over rows of
+    (tokens, heads, h) as the q/k norms see them and (tokens, h)."""
+    from semanticsearch_tpu_torch.ops import rms_norm as rn
+
+    g = torch.Generator().manual_seed(h)
+    shape = (37, 3, h) if h == 64 else (37, h)
+    x = (torch.randn(shape, generator=g) * 3.0).to(dtype)
+    d = torch.randn(shape, generator=g).to(dtype)
+    x[5] = 0.0  # a row of zeros: eps alone under the root
+    w = (1.0 + 0.2 * torch.randn(h, generator=g)).to(dtype)
+    eps = 1e-5
+    before = rn.RMS_NORM_LAUNCHES
+    if add:
+        s, out = rn.add_rms_norm(x, d, w, eps)
+        ps, pout = rn.add_rms_norm_plain(x, d, w, eps)
+        want_s = x + d
+        assert torch.equal(_bits(s), _bits(want_s))
+        assert torch.equal(_bits(ps), _bits(want_s))
+    else:
+        out, pout, want_s = rn.rms_norm(x, w, eps), rn.rms_norm_plain(
+            x, w, eps), x
+    assert rn.RMS_NORM_LAUNCHES == before
+    assert out.dtype == dtype and out.shape == shape
+    want = _inline_norm(want_s, w, eps)
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(_bits(pout), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_rms_norm_agrees_tells_a_shifted_statistic_from_a_wrong_output(
+        dtype):
+    """The card's check of the kernel against the plain chain: the plain
+    output agrees whole; each row's 1/rms a float32 unit in the last place
+    off passes within two units and fails within none in float32; a
+    normalized value two units in the last place off, a weight left out
+    or taken from another norm fail."""
+    from semanticsearch_tpu_torch.ops import rms_norm as rn
+
+    g = torch.Generator().manual_seed(31)
+    s = (torch.randn((64, 256), generator=g) * 3.0).to(dtype)
+    w = (1.0 + 0.2 * torch.randn(256, generator=g)).to(dtype)
+    other = (1.0 + 0.2 * torch.randn(256, generator=g)).to(dtype)
+    eps = 1e-5
+    assert rn.rms_norm_agrees(rn.rms_norm_plain(s, w, eps), s, w, eps) == (
+        True, True, 1.0)
+    sf = s.float()
+    r = torch.rsqrt(sf.pow(2).mean(-1, keepdim=True) + eps)
+    r = torch.nextafter(r, torch.full_like(r, float("inf")))
+    shifted = (sf * r).to(dtype) * w
+    rows, near, same = rn.rms_norm_agrees(shifted, s, w, eps)
+    assert rows
+    if dtype == torch.float32:  # the shift reaches most elements
+        assert not rn.rms_norm_agrees(shifted, s, w, eps, shifts=0)[0]
+    else:  # and few of a 16-bit dtype's
+        assert near and same > 0.9
+    y = _bits((sf * torch.rsqrt(sf.pow(2).mean(-1, keepdim=True) + eps))
+              .to(dtype))
+    y[3, 7] += 2
+    rows, near, _ = rn.rms_norm_agrees(y.view(dtype) * w, s, w, eps)
+    assert not rows and not near
+    for wrong in (torch.ones_like(w), other):
+        rows, near, same = rn.rms_norm_agrees(rn.rms_norm_plain(s, wrong, eps),
+                                              s, w, eps)
+        assert not rows and not near and same < 0.5
+
+
+def _parent_forward(model, ids, layout):
+    """``LFM2MoEModel.forward`` in the block order it had before its adds
+    and norms were fused: every norm the inline chain, every residual add
+    its own, the final norm after the last layer."""
+    def norm(mod, x):
+        return _inline_norm(x, mod.weight, mod.eps)
+
+    x = model.embed(ids)
+    packed = model._packed(layout, x.dtype)
+    for b in model.layers:
+        h = norm(b.op_norm, x)
+        if b.is_conv:
+            x = x + b.conv(h, packed)
+        else:
+            a, dh = b.attn, b.attn.head_dim
+            q = norm(a.q_norm, a.q_proj(h).unflatten(-1, (a.heads, dh)))
+            k = norm(a.k_norm, a.k_proj(h).unflatten(-1, (a.kv_heads, dh)))
+            v = a.v_proj(h).unflatten(-1, (a.kv_heads, dh))
+            q, k = (lfm2_moe._rope(t, packed.cos, packed.sin) for t in (q, k))
+            o = fa.flash_attention_varlen(q, k, v, layout, causal=True)
+            x = x + a.out_proj(o.flatten(1))
+        x = x + b.ffn(norm(b.ffn_norm, x))
+    x = norm(model.norm, x)
+    last = (layout.cu_seqlens[1:] - 1).long()
+    return encoder_mod.l2_head(model.cfg, x.index_select(0, last).float())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norms_keep_the_parents_block_order(dtype):
+    """The forward with each residual add and the norm after it as one call
+    (the next layer's ``op_norm``, the final norm last) gives the bits of
+    the block order it replaced, each norm with a weight of its own, and
+    launches no kernel on the CPU."""
+    from semanticsearch_tpu_torch.ops import rms_norm as rn
+
+    enc = _encoder(dtype=dtype)
+    _norm_weights(enc, 12)
+    lens = np.asarray([len(_ids(enc, t)) for t in TEXTS])
+    layout = fa.varlen_layout(lens)
+    ids = torch.from_numpy(np.concatenate(
+        [_ids(enc, t) for t in TEXTS])).long()
+    before = rn.RMS_NORM_LAUNCHES
+    with torch.no_grad():
+        got = enc.model(ids, layout)
+        want = _parent_forward(enc.model, ids, layout)
+    assert rn.RMS_NORM_LAUNCHES == before
+    assert got.shape == (len(TEXTS), TINY["hidden_dim"])
+    assert torch.equal(got, want)
+
+
+def test_rms_norm_plan():
+    """The kernel's vector, lanes a row and vectors a lane: 16 bytes' worth
+    where the width and every address allow, halves down to one where they
+    do not; the fewest lanes that leave a lane one vector, else 32 lanes
+    and 8 vectors each (those past the row's end left out), past which the
+    loop path (0) takes the row."""
+    from semanticsearch_tpu_torch.ops import rms_norm as rn
+
+    assert rn.rms_norm_plan(2048, 2, [0, 4096]) == (8, 32, 8)  # hidden
+    assert rn.rms_norm_plan(64, 2, [0]) == (8, 8, 1)  # a head
+    assert rn.rms_norm_plan(64, 4, [0]) == (4, 16, 1)
+    assert rn.rms_norm_plan(2048, 4, [0]) == (4, 32, 0)
+    assert rn.rms_norm_plan(4096, 2, [0]) == (8, 32, 0)
+    assert rn.rms_norm_plan(384, 2, [0]) == (8, 32, 8)
+    assert rn.rms_norm_plan(264, 2, [0]) == (8, 32, 8)
+    assert rn.rms_norm_plan(100, 2, [0]) == (4, 32, 1)
+    assert rn.rms_norm_plan(13, 2, [0]) == (1, 16, 1)
+    assert rn.rms_norm_plan(1, 4, [0]) == (1, 1, 1)
+    assert rn.rms_norm_plan(1003, 2, [0]) == (1, 32, 0)
+    assert rn.rms_norm_plan(2048, 2, [0, 2]) == (1, 32, 0)
+    assert rn.rms_norm_plan(2048, 2, [0, 4]) == (2, 32, 0)
+    assert rn.rms_norm_plan(1024, 2, [8, 16]) == (4, 32, 8)
+    assert rn.rms_norm_plan(2050, 4, [0]) == (2, 32, 0)
